@@ -11,25 +11,48 @@ sees no card or the port's sources are not beside the script. Phases, each
 fatal on failure:
 
 1. the card's name and power limit, torch and CUDA versions;
-2. the kernel build (``nvcc`` for ``sm_90a``), timed;
+2. the kernel build (``nvcc`` for ``sm_90a``, one process per source),
+   timed;
 3. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes (and a few others), then timed with CUDA events
-   after a warm-up: device time per call from replays of a CUDA graph of 50
-   calls (median of 20), and the eager per-call time (median of 100);
-4. the serving path at KITTI's own size (``kitti-urban`` at 122,880 points
-   and a 375x1242 image, 24 frames) on the card, with every kernel's launch
-   count checked against the run's frame kinds, after a 2-frame warm-up;
-   then a torch.profiler window over 4 frames (device busy share, device
-   ops per frame, the ops with the most device time);
+   serving paths' shapes (and a few others; the attention kernels in f32 at
+   2e-5, and in bf16 against the plain version's f32 result on the same
+   bf16 inputs, each value within half a bf16 ulp, see ``attention_close``),
+   then timed with CUDA events after a warm-up:
+   device time per call from replays of a CUDA graph of up to 50 calls
+   (median of 20), and the eager per-call time; the attention kernels'
+   plain versions eagerly (a few calls: the flash one holds a 4.3 GB score
+   tensor at the prefill shape), and PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs as their library
+   yardstick (timed here, used nowhere in the port);
+4. the Moby serving path at KITTI's own size (``kitti-urban`` at 122,880
+   points and a 375x1242 image, 24 frames) on the card, with every
+   kernel's launch count checked against the run's frame kinds, after a
+   2-frame warm-up; then a torch.profiler window over 4 frames (device busy
+   share, device ops per frame, the ops with the most device time);
 5. the same run on the CPU in this process: frame kinds equal, floats within
    the golden tolerance;
 6. the ``smoke`` preset on the card against ``tests/goldens/smoke.csv``;
-7. one ``{"kernels": [...]}`` JSON line, the card line again, and last the
+7. LM A, the card against JAX: qwen2.5-3B SMOKE in f32 with the weights of
+   ``tests/goldens/lm_qwen2_5_3b_smoke.npz``, prefill and four decode
+   steps within 1e-5 of the golden's logits;
+8. LM B, the card against the port's CPU run at full width: qwen2.5-3B with
+   2 of its 36 layers in f32 (attention weights rescaled so the scores are
+   of order 1, see ``check_lm``), prefill at B=2, S=256 and four decode
+   steps (max_len 512), logits within 1e-4;
+9. LM C, serving qwen2.5-3B at full width (36 layers, bf16, seeded random
+   weights): prefill at B=1, S=8192 (median of 3 after a warm-up) and 32
+   greedy decode steps at B=16 over a 32,768-position cache filled from a
+   seeded generator with ragged positions, every kernel's launch count
+   checked (flash 36 per prefill, decode 36 per step); ms per prefill and
+   per step, decode tokens/s, peak device memory, and a torch.profiler
+   window over 4 decode steps;
+10. one ``{"kernels": [...]}`` JSON line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
 
 import csv
+import dataclasses
 import io
 import json
 import math
@@ -43,10 +66,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "goldens" / "smoke.csv"
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth and
-# the float32 rate outside the tensor cores.
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
+# the float32 rate outside the tensor cores and the dense bf16 tensor rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 
 # The golden CSV tolerance (tests/test_goldens.py).
 RTOL, ATOL = 1e-4, 1e-5
@@ -55,6 +79,15 @@ FLOAT_COLS = ("latency_s", "onboard_s", "f1", "precision", "recall")
 KITTI = dict(n_points=122880, img_h=375, img_w=1242)
 KITTI_FRAMES = 24
 
+# LM serving, qwen2.5-3B at full width. The repo's prefill_32k (S 32768,
+# batch 32) and decode_32k (batch 128) shapes are cut to what one card
+# holds beside the weights: see PERF.md.
+LM_ARCH = "qwen2_5_3b"
+LM_GOLDEN = ROOT / "tests" / "goldens" / "lm_qwen2_5_3b_smoke.npz"
+PREFILL_B, PREFILL_S = 1, 8192
+DECODE_B, DECODE_MAX, DECODE_STEPS = 16, 32768, 32
+DECODE_POS_LO = 8192
+
 KERNELS = {
     "point_proj": ("src/repro_torch/csrc/point_proj.cu",
                    "src/repro/kernels/point_proj/point_proj.py:43"),
@@ -62,6 +95,12 @@ KERNELS = {
               "src/repro/kernels/iou2d/iou2d.py:36"),
     "ransac_score": ("src/repro_torch/csrc/ransac_score.cu",
                      "src/repro/kernels/ransac_score/ransac_score.py:34"),
+    "flash_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:78"),
+    "decode_attention": (
+        "src/repro_torch/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:63"),
 }
 
 
@@ -122,17 +161,16 @@ def graph_ms(fn, torch, reps: int = 50, replays: int = 20) -> float:
     return statistics.median(times)
 
 
-def profile_frames(torch, api, scn, n_frames: int) -> str:
-    """A torch.profiler window over the first frames of a fresh session:
-    device busy share of the window, CUDA launches per frame, and the ops
-    with the most device time."""
+def profile_window(torch, label: str, run, n: int, unit: str) -> str:
+    """A torch.profiler window over ``run()`` (``n`` ``unit``s of work):
+    device busy share of the window, device ops per unit, and the ops (and
+    kernels) with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    session = api.Session(scn, torch_device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        session.run(n_frames)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
@@ -146,16 +184,20 @@ def profile_frames(torch, api, scn, n_frames: int) -> str:
                  key=lambda e: e.self_device_time_total, reverse=True)[:6]
     top = ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.1f} ms "
                     f"x{e.count}" for e in ops)
-    return (f"profile {scn.name} x{n_frames} frames: wall "
+    kern = sorted(dev, key=lambda e: e.self_device_time_total,
+                  reverse=True)[:4]
+    top_k = ", ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms"
+                      f" x{e.count}" for e in kern)
+    return (f"profile {label} x{n} {unit}s: wall "
             f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
             f"({100 * busy_us / wall_us:.1f}% of wall), "
-            f"{launches / n_frames:.0f} device ops/frame; top device time: "
-            f"{top}")
+            f"{launches / n:.0f} device ops/{unit}; top device time: "
+            f"{top}; top kernels: {top_k}")
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_PER_S):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -227,6 +269,301 @@ def check_ransac(torch, np, dev, rs_ops, rs_ref, o, k, p, seed):
         (lambda: rs_ref.ransac_score_ref(*args, 0.5))
 
 
+def bf16_limit(torch, want):
+    """Per-value tolerance of a bf16 attention output held against the f32
+    result of the plain version on the same bf16 inputs: half a bf16 ulp of
+    the value (the output's own rounding; bf16 keeps 8 significant bits)
+    plus 2e-5 of it and 1e-6 for the f32 sums taken in another order. A
+    kernel that loses one 512-position chunk of a 20k-position request, or
+    one 64-key tile of a row, is off by some 1e-3 and fails."""
+    _, e = torch.frexp(want)
+    half_ulp = torch.where(want == 0, 0.0,
+                           torch.ldexp(torch.ones_like(want), e - 9))
+    return half_ulp + 2e-5 * want.abs() + 1e-6
+
+
+def attention_close(torch, got, plain, f32_args, args, what: str):
+    """Hold an attention kernel's output against its plain version: in f32
+    within 2e-5 (absolute and relative); in bf16 against the plain
+    version's f32 result on the same inputs (``f32_args``), within
+    ``bf16_limit``. Returns (max abs err, tolerance, exact), where exact
+    says the output equals the plain result rounded to its type."""
+    if got.dtype == torch.float32:
+        want = plain(*args)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
+            fail(f"{what}: off by {err} (tolerance 2e-5)")
+        return err, 2e-5, bool(torch.equal(got, want))
+    want = plain(*f32_args)
+    diff = (got.float() - want).abs()
+    worst = float((diff / bf16_limit(torch, want)).max())
+    err = float(diff.max())
+    if worst > 1:
+        fail(f"{what}: off by {err}, {worst:.3g} times the tolerance (half a"
+             f" bf16 ulp + 2e-5 relative + 1e-6)")
+    return err, f"half a bf16 ulp + 2e-5 rel + 1e-6 (worst {worst:.3g} of it)", \
+        bool(torch.equal(got, want.to(got.dtype)))
+
+
+def check_flash(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
+                causal, seed):
+    """Kernel vs plain version on (B, S, heads, hd) activations passed as
+    (B, heads, S, hd) views, as the model passes them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def act(heads, s):
+        return torch.randn(b, s, heads, hd, generator=g, device=dev,
+                           dtype=dtype).transpose(1, 2)
+    q, k, v = act(h, sq), act(kv, sk), act(kv, sk)
+    got = fa_ops.flash_attention(q, k, v, causal)
+    shape = f"({b},{h},{kv},{sq},{sk},{hd}) {str(dtype)[6:]} " + \
+        ("causal" if causal else "full")
+    err, tol, exact = attention_close(
+        torch, got, fa_ref.flash_attention_ref,
+        (q.float(), k.float(), v.float(), causal), (q, k, v, causal),
+        f"flash_attention {shape}")
+    # Live (query, key) pairs: query i sees keys [0, i] when causal.
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    elt = q.element_size()
+    rec = dict(shape=shape, exact=exact, max_abs_err=err, tol=tol,
+               bytes=(2 * b * h * sq * hd + 2 * b * kv * sk * hd) * elt,
+               ops=4 * hd * b * h * pairs,
+               peak=PEAK_BF16_PER_S if dtype == torch.bfloat16
+               else PEAK_F32_PER_S,
+               f32_simt_ms=4 * hd * b * h * pairs / PEAK_F32_PER_S * 1e3,
+               library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal, enable_gqa=True))
+    return rec, (lambda: fa_ops.flash_attention(q, k, v, causal)), \
+        (lambda: fa_ref.flash_attention_ref(q, k, v, causal))
+
+
+def check_decode(torch, dev, dec_ops, dec_ref, b, h, kv, s, hd, dtype,
+                 pos, seed):
+    """Kernel vs plain version on (B, S, KV, hd) caches passed as
+    (B, KV, S, hd) views; ``pos`` is a list, or (lo, hi) for ragged
+    positions drawn in [lo, hi)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, 1, h, hd, generator=g, device=dev, dtype=dtype)[:, 0]
+    ck, cv = (torch.randn(b, s, kv, hd, generator=g, device=dev,
+                          dtype=dtype).transpose(1, 2) for _ in range(2))
+    if isinstance(pos, tuple):
+        pos = torch.randint(*pos, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
+    else:
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    got = dec_ops.decode_attention(q, ck, cv, pos)
+    shape = (f"B={b} H={h} KV={kv} S={s} hd={hd} {str(dtype)[6:]} "
+             f"pos {int(pos.min())}..{int(pos.max())}")
+    err, tol, exact = attention_close(
+        torch, got, dec_ref.decode_attention_ref,
+        (q.float(), ck.float(), cv.float(), pos), (q, ck, cv, pos),
+        f"decode_attention {shape}")
+    live = int(pos.clamp(max=s).sum())
+    elt = q.element_size()
+    mask = (torch.arange(s, device=dev)[None, :] < pos[:, None])[:, None,
+                                                                  None]
+    rec = dict(shape=shape, exact=exact, max_abs_err=err, tol=tol,
+               bytes=(2 * b * h * hd + 2 * kv * hd * live) * elt + 4 * b,
+               ops=4 * hd * (h // kv) * kv * live,
+               peak=PEAK_BF16_PER_S if dtype == torch.bfloat16
+               else PEAK_F32_PER_S,
+               library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q[:, :, None], ck, cv, attn_mask=mask, enable_gqa=True))
+    return rec, (lambda: dec_ops.decode_attention(q, ck, cv, pos)), \
+        (lambda: dec_ref.decode_attention_ref(q, ck, cv, pos))
+
+
+def measure(torch, rec, kern, plain) -> None:
+    """Time a kernel at the serving shape: device ms from CUDA-graph replays
+    (as many calls a graph as fit ~100 ms, at most 50), eager ms per call;
+    its plain version as a graph of 50 calls too, or, where the record
+    carries a library yardstick (the attention kernels, whose plain
+    versions hold GBs of scores), eagerly over a few calls; the library
+    call from graph replays."""
+    def reps(fn):
+        est = eager_ms(fn, torch, runs=3, warmup=1)
+        return est, max(1, min(50, int(100 / max(est, 1e-3))))
+    est, n = reps(kern)
+    rec["kernel_ms"] = graph_ms(kern, torch, reps=n)
+    rec["kernel_eager_ms"] = eager_ms(
+        kern, torch, runs=max(5, min(100, int(1000 / max(est, 1e-2)))))
+    library = rec.pop("library", None)
+    if library is None:
+        rec["plain_ms"] = graph_ms(plain, torch)
+        rec["plain_eager_ms"] = eager_ms(plain, torch)
+        return
+    rec["plain_ms"] = rec["plain_eager_ms"] = eager_ms(plain, torch, runs=3,
+                                                       warmup=1)
+    rec["library_ms"] = graph_ms(library, torch, reps=reps(library)[1])
+
+
+def lm_run(torch, lm, decode, cfg, p, tokens, dec_tokens, max_len, dev):
+    """Prefill logits and the logits of one decode step per row of
+    ``dec_tokens``, from empty caches of ``max_len`` positions."""
+    logits = lm.forward(p, cfg, tokens.to(dev))
+    state = decode.init_decode(cfg, tokens.shape[0], max_len, dev)
+    steps = []
+    for t in dec_tokens:
+        lg, state = decode.decode_step(p, cfg, state, t.to(dev))
+        steps.append(lg)
+    return logits, torch.stack(steps)
+
+
+def lm_compare(torch, got, want, tol: float, what: str) -> float:
+    """Prefill and decode logits finite, of the expected shapes, and within
+    ``tol`` (absolute and relative); returns the largest difference."""
+    err = 0.0
+    for name, g, w in zip(("prefill", "decode"), got, want):
+        g, w = g.float().cpu(), w.float().cpu()
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            fail(f"{what}: {name} logits {tuple(g.shape)} (want "
+                 f"{tuple(w.shape)}) or not finite")
+        err = max(err, float((g - w).abs().max()))
+        if not torch.allclose(g, w, rtol=tol, atol=tol):
+            fail(f"{what}: {name} logits off by {err} (tolerance {tol})")
+    return err
+
+
+def check_lm(torch, np, dev, lm_configs, convert, lm, decode, params):
+    """LM phases A (qwen2.5-3B SMOKE in f32 with the JAX golden's weights,
+    against its logits) and B (full width with 2 layers in f32, the card
+    against the CPU)."""
+    f32 = torch.float32
+    # -- 7. LM A: qwen2.5-3B SMOKE on the card vs the JAX golden -------------
+    cfg = dataclasses.replace(lm_configs.get_smoke(LM_ARCH), dtype=f32)
+    with np.load(LM_GOLDEN) as f:
+        gold = {k: f[k] for k in f.files}
+    tree = params.from_leaves((tuple(k.split("/")[1:]), v)
+                              for k, v in gold.items()
+                              if k.startswith("params/"))
+    logits, steps = lm_run(torch, lm, decode, cfg,
+                           convert.params_from_jax(tree, cfg, dev),
+                           torch.from_numpy(gold["tokens"]),
+                           torch.from_numpy(gold["decode_tokens"]), 32, dev)
+    err = lm_compare(torch, (logits, steps),
+                     (torch.from_numpy(gold["logits"]),
+                      torch.from_numpy(gold["decode_logits"])), 1e-5,
+                     f"{cfg.name} on the card vs {LM_GOLDEN.name}")
+    print(f"LM A: {cfg.name} f32 prefill + 4 decode steps on the card match "
+          f"{LM_GOLDEN.name} (max abs err {err:.3g}, tolerance 1e-5)",
+          flush=True)
+
+    # -- 8. LM B: full width, 2 layers, f32: the card vs the CPU ------------
+    cfg = dataclasses.replace(lm_configs.get(LM_ARCH), n_layers=2, dtype=f32)
+    p_card = params.init_params(lm.model_defs(cfg),
+                                torch.Generator(device=dev).manual_seed(1),
+                                dev)
+    # The JAX package's fanin init takes fan_in = shape[-2] of the 3-d
+    # attention weights (the head count, or hd for wo): at full width the
+    # attention scores then have a std of ~360 and the softmax is nearly
+    # one-hot, so a 1-ulp change of the weights moves the logits by ~1e-2
+    # and no two summation orders agree to 1e-4. Rescaled to fan_in =
+    # d_model (and H*hd for wo) the scores have a std of ~1 and a 1-ulp
+    # change moves the logits by ~1e-5.
+    attn = p_card["blocks"]["attn"]
+    for name in ("wq", "wk", "wv"):
+        attn[name].mul_((attn[name].shape[-2] / cfg.d_model) ** 0.5)
+    attn["wo"].mul_((attn["wo"].shape[-2] / cfg.d_head_total) ** 0.5)
+    p_cpu = params.tree_map(lambda t: t.cpu(), p_card)
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (2, 256), generator=gen,
+                           dtype=torch.int32)
+    dec_tokens = torch.randint(0, cfg.vocab, (4, 2), generator=gen,
+                               dtype=torch.int32)
+    t0 = time.perf_counter()
+    card = lm_run(torch, lm, decode, cfg, p_card, tokens, dec_tokens, 512,
+                  dev)
+    cpu = lm_run(torch, lm, decode, cfg, p_cpu, tokens, dec_tokens, 512,
+                 torch.device("cpu"))
+    err = lm_compare(torch, card, cpu, 1e-4,
+                     f"{cfg.name} x2 layers on the card vs the CPU")
+    print(f"LM B: {cfg.name} at full width (2 layers, f32) B=2 S=256 prefill "
+          f"+ 4 decode steps: the card matches the CPU (max abs err "
+          f"{err:.3g}, tolerance 1e-4; {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+
+def serve_lm(torch, dev, kernels, lm_configs, lm, decode, params):
+    """LM phase C: qwen2.5-3B at full width in bf16 on the card. Returns
+    the attention kernels' launch counts over the counted run (3 prefills
+    and DECODE_STEPS greedy decode steps, after one warm-up of each)."""
+    cfg = lm_configs.get(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t0 = time.perf_counter()
+    p32 = params.init_params(lm.model_defs(cfg), gen, dev)
+    p = lm.cast_params(p32, cfg)      # matrices bf16 once; norms stay f32
+    del p32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    state = decode.init_decode(cfg, DECODE_B, DECODE_MAX, dev)
+    for cache in state.caches.values():
+        cache.normal_(generator=gen)
+    # Ragged positions; the top leaves room for every step of this phase
+    # (warm-up, counted run, profile) to write a slot of its own.
+    state = state._replace(cache_pos=torch.randint(
+        DECODE_POS_LO, DECODE_MAX - DECODE_STEPS - 8, (DECODE_B,),
+        generator=gen, device=dev, dtype=torch.int32))
+    live = int(state.cache_pos.sum())
+    step_tokens = torch.randint(0, cfg.vocab, (DECODE_B,), generator=gen,
+                                device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    print(f"LM C: {cfg.name} ({cfg.n_layers} layers, bf16) weights and a "
+          f"{DECODE_B}x{DECODE_MAX} KV cache on the card in "
+          f"{time.perf_counter() - t0:.1f} s; cache positions "
+          f"{int(state.cache_pos.min())}..{int(state.cache_pos.max())} "
+          f"(mean {live / DECODE_B:.0f})", flush=True)
+
+    def step():
+        nonlocal state, step_tokens
+        logits, state = decode.decode_step(p, cfg, state, step_tokens)
+        step_tokens = logits.argmax(-1).to(torch.int32)
+        return logits
+
+    lm.forward(p, cfg, tokens)          # warm-ups, outside the counted run
+    step()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    prefill_ms, step_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits = lm.forward(p, cfg, tokens)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        step_logits = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = kernels.launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attention=3 * cfg.n_layers,
+                  decode_attention=DECODE_STEPS * cfg.n_layers)
+    if launches != expect:
+        fail(f"LM C launch counts {launches} != {expect}")
+    for name, x, shape in (("prefill", logits,
+                            (PREFILL_B, PREFILL_S, cfg.vocab)),
+                           ("decode", step_logits, (DECODE_B, cfg.vocab))):
+        if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
+            fail(f"LM C {name} logits {tuple(x.shape)} (want {shape}) or "
+                 f"not finite")
+    total_s = sum(step_ms) / 1e3
+    print(f"LM C: prefill B={PREFILL_B} S={PREFILL_S}: median "
+          f"{statistics.median(prefill_ms):.2f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in prefill_ms)}); decode "
+          f"B={DECODE_B} max_len {DECODE_MAX}: median "
+          f"{statistics.median(step_ms):.3f} ms/step (min {min(step_ms):.3f},"
+          f" max {max(step_ms):.3f}), {DECODE_B * DECODE_STEPS / total_s:.1f} "
+          f"tokens/s over {DECODE_STEPS} steps; launches {launches}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    print(profile_window(torch, f"{cfg.name} decode B={DECODE_B}",
+                         lambda: [step() for _ in range(4)], 4, "step"),
+          flush=True)
+    return {k: launches[k] for k in ("flash_attention", "decode_attention")}
+
+
 def csv_rows(text: str):
     return list(csv.DictReader(io.StringIO(text)))
 
@@ -262,10 +599,16 @@ def main() -> None:
 
     from repro_torch import api, kernels
     from repro_torch.data import scenes
+    from repro_torch import configs as lm_configs, convert
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as dec_ops, \
+        ref as dec_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops, \
+        ref as fa_ref
     from repro_torch.kernels.iou2d import ops as iou_ops, ref as iou_ref
     from repro_torch.kernels.point_proj import ops as pp_ops, ref as pp_ref
     from repro_torch.kernels.ransac_score import ops as rs_ops, ref as rs_ref
+    from repro_torch.models import decode, lm, params
     if any(m == "jax" or m.startswith(("jax.", "repro."))
            or m == "repro" for m in sys.modules):
         fail("the port pulled in jax or the JAX package")
@@ -277,13 +620,21 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s -> "
           f"{lib.relative_to(ROOT)}", flush=True)
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or \
+                "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
     # -- 3. kernels vs plain versions on the card --------------------------
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def flash(*shape):
+        return lambda s: check_flash(torch, dev, fa_ops, fa_ref, *shape, s)
+
+    def dec(*shape):
+        return lambda s: check_decode(torch, dev, dec_ops, dec_ref, *shape, s)
     checks = {
         "point_proj": [
             lambda s: check_point_proj(torch, np, dev, scenes, pp_ops, pp_ref,
@@ -304,6 +655,24 @@ def main() -> None:
                                    s),
             lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 3, 7, 1000,
                                    s)],
+        # The prefill shape of LM phase C first, then GQA, ragged MQA,
+        # keys longer than queries, and the SMOKE configs' head dim.
+        "flash_attention": [
+            flash(PREFILL_B, 16, 2, PREFILL_S, PREFILL_S, 128, bf16, True),
+            flash(2, 8, 2, 512, 512, 128, f32, True),
+            flash(1, 4, 1, 300, 300, 64, f32, True),
+            flash(2, 2, 2, 128, 640, 64, f32, False),
+            flash(2, 4, 2, 16, 16, 16, f32, True),
+            flash(2, 8, 2, 512, 512, 128, bf16, True)],
+        # The decode shape of LM phase C first (ragged positions), then
+        # f32 GQA, MQA with positions 1 and S, and SMOKE's head dim with an
+        # empty request.
+        "decode_attention": [
+            dec(DECODE_B, 16, 2, DECODE_MAX, 128, bf16,
+                (DECODE_POS_LO, DECODE_MAX)),
+            dec(4, 8, 2, 1024, 128, f32, (1, 1025)),
+            dec(2, 8, 1, 700, 64, f32, [1, 700]),
+            dec(2, 4, 2, 32, 16, f32, [0, 17])],
     }
     records = {}
     for name, cases in checks.items():
@@ -311,20 +680,26 @@ def main() -> None:
             rec, kern, plain = case(i)
             torch.cuda.synchronize()
             if i == 0:   # the serving path's shape: measure it
-                rec["kernel_ms"] = graph_ms(kern, torch)
-                rec["plain_ms"] = graph_ms(plain, torch)
-                rec["kernel_eager_ms"] = eager_ms(kern, torch)
-                rec["plain_eager_ms"] = eager_ms(plain, torch)
+                measure(torch, rec, kern, plain)
                 records[name] = rec
             print(f"kernel {name} [{rec['shape']}]: matches the plain version"
-                  f" (max abs err {rec['max_abs_err']})", flush=True)
+                  f" (max abs err {rec['max_abs_err']}"
+                  + (f", tolerance {rec['tol']}" if "tol" in rec else "")
+                  + ")", flush=True)
+            del rec, kern, plain
+        torch.cuda.empty_cache()
         r = records[name]
-        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"))
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"),
+                                             r.pop("peak", PEAK_F32_PER_S))
+        lib_ms = r.get("library_ms")
         print(f"kernel {name} [{r['shape']}]: device {r['kernel_ms']:.4f} ms"
-              f" (plain {r['plain_ms']:.4f} ms), eager call "
+              f" (plain {r['plain_ms']:.4f} ms, library "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms), eager call "
               f"{r['kernel_eager_ms']:.4f} ms (plain {r['plain_eager_ms']:.4f}"
-              f" ms), bound {r['bound_ms']:.6f} ms ({r['bound_by']})",
-              flush=True)
+              f" ms), bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+              + (f", f32 SIMT bound {r['f32_simt_ms']:.4f} ms"
+                 if "f32_simt_ms" in r else ""), flush=True)
+    main_launches = {}
 
     # -- 4. KITTI-size serving on the card ---------------------------------
     scn = api.scenario("kitti-urban", seed=0, **KITTI)
@@ -340,9 +715,12 @@ def main() -> None:
     kinds = report.kinds()
     n_transform = sum(k != "anchor" for k in kinds)
     expect = {"point_proj": n_transform, "iou2d": KITTI_FRAMES,
-              "ransac_score": n_transform}
+              "ransac_score": n_transform, "flash_attention": 0,
+              "decode_attention": 0}
     if launches != expect:
         fail(f"launch counts {launches} != {expect} implied by kinds {kinds}")
+    main_launches.update((k, launches[k]) for k in
+                         ("point_proj", "iou2d", "ransac_score"))
     walls = session.engine.frame_wall_s
     per_kind = {k: statistics.median(w for w, kk in zip(walls, kinds)
                                      if (kk == "anchor") == (k == "anchor"))
@@ -352,7 +730,10 @@ def main() -> None:
           f"median wall ms/frame: transform {per_kind['transform']:.2f}, "
           f"anchor {per_kind['anchor']:.2f}, mean F1 {report.mean_f1:.4f}",
           flush=True)
-    print(profile_frames(torch, api, scn, 4), flush=True)
+    print(profile_window(
+        torch, scn.name,
+        lambda: api.Session(scn, torch_device="cuda").run(4), 4, "frame"),
+        flush=True)
     gpu_rows = csv_rows(report.to_csv())
     if not all(math.isfinite(float(r[k])) for r in gpu_rows
                for k in FLOAT_COLS):
@@ -374,26 +755,33 @@ def main() -> None:
                  "smoke on the card vs tests/goldens/smoke.csv")
     print("smoke x16 on the card matches tests/goldens/smoke.csv", flush=True)
 
-    # -- 7. result lines ------------------------------------------------------
+    # -- 7-8. LM A and B: the card against JAX's golden and the CPU ------
+    check_lm(torch, np, dev, lm_configs, convert, lm, decode, params)
+    torch.cuda.empty_cache()
+
+    # -- 9. LM C: serving qwen2.5-3B at full width on the card --------------
+    main_launches.update(serve_lm(torch, dev, kernels, lm_configs, lm, decode,
+                                  params))
+
+    # -- 10. result lines -----------------------------------------------------
     out = []
     for name, (source, replaces) in KERNELS.items():
         r = records[name]
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "shape": r["shape"],
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": main_launches[name], "max_abs_err": r["max_abs_err"],
             "exact": r["exact"], "ms": r["kernel_ms"],
             "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "eager_ms": r["kernel_eager_ms"],
             "plain_eager_ms": r["plain_eager_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
+            "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": out}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

@@ -17,6 +17,13 @@ Floats become float32, integers int64 (the port's index type; the PRNG
 key's 32-bit words included) and bools stay bool. Moby's serving path has
 no learned weights: this state is what makes both sides compute the same
 thing from any frame.
+
+The language models' state converts by structure instead:
+:func:`params_from_jax` takes the parameter tree of ``init_params``
+(nested dicts of numpy arrays), checks it against the port's
+``lm.model_defs`` and keeps it float32; :func:`decode_state_from_jax`
+takes a ``DecodeState`` and keeps the caches' dtype and ``cache_pos``
+int32.
 """
 from __future__ import annotations
 
@@ -27,6 +34,8 @@ import torch
 
 from repro_torch.core import (box_estimation, filtration, projection, ransac,
                               scheduler, tracking, transform)
+from repro_torch.models import decode, lm
+from repro_torch.models import params as params_mod
 
 # Port NamedTuples by class name; a JAX-side value converts into the class
 # of the same name.
@@ -52,6 +61,48 @@ def to_tensor(a: Any, device: Union[str, torch.device] = "cpu"
         raise TypeError(f"cannot convert an array of dtype {a.dtype}")
     # A copy: arrays read back from JAX are read-only.
     return torch.tensor(out, device=device)
+
+
+def _float_tensor(a: Any, device: Union[str, torch.device]
+                  ) -> torch.Tensor:
+    """A float leaf in its own dtype; bfloat16 (numpy's ``ml_dtypes``
+    type, which torch cannot read) goes through float32 exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32),
+                            device=device).to(torch.bfloat16)
+    if not np.issubdtype(a.dtype, np.floating):
+        raise TypeError(f"expected a float array, got {a.dtype}")
+    return torch.tensor(a, device=device)
+
+
+def params_from_jax(tree: Any, cfg: Any,
+                    device: Union[str, torch.device] = "cpu") -> dict:
+    """The JAX package's LM parameter tree (nested dicts of numpy arrays,
+    ``np.asarray`` of every leaf) -> the port's tree of float32 tensors on
+    ``device``. Raises unless the paths and shapes are those of
+    ``lm.model_defs(cfg)``."""
+    want = {p: tuple(d.shape) for p, d in
+            params_mod.leaves(lm.model_defs(cfg))}
+    got = {p: tuple(np.shape(a)) for p, a in params_mod.leaves(tree)}
+    if got != want:
+        diff = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"{cfg.name}: parameter tree differs from "
+                         f"model_defs at {diff}")
+    return params_mod.tree_map(lambda a: to_tensor(a, device), tree)
+
+
+def decode_state_from_jax(state: Any,
+                          device: Union[str, torch.device] = "cpu"):
+    """A JAX ``DecodeState`` (caches as numpy arrays) -> the port's
+    ``DecodeState``: caches in their dtype, ``cache_pos`` int32."""
+    caches = params_mod.tree_map(lambda a: _float_tensor(a, device),
+                                 dict(state.caches))
+    pos = torch.tensor(np.asarray(state.cache_pos, np.int32), device=device)
+    if state.enc_out is not None:
+        raise NotImplementedError("encoder-decoder decode state is not "
+                                  "ported yet")
+    return decode.DecodeState(caches=caches, cache_pos=pos)
 
 
 def _is_array(x: Any) -> bool:

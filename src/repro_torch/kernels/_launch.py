@@ -8,9 +8,12 @@ import torch
 
 def check_cuda(kernel: str, name: str, t: torch.Tensor, dtype: torch.dtype,
                shape: Optional[Sequence[Optional[int]]] = None,
-               device: Optional[torch.device] = None) -> None:
+               device: Optional[torch.device] = None,
+               strided: bool = False) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and of
-    ``shape``, where None entries match any size, on ``device``)."""
+    ``shape``, where None entries match any size, on ``device``). For a
+    kernel that reads through element strides (``strided``), only the last
+    dimension has to be contiguous."""
     if t.device.type != "cuda":
         raise ValueError(f"{kernel}: {name} is on {t.device}, the kernel "
                          f"needs a CUDA tensor")
@@ -24,7 +27,11 @@ def check_cuda(kernel: str, name: str, t: torch.Tensor, dtype: torch.dtype,
             s is not None and s != n for s, n in zip(shape, t.shape))):
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if strided:
+        if t.dim() and t.shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{kernel}: {name}'s last dimension has stride "
+                             f"{t.stride(-1)}, the kernel needs 1")
+    elif not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} is not contiguous")
 
 

@@ -1,0 +1,279 @@
+"""Shared layer library for the dense family: norms, RoPE, attention
+(GQA/MQA), MLPs and the embedding (``repro/models/layers.py``).
+
+Conventions, as in the JAX package:
+
+* Every layer is a pair ``<layer>_defs(cfg) -> ParamDef tree`` and
+  ``<layer>_apply(params, ...) -> tensor``; parameters are nested dicts of
+  tensors.
+* Parameters are stored f32 and cast to ``cfg.dtype`` at use (a no-op for
+  a tree already cast by :func:`repro_torch.models.lm.cast_params`; the
+  norm parameters stay f32 either way). Where JAX asks for an f32 result
+  of a product (``preferred_element_type``) and keeps it f32 (the MLP's
+  input projections, the logits), the port computes it with an f32 result
+  too (:func:`_dot_f32`), never rounding it to ``cfg.dtype`` first; where
+  JAX casts that result back at once, the port's product in ``cfg.dtype``
+  is the same value (an f32 sum rounded once).
+* Attention always goes through :mod:`repro_torch.ops`: the card runs the
+  flash and decode attention kernels, the CPU their plain versions. So the
+  JAX package's dense and chunked reference paths have no counterpart
+  here; value head dims unequal to the qk head dim (MLA), causal attention
+  with Sq != Sk, M-RoPE and MoE are later slices and raise.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import ops
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.params import (ParamDef, fanin_init, normal_init,
+                                       ones_init, zeros_init)
+
+
+def cast(x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return x.to(cfg.dtype)
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
+    """Contract the last ``n_in`` dims of x with the leading ``n_in`` dims
+    of w (``einsum('bs<in>,<in><out>->bs<out>')``)."""
+    lead, k = x.shape[:-n_in], w.shape[n_in:]
+    y = x.reshape(*lead, -1) @ w.reshape(-1, *k).flatten(1)
+    return y.reshape(*lead, *k)
+
+
+def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 2-d ``w`` with an f32 result, as JAX's
+    ``einsum(..., preferred_element_type=float32)``: the products of the
+    inputs as they are, summed in f32 and not rounded to the input type.
+    On the card a bf16 GEMM writes f32 (``out_dtype``); elsewhere the
+    operands are widened, which gives the same exact products."""
+    if x.is_cuda and x.dtype != torch.float32:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[1])
+    return x.float() @ w.float()
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def norm_defs(d: int, kind: str):
+    if kind == "rmsnorm":
+        return {"scale": ParamDef((d,), ("embed",), torch.float32,
+                                  ones_init())}
+    return {"scale": ParamDef((d,), ("embed",), torch.float32, ones_init()),
+            "bias": ParamDef((d,), ("embed",), torch.float32, zeros_init())}
+
+
+def norm_apply(p, x: torch.Tensor, kind: str, eps: float = 1e-6
+               ) -> torch.Tensor:
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * p["scale"]
+    else:
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def _rope_angles(positions: torch.Tensor, rot_dim: int, theta: float):
+    """positions (...,) -> cos/sin (..., rot_dim/2), f32, in JAX's order:
+    freqs = 1/theta**(i/half), then positions * freqs."""
+    half = rot_dim // 2
+    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / (theta ** (i / half))
+    ang = positions[..., None].float() * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               fraction: float = 1.0) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S). Rotates the leading
+    ``fraction`` of head dims, half-split convention."""
+    hd = x.shape[-1]
+    rot = int(hd * fraction)
+    rot -= rot % 2
+    cos, sin = _rope_angles(positions, rot, theta)   # (B, S, rot/2)
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    x1, x2 = x[..., :rot].chunk(2, dim=-1)
+    xf1, xf2 = x1.float(), x2.float()
+    r1 = xf1 * cos - xf2 * sin
+    r2 = xf2 * cos + xf1 * sin
+    out = torch.cat([r1.to(x.dtype), r2.to(x.dtype)], dim=-1)
+    return torch.cat([out, x[..., rot:]], dim=-1) if rot < hd else out
+
+
+def position_encode(q: torch.Tensor, k: torch.Tensor, cfg: ArchConfig,
+                    positions: torch.Tensor):
+    """Dispatch on cfg.pos_embedding for self-attention q/k."""
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    elif cfg.pos_embedding == "mrope":
+        raise NotImplementedError("M-RoPE (the vlm family) is not ported "
+                                  "yet; see ROADMAP.md")
+    return q, k
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA / MQA / MHA)
+# ---------------------------------------------------------------------------
+
+
+def attn_defs(cfg: ArchConfig):
+    d = cfg.d_model
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    defs = {
+        "wq": ParamDef((d, h, hd), ("embed", "heads", None),
+                       init=fanin_init()),
+        "wk": ParamDef((d, kv, hd), ("embed", "kv_heads", None),
+                       init=fanin_init()),
+        "wv": ParamDef((d, kv, hd), ("embed", "kv_heads", None),
+                       init=fanin_init()),
+        "wo": ParamDef((h, hd, d), ("heads", None, "embed"),
+                       init=fanin_init()),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((h, hd), ("heads", None), init=zeros_init())
+        defs["bk"] = ParamDef((kv, hd), ("kv_heads", None), init=zeros_init())
+        defs["bv"] = ParamDef((kv, hd), ("kv_heads", None), init=zeros_init())
+    return defs
+
+
+def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) -> (B, Sq, H, hd), through
+    ``ops.flash_attention`` on (B, heads, S, hd) views (no copies)."""
+    sq, hd = q.shape[1], q.shape[-1]
+    if v.shape[-1] != hd:
+        raise NotImplementedError(
+            f"value head dim {v.shape[-1]} != qk head dim {hd} (MLA) is not "
+            f"ported yet")
+    if causal and sq != k.shape[1]:
+        raise NotImplementedError(
+            f"causal attention with Sq={sq} != Sk={k.shape[1]} is not "
+            f"ported yet")
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal)
+    return out.transpose(1, 2)
+
+
+def _qkv(p, x: torch.Tensor, cfg: ArchConfig):
+    q = _matmul(x, cast(p["wq"], cfg), 1)
+    k = _matmul(x, cast(p["wk"], cfg), 1)
+    v = _matmul(x, cast(p["wv"], cfg), 1)
+    if cfg.qkv_bias:
+        q = q + cast(p["bq"], cfg)
+        k = k + cast(p["bk"], cfg)
+        v = v + cast(p["bv"], cfg)
+    return q, k, v
+
+
+def attn_apply(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+               causal: bool = True) -> torch.Tensor:
+    """Full-sequence self-attention (prefill). Cross attention (JAX's
+    ``kv_x``) comes with the encoder-decoder family."""
+    q, k, v = _qkv(p, x, cfg)
+    q, k = position_encode(q, k, cfg, positions)
+    out = multihead_attention(q, k, v, causal)
+    return _matmul(out, cast(p["wo"], cfg), 2).to(cfg.dtype)
+
+
+def attn_decode_apply(p, x: torch.Tensor, cfg: ArchConfig,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      cache_pos: torch.Tensor, positions: torch.Tensor):
+    """Single-token decode with a KV cache.
+
+    x: (B, 1, D); cache_k/v: (B, S_max, KV, hd); cache_pos: (B,) int32
+    current lengths. Returns (out (B, 1, D), cache_k, cache_v).
+
+    Unlike JAX's functional ``dynamic_update_slice``, the new K/V are
+    written into ``cache_k``/``cache_v`` in place (``index_put_``), at each
+    request's position clamped to S_max - 1 as ``dynamic_update_slice``
+    clamps it; the returned caches are the same tensors. Attention then
+    covers positions [0, cache_pos] through ``ops.decode_attention`` on
+    (B, KV, S, hd) views of the caches.
+    """
+    b = x.shape[0]
+    q, k, v = _qkv(p, x, cfg)
+    if cfg.pos_embedding in ("rope", "mrope"):
+        q, k = position_encode(q, k, cfg, positions)
+    rows = torch.arange(b, device=x.device)
+    at = cache_pos.long().clamp(max=cache_k.shape[1] - 1)
+    cache_k[rows, at] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, at] = v[:, 0].to(cache_v.dtype)
+    att = ops.decode_attention(q[:, 0], cache_k.transpose(1, 2),
+                               cache_v.transpose(1, 2), cache_pos + 1)
+    out = att[:, None].to(cfg.dtype)
+    return _matmul(out, cast(p["wo"], cfg), 2).to(cfg.dtype), cache_k, \
+        cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def mlp_defs(cfg: ArchConfig):
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type == "swiglu":
+        return {
+            "wi_gate": ParamDef((d, f), ("embed", "mlp"), init=fanin_init()),
+            "wi_up": ParamDef((d, f), ("embed", "mlp"), init=fanin_init()),
+            "wo": ParamDef((f, d), ("mlp", "embed"), init=fanin_init()),
+        }
+    return {
+        "wi": ParamDef((d, f), ("embed", "mlp"), init=fanin_init()),
+        "wo": ParamDef((f, d), ("mlp", "embed"), init=fanin_init()),
+    }
+
+
+def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.mlp_type == "swiglu":
+        g = _dot_f32(x, cast(p["wi_gate"], cfg))
+        u = _dot_f32(x, cast(p["wi_up"], cfg))
+        h = (F.silu(g) * u).to(cfg.dtype)
+    else:
+        h = _dot_f32(x, cast(p["wi"], cfg))
+        if cfg.mlp_type == "gelu":   # jax.nn.gelu's default: the tanh form
+            h = F.gelu(h, approximate="tanh").to(cfg.dtype)
+        else:                        # relu2 (nemotron/minitron)
+            h = F.relu(h).square().to(cfg.dtype)
+    return (h @ cast(p["wo"], cfg)).to(cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed_defs(cfg: ArchConfig):
+    defs = {"table": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                              init=normal_init(0.02))}
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((cfg.d_model, cfg.vocab),
+                                   ("embed", "vocab"), init=normal_init(0.02))
+    return defs
+
+
+def embed_apply(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return cast(p["table"][tokens.long()], cfg)
+
+
+def unembed_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Logits in f32, summed in f32 from ``cfg.dtype`` inputs (JAX's
+    ``preferred_element_type``)."""
+    w = cast(p["table"], cfg).T if cfg.tie_embeddings else \
+        cast(p["unembed"], cfg)
+    return _dot_f32(x, w)

@@ -3,8 +3,9 @@
     from repro_torch import ops
     iou = ops.iou2d(a, b)   # kernel for CUDA tensors, plain PyTorch on CPU
 """
-from repro_torch.ops.api import (iou2d, label_points, point_proj,
-                                 project_and_label, ransac_score)
+from repro_torch.ops.api import (decode_attention, flash_attention, iou2d,
+                                 label_points, point_proj, project_and_label,
+                                 ransac_score)
 
-__all__ = ["iou2d", "label_points", "point_proj", "project_and_label",
-           "ransac_score"]
+__all__ = ["decode_attention", "flash_attention", "iou2d", "label_points",
+           "point_proj", "project_and_label", "ransac_score"]

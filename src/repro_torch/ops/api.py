@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.decode_attention import ops as _dec_ops
+from repro_torch.kernels.flash_attention import ops as _fa_ops
 from repro_torch.kernels.iou2d import ops as _iou_ops
 from repro_torch.kernels.point_proj import ops as _pp_ops
 from repro_torch.kernels.ransac_score import ops as _rs_ops
@@ -57,3 +59,20 @@ def ransac_score(points: torch.Tensor, valid: torch.Tensor,
     """Plane-hypothesis inlier counts: (O,P,3),(O,P),(O,K,3),(O,K) ->
     (O,K) int32."""
     return _rs_ops.ransac_score(points, valid, normals, offsets, thresh)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B,H,SQ,hd); k/v: (B,KV,SK,hd) -> (B,H,SQ,hd). Requires the
+    value head dim to equal the qk head dim. q, k and v may be transposed
+    views (the head dim contiguous): the kernel reads them in place."""
+    return _fa_ops.flash_attention(q, k, v, causal)
+
+
+def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, cache_pos: torch.Tensor
+                     ) -> torch.Tensor:
+    """Single-token decode: q (B,H,hd) over caches (B,KV,S,hd), attending
+    positions [0, cache_pos) per request -> (B,H,hd). The caches may be
+    transposed views of (B,S,KV,hd) storage."""
+    return _dec_ops.decode_attention(q, cache_k, cache_v, cache_pos)

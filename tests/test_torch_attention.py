@@ -1,0 +1,265 @@
+"""The port's two attention kernel modules against the JAX package's.
+
+On the CPU each wrapper runs its plain PyTorch version, so these tests hold
+that version against the JAX ``ref.py`` oracle and against the Pallas
+kernel in interpret mode, at ``tests/test_kernels.py``'s shapes and
+tolerances (2e-5 in f32, 2e-2 in bf16). The plain versions follow the
+Pallas kernels where the two JAX versions differ (a request with no live
+position gives 0). The CUDA kernels run only on a card:
+``test_attention_kernels_match_plain_on_card`` is marked ``cuda`` and skips
+without one (``python3 chip_smoke.py`` holds both kernels against their
+plain versions at the serving shapes).
+``test_bf16_card_check_rejects_planted_faults`` shows, here, that the bf16
+tolerance of those card checks fails a kernel that loses one chunk or tile.
+"""
+import importlib.util
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.decode_attention import ops as jdec_ops  # noqa: E402
+from repro.kernels.decode_attention import ref as jdec_ref  # noqa: E402
+from repro.kernels.flash_attention import ops as jfa_ops  # noqa: E402
+from repro.kernels.flash_attention import ref as jfa_ref  # noqa: E402
+from repro_torch import kernels, ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as dec_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+
+jax.config.update("jax_platform_name", "cpu")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    jdt, tdt, _ = DTYPES[dtype]
+    ja = jnp.asarray(a, jdt)
+    return ja, torch.from_numpy(np.array(ja, np.float32)).to(tdt)
+
+
+def _close(got: torch.Tensor, want, tol: float) -> None:
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [(1, 4, 4, 256, 256, 64),
+                (2, 8, 2, 512, 512, 128),   # GQA
+                (1, 4, 1, 300, 300, 64),    # MQA + ragged
+                (2, 2, 2, 128, 640, 64),    # kv longer than q
+                (2, 4, 2, 16, 16, 16)]      # the SMOKE configs' head dim
+# Causal attention is defined for sq == sk only (as in test_kernels.py).
+FLASH_CASES = [(shape, causal) for shape in FLASH_SHAPES
+               for causal in (True, False)
+               if not (causal and shape[3] != shape[4])]
+
+
+def _flash_inputs(b, h, kv, sq, sk, hd, dtype):
+    rng = np.random.default_rng(b * 1000 + sq + sk + hd)
+    return (_pair(rng.normal(size=(b, h, sq, hd)), dtype),
+            _pair(rng.normal(size=(b, kv, sk, hd)), dtype),
+            _pair(rng.normal(size=(b, kv, sk, hd)), dtype))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,causal", FLASH_CASES)
+def test_flash_attention_matches_jax(shape, causal, dtype):
+    (jq, q), (jk, k), (jv, v) = _flash_inputs(*shape, dtype)
+    tol = DTYPES[dtype][2]
+    got = ops.flash_attention(q, k, v, causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, jfa_ref.flash_attention_ref(jq, jk, jv, causal=causal), tol)
+    _close(got, jfa_ops.flash_attention(jq, jk, jv, causal=causal,
+                                        interpret=True), tol)
+
+
+def test_flash_attention_reads_strided_views():
+    """(B, S, heads, hd) storage passed as transposed views gives the
+    contiguous inputs' result, as the model passes its activations."""
+    (_, q), (_, k), (_, v) = _flash_inputs(2, 8, 2, 96, 96, 32, "float32")
+    want = fa_ops.flash_attention(q, k, v, True)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    assert not qs.is_contiguous()
+    torch.testing.assert_close(fa_ops.flash_attention(qs, ks, vs, True),
+                               want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# decode_attention
+# ---------------------------------------------------------------------------
+
+DECODE_SHAPES = [(2, 4, 4, 512, 64),
+                 (4, 8, 2, 1024, 128),
+                 (1, 8, 1, 700, 64),
+                 (2, 4, 2, 32, 16)]
+
+
+def _decode_inputs(b, h, kv, s, hd, dtype):
+    rng = np.random.default_rng(b + s + hd)
+    q = _pair(rng.normal(size=(b, h, hd)), dtype)
+    ck = _pair(rng.normal(size=(b, kv, s, hd)), dtype)
+    cv = _pair(rng.normal(size=(b, kv, s, hd)), dtype)
+    pos = rng.integers(1, s, b).astype(np.int32)
+    return q, ck, cv, (jnp.asarray(pos), torch.from_numpy(pos))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_attention_matches_jax(shape, dtype):
+    (jq, q), (jk, ck), (jv, cv), (jpos, pos) = _decode_inputs(*shape, dtype)
+    tol = DTYPES[dtype][2]
+    got = ops.decode_attention(q, ck, cv, pos)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, jdec_ref.decode_attention_ref(jq, jk, jv, jpos), tol)
+    _close(got, jdec_ops.decode_attention(jq, jk, jv, jpos, interpret=True),
+           tol)
+
+
+def test_decode_attention_empty_request_gives_zeros_as_pallas():
+    """cache_pos = 0: no live position. The Pallas kernel gives 0 there
+    (the JAX ref.py the mean of V); the port follows the kernel."""
+    (jq, q), (jk, ck), (jv, cv), _ = _decode_inputs(3, 4, 2, 600, 32,
+                                                    "float32")
+    pos = np.array([0, 5, 600], np.int32)
+    got = dec_ops.decode_attention(q, ck, cv, torch.from_numpy(pos))
+    want = jdec_ops.decode_attention(jq, jk, jv, jnp.asarray(pos),
+                                     interpret=True)
+    assert not got[0].any()
+    _close(got, want, 2e-5)
+
+
+def test_decode_attention_reads_cache_views_in_place():
+    """The (B, S, KV, hd) cache passed as (B, KV, S, hd) views gives the
+    contiguous result; a position past S counts as S."""
+    (_, q), (_, ck), (_, cv), (_, pos) = _decode_inputs(2, 8, 2, 64, 32,
+                                                        "float32")
+    pos = torch.tensor([64, 65], dtype=torch.int32)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (ck, cv)]
+    assert not views[0].is_contiguous()
+    got = dec_ops.decode_attention(q, *views, pos)
+    torch.testing.assert_close(got, dec_ops.decode_attention(q, ck, cv, pos),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        got, dec_ref.decode_attention_ref(q, ck, cv, torch.tensor([64, 64])),
+        rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def test_attention_wrappers_count_only_kernel_launches():
+    """The CPU path is the plain version and launches nothing; tensors on
+    a device other than the CPU or a card raise (no fallback)."""
+    kernels.reset_launch_counts()
+    (_, q), (_, k), (_, v) = _flash_inputs(1, 2, 1, 8, 8, 16, "float32")
+    ops.flash_attention(q, k, v, True)
+    ops.decode_attention(q[:, :, 0], k, v,
+                         torch.tensor([3], dtype=torch.int32))
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 0 and counts["decode_attention"] == 0
+    meta = torch.empty((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="no implementation"):
+        fa_ops.flash_attention(meta, meta, meta, True)
+    with pytest.raises(ValueError, match="no implementation"):
+        dec_ops.decode_attention(meta[:, :, 0], meta, meta,
+                                 torch.empty(1, device="meta"))
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports only the standard library
+    at the top), for the tolerance it holds the card's kernels to."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _within_bf16_rounding(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """``chip_smoke.py``'s bf16 check: each value within half a bf16 ulp
+    (+2e-5 relative +1e-6) of the plain version's f32 result."""
+    limit = _chip_smoke().bf16_limit(torch, want)
+    return bool(((got.float() - want).abs() <= limit).all())
+
+
+def _hold_to_plain(got: torch.Tensor, plain, *args) -> None:
+    """A kernel's output against its plain version on the same inputs: in
+    f32 within 2e-5; in bf16 against the plain version's f32 result within
+    half a bf16 ulp, as ``chip_smoke.py`` holds them."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, plain(*args), rtol=2e-5, atol=2e-5)
+        return
+    assert _within_bf16_rounding(got, plain(*(
+        a.float() if isinstance(a, torch.Tensor) and a.is_floating_point()
+        else a for a in args)))
+
+
+@pytest.mark.parametrize("fault", ["decode_last_chunk", "decode_chunk_1",
+                                   "flash_diagonal_tile"])
+def test_bf16_card_check_rejects_planted_faults(fault):
+    """The plain version's f32 result rounded to bf16 passes the bf16
+    check; the same with one 512-position chunk of a request or one 64-key
+    diagonal tile of a query block left out, as a faulty kernel would give
+    it, fails."""
+    g = torch.Generator().manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g).bfloat16().float()
+    if fault.startswith("decode"):
+        q, ck, cv = randn(4, 8, 64), randn(4, 2, 4096, 64), \
+            randn(4, 2, 4096, 64)
+        pos = torch.randint(2048, 4096, (4,), generator=g, dtype=torch.int32)
+        want = dec_ref.decode_attention_ref(q, ck, cv, pos)
+        if fault == "decode_last_chunk":
+            bad = dec_ref.decode_attention_ref(q, ck, cv,
+                                               (pos - 1) // 512 * 512)
+        else:
+            keep = torch.cat([torch.arange(512), torch.arange(1024, 4096)])
+            bad = dec_ref.decode_attention_ref(q, ck[:, :, keep],
+                                               cv[:, :, keep], pos - 512)
+    else:
+        q, k, v = randn(1, 2, 1024, 64), randn(1, 1, 1024, 64), \
+            randn(1, 1, 1024, 64)
+        want = fa_ref.flash_attention_ref(q, k, v, True)
+        bad = want.clone()
+        bad[:, :, -64:] = fa_ref.flash_attention_ref(
+            q[:, :, -64:], k[:, :, :-64], v[:, :, :-64], False)
+    assert _within_bf16_rounding(want.bfloat16(), want)
+    assert not _within_bf16_rounding(bad.bfloat16(), want)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_match_plain_on_card():
+    """Each CUDA kernel agrees with its plain version on card tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run python3 chip_smoke.py there)")
+    dev = torch.device("cuda")
+    for shape, causal in FLASH_CASES:
+        for dtype in DTYPES:
+            (_, q), (_, k), (_, v) = _flash_inputs(*shape, dtype)
+            q, k, v = q.to(dev), k.to(dev), v.to(dev)
+            _hold_to_plain(fa_ops.flash_attention(q, k, v, causal),
+                           fa_ref.flash_attention_ref, q, k, v, causal)
+    for shape in DECODE_SHAPES:
+        for dtype in DTYPES:
+            (_, q), (_, ck), (_, cv), (_, pos) = _decode_inputs(*shape, dtype)
+            q, ck, cv, pos = (t.to(dev) for t in (q, ck, cv, pos))
+            _hold_to_plain(dec_ops.decode_attention(q, ck, cv, pos),
+                           dec_ref.decode_attention_ref, q, ck, cv, pos)

@@ -180,7 +180,9 @@ def test_cpu_tensors_never_launch_a_kernel():
     ops.iou2d(_t(_boxes(np.random.default_rng(0), 3)),
               _t(_boxes(np.random.default_rng(1), 4)))
     assert kernels.launch_counts() == {"point_proj": 0, "iou2d": 0,
-                                       "ransac_score": 0}
+                                       "ransac_score": 0,
+                                       "flash_attention": 0,
+                                       "decode_attention": 0}
 
 
 def test_other_devices_raise():
