@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) serves
-Moby on an NVIDIA H100.
+Moby, the dense LMs and the PointPillars detector on an NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -23,7 +23,11 @@ fatal on failure:
    plain versions eagerly (a few calls: the flash one holds a 4.3 GB score
    tensor at the prefill shape), and PyTorch's
    ``scaled_dot_product_attention`` on the same inputs as their library
-   yardstick (timed here, used nowhere in the port);
+   yardstick (timed here, used nowhere in the port); K4 ``pillar_scatter``
+   forward (equal by value) and backward (bit for bit) at Det B's shape
+   (the real pillar ids of a kitti-urban frame at 122,880 points), dense
+   collisions, all points masked out and planted ties, beside
+   ``scatter_reduce(..., "amax")`` and autograd's gradient of it;
 4. the Moby serving path at KITTI's own size (``kitti-urban`` at 122,880
    points and a 375x1242 image, 24 frames) on the card, with every
    kernel's launch count checked against the run's frame kinds, after a
@@ -46,7 +50,17 @@ fatal on failure:
    checked (flash 36 per prefill, decode 36 per step); ms per prefill and
    per step, decode tokens/s, peak device memory, and a torch.profiler
    window over 4 decode steps;
-10. one ``{"kernels": [...]}`` JSON line, the card line again, and last the
+10. Det A, the card against JAX: the PointPillars detector at a small
+   config (32x32 pillars) with the weights and frame of
+   ``tests/goldens/det3d_smoke.npz``: forward, loss, every gradient,
+   detect and three AdamW steps at the CPU parity tests' tolerances;
+11. Det B, the detector at full width (128x128 pillars, feat 32, backbone
+   (32, 64, 128), seeded random weights) on 24 kitti-urban frames at
+   122,880 points: detect per frame and 8 training steps (loss, backward,
+   AdamW) after a warm-up, K4's launches checked (one forward a forward
+   pass, one backward a step), peak device memory, a torch.profiler window
+   over 4 detect calls; then 2 frames on the CPU against the card;
+12. one ``{"kernels": [...]}`` JSON line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
@@ -88,6 +102,12 @@ PREFILL_B, PREFILL_S = 1, 8192
 DECODE_B, DECODE_MAX, DECODE_STEPS = 16, 32768, 32
 DECODE_POS_LO = 8192
 
+# The PointPillars detector (models/detector3d.py). Det A holds the card to
+# the JAX golden at a small config; Det B runs the default config (128x128
+# pillars, feat 32, backbone (32, 64, 128)) on kitti-urban frames.
+DET_GOLDEN = ROOT / "tests" / "goldens" / "det3d_smoke.npz"
+DET_FRAMES, DET_STEPS, DET_CPU_FRAMES = 24, 8, 2
+
 KERNELS = {
     "point_proj": ("src/repro_torch/csrc/point_proj.cu",
                    "src/repro/kernels/point_proj/point_proj.py:43"),
@@ -101,6 +121,12 @@ KERNELS = {
     "decode_attention": (
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:63"),
+    "pillar_scatter": (
+        "src/repro_torch/csrc/pillar_scatter.cu",
+        "src/repro/kernels/pillar_scatter/pillar_scatter.py:50"),
+    # The gradient: the VJP around the Pallas call (repro/ops/api.py).
+    "pillar_scatter_bwd": ("src/repro_torch/csrc/pillar_scatter.cu",
+                           "src/repro/ops/api.py:105"),
 }
 
 
@@ -373,13 +399,114 @@ def check_decode(torch, dev, dec_ops, dec_ref, b, h, kv, s, hd, dtype,
         (lambda: dec_ref.decode_attention_ref(q, ck, cv, pos))
 
 
+def kitti_frames(np, api, scenes, n: int, seed: int = 0):
+    """``n`` kitti-urban frames at KITTI's point count (stream seed 0):
+    (N, 4) points with an intensity column from a seeded generator, and
+    the ground-truth boxes and flags, as numpy arrays."""
+    scn = api.scenario("kitti-urban", seed=0, **KITTI)
+    rng = np.random.default_rng(seed)
+    out = []
+    for fr in scenes.SceneStream(scn.scene, seed=0).frames(n):
+        inten = rng.uniform(0, 1, (len(fr.points), 1))
+        out.append((np.concatenate([fr.points, inten], 1).astype(np.float32),
+                    fr.gt_boxes.astype(np.float32), fr.gt_valid))
+    return out
+
+
+def pillar_inputs(torch, np, dev, detector3d, kitti, kind: str, seed: int):
+    """K4's inputs on the card: (feats, ids, mask, G, cotangent, label).
+    ``kitti``: the real pillar ids of a kitti-urban frame under the default
+    PillarConfig and ReLU'd PointNet features from seeded weights (ties at
+    0, as on the detector's path); ``dense``: N=4096 points in 256 pillars,
+    C=64; ``invalid``: every point masked out; ``ties``: ReLU'd features
+    rounded to 0.1, so most channels hold several equal maxima."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "kitti":
+        cfg = detector3d.PillarConfig()
+        pts = torch.from_numpy(kitti[0][0]).to(dev)
+        f9, idx, valid = detector3d.pillarize(
+            cfg, pts, torch.ones(len(pts), dtype=torch.bool, device=dev))
+        w = torch.randn((9, cfg.feat_dim), generator=g, device=dev) / 3
+        feats = torch.relu(f9 @ w).contiguous()
+        n_pillars = cfg.grid_h * cfg.grid_w
+    else:
+        n, c, n_pillars = {"dense": (4096, 64, 256),
+                           "invalid": (4096, 32, 1024),
+                           "ties": (8192, 32, 512)}[kind]
+        feats = torch.randn((n, c), generator=g, device=dev)
+        if kind == "ties":
+            feats = torch.round(torch.relu(feats) * 10) / 10
+        idx = torch.randint(0, n_pillars, (n,), generator=g, device=dev,
+                            dtype=torch.int32)
+        valid = torch.rand((n,), generator=g, device=dev) < (
+            0.0 if kind == "invalid" else 0.9)
+    ct = torch.randn((n_pillars, feats.shape[1]), generator=g, device=dev)
+    return feats, idx, valid, n_pillars, ct, kind
+
+
+def check_pillar_scatter(torch, ps_ops, ps_ref, inputs, backward: bool):
+    """K4's forward (equal to its plain version value for value) or its
+    backward (bit for bit) on the card. The library yardstick is PyTorch's
+    ``scatter_reduce(..., "amax")`` (dropped points sent to a spare row)
+    and, for the backward, autograd's gradient of it, timed eagerly."""
+    f, idx, valid, n_pillars, ct, kind = inputs
+    n, c = f.shape
+    kept = valid & (idx >= 0) & (idx < n_pillars)
+    n_kept = int(kept.sum())
+    per_pillar = torch.bincount(idx[kept].long(), minlength=n_pillars)
+    occupied = int((per_pillar > 0).sum())
+    shape = (f"N={n} C={c} G={n_pillars} ({kind}, {n_kept} kept in "
+             f"{occupied} pillars, at most {int(per_pillar.max())} a "
+             f"pillar)")
+    out = ps_ops.pillar_scatter(f, idx, valid, n_pillars)
+    want = ps_ref.pillar_scatter_ref(f, idx, valid, n_pillars)
+    if not torch.equal(out, want):
+        fail(f"pillar_scatter {shape}: differs from the plain version")
+    lib_idx = torch.where(kept, idx, n_pillars).long()[:, None].expand(n, c)
+    spare = torch.full((n_pillars + 1, c), -torch.inf, device=f.device)
+    if not backward:
+        # Bytes: the kept points' features, every id and mask in, the grid
+        # out (a dropped point's row is never read). Operations: one max a
+        # kept value.
+        rec = dict(shape=shape, exact=True, max_abs_err=0.0,
+                   tol="equal by value",
+                   bytes=n_kept * c * 4 + n * 5 + n_pillars * c * 4,
+                   ops=n_kept * c,
+                   library=lambda: spare.scatter_reduce(0, lib_idx, f,
+                                                        "amax"))
+        return rec, (lambda: ps_ops.pillar_scatter(f, idx, valid,
+                                                   n_pillars)), \
+            (lambda: ps_ref.pillar_scatter_ref(f, idx, valid, n_pillars))
+    got = ps_ops.pillar_scatter_bwd(f, idx, valid, out, ct)
+    ref = ps_ref.pillar_scatter_bwd_ref(f, idx, valid, want, ct)
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        err = float((got - ref).abs().max())
+        fail(f"pillar_scatter_bwd {shape}: not bit-equal to the plain "
+             f"version (max abs err {err})")
+    fx = f.detach().clone().requires_grad_()
+    lib_out = spare.scatter_reduce(0, lib_idx, fx, "amax")
+    lib_ct = torch.cat([ct, ct.new_zeros((1, c))])
+    # Bytes: the kept points' features, every id and mask, the occupied
+    # pillars' rows of the grid and its cotangent in, the whole gradient
+    # out. Operations: a compare, a count, a multiply a value.
+    rec = dict(shape=shape, exact=True, max_abs_err=0.0, tol="bit for bit",
+               bytes=(n * c * 4 + n_kept * c * 4 + n * 5
+                      + 2 * occupied * c * 4),
+               ops=3 * n_kept * c, library_eager=True,
+               library=lambda: torch.autograd.grad(lib_out, fx, lib_ct,
+                                                   retain_graph=True))
+    return rec, (lambda: ps_ops.pillar_scatter_bwd(f, idx, valid, out, ct)), \
+        (lambda: ps_ref.pillar_scatter_bwd_ref(f, idx, valid, want, ct))
+
+
 def measure(torch, rec, kern, plain) -> None:
     """Time a kernel at the serving shape: device ms from CUDA-graph replays
     (as many calls a graph as fit ~100 ms, at most 50), eager ms per call;
     its plain version as a graph of 50 calls too, or, where the record
     carries a library yardstick (the attention kernels, whose plain
-    versions hold GBs of scores), eagerly over a few calls; the library
-    call from graph replays."""
+    versions hold GBs of scores; K4, whose plain forward masks with a host
+    sync), eagerly over a few calls; the library call from graph replays,
+    or eagerly where the record says so (an autograd backward)."""
     def reps(fn):
         est = eager_ms(fn, torch, runs=3, warmup=1)
         return est, max(1, min(50, int(100 / max(est, 1e-3))))
@@ -394,7 +521,10 @@ def measure(torch, rec, kern, plain) -> None:
         return
     rec["plain_ms"] = rec["plain_eager_ms"] = eager_ms(plain, torch, runs=3,
                                                        warmup=1)
-    rec["library_ms"] = graph_ms(library, torch, reps=reps(library)[1])
+    if rec.pop("library_eager", False):
+        rec["library_ms"] = eager_ms(library, torch, runs=20, warmup=3)
+    else:
+        rec["library_ms"] = graph_ms(library, torch, reps=reps(library)[1])
 
 
 def lm_run(torch, lm, decode, cfg, p, tokens, dec_tokens, max_len, dev):
@@ -564,6 +694,144 @@ def serve_lm(torch, dev, kernels, lm_configs, lm, decode, params):
     return {k: launches[k] for k in ("flash_attention", "decode_attention")}
 
 
+def checked(what: str, check, *args):
+    """Run one of ``repro_torch.testing``'s checks; a difference fails."""
+    try:
+        return check(*args)
+    except AssertionError as e:
+        fail(f"{what}: {e}")
+
+
+def check_detector_golden(testing):
+    """Det A: the small PointPillars config on the card against
+    ``tests/goldens/det3d_smoke.npz`` (written by the JAX package) by the
+    check the CPU test runs (``repro_torch.testing.check_golden``):
+    forward, loss, every gradient, detect and three AdamW steps, at the CPU
+    parity tests' tolerances; an element whose gradient lay within the
+    gradient tolerance of 0 at some step is held to AdamW's step bound, and
+    such elements must stay under 1%."""
+    res = checked("Det A", testing.check_golden, DET_GOLDEN, "cuda")
+    cfg = res["cfg"]
+    print(f"Det A: PointPillars {cfg.grid_h}x{cfg.grid_w} (feat "
+          f"{cfg.feat_dim}, dims {cfg.backbone_dims}) on the card matches "
+          f"{DET_GOLDEN.name}: forward, loss, {res['n_grads']} gradients, "
+          f"detect ({res['n_kept']} kept) and {res['steps']} AdamW steps; "
+          f"largest difference over each tensor's largest magnitude "
+          + ", ".join(f"{k} {v:.3g}"
+                                      for k, v in res["errs"].items())
+          + f"; {res['loose']} of {res['total']} trained values at the step "
+          f"bound (tolerance {testing.OUT_TOL} / {testing.GRAD_TOL})",
+          flush=True)
+
+
+def serve_detector(torch, dev, kernels, detector3d, params, optimizer,
+                   testing, kitti):
+    """Det B: the default PointPillars config at full width on the card,
+    seeded random weights, kitti-urban frames at 122,880 points: detect
+    over DET_FRAMES frames and DET_STEPS training steps (loss, backward,
+    AdamW), K4's launch counts checked; a profile of 4 detect calls; then
+    DET_CPU_FRAMES frames on the CPU against the card. Returns K4's launch
+    counts over the counted run."""
+    cfg = detector3d.PillarConfig()
+    ocfg = optimizer.AdamWConfig()
+    p0 = params.init_params(detector3d.detector_defs(cfg),
+                            torch.Generator(device=dev).manual_seed(4), dev)
+    frames = [(torch.from_numpy(pts).to(dev),
+               torch.ones(len(pts), dtype=torch.bool, device=dev),
+               torch.from_numpy(gtb).to(dev), torch.from_numpy(gtv).to(dev))
+              for pts, gtb, gtv in kitti]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def train_step(p, state, frame):
+        loss, _, grads = testing.loss_grads(p, cfg, *frame)
+        p, state, metrics = optimizer.update(ocfg, grads, state, p)
+        return p, state, loss
+
+    detector3d.detect(p0, cfg, *frames[0][:2])         # warm-ups
+    train_step(p0, optimizer.init(p0), frames[0])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    det_ms = []
+    for fr in frames:
+        t0 = time.perf_counter()
+        boxes, keep = detector3d.detect(p0, cfg, fr[0], fr[1])
+        torch.cuda.synchronize()
+        det_ms.append((time.perf_counter() - t0) * 1e3)
+    p, state, step_ms, losses = p0, optimizer.init(p0), [], []
+    for i in range(DET_STEPS):
+        t0 = time.perf_counter()
+        p, state, loss = train_step(p, state, frames[i % len(frames)])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = kernels.launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(pillar_scatter=DET_FRAMES + DET_STEPS,
+                  pillar_scatter_bwd=DET_STEPS)
+    if launches != expect:
+        fail(f"Det B launch counts {launches} != {expect}")
+    if tuple(boxes.shape) != (32, 7) or not bool(torch.isfinite(boxes).all()) \
+            or not all(math.isfinite(x) for x in losses) or \
+            not all(bool(torch.isfinite(t).all())
+                    for _, t in params.leaves(p)):
+        fail("Det B: detect boxes, losses or trained weights not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"Det B: PointPillars {cfg.grid_h}x{cfg.grid_w} at {cfg.pillar} m "
+          f"(feat {cfg.feat_dim}, dims {cfg.backbone_dims}, "
+          f"{params.param_count(detector3d.detector_defs(cfg))} parameters) "
+          f"on kitti-urban x{DET_FRAMES} at {KITTI['n_points']} points: "
+          f"detect median {statistics.median(det_ms):.3f} ms/frame (min "
+          f"{min(det_ms):.3f}, max {max(det_ms):.3f}); {DET_STEPS} training "
+          f"steps median {statistics.median(step_ms):.3f} ms/step (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}), losses "
+          f"{losses[0]:.4g} -> {losses[-1]:.4g}; launches {launches}; peak "
+          f"device memory {peak:.3f} GiB", flush=True)
+    print(profile_window(
+        torch, "detector3d detect",
+        lambda: [detector3d.detect(p0, cfg, fr[0], fr[1])
+                 for fr in frames[:4]], 4, "frame"), flush=True)
+
+    # The same weights and frames on the CPU: outputs and every gradient
+    # within the CPU parity tests' tolerances (float32 sums in another
+    # order, as between the port and JAX); detect's kept flags equal.
+    def close(got, want, tol, what):
+        return checked(what, testing.close, got, want, tol, what)
+    cpu = torch.device("cpu")
+    p_cpu = params.tree_map(lambda t: t.to(cpu), p0)
+    errs = {"forward": 0.0, "loss": 0.0, "grads": 0.0, "detect": 0.0}
+    t0 = time.perf_counter()
+    for i in range(DET_CPU_FRAMES):
+        fr, fr_cpu = frames[i], [t.to(cpu) for t in frames[i]]
+        for name, d, c in zip(("cls", "box"),
+                              detector3d.forward(p0, cfg, fr[0], fr[1]),
+                              detector3d.forward(p_cpu, cfg, *fr_cpu[:2])):
+            errs["forward"] = max(errs["forward"], close(
+                d, c, testing.OUT_TOL, f"Det B frame {i} {name}"))
+        loss_d, _, grads_d = testing.loss_grads(p0, cfg, *fr)
+        loss_c, _, grads_c = testing.loss_grads(p_cpu, cfg, *fr_cpu)
+        errs["loss"] = max(errs["loss"], close(
+            loss_d, loss_c, testing.OUT_TOL, f"Det B frame {i} loss"))
+        gc = dict(params.leaves(grads_c))
+        for path, g in params.leaves(grads_d):
+            errs["grads"] = max(errs["grads"], close(
+                g, gc[path], testing.GRAD_TOL,
+                f"Det B frame {i} grad {'/'.join(path)}"))
+        (bd, kd), (bc, kc) = (detector3d.detect(p0, cfg, fr[0], fr[1]),
+                              detector3d.detect(p_cpu, cfg, *fr_cpu[:2]))
+        if not torch.equal(kd.cpu(), kc):
+            fail(f"Det B frame {i}: detect's kept flags differ from the CPU")
+        errs["detect"] = max(errs["detect"], close(
+            bd, bc, testing.OUT_TOL, f"Det B frame {i} detect boxes"))
+    print(f"Det B: {DET_CPU_FRAMES} frames on the CPU "
+          f"({time.perf_counter() - t0:.1f} s) match the card: largest "
+          f"difference over each tensor's largest magnitude "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (tolerance {testing.OUT_TOL} / {testing.GRAD_TOL})",
+          flush=True)
+    return {k: launches[k] for k in ("pillar_scatter", "pillar_scatter_bwd")}
+
+
 def csv_rows(text: str):
     return list(csv.DictReader(io.StringIO(text)))
 
@@ -606,9 +874,13 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ops as fa_ops, \
         ref as fa_ref
     from repro_torch.kernels.iou2d import ops as iou_ops, ref as iou_ref
+    from repro_torch.kernels.pillar_scatter import ops as ps_ops, \
+        ref as ps_ref
     from repro_torch.kernels.point_proj import ops as pp_ops, ref as pp_ref
     from repro_torch.kernels.ransac_score import ops as rs_ops, ref as rs_ref
-    from repro_torch.models import decode, lm, params
+    from repro_torch.models import decode, detector3d, lm, params
+    from repro_torch import testing
+    from repro_torch.train import optimizer
     if any(m == "jax" or m.startswith(("jax.", "repro."))
            or m == "repro" for m in sys.modules):
         fail("the port pulled in jax or the JAX package")
@@ -635,6 +907,17 @@ def main() -> None:
 
     def dec(*shape):
         return lambda s: check_decode(torch, dev, dec_ops, dec_ref, *shape, s)
+
+    t0 = time.perf_counter()
+    kitti = kitti_frames(np, api, scenes, DET_FRAMES)
+    print(f"kitti-urban: {DET_FRAMES} frames of {KITTI['n_points']} points "
+          f"rendered in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def k4(kind, backward):
+        return lambda s: check_pillar_scatter(
+            torch, ps_ops, ps_ref,
+            pillar_inputs(torch, np, dev, detector3d, kitti, kind, s),
+            backward)
     checks = {
         "point_proj": [
             lambda s: check_point_proj(torch, np, dev, scenes, pp_ops, pp_ref,
@@ -673,6 +956,12 @@ def main() -> None:
             dec(4, 8, 2, 1024, 128, f32, (1, 1025)),
             dec(2, 8, 1, 700, 64, f32, [1, 700]),
             dec(2, 4, 2, 32, 16, f32, [0, 17])],
+        # Det B's shape first (the real pillar ids of a kitti-urban frame),
+        # then dense collisions, every point masked out, planted ties.
+        "pillar_scatter": [k4(kind, False) for kind in
+                           ("kitti", "dense", "invalid", "ties")],
+        "pillar_scatter_bwd": [k4(kind, True) for kind in
+                               ("kitti", "dense", "invalid", "ties")],
     }
     records = {}
     for name, cases in checks.items():
@@ -689,14 +978,16 @@ def main() -> None:
             del rec, kern, plain
         torch.cuda.empty_cache()
         r = records[name]
-        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"),
+        n_bytes = r.pop("bytes")
+        r["bound_ms"], r["bound_by"] = bound(n_bytes, r.pop("ops"),
                                              r.pop("peak", PEAK_F32_PER_S))
         lib_ms = r.get("library_ms")
         print(f"kernel {name} [{r['shape']}]: device {r['kernel_ms']:.4f} ms"
               f" (plain {r['plain_ms']:.4f} ms, library "
               f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms), eager call "
               f"{r['kernel_eager_ms']:.4f} ms (plain {r['plain_eager_ms']:.4f}"
-              f" ms), bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+              f" ms), bound {r['bound_ms']:.6f} ms ({r['bound_by']}; "
+              f"{n_bytes / 1e6:.2f} MB)"
               + (f", f32 SIMT bound {r['f32_simt_ms']:.4f} ms"
                  if "f32_simt_ms" in r else ""), flush=True)
     main_launches = {}
@@ -714,9 +1005,9 @@ def main() -> None:
     launches = kernels.launch_counts()
     kinds = report.kinds()
     n_transform = sum(k != "anchor" for k in kinds)
-    expect = {"point_proj": n_transform, "iou2d": KITTI_FRAMES,
-              "ransac_score": n_transform, "flash_attention": 0,
-              "decode_attention": 0}
+    expect = dict.fromkeys(launches, 0)
+    expect.update(point_proj=n_transform, iou2d=KITTI_FRAMES,
+                  ransac_score=n_transform)
     if launches != expect:
         fail(f"launch counts {launches} != {expect} implied by kinds {kinds}")
     main_launches.update((k, launches[k]) for k in
@@ -763,7 +1054,13 @@ def main() -> None:
     main_launches.update(serve_lm(torch, dev, kernels, lm_configs, lm, decode,
                                   params))
 
-    # -- 10. result lines -----------------------------------------------------
+    # -- 10-11. Det A and B: the PointPillars detector ----------------------
+    torch.cuda.empty_cache()
+    check_detector_golden(testing)
+    main_launches.update(serve_detector(torch, dev, kernels, detector3d,
+                                        params, optimizer, testing, kitti))
+
+    # -- 12. result lines -----------------------------------------------------
     out = []
     for name, (source, replaces) in KERNELS.items():
         r = records[name]

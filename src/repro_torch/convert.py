@@ -18,12 +18,14 @@ key's 32-bit words included) and bools stay bool. Moby's serving path has
 no learned weights: this state is what makes both sides compute the same
 thing from any frame.
 
-The language models' state converts by structure instead:
-:func:`params_from_jax` takes the parameter tree of ``init_params``
-(nested dicts of numpy arrays), checks it against the port's
-``lm.model_defs`` and keeps it float32; :func:`decode_state_from_jax`
-takes a ``DecodeState`` and keeps the caches' dtype and ``cache_pos``
-int32.
+The language models' and the detectors' weights convert by structure
+instead: :func:`params_from_jax`, :func:`detector_params_from_jax` and
+:func:`detector2d_params_from_jax` take the parameter tree of
+``init_params`` (nested dicts of numpy arrays), check it against the
+port's ``lm.model_defs``, ``detector3d.detector_defs`` or
+``detector2d.detector2d_defs`` and keep it float32;
+:func:`decode_state_from_jax` takes a ``DecodeState`` and keeps the
+caches' dtype and ``cache_pos`` int32.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import torch
 
 from repro_torch.core import (box_estimation, filtration, projection, ransac,
                               scheduler, tracking, transform)
-from repro_torch.models import decode, lm
+from repro_torch.models import decode, detector2d, detector3d, lm
 from repro_torch.models import params as params_mod
 
 # Port NamedTuples by class name; a JAX-side value converts into the class
@@ -76,20 +78,43 @@ def _float_tensor(a: Any, device: Union[str, torch.device]
     return torch.tensor(a, device=device)
 
 
+def _tree_from_jax(tree: Any, defs: Any, what: str,
+                   device: Union[str, torch.device]) -> dict:
+    want = {p: tuple(d.shape) for p, d in params_mod.leaves(defs)}
+    got = {p: tuple(np.shape(a)) for p, a in params_mod.leaves(tree)}
+    if got != want:
+        diff = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"{what}: parameter tree differs from the port's "
+                         f"definitions at {diff}")
+    return params_mod.tree_map(lambda a: to_tensor(a, device), tree)
+
+
 def params_from_jax(tree: Any, cfg: Any,
                     device: Union[str, torch.device] = "cpu") -> dict:
     """The JAX package's LM parameter tree (nested dicts of numpy arrays,
     ``np.asarray`` of every leaf) -> the port's tree of float32 tensors on
     ``device``. Raises unless the paths and shapes are those of
     ``lm.model_defs(cfg)``."""
-    want = {p: tuple(d.shape) for p, d in
-            params_mod.leaves(lm.model_defs(cfg))}
-    got = {p: tuple(np.shape(a)) for p, a in params_mod.leaves(tree)}
-    if got != want:
-        diff = sorted(set(got.items()) ^ set(want.items()))
-        raise ValueError(f"{cfg.name}: parameter tree differs from "
-                         f"model_defs at {diff}")
-    return params_mod.tree_map(lambda a: to_tensor(a, device), tree)
+    return _tree_from_jax(tree, lm.model_defs(cfg), cfg.name, device)
+
+
+def detector_params_from_jax(tree: Any, cfg: Any,
+                             device: Union[str, torch.device] = "cpu"
+                             ) -> dict:
+    """The 3D detector's JAX parameter tree (numpy leaves) -> float32
+    tensors on ``device``; raises unless it matches
+    ``detector3d.detector_defs(cfg)`` path for path, shape for shape."""
+    return _tree_from_jax(tree, detector3d.detector_defs(cfg), "detector3d",
+                          device)
+
+
+def detector2d_params_from_jax(tree: Any, cfg: Any,
+                               device: Union[str, torch.device] = "cpu"
+                               ) -> dict:
+    """The 2D detector's JAX parameter tree -> float32 tensors, checked
+    against ``detector2d.detector2d_defs(cfg)``."""
+    return _tree_from_jax(tree, detector2d.detector2d_defs(cfg),
+                          "detector2d", device)
 
 
 def decode_state_from_jax(state: Any,

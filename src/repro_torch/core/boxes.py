@@ -120,6 +120,22 @@ def _flat_pairs(b1: torch.Tensor, b2: torch.Tensor):
             shape[:-1])
 
 
+def iou_bev(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Rotated BEV IoU between boxes (..., 7) (the detector's NMS)."""
+    f1, f2, batch = _flat_pairs(b1, b2)
+    inter = rect_intersection_area(corners_bev(f1), corners_bev(f2))
+    a1 = f1[:, 3] * f1[:, 4]
+    a2 = f2[:, 3] * f2[:, 4]
+    union = a1 + a2 - inter
+    return torch.where(union > 1e-9, inter / union, 0.0).reshape(batch)
+
+
+def pairwise_iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor
+                     ) -> torch.Tensor:
+    """Pairwise BEV IoU: (N, 7) x (M, 7) -> (N, M)."""
+    return iou_bev(boxes1[:, None, :], boxes2[None, :, :])
+
+
 def iou_3d(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """Full 3D IoU between boxes (..., 7) (the paper's accuracy basis)."""
     f1, f2, batch = _flat_pairs(b1, b2)

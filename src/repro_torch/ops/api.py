@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels.decode_attention import ops as _dec_ops
 from repro_torch.kernels.flash_attention import ops as _fa_ops
 from repro_torch.kernels.iou2d import ops as _iou_ops
+from repro_torch.kernels.pillar_scatter import ops as _ps_ops
 from repro_torch.kernels.point_proj import ops as _pp_ops
 from repro_torch.kernels.ransac_score import ops as _rs_ops
 
@@ -59,6 +60,16 @@ def ransac_score(points: torch.Tensor, valid: torch.Tensor,
     """Plane-hypothesis inlier counts: (O,P,3),(O,P),(O,K,3),(O,K) ->
     (O,K) int32."""
     return _rs_ops.ransac_score(points, valid, normals, offsets, thresh)
+
+
+def pillar_scatter(feats: torch.Tensor, pillar_idx: torch.Tensor,
+                   valid: torch.Tensor, n_pillars: int) -> torch.Tensor:
+    """Scatter-max (N,C) float32 point features into a (G,C) pillar grid by
+    their (N,) int32 pillar ids; invalid points and ids outside [0, G) are
+    dropped, empty pillars read 0. Differentiable for ``feats``: the
+    gradient splits each pillar's cotangent among its tied maxima, as the
+    JAX package's VJP does."""
+    return _ps_ops.PillarScatter.apply(feats, pillar_idx, valid, n_pillars)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
