@@ -7,28 +7,56 @@
 // What bounds it on an H100: bytes. Each request's G = H/KV query heads
 // read the first cache_pos positions of their kv head's K and V once:
 // at the serving shape (B=16, H=16, KV=2, hd=128, bf16, cache_pos ~20k on
-// average) ~335 MB a call, 0.10 ms at 3.35 TB/s, against ~0.08 GFLOP.
+// average) ~335 MB a call, 0.10 ms at 3.35 TB/s, against ~0.08 GFLOP. So
+// the design is about keeping enough bytes in flight: by Little's law,
+// 3.35 TB/s over 132 SMs at ~1 us of latency needs ~25 KB in flight per SM.
 //
 // Design (flash-decoding): B*KV (b, kv-head) pairs alone would fill 32 of
 // the 132 SMs, so the cache's S axis is also split, into chunks of 512
-// positions, one block of 256 threads per (chunk, b, kv-head). A block
-// whose chunk starts at or past the request's cache_pos (read on the
-// device, no host sync) returns at once. A live block stages 64-position
-// K/V tiles in shared memory as f32 and keeps the online-softmax state
-// (m, l, acc) of its G heads in shared memory; warp w serves heads w,
-// w+8, ...: lane j scores positions j and j+32 (float4 reads, K rows
-// padded by 4 floats so the lanes hit distinct banks), the warp reduces
-// the tile's max and sum, then each lane accumulates its head dims over
-// the tile. The block writes its unnormalised partial (m, l, acc) to
-// scratch the wrapper allocates; a second small kernel combines the live
-// chunks of each (b, head) row and divides by max(l, 1e-30). Scores past
-// cache_pos (and past S) are the Pallas kernel's finite -1e30 and add
-// p = 0, so a request with cache_pos = 0 gives 0, as the Pallas kernel
-// does. Operands come through element strides (the head dim contiguous):
-// the caller passes (B, KV, S, hd) views of its (B, S, KV, hd) cache, and
-// nothing is copied or padded. Inputs f32 or bf16 are widened to f32;
-// all softmax state is f32; the output is cast back to the input type.
+// positions: one block of 256 threads per (chunk, b, kv head, group of up
+// to 8 of its query heads); a block whose chunk starts at or past the
+// request's cache_pos (read on the device, no host sync) returns at once.
+// At the serving shape that is 1,280 live blocks, ~3 waves at 3 blocks an
+// SM.
+// * K and V stay in the input type in shared memory (bf16: half the bytes
+//   of f32 tiles) and arrive by 16-byte `cp.async.cg` copies (8 bf16 a
+//   thread; a thread copies the same piece of two rows of K and of V a
+//   tile, with 32-bit offsets: no per-element index arithmetic) into a
+//   ring of 3 stages of 32 positions: two tiles (32 KB in bf16) are in
+//   flight while one is computed. Positions past the chunk's live end are
+//   zero-filled by the copy itself.
+// * K rows are padded by 16 bytes, so the 16-byte reads of eight lanes
+//   (one row each) fall in eight distinct bank groups.
+// * At hd 128 in bf16 a block takes 64 KB of shared memory (the ring
+//   50 KB; q, the partial scores, p and the softmax state 14 KB): 3 blocks
+//   an SM, 96 KB of loads in flight on each SM.
+// * The arithmetic is f32 on the SIMT cores, and each K and V value is
+//   widened to f32 once for all 8 heads of the block, not once a head:
+//   scores: lane j takes position j of the tile and warp w a slice of 16
+//   head dims, for every head (q read as broadcast float4), and the 8
+//   warps' partial dot products meet in shared memory; softmax: warp g
+//   takes head g (max and sum by warp shuffles; the running max and sum
+//   in shared memory); P.V: warp w takes 4 heads over 8 positions and
+//   each lane 4 contiguous head dims. Three __syncthreads a tile.
+// With the loads in flight, what is left to bound it is its f32 SIMT
+// instructions (a widen and an fma a value and head) more than the bytes.
+// The block writes its unnormalised partial (m, l, acc) to scratch the
+// wrapper allocates; a second small kernel combines the live chunks of
+// each (b, head) row and divides by max(l, 1e-30). Scores past cache_pos
+// (and past S) are the Pallas kernel's finite -1e30 and add p = 0, so a
+// request with cache_pos = 0 gives 0, as the Pallas kernel does. Operands
+// come through element strides (the head dim contiguous): the caller
+// passes (B, KV, S, hd) views of its (B, S, KV, hd) cache, and nothing is
+// copied or padded; the caches' base addresses and strides must be
+// 16-byte aligned, and S * stride below 2^31 (the wrapper checks). Inputs
+// f32 or bf16 are widened to f32; the output is cast back to the input
+// type.
+//
+// ptxas (-Xptxas -v, sm_90a): the bf16 partial kernel 71-80 registers a
+// thread (at most 80 for 3 blocks an SM), the f32 one 75-131, the combine
+// 32; no spills. chip_smoke.py prints the build log.
 #include <cuda_bf16.h>
+#include <stdint.h>
 
 #include "moby_kernels.cuh"
 
@@ -36,7 +64,8 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr int kChunk = 512;    // cache positions per block
-constexpr int kTile = 64;      // positions staged in shared memory at a time
+constexpr int kTile = 32;      // positions per stage: one a lane
+constexpr int kStages = 3;     // ring depth: kStages - 1 tiles in flight
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 
@@ -62,6 +91,58 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// 16 bytes global -> shared, asynchronously; zero-filled when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 32-bit words of T values -> f32 (a bf16 is the high half of an f32).
+template <typename T>
+__device__ __forceinline__ void unpack(uint32_t w, float* out) {
+  if constexpr (sizeof(T) == 4) {
+    out[0] = __uint_as_float(w);
+  } else {
+    out[0] = __uint_as_float(w << 16);
+    out[1] = __uint_as_float(w & 0xffff0000u);
+  }
+}
+
+// N consecutive T values from shared memory, in one load, widened to f32.
+template <typename T, int N>
+__device__ __forceinline__ void load_widen(const uint8_t* p,
+                                           float (&out)[N]) {
+  constexpr int kBytes = N * static_cast<int>(sizeof(T));
+  constexpr int kPer = 4 / static_cast<int>(sizeof(T));   // values a word
+  if constexpr (kBytes == 16) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    unpack<T>(w.x, out);
+    unpack<T>(w.y, out + kPer);
+    unpack<T>(w.z, out + 2 * kPer);
+    unpack<T>(w.w, out + 3 * kPer);
+  } else if constexpr (kBytes == 8) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    unpack<T>(w.x, out);
+    unpack<T>(w.y, out + kPer);
+  } else if constexpr (kBytes == 4) {
+    unpack<T>(*reinterpret_cast<const uint32_t*>(p), out);
+  } else {
+    static_assert(kBytes == 2, "one bf16");
+    out[0] = __uint_as_float(
+        static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p)) << 16);
+  }
+}
+
 struct Args {
   long long q_b, q_h;            // q (B, H, hd)
   long long k_b, k_h, k_s;       // cache_k (B, KV, S, hd)
@@ -70,153 +151,286 @@ struct Args {
   float scale;
 };
 
-__host__ __device__ constexpr int k_row(int hd) { return hd + 4; }
+// Heads a block serves: one kv head's query heads, at most kHeads of them
+// (a group of G > kHeads heads takes ceil(G / kHeads) blocks).
+constexpr int kHeads = 8;
 
-// Shared memory of a partial block: q [G][HD], K [kTile][HD+4],
-// V [kTile][HD], p [kWarps][kTile], m [G], l [G], acc [G][HD].
-__host__ __device__ constexpr int partial_smem_floats(int hd, int g) {
-  return g * hd + kTile * k_row(hd) + kTile * hd + kWarps * kTile + 2 * g +
-         g * hd;
-}
-
+// Shared memory of a partial block: a ring of kStages tiles, each K
+// [kTile][row + 16 bytes] then V [kTile][row], in the input type; then f32
+// q [kHeads][HD], the scores' partial sums [kWarps][kHeads][kTile], p
+// [kHeads][kTile], and the rescale factors, running maxima and sums
+// [kHeads] each. After the last tile the ring holds the position groups'
+// partial accumulators [kWarps / 2][kHeads][HD].
 template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads)
+struct Ring {
+  static constexpr int kRow = HD * static_cast<int>(sizeof(T));   // bytes
+  static constexpr int kKRow = kRow + 16;
+  static constexpr int kPieces = kRow / 16;        // 16-byte copies a row
+  static constexpr int kStage = kTile * (kKRow + kRow);
+  static constexpr int kBytes = kStages * kStage;
+  static constexpr int kFloats = kHeads * HD + kWarps * kHeads * kTile +
+                                 kHeads * kTile + 3 * kHeads;
+  static constexpr int kSmem = kBytes + kFloats * 4;
+  static_assert(kWarps / 2 * kHeads * HD * 4 <= kBytes, "accumulators fit");
+};
+
+// bf16: 3 blocks an SM (shared memory allows 3); f32 tiles take twice the
+// ring, so 1 block an SM, and its registers are not capped.
+template <int HD, typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 3 : 1)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ pos,
                       Args a, float* __restrict__ part_m,
                       float* __restrict__ part_l,
                       float* __restrict__ part_acc) {
+  using R = Ring<HD, T>;
+  constexpr int kSlice = HD / kWarps;          // head dims a warp scores
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));   // values a piece
+  constexpr int kLoad = kSlice < kPer ? kSlice : kPer;     // values a load
+  constexpr int kDpl = HD >= 32 ? HD / 32 : 1;  // head dims a lane sums
+  // P.V: warp w sums heads [w%2, w%2 + 1) * kHalf over positions
+  // [w/2, w/2 + 1) * kPos.
+  constexpr int kHalf = kHeads / 2;
+  constexpr int kGroups = kWarps / 2;           // position groups
+  constexpr int kPos = kTile / kGroups;
+  static_assert(kWarps % 2 == 0 && kTile % kGroups == 0, "warp split");
+  const int group = a.n_heads / a.n_kv_heads;
+  const int n_grp = (group + kHeads - 1) / kHeads;
   const int chunk = blockIdx.x;
-  const int b = blockIdx.y / a.n_kv_heads, kvh = blockIdx.y % a.n_kv_heads;
+  const int grp = blockIdx.y % n_grp;
+  const int bk = blockIdx.y / n_grp;
+  const int b = bk / a.n_kv_heads, kvh = bk % a.n_kv_heads;
   const int limit = min(pos[b], a.s_len);
   const int start = chunk * kChunk;
   if (start >= limit) return;   // the combine reads only live chunks
   const int end = min(start + kChunk, limit);
-  const int group = a.n_heads / a.n_kv_heads;
+  const int h0 = kvh * group + grp * kHeads;    // first head of the block
+  const int hg = min(kHeads, group - grp * kHeads);
 
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* k_s = q_s + group * HD;
-  float* v_s = k_s + kTile * k_row(HD);
-  float* p_s = v_s + kTile * HD;
-  float* m_s = p_s + kWarps * kTile;
-  float* l_s = m_s + group;
-  float* acc_s = l_s + group;
-
-  const T* qb = q + b * a.q_b + (kvh * group) * a.q_h;
-  for (int e = threadIdx.x; e < group * HD; e += kThreads) {
-    const int g = e / HD, d = e % HD;
-    q_s[e] = widen(qb[g * a.q_h + d]);
-    acc_s[e] = 0.0f;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem4);
+  float* q_s = reinterpret_cast<float*>(ring + R::kBytes);   // [kHeads][HD]
+  float* red_s = q_s + kHeads * HD;          // [kWarps][kHeads][kTile]
+  float* p_s = red_s + kWarps * kHeads * kTile;               // [kHeads][kTile]
+  float* corr_s = p_s + kHeads * kTile;                       // [kHeads]
+  // Head g's running max and sum, kept by warp g's lane 0.
+  float* m_s = corr_s + kHeads;                               // [kHeads]
+  float* l_s = m_s + kHeads;                                  // [kHeads]
+  if (threadIdx.x < kHeads) {
+    m_s[threadIdx.x] = kNeg;
+    l_s[threadIdx.x] = 0.0f;
   }
-  for (int g = threadIdx.x; g < group; g += kThreads) {
-    m_s[g] = kNeg;
-    l_s[g] = 0.0f;
+
+  const T* qb = q + b * a.q_b + h0 * a.q_h;
+  for (int e = threadIdx.x; e < kHeads * HD; e += kThreads) {
+    const int g = e / HD, d = e % HD;
+    q_s[e] = g < hg ? widen(qb[g * a.q_h + d]) : 0.0f;
   }
   const T* kb = k + b * a.k_b + kvh * a.k_h;
   const T* vb = v + b * a.v_b + kvh * a.v_h;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = (end - start + kTile - 1) / kTile;
 
-  for (int t0 = start; t0 < end; t0 += kTile) {
-    __syncthreads();   // q/state written, or the previous tile consumed
-    for (int e = threadIdx.x; e < kTile * HD; e += kThreads) {
-      const int j = e / HD, d = e % HD, sj = t0 + j;
-      float kx = 0.0f, vx = 0.0f;
-      if (sj < end) {
-        kx = widen(kb[sj * a.k_s + d]);
-        vx = widen(vb[sj * a.v_s + d]);
+  // Tile t of the chunk into its stage, in 16-byte pieces: a thread
+  // copies piece pc of rows pj, pj + kRowStep, ... of K and of V (32-bit
+  // offsets: the wrapper checks that S * stride fits).
+  constexpr int kRowStep = kThreads / R::kPieces;
+  constexpr int kRowsPer = (kTile + kRowStep - 1) / kRowStep;
+  const int pc = threadIdx.x % R::kPieces, pj = threadIdx.x / R::kPieces;
+  const int ks = static_cast<int>(a.k_s), vs = static_cast<int>(a.v_s);
+  auto issue = [&](int t) {
+    uint8_t* stage = ring + (t % kStages) * R::kStage + pc * 16;
+    const int t0 = start + t * kTile;
+#pragma unroll
+    for (int r = 0; r < kRowsPer; ++r) {
+      const int j = pj + r * kRowStep;
+      if (kRowStep * kRowsPer > kTile && j >= kTile) break;
+      const bool ok = t0 + j < end;
+      const int sj = ok ? t0 + j : start;   // a valid address when !ok
+      cp_async16(stage + j * R::kKRow, kb + sj * ks + pc * kPer, ok);
+      cp_async16(stage + kTile * R::kKRow + j * R::kRow,
+                 vb + sj * vs + pc * kPer, ok);
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) issue(t);
+    cp_async_commit();
+  }
+  // A lane's accumulators: its warp's kHalf heads, head dims d0 .. d0 +
+  // kDpl - 1 (at HD 16 lanes 16-31 repeat lane 0's and do not store).
+  const int hh = warp % 2, pg = warp / 2;
+  float acc[kHalf][kDpl];
+#pragma unroll
+  for (int g = 0; g < kHalf; ++g)
+#pragma unroll
+    for (int d = 0; d < kDpl; ++d) acc[g][d] = 0.0f;
+  const bool owner = lane * kDpl < HD;
+  const int d0 = owner ? lane * kDpl : 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();   // tile t has landed (this thread's part)
+    __syncthreads();                // ... every thread's; tile t-1 consumed
+    if (t + kStages - 1 < n_tiles) issue(t + kStages - 1);
+    cp_async_commit();
+    const uint8_t* stage = ring + (t % kStages) * R::kStage;
+
+    // Scores: lane j takes position j, warp w head dims [w, w+1) * kSlice,
+    // for every head: each K value is widened once and used kHeads times.
+    {
+      const uint8_t* kr = stage + lane * R::kKRow + warp * kSlice * sizeof(T);
+      // Two passes of kHeads / 2 heads keep the live registers down.
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        float part[kHeads / 2];
+#pragma unroll
+        for (int g = 0; g < kHeads / 2; ++g) part[g] = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kSlice / kLoad; ++c) {
+          float kx[kLoad];
+          load_widen<T>(kr + c * kLoad * sizeof(T), kx);
+#pragma unroll
+          for (int g = 0; g < kHeads / 2; ++g) {
+            const float* qg = q_s + (half * (kHeads / 2) + g) * HD +
+                              warp * kSlice + c * kLoad;
+            if constexpr (kLoad % 4 == 0) {   // broadcast float4 reads
+#pragma unroll
+              for (int e = 0; e < kLoad; e += 4) {
+                const float4 qq = *reinterpret_cast<const float4*>(qg + e);
+                part[g] = fmaf(qq.x, kx[e], part[g]);
+                part[g] = fmaf(qq.y, kx[e + 1], part[g]);
+                part[g] = fmaf(qq.z, kx[e + 2], part[g]);
+                part[g] = fmaf(qq.w, kx[e + 3], part[g]);
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < kLoad; ++e)
+                part[g] = fmaf(qg[e], kx[e], part[g]);
+            }
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < kHeads / 2; ++g)
+          red_s[(warp * kHeads + half * (kHeads / 2) + g) * kTile + lane] =
+              part[g];
       }
-      k_s[j * k_row(HD) + d] = kx;
-      v_s[e] = vx;
     }
     __syncthreads();
 
-    for (int g = warp; g < group; g += kWarps) {
-      const float4* qr = reinterpret_cast<const float4*>(q_s + g * HD);
-      float s[kTile / 32];
-      float tile_max = kNeg;
+    // Softmax: warp g takes head g, lane j position j.
+    if (warp < kHeads) {
+      const int g = warp;
+      float dot = 0.0f;
 #pragma unroll
-      for (int r = 0; r < kTile / 32; ++r) {
-        const int j = lane + 32 * r;
-        const float4* kr =
-            reinterpret_cast<const float4*>(k_s + j * k_row(HD));
-        float dot = 0.0f;
-#pragma unroll
-        for (int c = 0; c < HD / 4; ++c) {
-          const float4 qq = qr[c], kk = kr[c];
-          dot = fmaf(qq.x, kk.x, dot);
-          dot = fmaf(qq.y, kk.y, dot);
-          dot = fmaf(qq.z, kk.z, dot);
-          dot = fmaf(qq.w, kk.w, dot);
-        }
-        s[r] = t0 + j < end ? dot * a.scale : kNeg;
-        tile_max = fmaxf(tile_max, s[r]);
-      }
-      tile_max = warp_max(tile_max);
+      for (int w = 0; w < kWarps; ++w)
+        dot += red_s[(w * kHeads + g) * kTile + lane];
+      const bool live = g < hg && start + t * kTile + lane < end;
+      const float s = live ? dot * a.scale : kNeg;
       const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, tile_max);
+      const float m_new = fmaxf(m_old, warp_max(s));
       const float corr = expf(m_old - m_new);
-      float psum = 0.0f;
-#pragma unroll
-      for (int r = 0; r < kTile / 32; ++r) {
-        const int j = lane + 32 * r;
-        const float p = t0 + j < end ? expf(s[r] - m_new) : 0.0f;
-        p_s[warp * kTile + j] = p;
-        psum += p;
-      }
-      psum = warp_sum(psum);
-      const float l_old = l_s[g];
-      __syncwarp();
+      const float p = live ? expf(s - m_new) : 0.0f;
+      const float psum = warp_sum(p);
+      p_s[g * kTile + lane] = p;
+      __syncwarp();   // every lane has read m_s[g]
       if (lane == 0) {
+        corr_s[g] = corr;
         m_s[g] = m_new;
-        l_s[g] = l_old * corr + psum;
+        l_s[g] = l_s[g] * corr + psum;
       }
-      for (int d = lane; d < HD; d += 32) {
-        float acc = acc_s[g * HD + d] * corr;
-#pragma unroll 8
-        for (int j = 0; j < kTile; ++j)
-          acc = fmaf(p_s[warp * kTile + j], v_s[j * HD + d], acc);
-        acc_s[g * HD + d] = acc;
+    }
+    __syncthreads();
+
+    // P.V: lane its head dims; each V value is widened once and used kHalf
+    // times.
+#pragma unroll
+    for (int g = 0; g < kHalf; ++g) {
+      const float c = corr_s[hh * kHalf + g];
+#pragma unroll
+      for (int d = 0; d < kDpl; ++d) acc[g][d] *= c;
+    }
+    const uint8_t* vt = stage + kTile * R::kKRow;
+#pragma unroll
+    for (int jj = 0; jj < kPos; ++jj) {
+      const int j = pg * kPos + jj;
+      float vx[kDpl];
+      load_widen<T>(vt + j * R::kRow + d0 * sizeof(T), vx);
+#pragma unroll
+      for (int g = 0; g < kHalf; ++g) {
+        const float pj = p_s[(hh * kHalf + g) * kTile + j];
+#pragma unroll
+        for (int d = 0; d < kDpl; ++d) acc[g][d] = fmaf(pj, vx[d], acc[g][d]);
       }
-      __syncwarp();   // p_s is rewritten for the warp's next head
     }
   }
-  __syncthreads();
-  const int bh0 = b * a.n_heads + kvh * group;
-  const long long rows = static_cast<long long>(gridDim.y) * group;
-  for (int e = threadIdx.x; e < group * HD; e += kThreads) {
-    const int g = e / HD, d = e % HD;
-    part_acc[(chunk * rows + bh0 + g) * HD + d] = acc_s[e];
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: the warps' accumulators go there
+  float* acc_s = reinterpret_cast<float*>(ring);   // [kGroups][kHeads][HD]
+  if (owner) {
+#pragma unroll
+    for (int g = 0; g < kHalf; ++g)
+#pragma unroll
+      for (int d = 0; d < kDpl; ++d)
+        acc_s[(pg * kHeads + hh * kHalf + g) * HD + d0 + d] = acc[g][d];
   }
-  for (int g = threadIdx.x; g < group; g += kThreads) {
-    part_m[chunk * rows + bh0 + g] = m_s[g];
-    part_l[chunk * rows + bh0 + g] = l_s[g];
+  __syncthreads();
+  const int bh0 = b * a.n_heads + h0;
+  const long long rows = static_cast<long long>(gridDim.y / n_grp) * group;
+  for (int e = threadIdx.x; e < hg * HD; e += kThreads) {
+    const int g = e / HD, d = e % HD;
+    float sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kGroups; ++w) sum += acc_s[(w * kHeads + g) * HD + d];
+    part_acc[(chunk * rows + bh0 + g) * HD + d] = sum;
+  }
+  if (warp < hg && lane == 0) {
+    part_m[chunk * rows + bh0 + warp] = m_s[warp];
+    part_l[chunk * rows + bh0 + warp] = l_s[warp];
   }
 }
 
 // One block per (b, head) row: rescale the live chunks' partials to their
-// common max and normalise. A row without a live chunk gives 0.
+// common max and normalise. A row without a live chunk gives 0. Warp 0
+// takes the max, the chunks' weights exp(m_c - m) (into shared memory) and
+// the sum; then each thread sums its head dims over the chunks, the
+// chunks' loads independent of each other.
+constexpr int kCombineThreads = 128;
+
 template <int HD, typename T>
-__global__ void decode_combine_kernel(const int* __restrict__ pos, Args a,
-                                      const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      const float* __restrict__ part_acc,
-                                      T* __restrict__ out) {
+__global__ void __launch_bounds__(kCombineThreads)
+decode_combine_kernel(const int* __restrict__ pos, Args a,
+                      const float* __restrict__ part_m,
+                      const float* __restrict__ part_l,
+                      const float* __restrict__ part_acc,
+                      T* __restrict__ out) {
+  extern __shared__ float w_s[];   // [n_chunks]
+  __shared__ float denom_s;
   const int row = blockIdx.x;
   const long long rows = gridDim.x;
   const int limit = min(pos[row / a.n_heads], a.s_len);
   const int live = limit > 0 ? (limit + kChunk - 1) / kChunk : 0;
-  float m = kNeg;
-  for (int c = 0; c < live; ++c) m = fmaxf(m, part_m[c * rows + row]);
-  float l = 0.0f;
-  for (int c = 0; c < live; ++c)
-    l += part_l[c * rows + row] * expf(part_m[c * rows + row] - m);
-  const float denom = fmaxf(l, 1e-30f);
-  for (int d = threadIdx.x; d < HD; d += blockDim.x) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float m = kNeg;
+    for (int c = lane; c < live; c += 32)
+      m = fmaxf(m, part_m[c * rows + row]);
+    m = warp_max(m);
+    float l = 0.0f;
+    for (int c = lane; c < live; c += 32) {
+      const float w = expf(part_m[c * rows + row] - m);
+      w_s[c] = w;
+      l += part_l[c * rows + row] * w;
+    }
+    l = warp_sum(l);
+    if (lane == 0) denom_s = fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  const float denom = denom_s;
+  for (int d = threadIdx.x; d < HD; d += kCombineThreads) {
     float acc = 0.0f;
+#pragma unroll 4
     for (int c = 0; c < live; ++c)
-      acc += part_acc[(c * rows + row) * HD + d] *
-             expf(part_m[c * rows + row] - m);
+      acc += part_acc[(c * rows + row) * HD + d] * w_s[c];
     narrow(out + row * static_cast<long long>(HD) + d, acc / denom);
   }
 }
@@ -226,14 +440,14 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
            void* out, float* part_m, float* part_l, float* part_acc,
            int batch, const Args& a, cudaStream_t stream) {
   const int group = a.n_heads / a.n_kv_heads;
-  const int smem = partial_smem_floats(HD, group) *
-                   static_cast<int>(sizeof(float));
+  const int smem = Ring<HD, T>::kSmem;
   auto partial = decode_partial_kernel<HD, T>;
   if (a.n_chunks > 0) {   // an empty cache has no partials
     cudaError_t err = cudaFuncSetAttribute(
         partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(a.n_chunks, batch * a.n_kv_heads);
+    const dim3 grid(a.n_chunks,
+                    batch * a.n_kv_heads * ((group + kHeads - 1) / kHeads));
     partial<<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const int*>(pos), a, part_m,
@@ -241,8 +455,8 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  decode_combine_kernel<HD, T><<<batch * a.n_heads, HD < 128 ? HD : 128, 0,
-                                 stream>>>(
+  decode_combine_kernel<HD, T><<<batch * a.n_heads, kCombineThreads,
+                                 a.n_chunks * sizeof(float), stream>>>(
       static_cast<const int*>(pos), a, part_m, part_l, part_acc,
       static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());

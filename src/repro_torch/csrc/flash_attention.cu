@@ -2,13 +2,17 @@
 //
 // Replaces the TPU kernel
 // repro/kernels/flash_attention/flash_attention.py (flash_attention_pallas).
+// This is the f32 route: f32 inputs, and bf16 at head dims 16, 32 and 64.
+// bf16 at head dim 128 (the full-width dense configs) runs on the tensor
+// cores in flash_attention_tc.cu; kernels/flash_attention/ops.py::route
+// chooses.
 //
 // What bounds it on an H100: operations. At the serving shape of prefill
 // (B=1, H=16, KV=2, S=8192, hd=128, causal) a call does ~2.75e11 flops on
 // ~75 MB of q/k/v/o: 4.1 ms of float32 arithmetic outside the tensor cores
 // at 67 TFLOP/s, 0.28 ms on bf16 tensor cores, and 0.02 ms of memory.
-// This first kernel computes in float32 on the SIMT cores (no wgmma, no
-// TMA): its floor is the 4.1 ms.
+// This kernel computes in float32 on the SIMT cores (no wgmma, no TMA):
+// its floor at that shape would be the 4.1 ms.
 //
 // Design: one block of 256 threads per (64-row query tile, b*h); four
 // threads share a query row, each holding a quarter of the head dims of q

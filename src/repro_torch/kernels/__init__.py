@@ -1,21 +1,25 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``), each beside its plain
 PyTorch version.
 
-======================  ============================  ==================================
-kernel                  source                        replaces (TPU, Pallas)
-======================  ============================  ==================================
-``point_proj``          ``csrc/point_proj.cu``        ``repro/kernels/point_proj``
-``iou2d``               ``csrc/iou2d.cu``             ``repro/kernels/iou2d``
-``ransac_score``        ``csrc/ransac_score.cu``      ``repro/kernels/ransac_score``
-``flash_attention``     ``csrc/flash_attention.cu``   ``repro/kernels/flash_attention``
-``decode_attention``    ``csrc/decode_attention.cu``  ``repro/kernels/decode_attention``
-``pillar_scatter``      ``csrc/pillar_scatter.cu``    ``repro/kernels/pillar_scatter``
-``pillar_scatter_bwd``  ``csrc/pillar_scatter.cu``    its VJP, ``repro/ops/api.py``
-======================  ============================  ==================================
+======================  ===============================  ==================================
+kernel                  source                           replaces (TPU, Pallas)
+======================  ===============================  ==================================
+``point_proj``          ``csrc/point_proj.cu``           ``repro/kernels/point_proj``
+``iou2d``               ``csrc/iou2d.cu``                ``repro/kernels/iou2d``
+``ransac_score``        ``csrc/ransac_score.cu``         ``repro/kernels/ransac_score``
+``flash_attention``     ``csrc/flash_attention.cu``      ``repro/kernels/flash_attention``
+                                                         (f32; bf16 at hd 16, 32, 64)
+``flash_attention_tc``  ``csrc/flash_attention_tc.cu``   ``repro/kernels/flash_attention``
+                                                         (bf16 at hd 128, tensor cores)
+``decode_attention``    ``csrc/decode_attention.cu``     ``repro/kernels/decode_attention``
+``pillar_scatter``      ``csrc/pillar_scatter.cu``       ``repro/kernels/pillar_scatter``
+``pillar_scatter_bwd``  ``csrc/pillar_scatter.cu``       its VJP, ``repro/ops/api.py``
+======================  ===============================  ==================================
 
 Each wrapper (``<kernel>/ops.py``) keeps a plain-integer launch count,
 raised by one per kernel launch and nowhere else, so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. ``flash_attention`` has two
+kernels, one counter each; ``flash_attention.ops.route`` picks one.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ _COUNTERS: Dict[str, Tuple[ModuleType, str]] = {
     "iou2d": (_iou2d, "launches"),
     "ransac_score": (_ransac_score, "launches"),
     "flash_attention": (_flash_attention, "launches"),
+    "flash_attention_tc": (_flash_attention, "tc_launches"),
     "decode_attention": (_decode_attention, "launches"),
     "pillar_scatter": (_pillar_scatter, "launches"),
     "pillar_scatter_bwd": (_pillar_scatter, "bwd_launches")}

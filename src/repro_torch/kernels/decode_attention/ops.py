@@ -7,7 +7,11 @@ entry point), or the call raises. ``launches`` counts those launches.
 The kernel reads q and the caches through their strides (only the head dim
 must be contiguous), so callers pass (B, KV, S, hd) ``transpose`` views of
 their (B, S, KV, hd) caches: nothing is copied. ``cache_pos`` stays on the
-card; the kernel reads it there, with no host sync.
+card; the kernel reads it there, with no host sync. The caches arrive in
+shared memory by 16-byte asynchronous copies, so their base addresses and
+byte strides must be multiples of 16, and a (request, kv head)'s S
+positions must span fewer than 2^31 elements (32-bit offsets): the
+wrapper checks and raises, it never copies.
 """
 from __future__ import annotations
 
@@ -22,6 +26,9 @@ launches = 0
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# Query heads a block serves (kHeads in csrc/decode_attention.cu): a kv
+# head's G query heads take ceil(G / 8) blocks per cache chunk.
+HEADS_PER_BLOCK = 8
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
@@ -43,6 +50,16 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
         _launch.check_cuda("decode_attention", name, t, q.dtype,
                            (b, kv, s, hd), dev, strided=True)
+        if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                    for st in t.stride()[:3]):
+            raise ValueError(f"decode_attention: {name} (address "
+                             f"{t.data_ptr():#x}, strides {t.stride()}) is "
+                             f"not 16-byte aligned, as the kernel's "
+                             f"16-byte copies need")
+        if s * t.stride(2) >= 2 ** 31:
+            raise ValueError(f"decode_attention: {name}'s positions span "
+                             f"{s * t.stride(2)} elements, past the "
+                             f"kernel's 32-bit offsets")
     _launch.check_cuda("decode_attention", "cache_pos", cache_pos,
                        torch.int32, (b,), dev)
     if q.dtype not in DTYPES:
@@ -54,9 +71,10 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     if kv == 0 or h % kv:
         raise ValueError(f"decode_attention: {h} query heads over {kv} kv "
                          f"heads")
-    if b * kv > 65535:
-        raise ValueError(f"decode_attention: {b * kv} (request, kv head) "
-                         f"pairs exceed the kernel's grid")
+    blocks = b * kv * -(-(h // kv) // HEADS_PER_BLOCK)
+    if blocks > 65535:
+        raise ValueError(f"decode_attention: {blocks} (request, kv head, "
+                         f"head group) blocks exceed the kernel's grid")
     lib = _build.load()
     n_chunks = -(-s // lib.moby_decode_attention_chunk())
     out = torch.empty((b, h, hd), dtype=q.dtype, device=dev)

@@ -1,13 +1,23 @@
-"""Wrapper of the flash attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the two flash attention kernels.
 
 A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
-launches the kernel, or the call raises. ``launches`` counts the kernel
-launches made through this wrapper.
+launches one of two kernels, chosen by ``route`` before any launch, or the
+call raises:
+
+* ``"tc"``: bf16 at head dim 128 (every full-width dense config) runs
+  ``csrc/flash_attention_tc.cu`` on the tensor cores (wgmma fed by TMA);
+  ``tc_launches`` counts its launches;
+* ``"simt"``: f32, and bf16 at the other head dims, runs
+  ``csrc/flash_attention.cu`` in f32 on the SIMT cores; ``launches``
+  counts its launches.
 
 The kernel reads q, k and v through their strides (only the head dim must
 be contiguous), so callers pass ``transpose`` views of their
 (B, S, heads, hd) activations. On the card the output is a (B, H, SQ, hd)
-view of (B, SQ, H, hd) storage, the layout the model continues in.
+view of (B, SQ, H, hd) storage, the layout the model continues in. The
+tensor-core route reads its operands by TMA, which needs 16-byte aligned
+base addresses and strides: the wrapper checks both and raises, it never
+copies.
 """
 from __future__ import annotations
 
@@ -18,10 +28,37 @@ import torch
 from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-launches = 0
+launches = 0      # the SIMT kernel
+tc_launches = 0   # the tensor-core kernel
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+TC_HEAD_DIMS = (128,)
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel takes a CUDA call: ``"tc"`` (bf16 at a head dim of
+    ``TC_HEAD_DIMS``), ``"simt"`` (any other of ``DTYPES`` x
+    ``HEAD_DIMS``); anything else raises."""
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_attention: dtype {dtype}, the kernels take "
+                        f"{DTYPES}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {head_dim}, the kernels "
+                         f"take {HEAD_DIMS}")
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
+
+
+def _check_tma(name: str, t: torch.Tensor) -> None:
+    """TMA reads ``t`` through a tensor map: 16-byte aligned base address
+    and byte strides."""
+    if t.data_ptr() % 16 or any(s * t.element_size() % 16
+                                for s in t.stride()[:3]):
+        raise ValueError(f"flash_attention: {name} (address {t.data_ptr():#x},"
+                         f" strides {t.stride()}) is not 16-byte aligned, as "
+                         f"the tensor-core kernel's TMA loads need")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,7 +68,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Keys above the diagonal are masked when ``causal`` (query i sees keys
     [0, i]); H must be a multiple of KV.
     """
-    global launches
+    global launches, tc_launches
     if _launch.dispatch_device("flash_attention", q) == "cpu":
         return flash_attention_ref(q, k, v, causal)
     b, h, sq, hd = q.shape
@@ -40,28 +77,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            ("v", v, (b, kv, sk, hd))):
         _launch.check_cuda("flash_attention", name, t, q.dtype, shape,
                            q.device, strided=True)
-    if q.dtype not in DTYPES:
-        raise TypeError(f"flash_attention: dtype {q.dtype}, the kernel takes "
-                        f"{DTYPES}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd}, the kernel takes "
-                         f"{HEAD_DIMS}")
+    path = route(q.dtype, hd)
     if kv == 0 or h % kv:
         raise ValueError(f"flash_attention: {h} query heads over {kv} kv "
                          f"heads")
     if b * h > 65535:
         raise ValueError(f"flash_attention: {b * h} (batch, head) pairs "
                          f"exceed the kernel's grid")
+    if path == "tc":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma(name, t)
     out = torch.empty((b, sq, h, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     lib = _build.load()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    stream = _launch.stream_handle(q.device)
     with torch.cuda.device(q.device):
-        code = lib.moby_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-            b, h, kv, sq, sk, hd, int(causal), int(q.dtype == torch.bfloat16),
-            hd ** -0.5, _launch.stream_handle(q.device))
-    _build.check(code, "flash_attention")
-    launches += 1
+        if path == "tc":
+            code = lib.moby_flash_attention_tc(
+                *ptrs, strides, b, h, kv, sq, sk, int(causal), hd ** -0.5,
+                stream)
+        else:
+            code = lib.moby_flash_attention(
+                *ptrs, strides, b, h, kv, sq, sk, hd, int(causal),
+                int(q.dtype == torch.bfloat16), hd ** -0.5, stream)
+    _build.check(code, f"flash_attention ({path})")
+    if path == "tc":
+        tc_launches += 1
+    else:
+        launches += 1
     return out

@@ -10,7 +10,12 @@ position gives 0). The CUDA kernels run only on a card:
 without one (``python3 chip_smoke.py`` holds both kernels against their
 plain versions at the serving shapes).
 ``test_bf16_card_check_rejects_planted_faults`` shows, here, that the bf16
-tolerance of those card checks fails a kernel that loses one chunk or tile.
+tolerance of those card checks fails a kernel that loses one chunk or tile
+or reads the wrong kv head, and that the tensor-core flash route's
+tolerance (which allows for its p rounded to bf16 before the P.V product)
+passes the plain result computed with that rounding.
+``test_flash_route_by_dtype_and_head_dim`` holds the wrapper's choice
+between its two CUDA kernels.
 """
 import importlib.util
 import pathlib
@@ -172,8 +177,11 @@ def test_attention_wrappers_count_only_kernel_launches():
     ops.flash_attention(q, k, v, True)
     ops.decode_attention(q[:, :, 0], k, v,
                          torch.tensor([3], dtype=torch.int32))
+    (_, q), (_, k), (_, v) = _flash_inputs(1, 2, 1, 8, 8, 128, "bfloat16")
+    ops.flash_attention(q, k, v, True)    # the tensor-core route's inputs
     counts = kernels.launch_counts()
     assert counts["flash_attention"] == 0 and counts["decode_attention"] == 0
+    assert counts["flash_attention_tc"] == 0
     meta = torch.empty((1, 2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="no implementation"):
         fa_ops.flash_attention(meta, meta, meta, True)
@@ -192,32 +200,62 @@ def _chip_smoke():
     return mod
 
 
-def _within_bf16_rounding(got: torch.Tensor, want: torch.Tensor) -> bool:
+def _within_bf16_rounding(got: torch.Tensor, want: torch.Tensor,
+                          p_rounding=None) -> bool:
     """``chip_smoke.py``'s bf16 check: each value within half a bf16 ulp
-    (+2e-5 relative +1e-6) of the plain version's f32 result."""
-    limit = _chip_smoke().bf16_limit(torch, want)
+    (+2e-5 relative +1e-6) of the plain version's f32 result, plus, for the
+    tensor-core flash route, ``P_ROUNDING`` times ``p_rounding`` (the
+    root-sum-square of its p-rounding errors)."""
+    cs = _chip_smoke()
+    limit = cs.bf16_limit(torch, want)
+    if p_rounding is not None:
+        limit = limit + cs.P_ROUNDING * p_rounding
     return bool(((got.float() - want).abs() <= limit).all())
 
 
-def _hold_to_plain(got: torch.Tensor, plain, *args) -> None:
+def _hold_to_plain(got: torch.Tensor, plain, *args, p_rounding=None) -> None:
     """A kernel's output against its plain version on the same inputs: in
     f32 within 2e-5; in bf16 against the plain version's f32 result within
-    half a bf16 ulp, as ``chip_smoke.py`` holds them."""
+    half a bf16 ulp (plus the p-rounding allowance of the tensor-core
+    flash route), as ``chip_smoke.py`` holds them."""
     if got.dtype == torch.float32:
         torch.testing.assert_close(got, plain(*args), rtol=2e-5, atol=2e-5)
         return
     assert _within_bf16_rounding(got, plain(*(
         a.float() if isinstance(a, torch.Tensor) and a.is_floating_point()
-        else a for a in args)))
+        else a for a in args)), p_rounding)
+
+
+def _flash_p_rounded(q, k, v, causal):
+    """The plain version with p rounded to bf16 (round to nearest) before
+    the P.V product and l summed from the f32 p, as the tensor-core kernel
+    computes; then the output rounded to bf16."""
+    b, h, sq, hd = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kv, h // kv, sq, hd).float()
+    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.float()) * hd ** -0.5
+    live = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        live = live.tril()
+    s = torch.where(live, s, fa_ref.NEG)
+    p = torch.where(live, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    o = torch.einsum("bkgqs,bksh->bkgqh", p.bfloat16().float(), v.float())
+    o = o / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(b, h, sq, hd).bfloat16()
 
 
 @pytest.mark.parametrize("fault", ["decode_last_chunk", "decode_chunk_1",
-                                   "flash_diagonal_tile"])
+                                   "flash_diagonal_tile",
+                                   "flash_neighbour_kv_head"])
 def test_bf16_card_check_rejects_planted_faults(fault):
-    """The plain version's f32 result rounded to bf16 passes the bf16
-    check; the same with one 512-position chunk of a request or one 64-key
-    diagonal tile of a query block left out, as a faulty kernel would give
-    it, fails."""
+    """Decode attention: the plain version's f32 result rounded to bf16
+    passes the bf16 check; the same with one 512-position chunk of a
+    request left out, as a faulty kernel would give it, fails. Flash
+    attention's tensor-core route (bf16, hd 128, causal, normal inputs as
+    at the prefill shape): the plain result with p rounded to bf16 as the
+    kernel rounds it passes the check with its p-rounding allowance; one
+    64-key diagonal tile left out of a query block, or a query head read
+    against the neighbouring kv head, fails it."""
     g = torch.Generator().manual_seed(0)
 
     def randn(*shape):
@@ -234,29 +272,60 @@ def test_bf16_card_check_rejects_planted_faults(fault):
             keep = torch.cat([torch.arange(512), torch.arange(1024, 4096)])
             bad = dec_ref.decode_attention_ref(q, ck[:, :, keep],
                                                cv[:, :, keep], pos - 512)
-    else:
-        q, k, v = randn(1, 2, 1024, 64), randn(1, 1, 1024, 64), \
-            randn(1, 1, 1024, 64)
-        want = fa_ref.flash_attention_ref(q, k, v, True)
-        bad = want.clone()
+        assert _within_bf16_rounding(want.bfloat16(), want)
+        assert not _within_bf16_rounding(bad.bfloat16(), want)
+        return
+    assert fa_ops.route(torch.bfloat16, 128) == "tc"
+    q, k, v = randn(1, 4, 1024, 128), randn(1, 2, 1024, 128), \
+        randn(1, 2, 1024, 128)
+    want = fa_ref.flash_attention_ref(q, k, v, True)
+    allowance = _chip_smoke().p_rounding_term(torch, q, k, v, True)
+    assert _within_bf16_rounding(_flash_p_rounded(q, k, v, True), want,
+                                 allowance)
+    bad = want.clone()
+    if fault == "flash_diagonal_tile":
         bad[:, :, -64:] = fa_ref.flash_attention_ref(
             q[:, :, -64:], k[:, :, :-64], v[:, :, :-64], False)
-    assert _within_bf16_rounding(want.bfloat16(), want)
-    assert not _within_bf16_rounding(bad.bfloat16(), want)
+    else:   # head 1 (kv head 0) read against kv head 1
+        bad[:, 1] = fa_ref.flash_attention_ref(q[:, 1:2], k[:, 1:2],
+                                               v[:, 1:2], True)[:, 0]
+    assert not _within_bf16_rounding(bad.bfloat16(), want, allowance)
+
+
+def test_flash_route_by_dtype_and_head_dim():
+    """bf16 at head dim 128 goes to the tensor-core kernel; f32, and bf16
+    at the other head dims, to the SIMT kernel; other dtypes and head dims
+    raise before any launch."""
+    assert fa_ops.route(torch.bfloat16, 128) == "tc"
+    for hd in (16, 32, 64):
+        assert fa_ops.route(torch.bfloat16, hd) == "simt"
+    for hd in (16, 32, 64, 128):
+        assert fa_ops.route(torch.float32, hd) == "simt"
+    with pytest.raises(TypeError, match="dtype"):
+        fa_ops.route(torch.float16, 128)
+    for dtype, hd in ((torch.bfloat16, 96), (torch.float32, 256),
+                      (torch.bfloat16, 8)):
+        with pytest.raises(ValueError, match="head dim"):
+            fa_ops.route(dtype, hd)
 
 
 @pytest.mark.cuda
 def test_attention_kernels_match_plain_on_card():
-    """Each CUDA kernel agrees with its plain version on card tensors."""
+    """Each CUDA kernel agrees with its plain version on card tensors (the
+    tensor-core flash route with its p-rounding allowance)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run python3 chip_smoke.py there)")
     dev = torch.device("cuda")
+    cs = _chip_smoke()
     for shape, causal in FLASH_CASES:
         for dtype in DTYPES:
             (_, q), (_, k), (_, v) = _flash_inputs(*shape, dtype)
             q, k, v = q.to(dev), k.to(dev), v.to(dev)
+            p_rounding = cs.p_rounding_term(torch, q, k, v, causal) \
+                if fa_ops.route(q.dtype, shape[-1]) == "tc" else None
             _hold_to_plain(fa_ops.flash_attention(q, k, v, causal),
-                           fa_ref.flash_attention_ref, q, k, v, causal)
+                           fa_ref.flash_attention_ref, q, k, v, causal,
+                           p_rounding=p_rounding)
     for shape in DECODE_SHAPES:
         for dtype in DTYPES:
             (_, q), (_, ck), (_, cv), (_, pos) = _decode_inputs(*shape, dtype)

@@ -182,6 +182,7 @@ def test_cpu_tensors_never_launch_a_kernel():
     assert kernels.launch_counts() == {"point_proj": 0, "iou2d": 0,
                                        "ransac_score": 0,
                                        "flash_attention": 0,
+                                       "flash_attention_tc": 0,
                                        "decode_attention": 0,
                                        "pillar_scatter": 0,
                                        "pillar_scatter_bwd": 0}
