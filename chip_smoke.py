@@ -3,6 +3,11 @@
 Moby, the dense LMs and the PointPillars detector on an NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels flash_attention,pillar_scatter
+
+With ``--kernels`` it builds and runs phase 3 for the named kernels only
+(their checks, times and profiles) and stops there, printing no result
+line: a short bring-up call for a kernel being worked on.
 
 Needs one CUDA card, ``nvcc`` (the kernels build from ``src/repro_torch/csrc``
 on first use) and ``nvidia-smi``; imports nothing of JAX or of the JAX
@@ -20,20 +25,24 @@ fatal on failure:
    tensor-core flash route, which rounds p to bf16 for its P.V product, an
    allowance for that rounding; see ``attention_close``; the worst
    difference over its limit is printed for every case), flash attention
-   once per route (``flash_attention``: the SIMT kernel, f32 and bf16 at
-   hd 16-64, timed at LM B's shape; ``flash_attention_tc``: the tensor-core
-   kernel, bf16 at hd 128, timed at LM C's prefill shape), then timed with
-   CUDA events after a warm-up:
+   once per route (``flash_attention``: the 3xTF32 kernel, f32 and bf16
+   at hd 16-64, timed at LM B's shape and, in f32, at LM C's prefill
+   shape; ``flash_attention_tc``: the bf16 tensor-core kernel, hd 128,
+   timed at LM C's prefill shape), then timed with CUDA events after a
+   warm-up:
    device time per call from replays of a CUDA graph of up to 50 calls
    (median of 20), and the eager per-call time; the attention kernels'
    plain versions eagerly (a few calls: the flash one holds a 4.3 GB score
    tensor at the prefill shape), and PyTorch's
    ``scaled_dot_product_attention`` on the same inputs as their library
-   yardstick (timed here, used nowhere in the port); K4 ``pillar_scatter``
-   forward (equal by value) and backward (bit for bit) at Det B's shape
-   (the real pillar ids of a kitti-urban frame at 122,880 points), dense
-   collisions, all points masked out and planted ties, beside
-   ``scatter_reduce(..., "amax")`` and autograd's gradient of it;
+   yardstick (timed here, used nowhere in the port; the kernels it ran
+   are named from a profile); K4 ``pillar_scatter`` forward (equal by
+   value) and backward (bit for bit) at Det B's shape (the real pillar ids
+   of a kitti-urban frame at 122,880 points), dense collisions, all points
+   masked out, planted ties, special values, every point in one pillar,
+   points sorted by pillar, rows of 7 channels and rows at an unaligned
+   base, beside ``scatter_reduce(..., "amax")`` and autograd's gradient of
+   it, with the forward's passes timed from a profile;
 4. the Moby serving path at KITTI's own size (``kitti-urban`` at 122,880
    points and a 375x1242 image, 24 frames) on the card, with every
    kernel's launch count checked against the run's frame kinds, after a
@@ -49,13 +58,13 @@ fatal on failure:
    2 of its 36 layers in f32 (attention weights rescaled so the scores are
    of order 1, see ``check_lm``), prefill at B=2, S=256 and four decode
    steps (max_len 512), logits within 1e-4; the launches of A and B
-   checked (the SIMT flash route and decode attention, one a layer);
+   checked (the 3xTF32 flash route and decode attention, one a layer);
 9. LM C, serving qwen2.5-3B at full width (36 layers, bf16, seeded random
    weights): prefill at B=1, S=8192 (median of 3 after a warm-up) and 32
    greedy decode steps at B=16 over a 32,768-position cache filled from a
    seeded generator with ragged positions, every kernel's launch count
-   checked (the tensor-core flash route 36 per prefill and the SIMT route
-   none, decode 36 per step); ms per prefill and
+   checked (the bf16 tensor-core flash route 36 per prefill and the
+   3xTF32 route none, decode 36 per step); ms per prefill and
    per step, decode tokens/s, peak device memory, and a torch.profiler
    window over 4 decode steps;
 10. Det A, the card against JAX: the PointPillars detector at a small
@@ -89,10 +98,12 @@ SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "goldens" / "smoke.csv"
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bandwidth,
-# the float32 rate outside the tensor cores and the dense bf16 tensor rate.
+# the float32 rate outside the tensor cores and the dense bf16 and TF32
+# tensor rates.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
+PEAK_TF32_PER_S = 495e12
 
 # The golden CSV tolerance (tests/test_goldens.py).
 RTOL, ATOL = 1e-4, 1e-5
@@ -109,7 +120,7 @@ LM_GOLDEN = ROOT / "tests" / "goldens" / "lm_qwen2_5_3b_smoke.npz"
 PREFILL_B, PREFILL_S = 1, 8192
 DECODE_B, DECODE_MAX, DECODE_STEPS = 16, 32768, 32
 DECODE_POS_LO = 8192
-# LM B: full width with 2 layers in f32, prefill at B 2, S 256 (the SIMT
+# LM B: full width with 2 layers in f32, prefill at B 2, S 256 (the 3xTF32
 # flash route's shape on the main path).
 LM_B_BATCH, LM_B_S, LM_B_LAYERS = 2, 256, 2
 
@@ -126,10 +137,11 @@ KERNELS = {
               "src/repro/kernels/iou2d/iou2d.py:36"),
     "ransac_score": ("src/repro_torch/csrc/ransac_score.cu",
                      "src/repro/kernels/ransac_score/ransac_score.py:34"),
+    # The 3xTF32 route (f32; bf16 at head dims 16-64).
     "flash_attention": (
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:78"),
-    # The same TPU kernel's tensor-core route (bf16, head dim 128).
+    # The same TPU kernel's bf16 tensor-core route (head dim 128).
     "flash_attention_tc": (
         "src/repro_torch/csrc/flash_attention_tc.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:78"),
@@ -234,6 +246,32 @@ def profile_window(torch, label: str, run, n: int, unit: str) -> str:
             f"({100 * busy_us / wall_us:.1f}% of wall), "
             f"{launches / n:.0f} device ops/{unit}; top device time: "
             f"{top}; top kernels: {top_k}")
+
+
+def device_kernels(torch, fn, calls: int = 10):
+    """Device time per call of each kernel (and memset) that ``fn()``
+    launches, from a torch.profiler window over ``calls`` calls after a
+    warm-up: [(name, ms a call, launches a call)], the longest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    return sorted(((e.key, e.self_device_time_total / 1e3 / calls,
+                    e.count / calls) for e in dev), key=lambda x: -x[1])
+
+
+def kernels_line(label: str, kerns) -> str:
+    if not kerns:
+        return f"profile {label}: no device time in the trace (not measured)"
+    return f"profile {label}: " + "; ".join(
+        f"{name[:90]} {ms:.5f} ms x{n:g}" for name, ms, n in kerns)
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_PER_S):
@@ -421,13 +459,17 @@ def check_flash(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
     # Live (query, key) pairs: query i sees keys [0, i] when causal.
     pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
     elt = q.element_size()
+    ops = 4 * hd * b * h * pairs
+    # The bf16 route's products are single bf16 products; the 3xTF32
+    # route's are three TF32 products each in f32 (Q.K^T one and P.V two
+    # for bf16 inputs, which TF32 holds exactly).
+    tf32_terms = 3 if dtype == torch.float32 else 1.5
     rec = dict(shape=shape, exact=exact, max_abs_err=err, tol=tol,
                worst=worst,
                bytes=(2 * b * h * sq * hd + 2 * b * kv * sk * hd) * elt,
-               ops=4 * hd * b * h * pairs,
-               peak=PEAK_BF16_PER_S if dtype == torch.bfloat16
-               else PEAK_F32_PER_S,
-               f32_simt_ms=4 * hd * b * h * pairs / PEAK_F32_PER_S * 1e3,
+               ops=ops if route == "tc" else tf32_terms * ops,
+               peak=PEAK_BF16_PER_S if route == "tc" else PEAK_TF32_PER_S,
+               f32_simt_ms=ops / PEAK_F32_PER_S * 1e3,
                library=lambda: torch.nn.functional.scaled_dot_product_attention(
                    q, k, v, is_causal=causal, enable_gqa=True))
     return rec, (lambda: fa_ops.flash_attention(q, k, v, causal)), \
@@ -485,15 +527,48 @@ def kitti_frames(np, api, scenes, n: int, seed: int = 0):
     return out
 
 
+def pillar_special_inputs(np, seed: int = 0):
+    """K4's ``specials`` case as numpy arrays (feats (N, C) f32, ids (N,)
+    i32, mask (N,) bool, G): +-0, +-inf, NaN of either sign, subnormals
+    and the smallest normals sprinkled over normal values; pillars 0-7 hold
+    only negative values, pillar 8 only -inf, pillar 9 only zeros and
+    subnormals; pillar G-1 is occupied; kept points with ids at or past G
+    are dropped. C = 32: the 16-byte path. ``tests/test_torch_pillar_
+    scatter.py`` holds the plain version to JAX's on these inputs."""
+    rng = np.random.default_rng(seed)
+    n, c, g = 4096, 32, 256
+    f = rng.normal(size=(n, c)).astype(np.float32)
+    idx = rng.integers(10, g, n).astype(np.int32)
+    valid = rng.uniform(size=n) < 0.9
+    tiny = np.finfo(np.float32).tiny
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1e-40,
+                         -1e-40, 1e-45, -1e-45, tiny, -tiny], np.float32)
+    hit = rng.uniform(size=(n, c)) < 0.1
+    f[hit] = rng.choice(specials, size=int(hit.sum()))
+    idx[48:448] = rng.integers(0, 8, 400)          # all-negative pillars
+    f[48:448] = -np.abs(f[48:448])
+    idx[:16], valid[:16], f[:16] = 8, True, -np.inf
+    idx[16:32], valid[16:32] = 9, True
+    f[16:32] = rng.choice(specials[[0, 1, 6, 7, 8, 9]], size=(16, c))
+    idx[32:40], valid[32:40] = g - 1, True
+    idx[40:44], valid[40:44] = [g, g + 3, g + 100, 2 ** 31 - 1], True
+    return f, idx, valid, g
+
+
 def pillar_inputs(torch, np, dev, detector3d, kitti, kind: str, seed: int):
     """K4's inputs on the card: (feats, ids, mask, G, cotangent, label).
     ``kitti``: the real pillar ids of a kitti-urban frame under the default
     PillarConfig and ReLU'd PointNet features from seeded weights (ties at
-    0, as on the detector's path); ``dense``: N=4096 points in 256 pillars,
-    C=64; ``invalid``: every point masked out; ``ties``: ReLU'd features
-    rounded to 0.1, so most channels hold several equal maxima."""
+    0, as on the detector's path); ``sorted``: the same points sorted by
+    pillar; ``dense``: N=4096 points in 256 pillars, C=64; ``invalid``:
+    every point masked out; ``ties``: ReLU'd features rounded to 0.1, so
+    most channels hold several equal maxima; ``specials``:
+    ``pillar_special_inputs``; ``one-pillar``: every kept point in one
+    pillar (the most contention, the most combining); ``rows-c7``: rows of
+    7 channels; ``unaligned``: rows at a base 4 bytes past a 16-byte
+    boundary."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    if kind == "kitti":
+    if kind in ("kitti", "sorted"):
         cfg = detector3d.PillarConfig()
         pts = torch.from_numpy(kitti[0][0]).to(dev)
         f9, idx, valid = detector3d.pillarize(
@@ -501,19 +576,60 @@ def pillar_inputs(torch, np, dev, detector3d, kitti, kind: str, seed: int):
         w = torch.randn((9, cfg.feat_dim), generator=g, device=dev) / 3
         feats = torch.relu(f9 @ w).contiguous()
         n_pillars = cfg.grid_h * cfg.grid_w
+        if kind == "sorted":
+            order = torch.sort(idx, stable=True).indices
+            feats, idx, valid = feats[order], idx[order], valid[order]
+    elif kind == "specials":
+        feats, idx, valid, n_pillars = (
+            torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray) else a
+            for a in pillar_special_inputs(np, seed))
     else:
         n, c, n_pillars = {"dense": (4096, 64, 256),
                            "invalid": (4096, 32, 1024),
-                           "ties": (8192, 32, 512)}[kind]
-        feats = torch.randn((n, c), generator=g, device=dev)
+                           "ties": (8192, 32, 512),
+                           "one-pillar": (8192, 32, 1024),
+                           "rows-c7": (4096, 7, 512),
+                           "unaligned": (4096, 32, 512)}[kind]
+        if kind == "unaligned":
+            feats = torch.randn((n * c + 1,), generator=g,
+                                device=dev)[1:].view(n, c)
+        else:
+            feats = torch.randn((n, c), generator=g, device=dev)
         if kind == "ties":
             feats = torch.round(torch.relu(feats) * 10) / 10
         idx = torch.randint(0, n_pillars, (n,), generator=g, device=dev,
                             dtype=torch.int32)
+        if kind == "one-pillar":
+            idx.fill_(n_pillars // 3)
         valid = torch.rand((n,), generator=g, device=dev) < (
             0.0 if kind == "invalid" else 0.9)
     ct = torch.randn((n_pillars, feats.shape[1]), generator=g, device=dev)
     return feats, idx, valid, n_pillars, ct, kind
+
+
+# Points a warp of K4's forward takes at a time (kBatch in
+# src/repro_torch/csrc/pillar_scatter.cu).
+K4_BATCH = 8
+
+
+def combining(torch, idx, kept) -> str:
+    """What the forward's combining can save on these ids, counted on the
+    host: the share of adjacent kept points in the same pillar, and the
+    row atomics the kernel sends (one for each run of consecutive kept
+    points in one pillar, within a warp's batch of K4_BATCH points)
+    against one a kept point."""
+    ids = torch.where(kept, idx, -1).cpu()
+    kid = ids[ids >= 0]
+    adjacent = float((kid[1:] == kid[:-1]).float().mean()) \
+        if len(kid) > 1 else 0.0
+    batch = torch.cat([ids, ids.new_full(((-len(ids)) % K4_BATCH,), -1)])
+    batch = batch.view(-1, K4_BATCH)
+    head = batch >= 0
+    head[:, 1:] &= batch[:, 1:] != batch[:, :-1]
+    sends = int(head.sum())
+    return (f"{adjacent:.4f} of adjacent kept points share a pillar; "
+            f"{sends} row atomics for {len(kid)} kept points "
+            f"({sends / max(len(kid), 1):.4f})")
 
 
 def check_pillar_scatter(torch, ps_ops, ps_ref, inputs, backward: bool):
@@ -529,7 +645,7 @@ def check_pillar_scatter(torch, ps_ops, ps_ref, inputs, backward: bool):
     occupied = int((per_pillar > 0).sum())
     shape = (f"N={n} C={c} G={n_pillars} ({kind}, {n_kept} kept in "
              f"{occupied} pillars, at most {int(per_pillar.max())} a "
-             f"pillar)")
+             f"pillar; {combining(torch, idx, kept)})")
     out = ps_ops.pillar_scatter(f, idx, valid, n_pillars)
     want = ps_ref.pillar_scatter_ref(f, idx, valid, n_pillars)
     if not torch.equal(out, want):
@@ -578,7 +694,9 @@ def measure(torch, rec, kern, plain) -> None:
     carries a library yardstick (the attention kernels, whose plain
     versions hold GBs of scores; K4, whose plain forward masks with a host
     sync), eagerly over a few calls; the library call from graph replays,
-    or eagerly where the record says so (an autograd backward)."""
+    or eagerly where the record says so (an autograd backward). The
+    kernels (and memsets) that the kernel's and the library's calls
+    launch, with device time a call, come from a profile."""
     def reps(fn):
         est = eager_ms(fn, torch, runs=3, warmup=1)
         return est, max(1, min(50, int(100 / max(est, 1e-3))))
@@ -586,6 +704,7 @@ def measure(torch, rec, kern, plain) -> None:
     rec["kernel_ms"] = graph_ms(kern, torch, reps=n)
     rec["kernel_eager_ms"] = eager_ms(
         kern, torch, runs=max(5, min(100, int(1000 / max(est, 1e-2)))))
+    rec["kernels"] = device_kernels(torch, kern)
     library = rec.pop("library", None)
     if library is None:
         rec["plain_ms"] = graph_ms(plain, torch)
@@ -597,6 +716,7 @@ def measure(torch, rec, kern, plain) -> None:
         rec["library_ms"] = eager_ms(library, torch, runs=20, warmup=3)
     else:
         rec["library_ms"] = graph_ms(library, torch, reps=reps(library)[1])
+    rec["library_kernels"] = device_kernels(torch, library, calls=3)
 
 
 def lm_run(torch, lm, decode, cfg, p, tokens, dec_tokens, max_len, dev):
@@ -631,7 +751,7 @@ def check_lm(torch, np, dev, kernels, lm_configs, convert, lm, decode,
     """LM phases A (qwen2.5-3B SMOKE in f32 with the JAX golden's weights,
     against its logits) and B (full width with 2 layers in f32, the card
     against the CPU). Both are the f32 serving path: their attention goes
-    to the SIMT flash route and to decode attention, one launch a layer a
+    to the 3xTF32 flash route and to decode attention, one launch a layer a
     prefill or step; returns those launch counts, checked."""
     f32 = torch.float32
     kernels.reset_launch_counts()
@@ -938,11 +1058,65 @@ def compare_rows(got, want, what: str) -> None:
                  f"{bad}: got {dict(g)} want {dict(w)}")
 
 
+PILLAR_CASES = ("kitti", "dense", "invalid", "ties", "specials", "one-pillar",
+                "sorted", "rows-c7", "unaligned")
+
+
+def report_timing(name: str, r) -> None:
+    """Turn a measured record's bytes and operations into its bound, and
+    print its times and the kernels its calls launched."""
+    n_bytes = r.pop("bytes")
+    r["bound_ms"], r["bound_by"] = bound(n_bytes, r.pop("ops"),
+                                         r.pop("peak", PEAK_F32_PER_S))
+    lib_ms = r.get("library_ms")
+    print(f"kernel {name} [{r['shape']}]: device {r['kernel_ms']:.5f} ms"
+          f" (plain {r['plain_ms']:.4f} ms, library "
+          f"{'-' if lib_ms is None else f'{lib_ms:.5f}'} ms), eager call "
+          f"{r['kernel_eager_ms']:.4f} ms (plain {r['plain_eager_ms']:.4f}"
+          f" ms), bound {r['bound_ms']:.6f} ms ({r['bound_by']}; "
+          f"{n_bytes / 1e6:.2f} MB)"
+          + (f", f32 SIMT bound {r['f32_simt_ms']:.5f} ms"
+             if "f32_simt_ms" in r else ""), flush=True)
+    print("  " + kernels_line(f"{name} kernel", r["kernels"]), flush=True)
+    if "library_kernels" in r:
+        print("  " + kernels_line(f"{name} library",
+                                  r["library_kernels"][:4]), flush=True)
+
+
+def timing(r) -> dict:
+    """The measured numbers of a record, as the JSON line gives them."""
+    lib = r.get("library_kernels")
+    return {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
+            "exact": r["exact"], "worst_over_tol": r.get("worst"),
+            "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "eager_ms": r["kernel_eager_ms"],
+            "plain_eager_ms": r["plain_eager_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "f32_simt_bound_ms": r.get(
+                "f32_simt_ms"), "library_ms": r.get("library_ms"),
+            "library_kernel": lib[0][0] if lib else None,
+            "passes": [[k, ms] for k, ms, _ in r["kernels"]]}
+
+
+def kernel_entry(name: str, r, launches) -> dict:
+    source, replaces = KERNELS[name]
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, **timing(r)}
+    for key in ("f32_prefill", "sorted"):
+        if key in r:
+            entry[key] = timing(r[key])
+    return entry
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"a checkout of the repository")
     sys.path.insert(0, str(SRC))
+    only = set()
+    if sys.argv[1:2] == ["--kernels"] and len(sys.argv) == 3:
+        only = set(sys.argv[2].split(","))
+    elif sys.argv[1:]:
+        fail(f"usage: {Path(__file__).name} [--kernels NAME[,NAME...]]")
     import numpy as np
     import torch
 
@@ -997,8 +1171,8 @@ def main() -> None:
         return lambda s: check_decode(torch, dev, dec_ops, dec_ref, *shape, s)
 
     t0 = time.perf_counter()
-    kitti = kitti_frames(np, api, scenes, DET_FRAMES)
-    print(f"kitti-urban: {DET_FRAMES} frames of {KITTI['n_points']} points "
+    kitti = kitti_frames(np, api, scenes, 1 if only else DET_FRAMES)
+    print(f"kitti-urban: {len(kitti)} frames of {KITTI['n_points']} points "
           f"rendered in {time.perf_counter() - t0:.1f} s", flush=True)
 
     def k4(kind, backward):
@@ -1026,11 +1200,13 @@ def main() -> None:
                                    s),
             lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 3, 7, 1000,
                                    s)],
-        # The SIMT route (f32; bf16 at hd 16, 32, 64): LM B's prefill
-        # shape first (full width in f32), then GQA, ragged MQA, keys
-        # longer than queries, the SMOKE configs' head dim, bf16 at hd 64.
+        # The 3xTF32 route (f32; bf16 at hd 16, 32, 64): LM B's prefill
+        # shape first (full width in f32), LM C's prefill shape in f32 (also
+        # timed), then GQA, ragged MQA, keys longer than queries, the SMOKE
+        # configs' head dim, bf16 at hd 64.
         "flash_attention": [
             flash(LM_B_BATCH, 16, 2, LM_B_S, LM_B_S, 128, f32, True),
+            flash(PREFILL_B, 16, 2, PREFILL_S, PREFILL_S, 128, f32, True),
             flash(2, 8, 2, 512, 512, 128, f32, True),
             flash(1, 4, 1, 300, 300, 64, f32, True),
             flash(2, 2, 2, 128, 640, 64, f32, False),
@@ -1055,39 +1231,39 @@ def main() -> None:
             dec(2, 4, 2, 32, 16, f32, [0, 17]),
             dec(2, 4, 2, 100, 16, bf16, [0, 97])],
         # Det B's shape first (the real pillar ids of a kitti-urban frame),
-        # then dense collisions, every point masked out, planted ties.
-        "pillar_scatter": [k4(kind, False) for kind in
-                           ("kitti", "dense", "invalid", "ties")],
-        "pillar_scatter_bwd": [k4(kind, True) for kind in
-                               ("kitti", "dense", "invalid", "ties")],
+        # then dense collisions, every point masked out, planted ties,
+        # special values, one pillar, sorted points, the 4-byte path.
+        "pillar_scatter": [k4(kind, False) for kind in PILLAR_CASES],
+        "pillar_scatter_bwd": [k4(kind, True) for kind in PILLAR_CASES],
     }
+    # Besides each kernel's first case (the serving path's shape), these
+    # are timed too: (kernel, case) -> key of its record.
+    also_timed = {("flash_attention", 1): "f32_prefill",
+                  ("pillar_scatter", PILLAR_CASES.index("sorted")): "sorted"}
     records = {}
     for name, cases in checks.items():
+        if only and name not in only:
+            continue
         for i, case in enumerate(cases):
             rec, kern, plain = case(i)
             torch.cuda.synchronize()
-            if i == 0:   # the serving path's shape: measure it
-                measure(torch, rec, kern, plain)
-                records[name] = rec
             print(f"kernel {name} [{rec['shape']}]: matches the plain version"
                   f" (max abs err {rec['max_abs_err']}"
                   + (f", tolerance {rec['tol']}" if "tol" in rec else "")
                   + ")", flush=True)
+            if i == 0 or (name, i) in also_timed:
+                measure(torch, rec, kern, plain)
+                report_timing(name, rec)
+                if i == 0:
+                    records[name] = rec
+                else:
+                    records[name][also_timed[name, i]] = rec
             del rec, kern, plain
-        torch.cuda.empty_cache()
-        r = records[name]
-        n_bytes = r.pop("bytes")
-        r["bound_ms"], r["bound_by"] = bound(n_bytes, r.pop("ops"),
-                                             r.pop("peak", PEAK_F32_PER_S))
-        lib_ms = r.get("library_ms")
-        print(f"kernel {name} [{r['shape']}]: device {r['kernel_ms']:.4f} ms"
-              f" (plain {r['plain_ms']:.4f} ms, library "
-              f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms), eager call "
-              f"{r['kernel_eager_ms']:.4f} ms (plain {r['plain_eager_ms']:.4f}"
-              f" ms), bound {r['bound_ms']:.6f} ms ({r['bound_by']}; "
-              f"{n_bytes / 1e6:.2f} MB)"
-              + (f", f32 SIMT bound {r['f32_simt_ms']:.4f} ms"
-                 if "f32_simt_ms" in r else ""), flush=True)
+            torch.cuda.empty_cache()
+    if only:
+        print(json.dumps({"kernels": [kernel_entry(name, records[name], None)
+                                      for name in records]}))
+        return
     main_launches = {}
 
     # -- 4. KITTI-size serving on the card ---------------------------------
@@ -1160,21 +1336,9 @@ def main() -> None:
                                         params, optimizer, testing, kitti))
 
     # -- 12. result lines -----------------------------------------------------
-    out = []
-    for name, (source, replaces) in KERNELS.items():
-        r = records[name]
-        out.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "shape": r["shape"],
-            "launches": main_launches[name], "max_abs_err": r["max_abs_err"],
-            "exact": r["exact"], "worst_over_tol": r.get("worst"),
-            "ms": r["kernel_ms"],
-            "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
-            "eager_ms": r["kernel_eager_ms"],
-            "plain_eager_ms": r["plain_eager_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r.get("library_ms")})
-    print(json.dumps({"kernels": out}))
+    print(json.dumps({"kernels": [
+        kernel_entry(name, records[name], main_launches[name])
+        for name in KERNELS]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,51 +1,98 @@
-// Blocked online-softmax attention (prefill), GQA-aware.
+// Blocked online-softmax attention (prefill), GQA-aware, f32-accurate on
+// the tensor cores by a 3xTF32 split.
 //
 // Replaces the TPU kernel
 // repro/kernels/flash_attention/flash_attention.py (flash_attention_pallas).
-// This is the f32 route: f32 inputs, and bf16 at head dims 16, 32 and 64.
-// bf16 at head dim 128 (the full-width dense configs) runs on the tensor
-// cores in flash_attention_tc.cu; kernels/flash_attention/ops.py::route
-// chooses.
+// This is the "tf32x3" route: f32 inputs, and bf16 at head dims 16, 32
+// and 64. bf16 at head dim 128 (the full-width dense configs) runs on the
+// tensor cores in bf16 in flash_attention_tc.cu;
+// kernels/flash_attention/ops.py::route chooses.
 //
 // What bounds it on an H100: operations. At the serving shape of prefill
-// (B=1, H=16, KV=2, S=8192, hd=128, causal) a call does ~2.75e11 flops on
+// (B=1, H=16, KV=2, S=8192, hd=128, causal) a call does 2.75e11 flops on
 // ~75 MB of q/k/v/o: 4.1 ms of float32 arithmetic outside the tensor cores
-// at 67 TFLOP/s, 0.28 ms on bf16 tensor cores, and 0.02 ms of memory.
-// This kernel computes in float32 on the SIMT cores (no wgmma, no TMA):
-// its floor at that shape would be the 4.1 ms.
+// at 67 TFLOP/s, against 0.02 ms of memory. The tensor cores take TF32
+// (10-bit mantissas) at 495 TFLOP/s; three TF32 products a product keep
+// f32 accuracy, so the floor is 3 x 2.75e11 / 495e12 = 1.67 ms. mma.sync
+// reaches only part of that TF32 rate, and float32 instructions do not
+// issue beside its products while integer ones do
+// (tools/mma_sync_rate.py measures both; PERF.md has the numbers): the
+// splits' subtractions and the softmax cost time of their own.
 //
-// Design: one block of 256 threads per (64-row query tile, b*h); four
-// threads share a query row, each holding a quarter of the head dims of q
-// and of the f32 accumulator in registers, in 4-wide groups so shared
-// memory is read as float4. Key/value tiles of 64 positions are staged in
-// dynamic shared memory as f32 (64 KB at hd=128, above the 48 KB static
-// limit). A row's partial dot products meet through two warp shuffles.
-// The loop over key tiles stops at the causal limit of the query tile;
-// inside the diagonal tile and past sk the scores are masked to the
-// Pallas kernel's finite -1e30, and masked keys contribute p = 0, so a row
-// with no live key gives 0 (as the Pallas kernel does). The causal grid
-// runs its heaviest query tiles first. Operands are read through element
-// strides (the head dim contiguous), so the caller passes transposed views
-// of its (B, S, heads, hd) layouts and nothing is copied; ragged edges are
-// masked, nothing is padded. Inputs f32 or bf16 are widened to f32;
-// scores, the running max and sum and the accumulator are f32; the output
-// is cast back to the input type (round to nearest even). Products are
-// explicit fmaf (the library builds with -fmad=false).
+// The 3xTF32 split. Each f32 operand x becomes hi = x rounded to TF32
+// (nearest, ties away from zero: what cvt.rna.tf32.f32 computes, done here
+// by two integer operations on the bits, which issue beside the products)
+// and lo = x - hi, exact in f32, which the tensor core reads truncated to
+// TF32. A product is taken as lo_a*hi_b + hi_a*lo_b + hi_a*hi_b by
+// mma.sync.m16n8k8 (TF32 in, f32 accumulators); the dropped lo_a*lo_b is
+// below 2^-22 of it. bf16 values are exact in TF32, so for bf16 Q.K^T
+// takes one product and P.V two (p split, V exact).
+//
+// Why mma.sync and not wgmma: wgmma transposes only 16-bit operands, so a
+// TF32 B operand must be K-major in shared memory, and V in P.V is
+// MN-major (the head dim contiguous). With mma.sync every thread loads its
+// own B fragment from shared memory in any layout.
+//
+// Design:
+// * one block of NW = 8 warps (4 where 8 would leave SMs idle: the grid is
+//   sized on the host from the SM count) per (query tile, b, group of hb
+//   query heads of one kv head), hb = gcd(H / KV, NW). Each warp takes 16
+//   query rows of one head (the mma's M), so a block stacks hb heads x
+//   16 * NW / hb rows, and each K/V tile is read from memory once for all
+//   of them (qwen2.5-3B: 8 heads a kv head, one block a group at NW = 8).
+//   The causal grid runs its heaviest query tiles first;
+// * K and V tiles of 64 keys arrive by 16-byte cp.async (zero-filled past
+//   sk) in a 2-stage ring in dynamic shared memory, the next tile in
+//   flight while one is consumed: one __syncthreads a tile. Rows are
+//   padded (4 floats or 8 bf16) so that the B fragments, K[key g][dim t,
+//   t+4] for Q.K^T and V[key 2t, 2t+1][dim g] for P.V, are read without
+//   bank conflicts. The wrapper checks 16-byte aligned bases and strides;
+// * a warp keeps its Q fragments in shared memory (f32, in fragment order:
+//   one 16-byte load a k-step) and its O accumulator in registers; each B
+//   fragment is split in registers as it is loaded. At hd 128 the block
+//   holds 64 KB of Q and 132 KB of ring, one block an SM. Splitting each
+//   K/V tile once for the block into shared memory was slower on the card
+//   (twice the fragment loads), as were 32-key tiles; 4-warp blocks are
+//   faster where 8-warp ones would leave SMs idle (LM B's shape) and
+//   slower elsewhere (the prefill shape);
+// * the online softmax runs in f32 on the accumulator fragments (a row
+//   lives on the 4 threads of a quad: two shuffles for its max; the sum l
+//   stays per thread until the end), as p = 2^(s c - m c) with c = scale *
+//   log2(e), one fma and the SFU's ex2.approx; only the tiles that cross
+//   sk or a row's diagonal are masked, and the accumulator is rescaled
+//   only when some row's max moved. P goes from the S accumulators to
+//   P.V's A fragments without shuffles: P.V's k index t stands for key 2t
+//   and t + 4 for key 2t + 1, and the B fragment reads V's rows in that
+//   order;
+// * semantics are the Pallas kernel's: masked scores are the finite -1e30
+//   and masked keys give p = 0 (so a row with no live key gives 0); the
+//   causal limit is kj <= qi and keys past sk are masked; the output is
+//   acc / max(l, 1e-30), rounded to the input type (nearest even); rows
+//   >= sq are not stored. The library builds with -fmad=false: the one
+//   intended fused multiply-add is an explicit __fmaf_rn.
 #include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "moby_kernels.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kBq = 64;                // query rows per block
-constexpr int kBk = 64;                // key positions per shared tile
-constexpr int kTpr = 4;                // threads per query row
-constexpr int kThreads = kBq * kTpr;   // 256
+constexpr int kBk = 64;          // key positions a shared tile
+constexpr int kStages = 2;       // tiles in the cp.async ring
+constexpr unsigned kFull = 0xffffffffu;
+// Dynamic shared memory a block may use on an H100 (227 KB).
+constexpr int kMaxSmem = 232448;
 
-struct Strides {                       // in elements; the head dim has stride 1
+struct Strides {                 // in elements; the head dim has stride 1
   long long b, h, s;
 };
+
+// Shared row padding, in elements: 16 bytes either way.
+template <typename T>
+constexpr int kPad = 16 / sizeof(T);
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -56,166 +103,369 @@ __device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// Thread `part` of a row owns head dims c*16 + part*4 + {0..3}.
-__device__ __forceinline__ int dim_of(int c, int part) {
-  return c * (4 * kTpr) + part * 4;
+// hi: x rounded to TF32, nearest with ties away from zero (the rounding
+// of cvt.rna.tf32.f32, by two integer operations), as f32 bits with the 13
+// low mantissa bits clear; lo: the rest, x - hi, exact in f32, which the
+// tensor core reads truncated to TF32 (it ignores a TF32 operand's 13 low
+// bits), as CUTLASS's 3xTF32 rounds its small part.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
+// 2^x by the SFU's ex2.approx: a relative error below 2^-22; results
+// below 2^-126 flush to 0 (a row's largest p is 1).
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared memory of a block: each warp's Q fragments ([warp][hd/8][lane]
+// of 4 f32 words), then a ring of K/V stages ([K, V][kBk][hd + pad] each).
+template <int HD, typename T, int NW>
+struct Smem {
+  static constexpr int kQ = NW * (HD / 8) * 32 * 16;
+  static constexpr int kBytes =
+      kQ + kStages * 2 * kBk * (HD + kPad<T>) * static_cast<int>(sizeof(T));
+  static_assert(kBytes <= kMaxSmem, "shared memory");
+};
+
+// d += a (16x8, row) . b (8x8, col), TF32 in, f32 accumulators.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Keys [k0, k0 + kBk) of K and V into one stage: [K | V][kBk][HD + pad].
+template <int HD, typename T, int NW>
+__device__ __forceinline__ void load_tile(T* stage, const T* kb,
+                                          long long kss, const T* vb,
+                                          long long vss, int k0, int sk) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = HD / kVec;        // 16-byte chunks a row
+  constexpr int kRow = HD + kPad<T>;
+  for (int c = threadIdx.x; c < kBk * kChunks; c += NW * 32) {
+    const int r = c / kChunks, col = c % kChunks * kVec;
+    const bool ok = k0 + r < sk;
+    const long long kj = ok ? k0 + r : 0;
+    cp_async16(stage + r * kRow + col, kb + kj * kss + col, ok);
+    cp_async16(stage + (kBk + r) * kRow + col, vb + kj * vss + col, ok);
+  }
+}
+
+// A B fragment element of a stage, split (f32); bf16 is exact in TF32
+// (lo unused).
+template <typename T>
+__device__ __forceinline__ void fragment(const T* at, uint32_t& hi,
+                                         uint32_t& lo) {
+  if constexpr (std::is_same<T, float>::value) {
+    split(*at, hi, lo);
+  } else {
+    hi = __float_as_uint(widen(*at));
+    lo = 0u;
+  }
+}
+
+// S = Q.K^T for one 16 x kBk tile of scores: B fragments b0 =
+// K[n*8 + g][d*8 + t], b1 at dim t + 4. For f32 the small products
+// (lo.hi + hi.lo) go to accumulators of their own, added to the big ones
+// (hi.hi) at the end: two independent chains of products.
 template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, Strides qs,
-                 const T* __restrict__ k, Strides ks,
-                 const T* __restrict__ v, Strides vs,
-                 T* __restrict__ o, Strides os, int n_heads, int group,
-                 int sq, int sk, int causal, float scale) {
-  static_assert(HD % (4 * kTpr) == 0, "head dim must be a multiple of 16");
-  constexpr int kChunks = HD / (4 * kTpr);   // float4 groups per thread
-  extern __shared__ float4 smem4[];
-  float* k_tile = reinterpret_cast<float*>(smem4);   // [kBk][HD]
-  float* v_tile = k_tile + kBk * HD;                  // [kBk][HD]
-
-  const int bh = blockIdx.y;
-  const int b = bh / n_heads, h = bh % n_heads, kvh = h / group;
-  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * kBq;
-  const int row = threadIdx.x / kTpr, part = threadIdx.x % kTpr;
-  const int qi = q0 + row;
-  const bool row_ok = qi < sq;
-
-  float qr[kChunks][4];
-  float acc[kChunks][4];
-  const T* qp = q + b * qs.b + h * qs.h + (row_ok ? qi : 0) * qs.s;
+__device__ __forceinline__ void scores(const T* kt, const uint4* qf,
+                                       int gq, int tq,
+                                       float (&sc)[kBk / 8][4]) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kRow = HD + kPad<T>;
+  constexpr int kN = kBk / 8;
+  float small[kN][4];
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c)
+  for (int n = 0; n < kN; ++n)
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      qr[c][t] = row_ok ? widen(qp[dim_of(c, part) + t]) : 0.0f;
-      acc[c][t] = 0.0f;
+    for (int i = 0; i < 4; ++i) sc[n][i] = small[n][i] = 0.0f;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    const uint4 q4 = qf[d * 32];
+    uint32_t ah[4] = {q4.x, q4.y, q4.z, q4.w}, al[4];
+    if (kF32) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(__uint_as_float(ah[i]), ah[i], al[i]);
     }
-  float m = kNeg, l = 0.0f;
-
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
-  // Keys past the tile's last query row are masked for every row.
-  const int k_end = causal ? min(sk, q0 + kBq) : sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBk) {
-    __syncthreads();   // the previous tile is consumed
-    for (int e = threadIdx.x; e < kBk * HD; e += kThreads) {
-      const int j = e / HD, d = e % HD, kj = k0 + j;
-      float kx = 0.0f, vx = 0.0f;
-      if (kj < sk) {
-        kx = widen(kb[kj * ks.s + d]);
-        vx = widen(vb[kj * vs.s + d]);
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const T* at = kt + (n * 8 + gq) * kRow + d * 8 + tq;
+      uint32_t bh[2], bl[2];
+      fragment(at, bh[0], bl[0]);
+      fragment(at + 4, bh[1], bl[1]);
+      if (kF32) {
+        mma(small[n], al, bh);
+        mma(small[n], ah, bl);
       }
-      k_tile[e] = kx;
-      v_tile[e] = vx;
+      mma(sc[n], ah, bh);
     }
-    __syncthreads();
+  }
+  if (kF32) {
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] += small[n][i];
+  }
+}
 
-    float s[kBk];
+// Online softmax of one 16 x kBk tile of scores sc, raw dot products
+// (rows g: c0, c1 and g+8: c2, c3; key k0 + n*8 + 2t + c), which then
+// holds p = 2^(s c - m c), c = scale * log2(e) (one fma and the SFU's
+// exp2; the running max m of a row is kept as mc = m c). Rescales the rows
+// of acc, unless no row's max moved. kMask: the tile holds keys past sk
+// or above a row's diagonal.
+template <bool kMask, int kD>
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[kBk / 8][4], float (&acc)[kD][4], float (&m)[2],
+    float (&mc)[2], float (&l)[2], const int (&rq)[2], int k0, int tq,
+    int sk, int causal, float c) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bool live[kBk / 8][2];
     float tile_max = kNeg;
 #pragma unroll
-    for (int j = 0; j < kBk; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(k_tile + j * HD);
-      float dot = 0.0f;
+    for (int n = 0; n < kBk / 8; ++n)
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 kk = kr[dim_of(c, part) / 4];
-        dot = fmaf(qr[c][0], kk.x, dot);
-        dot = fmaf(qr[c][1], kk.y, dot);
-        dot = fmaf(qr[c][2], kk.z, dot);
-        dot = fmaf(qr[c][3], kk.w, dot);
+      for (int j = 0; j < 2; ++j) {
+        const int kj = k0 + n * 8 + 2 * tq + j;
+        live[n][j] = !kMask || (kj < sk && (!causal || kj <= rq[r]));
+        float& s = sc[n][2 * r + j];
+        if (kMask) s = live[n][j] ? s : kNeg;
+        tile_max = fmaxf(tile_max, s);
       }
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      const int kj = k0 + j;
-      const bool live = kj < sk && (!causal || kj <= qi);
-      s[j] = live ? dot * scale : kNeg;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = expf(m - m_new);
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(kFull, tile_max, 1));
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(kFull, tile_max, 2));
+    const float m_new = fmaxf(m[r], tile_max);
+    const float mc_new = m_new * c;
     float psum = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kBk; ++j) {
-      const int kj = k0 + j;
-      const bool live = kj < sk && (!causal || kj <= qi);
-      s[j] = live ? expf(s[j] - m_new) : 0.0f;   // s now holds p
-      psum += s[j];
-    }
-    l = l * corr + psum;
-    m = m_new;
+    for (int n = 0; n < kBk / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c)
+      for (int j = 0; j < 2; ++j) {
+        float& s = sc[n][2 * r + j];
+        s = live[n][j] ? exp2_fast(__fmaf_rn(s, c, -mc_new)) : 0.0f;
+        psum += s;
+      }
+    const float corr = exp2_fast(mc[r] - mc_new);
+    l[r] = l[r] * corr + psum;
+    m[r] = m_new;
+    mc[r] = mc_new;
+    if (__any_sync(kFull, corr != 1.0f)) {
 #pragma unroll
-      for (int t = 0; t < 4; ++t) acc[c][t] *= corr;
-#pragma unroll
-    for (int j = 0; j < kBk; ++j) {
-      const float4* vr = reinterpret_cast<const float4*>(v_tile + j * HD);
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 vv = vr[dim_of(c, part) / 4];
-        acc[c][0] = fmaf(s[j], vv.x, acc[c][0]);
-        acc[c][1] = fmaf(s[j], vv.y, acc[c][1]);
-        acc[c][2] = fmaf(s[j], vv.z, acc[c][2]);
-        acc[c][3] = fmaf(s[j], vv.w, acc[c][3]);
+      for (int d = 0; d < kD; ++d) {
+        acc[d][2 * r] *= corr;
+        acc[d][2 * r + 1] *= corr;
       }
     }
   }
-
-  if (!row_ok) return;
-  const float denom = fmaxf(l, 1e-30f);
-  T* op = o + b * os.b + h * os.h + qi * os.s;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      narrow(op + dim_of(c, part) + t, acc[c][t] / denom);
 }
 
+template <int HD, typename T, int NW>
+__global__ void __launch_bounds__(NW * 32, 1)
+flash_tf32x3_kernel(const T* __restrict__ q, Strides qs,
+                    const T* __restrict__ k, Strides ks,
+                    const T* __restrict__ v, Strides vs,
+                    T* __restrict__ o, Strides os, int n_kv, int group,
+                    int hb, int sq, int sk, int causal, float scale) {
+  using S = Smem<HD, T, NW>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kRow = HD + kPad<T>;
+  constexpr int kD = HD / 8;       // Q.K^T k-steps; P.V n-tiles
+  constexpr int kN = kBk / 8;      // Q.K^T n-tiles; P.V k-steps
+  constexpr int kTile = 2 * kBk * kRow;   // elements of a stage
+  extern __shared__ uint4 smem4[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint4* qf = smem4 + warp * kD * 32 + lane;   // [d * 32]: this lane's
+  // [kStages][K, V][kBk][kRow]
+  T* ring = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) + S::kQ);
+
+  const int gq = lane / 4, tq = lane % 4;  // the mma's groupID, thread
+  const int slabs = NW / hb;               // 16-row slabs a head
+  const int rows = 16 * slabs;             // query rows a block
+  const int chunks = group / hb;
+  const int chunk = blockIdx.y % chunks;
+  const int kvh = blockIdx.y / chunks % n_kv;
+  const int b = blockIdx.y / chunks / n_kv;
+  const int h = kvh * group + chunk * hb + warp / slabs;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * rows;
+  const int row0 = q0 + warp % slabs * 16;   // the warp's first row
+  const int rq[2] = {row0 + gq, row0 + gq + 8};
+
+  // A fragments of Q as f32, in shared memory (each lane reads back only
+  // its own): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4) of each
+  // 8-dim k-step. Rows past sq are 0 and never stored.
+  const T* qp = q + b * qs.b + h * qs.h;
+#pragma unroll
+  for (int d = 0; d < kD; ++d) {
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rq[i & 1];
+      x[i] = r < sq ? widen(qp[r * qs.s + d * 8 + tq + (i & 2) * 2]) : 0.0f;
+    }
+    qf[d * 32] = make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]),
+                            __float_as_uint(x[2]), __float_as_uint(x[3]));
+  }
+  // O: c0, c1 at (g, 2t), (g, 2t+1) and c2, c3 at (g+8, ...) of each
+  // 8-dim n-tile.
+  float acc[kD][4];
+#pragma unroll
+  for (int d = 0; d < kD; ++d)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[d][i] = 0.0f;
+  // A row's running max of the raw scores, the same times c, its sum.
+  const float c = scale * 1.4426950408889634f;
+  float m[2] = {kNeg, kNeg}, mc[2] = {kNeg * c, kNeg * c};
+  float l[2] = {0.0f, 0.0f};
+
+  const T* kb = k + b * ks.b + kvh * ks.h;
+  const T* vb = v + b * vs.b + kvh * vs.h;
+  // Keys past the block's last query row are masked for every row.
+  const int k_end = causal ? min(sk, q0 + rows) : sk;
+  const int n_tiles = (k_end + kBk - 1) / kBk;
+  // kStages - 1 tiles in flight; at tile it, tile it + kStages - 1 is
+  // loaded into the stage that tile it - 1 held.
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles)
+      load_tile<HD, T, NW>(ring + t * kTile, kb, ks.s, vb, vs.s, t * kBk,
+                           sk);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kStages - 2>();   // tile it has landed (this thread's part)
+    __syncthreads();                // ... everyone's; tile it - 1 is consumed
+    const int next = it + kStages - 1;
+    if (next < n_tiles)
+      load_tile<HD, T, NW>(ring + next % kStages * kTile, kb, ks.s, vb, vs.s,
+                           next * kBk, sk);
+    cp_async_commit();
+    const T* kt = ring + it % kStages * kTile;
+    const T* vt = kt + kBk * kRow;
+    float sc[kN][4];
+    scores<HD, T>(kt, qf, gq, tq, sc);
+    // Only the tiles that cross sk or a row's diagonal are masked.
+    const int k0 = it * kBk;
+    if (k0 + kBk <= sk && (!causal || k0 + kBk - 1 <= row0))
+      online_softmax<false>(sc, acc, m, mc, l, rq, k0, tq, sk, causal, c);
+    else
+      online_softmax<true>(sc, acc, m, mc, l, rq, k0, tq, sk, causal, c);
+
+    // O += P.V. A fragment of keys n*8 + {2t, 2t+1}: a0 = p(g, 2t),
+    // a1 = p(g+8, 2t), a2 = p(g, 2t+1), a3 = p(g+8, 2t+1); B fragment
+    // b0 = V[n*8 + 2t][d*8 + g], b1 = V[n*8 + 2t + 1][d*8 + g].
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const float pa[4] = {sc[n][0], sc[n][2], sc[n][1], sc[n][3]};
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(pa[i], ph[i], pl[i]);
+#pragma unroll
+      for (int d = 0; d < kD; ++d) {
+        const T* at = vt + (n * 8 + 2 * tq) * kRow + d * 8 + gq;
+        uint32_t bh[2], bl[2];
+        fragment(at, bh[0], bl[0]);
+        fragment(at + kRow, bh[1], bl[1]);
+        mma(acc[d], pl, bh);
+        if (kF32) mma(acc[d], ph, bl);
+        mma(acc[d], ph, bh);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  T* op = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(kFull, sum, 1);
+    sum += __shfl_xor_sync(kFull, sum, 2);
+    if (rq[r] >= sq) continue;
+    const float denom = fmaxf(sum, 1e-30f);
+    T* orow = op + rq[r] * os.s + 2 * tq;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) {
+      narrow(orow + d * 8, acc[d][2 * r] / denom);
+      narrow(orow + d * 8 + 1, acc[d][2 * r + 1] / denom);
+    }
+  }
+}
+
+int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
+
+template <int HD, typename T, int NW>
+int launch_nw(const void* q, const void* k, const void* v, void* o,
+              const long long* st, int batch, int n_heads, int n_kv_heads,
+              int sq, int sk, int causal, float scale, cudaStream_t stream) {
+  constexpr int kSmem = Smem<HD, T, NW>::kBytes;
+  auto kernel = flash_tf32x3_kernel<HD, T, NW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int group = n_heads / n_kv_heads, hb = gcd(group, NW);
+  const int rows = 16 * NW / hb;
+  const dim3 grid((sq + rows - 1) / rows, batch * n_kv_heads * (group / hb));
+  kernel<<<grid, NW * 32, kSmem, stream>>>(
+      static_cast<const T*>(q), Strides{st[0], st[1], st[2]},
+      static_cast<const T*>(k), Strides{st[3], st[4], st[5]},
+      static_cast<const T*>(v), Strides{st[6], st[7], st[8]},
+      static_cast<T*>(o), Strides{st[9], st[10], st[11]}, n_kv_heads, group,
+      hb, sq, sk, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 8 warps a block, or 4 where a grid of 8-warp blocks would not give
+// every SM one.
 template <int HD, typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
            const long long* st, int batch, int n_heads, int n_kv_heads,
            int sq, int sk, int causal, float scale, cudaStream_t stream) {
-  constexpr int kSmem = 2 * kBk * HD * static_cast<int>(sizeof(float));
-  auto kernel = flash_fwd_kernel<HD, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBq - 1) / kBq, batch * n_heads);
-  kernel<<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), Strides{st[0], st[1], st[2]},
-      static_cast<const T*>(k), Strides{st[3], st[4], st[5]},
-      static_cast<const T*>(v), Strides{st[6], st[7], st[8]},
-      static_cast<T*>(o), Strides{st[9], st[10], st[11]}, n_heads,
-      n_heads / n_kv_heads, sq, sk, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(int head_dim, const void* q, const void* k, const void* v,
-             void* o, const long long* st, int batch, int n_heads,
-             int n_kv_heads, int sq, int sk, int causal, float scale,
-             cudaStream_t stream) {
-  switch (head_dim) {
-    case 16: return launch<16, T>(q, k, v, o, st, batch, n_heads, n_kv_heads,
-                                  sq, sk, causal, scale, stream);
-    case 32: return launch<32, T>(q, k, v, o, st, batch, n_heads, n_kv_heads,
-                                  sq, sk, causal, scale, stream);
-    case 64: return launch<64, T>(q, k, v, o, st, batch, n_heads, n_kv_heads,
-                                  sq, sk, causal, scale, stream);
-    case 128: return launch<128, T>(q, k, v, o, st, batch, n_heads,
-                                    n_kv_heads, sq, sk, causal, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int group = n_heads / n_kv_heads, hb = gcd(group, 8);
+  const long long blocks8 = static_cast<long long>((sq + 128 / hb - 1) /
+                                                   (128 / hb)) *
+                            batch * n_kv_heads * (group / hb);
+  return blocks8 >= sms
+      ? launch_nw<HD, T, 8>(q, k, v, o, st, batch, n_heads, n_kv_heads, sq,
+                            sk, causal, scale, stream)
+      : launch_nw<HD, T, 4>(q, k, v, o, st, batch, n_heads, n_kv_heads, sq,
+                            sk, causal, scale, stream);
 }
 
 }  // namespace
 
 // q (B,H,SQ,hd), k/v (B,KV,SK,hd), o (B,H,SQ,hd), each through element
 // strides st = {q: b,h,s, k: b,h,s, v: b,h,s, o: b,h,s} with the head dim
-// contiguous. is_bf16 selects bf16 for all four, else f32. hd is 16, 32,
-// 64 or 128; H is a multiple of KV.
+// contiguous and every base and stride 16-byte aligned. is_bf16 selects
+// bf16 for all four, else f32. hd is 16, 32, 64 or 128 (f32), 16, 32 or 64
+// (bf16); H is a multiple of KV.
 MOBY_API int moby_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, const long long* st, int batch,
                                   int n_heads, int n_kv_heads, int sq, int sk,
@@ -223,9 +473,27 @@ MOBY_API int moby_flash_attention(const void* q, const void* k, const void* v,
                                   float scale, void* stream) {
   if (batch * n_heads == 0 || sq == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16
-      ? dispatch<__nv_bfloat16>(head_dim, q, k, v, o, st, batch, n_heads,
-                                n_kv_heads, sq, sk, causal, scale, s)
-      : dispatch<float>(head_dim, q, k, v, o, st, batch, n_heads, n_kv_heads,
-                        sq, sk, causal, scale, s);
+  if (is_bf16) {
+    switch (head_dim) {
+      case 16: return launch<16, __nv_bfloat16>(q, k, v, o, st, batch,
+                   n_heads, n_kv_heads, sq, sk, causal, scale, s);
+      case 32: return launch<32, __nv_bfloat16>(q, k, v, o, st, batch,
+                   n_heads, n_kv_heads, sq, sk, causal, scale, s);
+      case 64: return launch<64, __nv_bfloat16>(q, k, v, o, st, batch,
+                   n_heads, n_kv_heads, sq, sk, causal, scale, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (head_dim) {
+    case 16: return launch<16, float>(q, k, v, o, st, batch, n_heads,
+                                      n_kv_heads, sq, sk, causal, scale, s);
+    case 32: return launch<32, float>(q, k, v, o, st, batch, n_heads,
+                                      n_kv_heads, sq, sk, causal, scale, s);
+    case 64: return launch<64, float>(q, k, v, o, st, batch, n_heads,
+                                      n_kv_heads, sq, sk, causal, scale, s);
+    case 128: return launch<128, float>(q, k, v, o, st, batch, n_heads,
+                                        n_kv_heads, sq, sk, causal, scale,
+                                        s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

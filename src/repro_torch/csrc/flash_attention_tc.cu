@@ -4,14 +4,15 @@
 // Replaces the TPU kernel
 // repro/kernels/flash_attention/flash_attention.py (flash_attention_pallas)
 // for bf16 at head dim 128, the width of every full-size dense config.
-// flash_attention.cu (f32 on the SIMT cores) keeps f32 and the other head
-// dims; kernels/flash_attention/ops.py::route chooses before any launch.
+// flash_attention.cu (3xTF32 on the tensor cores) keeps f32 and the other
+// head dims; kernels/flash_attention/ops.py::route chooses before any
+// launch.
 //
 // What bounds it on an H100: operations. At the prefill shape (B=1, H=16,
 // KV=2, S=8192, hd=128, causal) a call does 2.75e11 flops of bf16 products
 // on ~75 MB: 0.278 ms at the 989 TFLOP/s dense bf16 tensor rate, 0.02 ms of
-// memory. The SIMT kernel's floor is 4.1 ms (67 TFLOP/s f32), so only the
-// tensor cores can come near the bound.
+// memory. f32 arithmetic outside the tensor cores would take 4.1 ms (67
+// TFLOP/s), so only the tensor cores can come near the bound.
 //
 // Design (the shape of FlashAttention-3, without its persistent
 // scheduler):

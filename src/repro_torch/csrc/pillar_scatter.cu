@@ -14,21 +14,31 @@
 // grid and its cotangent, and writes 15.7 MB of gradient (~9.7 us). The
 // work is one compare a value.
 //
-// Design. The TPU has no atomics, so its kernel turns the loop inside out:
-// every pillar tile streams every point. Hopper has them, so each point is
-// visited once:
-//   * one warp per point, the lanes over the channels (a 128-byte coalesced
-//     row at C = 32; lanes loop for wider C), the id and mask read once;
-//   * the grid is kept as order-preserving int32 keys of the floats
-//     (non-negative floats keep their bits, negative ones flip the 31 low
-//     bits, so int order is float order and -0 sorts just below +0) in the
-//     output buffer itself, filled with the key of -inf; atomicMax on the
-//     keys is the float max. A max is exact and does not depend on the
-//     order of the atomics, so the result is deterministic and equals the
-//     plain version value for value;
-//   * a last pass decodes the keys in place and writes 0 where the value is
-//     not finite (empty pillars), as the Pallas kernel does. NaN is made
-//     the positive NaN first, so it sorts above +inf and the pillar reads 0.
+// The TPU has no atomics, so its kernel turns the loop inside out: every
+// pillar tile streams every point. Hopper has them, so each point is
+// visited once, and a max is exact and order-free: atomicMax on keys that
+// order like the floats gives the plain version's result value for value,
+// whatever the order of the atomics.
+//
+// Forward design. Three passes: clearing the grid, the scatter (most of
+// the time: it reads the kept rows; on the card, points sorted by pillar,
+// with 9x fewer atomics, scatter only ~10% faster), and decoding the keys:
+//   * keys are unsigned and never 0: f >= 0 maps to bits | 0x80000000,
+//     f < 0 to ~bits (so -0 sorts just below +0), NaN to the positive NaN
+//     first (it sorts above +inf, and the pillar reads 0). Zero means
+//     empty, so one cudaMemsetAsync on the stream clears the grid, in
+//     place of a fill kernel writing the key of -inf;
+//   * a warp takes 8 points (scatter_max_kernel): their ids in one load,
+//     their rows all in flight before the first is used, runs of
+//     consecutive points in one pillar folded in registers, one atomicMax
+//     (no return value) a run and channel; a warp a batch, so every batch's
+//     loads are in flight at once;
+//   * the decode pass reads the keys as 16-byte vectors and writes only
+//     the occupied cells back; an empty cell keeps the memset's +0.0, as
+//     the plain version writes it; non-finite maxima read 0.
+// Rows are read 4 bytes a lane, so any C and any 4-byte aligned base take
+// the same path.
+//
 // The backward counts the ties of each (pillar, channel) with an int
 // atomicAdd (a point ties where it is kept and equals the output), marks a
 // pillar whose raw maximum was +inf or NaN (it reads 0 and passes no
@@ -41,19 +51,22 @@
 namespace {
 
 constexpr int kLanes = 32;
-// Key of -inf: 0xff800000 with its 31 low bits flipped.
-constexpr int kNegInfKey = static_cast<int>(0x807fffffu);
+// Points a warp takes at a time. 8 keeps a warp's registers low enough for
+// 7 resident blocks an SM; on the card 32-point (84 registers) and
+// 16-point batches read the rows slower, 2-point ones too.
+constexpr int kBatch = 8;
+constexpr unsigned kFull = 0xffffffffu;
 // Set in a tie count whose pillar's raw maximum was +inf or NaN; the tie
 // counts stay below it (the wrapper bounds N).
 constexpr int kPoison = 1 << 30;
 
-__device__ __forceinline__ int float_key(float f) {
-  const int i = isnan(f) ? 0x7fc00000 : __float_as_int(f);
-  return i >= 0 ? i : i ^ 0x7fffffff;
+__device__ __forceinline__ unsigned float_key(float f) {
+  const unsigned u = isnan(f) ? 0x7fc00000u : __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ float key_float(int k) {
-  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+__device__ __forceinline__ float key_float(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k ^ 0x80000000u) : ~k);
 }
 
 __device__ __forceinline__ bool kept(const int* idx, const bool* valid,
@@ -70,32 +83,80 @@ __global__ void fill_kernel(int* __restrict__ dst, long long total,
     dst[i] = value;
 }
 
-__global__ void scatter_max_kernel(const float* __restrict__ feats,
-                                   const int* __restrict__ idx,
-                                   const bool* __restrict__ valid,
-                                   long long n, int c, int g,
-                                   int* __restrict__ keys) {
+// One warp takes kBatch consecutive points at a time. Lane i < kBatch
+// reads point i's id and mask; the rows are then read lanes over channels
+// (a 128-byte coalesced load a row at C = 32), all of them issued before
+// any is used. A run of consecutive points in one pillar is folded into
+// its first point by a max in registers, and the first point of each run
+// sends one atomicMax a channel: 32 consecutive words of a row, 4 sectors,
+// no return value awaited.
+__global__ void __launch_bounds__(kMobyThreads)
+scatter_max_kernel(const float* __restrict__ feats,
+                   const int* __restrict__ idx,
+                   const bool* __restrict__ valid, long long n, int c, int g,
+                   unsigned* __restrict__ keys) {
   const int lane = threadIdx.x % kLanes;
   const long long warps =
       static_cast<long long>(gridDim.x) * blockDim.x / kLanes;
-  for (long long p = (blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x) / kLanes;
-       p < n; p += warps) {
-    int id;
-    if (!kept(idx, valid, p, g, &id)) continue;
-    const float* row = feats + p * c;
-    int* cell = keys + static_cast<long long>(id) * c;
-    for (int ch = lane; ch < c; ch += kLanes)
-      atomicMax(cell + ch, float_key(row[ch]));
+  for (long long p0 = (blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x) / kLanes * kBatch;
+       p0 < n; p0 += warps * kBatch) {
+    int id = -1, at;
+    if (lane < kBatch && p0 + lane < n && kept(idx, valid, p0 + lane, g, &at))
+      id = at;
+    int pid[kBatch];   // the batch's pillar ids, -1 for a dropped point
+#pragma unroll
+    for (int r = 0; r < kBatch; ++r) pid[r] = __shfl_sync(kFull, id, r);
+    for (int ch = lane; ch - lane < c; ch += kLanes) {
+      const bool in_row = ch < c;
+      unsigned key[kBatch];
+#pragma unroll
+      for (int r = 0; r < kBatch; ++r)
+        key[r] = pid[r] >= 0 && in_row
+            ? float_key(feats[(p0 + r) * c + ch]) : 0u;
+#pragma unroll
+      for (int r = kBatch - 1; r > 0; --r)
+        if (pid[r] >= 0 && pid[r] == pid[r - 1])
+          key[r - 1] = max(key[r - 1], key[r]);
+#pragma unroll
+      for (int r = 0; r < kBatch; ++r)
+        if (pid[r] >= 0 && (r == 0 || pid[r] != pid[r - 1]) && in_row)
+          atomicMax(keys + static_cast<long long>(pid[r]) * c + ch, key[r]);
+    }
   }
 }
 
-__global__ void decode_kernel(float* __restrict__ grid, long long total) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const float v = key_float(__float_as_int(grid[i]));
-    grid[i] = isfinite(v) ? v : 0.0f;
+// Decodes the keys in place (non-finite to 0), 4 channels a thread where
+// rows are whole 16-byte vectors. An empty cell (key 0) keeps the memset's
+// +0.0 and is not written.
+__global__ void decode_kernel(float* __restrict__ grid, long long cells,
+                              int vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first =
+      blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (vec) {
+    uint4* grid4 = reinterpret_cast<uint4*>(grid);
+    for (long long i = first; i < cells / 4; i += stride) {
+      const uint4 k = grid4[i];
+      if (!(k.x | k.y | k.z | k.w)) continue;
+      float4 f;
+      f.x = key_float(k.x);
+      f.y = key_float(k.y);
+      f.z = key_float(k.z);
+      f.w = key_float(k.w);
+      f.x = isfinite(f.x) ? f.x : 0.0f;
+      f.y = isfinite(f.y) ? f.y : 0.0f;
+      f.z = isfinite(f.z) ? f.z : 0.0f;
+      f.w = isfinite(f.w) ? f.w : 0.0f;
+      reinterpret_cast<float4*>(grid)[i] = f;
+    }
+    return;
+  }
+  for (long long i = first; i < cells; i += stride) {
+    const unsigned k = __float_as_uint(grid[i]);
+    if (!k) continue;
+    const float x = key_float(k);
+    grid[i] = isfinite(x) ? x : 0.0f;
   }
 }
 
@@ -166,27 +227,28 @@ unsigned grid_blocks(long long work_items) {
 }  // namespace
 
 // feats (N,C) f32, idx (N,) i32, valid (N,) bool -> out (G,C) f32, used as
-// the int32 key grid until the last pass decodes it.
+// the unsigned key grid (zero: empty) until the last pass decodes it.
 MOBY_API int moby_pillar_scatter(const void* feats, const void* idx,
                                  const void* valid, long long n, int c,
                                  int g, void* out, void* stream) {
   const long long cells = static_cast<long long>(g) * c;
   if (cells == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int* keys = static_cast<int*>(out);
-  fill_kernel<<<grid_blocks(cells), kMobyThreads, 0, s>>>(keys, cells,
-                                                          kNegInfKey);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaMemsetAsync(out, 0, cells * sizeof(float), s);
+  if (err != cudaSuccess || n == 0) return static_cast<int>(err);
+  // A warp a batch: every batch's loads in flight at once.
+  const long long warps = (n + kBatch - 1) / kBatch;
+  scatter_max_kernel<<<static_cast<unsigned>(
+                           (warps * kLanes + kMobyThreads - 1) / kMobyThreads),
+                       kMobyThreads, 0, s>>>(
+      static_cast<const float*>(feats), static_cast<const int*>(idx),
+      static_cast<const bool*>(valid), n, c, g,
+      static_cast<unsigned*>(out));
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0) {
-    scatter_max_kernel<<<grid_blocks(n * kLanes), kMobyThreads, 0, s>>>(
-        static_cast<const float*>(feats), static_cast<const int*>(idx),
-        static_cast<const bool*>(valid), n, c, g, keys);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  decode_kernel<<<grid_blocks(cells), kMobyThreads, 0, s>>>(
-      static_cast<float*>(out), cells);
+  const bool vec = c % 4 == 0;   // out is the wrapper's, 16-byte aligned
+  decode_kernel<<<grid_blocks(vec ? cells / 4 : cells), kMobyThreads, 0,
+                  s>>>(static_cast<float*>(out), cells, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,19 +5,20 @@ launches one of two kernels, chosen by ``route`` before any launch, or the
 call raises:
 
 * ``"tc"``: bf16 at head dim 128 (every full-width dense config) runs
-  ``csrc/flash_attention_tc.cu`` on the tensor cores (wgmma fed by TMA);
-  ``tc_launches`` counts its launches;
-* ``"simt"``: f32, and bf16 at the other head dims, runs
-  ``csrc/flash_attention.cu`` in f32 on the SIMT cores; ``launches``
-  counts its launches.
+  ``csrc/flash_attention_tc.cu`` on the tensor cores in bf16 (wgmma fed by
+  TMA); ``tc_launches`` counts its launches;
+* ``"tf32x3"``: f32, and bf16 at the other head dims, runs
+  ``csrc/flash_attention.cu`` on the tensor cores too, f32-accurate by the
+  3xTF32 split (mma.sync fed by cp.async); ``launches`` counts its
+  launches.
 
-The kernel reads q, k and v through their strides (only the head dim must
+The kernels read q, k and v through their strides (only the head dim must
 be contiguous), so callers pass ``transpose`` views of their
 (B, S, heads, hd) activations. On the card the output is a (B, H, SQ, hd)
-view of (B, SQ, H, hd) storage, the layout the model continues in. The
-tensor-core route reads its operands by TMA, which needs 16-byte aligned
-base addresses and strides: the wrapper checks both and raises, it never
-copies.
+view of (B, SQ, H, hd) storage, the layout the model continues in. Both
+kernels copy their operands by 16-byte units (TMA, cp.async), which need
+16-byte aligned base addresses and strides: the wrapper checks both and
+raises, it never copies.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import torch
 from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-launches = 0      # the SIMT kernel
+launches = 0      # the 3xTF32 kernel
 tc_launches = 0   # the tensor-core kernel
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -38,7 +39,7 @@ TC_HEAD_DIMS = (128,)
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernel takes a CUDA call: ``"tc"`` (bf16 at a head dim of
-    ``TC_HEAD_DIMS``), ``"simt"`` (any other of ``DTYPES`` x
+    ``TC_HEAD_DIMS``), ``"tf32x3"`` (any other of ``DTYPES`` x
     ``HEAD_DIMS``); anything else raises."""
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {dtype}, the kernels take "
@@ -48,17 +49,17 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
                          f"take {HEAD_DIMS}")
     if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
         return "tc"
-    return "simt"
+    return "tf32x3"
 
 
-def _check_tma(name: str, t: torch.Tensor) -> None:
-    """TMA reads ``t`` through a tensor map: 16-byte aligned base address
-    and byte strides."""
+def _check_aligned(name: str, t: torch.Tensor, path: str) -> None:
+    """The kernels copy ``t`` by 16-byte units (TMA, cp.async): 16-byte
+    aligned base address and byte strides."""
     if t.data_ptr() % 16 or any(s * t.element_size() % 16
                                 for s in t.stride()[:3]):
         raise ValueError(f"flash_attention: {name} (address {t.data_ptr():#x},"
                          f" strides {t.stride()}) is not 16-byte aligned, as "
-                         f"the tensor-core kernel's TMA loads need")
+                         f"the {path} kernel's 16-byte loads need")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,9 +85,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * h > 65535:
         raise ValueError(f"flash_attention: {b * h} (batch, head) pairs "
                          f"exceed the kernel's grid")
-    if path == "tc":
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            _check_tma(name, t)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_aligned(name, t, path)
     out = torch.empty((b, sq, h, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(

@@ -14,6 +14,10 @@ tolerance of those card checks fails a kernel that loses one chunk or tile
 or reads the wrong kv head, and that the tensor-core flash route's
 tolerance (which allows for its p rounded to bf16 before the P.V product)
 passes the plain result computed with that rounding.
+``test_tf32x3_model_holds_to_plain`` models the f32 route's 3xTF32
+products on the CPU and holds the result to the plain version at the f32
+card check's 2e-5, and ``test_one_term_tf32_fails_the_f32_check`` shows
+that a single TF32 product fails that check.
 ``test_flash_route_by_dtype_and_head_dim`` holds the wrapper's choice
 between its two CUDA kernels.
 """
@@ -292,15 +296,134 @@ def test_bf16_card_check_rejects_planted_faults(fault):
     assert not _within_bf16_rounding(bad.bfloat16(), want, allowance)
 
 
+def _tf32_hi(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), nearest with ties away from
+    zero, by integer operations on the bits, as the kernel rounds."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """f32 truncated to TF32: how the tensor core reads an operand."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_products(a: torch.Tensor, b: torch.Tensor, terms: int,
+                   split_acc: bool) -> torch.Tensor:
+    """a (..., M, K) @ b (..., K, N) as the f32 route's mma.sync computes it:
+    each operand split into hi (rounded to TF32) and lo = x - hi (read
+    truncated to TF32); per 8-wide k-step the products lo.hi, hi.lo and
+    hi.hi (``terms`` 3) or hi.hi alone (``terms`` 1), each step's sum
+    added to an f32 accumulator, the small products to one of their own
+    where ``split_acc`` (the kernel's Q.K^T), else to the one
+    accumulator (its P.V)."""
+    ah, bh = _tf32_hi(a), _tf32_hi(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    big = torch.zeros(a.shape[:-1] + (b.shape[-1],))
+    small = torch.zeros_like(big)
+
+    def step(acc, x, y):
+        return (acc.double() + x.double() @ y.double()).float()
+    for i in range(0, a.shape[-1], 8):
+        k = slice(i, i + 8)
+        if terms == 3:
+            acc = small if split_acc else big
+            acc = step(step(acc, al[..., k], bh[..., k, :]),
+                       ah[..., k], bl[..., k, :])
+            if split_acc:
+                small = acc
+            else:
+                big = acc
+        big = step(big, ah[..., k], bh[..., k, :])
+    return big + small
+
+
+def _flash_tf32x3(q, k, v, causal, terms=3):
+    """A CPU model of the f32 route (``csrc/flash_attention.cu``): Q.K^T
+    and P.V by ``_tf32_products``, p = 2^(s c - m c) with c = scale *
+    log2(e) and one rounding of s c - m c (the kernel's fma), the Pallas
+    masking, acc / l. It does not reproduce the tensor core's own
+    accumulation order (a step's 8 products are summed here in float64 and
+    rounded once), its exp2, or the online softmax's rescaling: the card
+    decides (``test_attention_kernels_match_plain_on_card``,
+    ``chip_smoke.py``)."""
+    b, h, sq, hd = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kv, h // kv, sq, hd).float()
+    s = _tf32_products(qg, k.float()[:, :, None].transpose(-1, -2), terms,
+                       True)
+    live = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        live = live.tril()
+    s = torch.where(live, s, fa_ref.NEG)
+    c = torch.tensor(hd ** -0.5, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    mc = s.amax(-1, keepdim=True) * c
+    p = torch.where(live, torch.exp2((s.double() * c.double()
+                                      - mc.double()).float()), 0.0)
+    o = _tf32_products(p, v.float()[:, :, None], terms, False)
+    o = o / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return o.reshape(b, h, sq, hd)
+
+
+def _attention_f64(q, k, v, causal):
+    """The plain version's arithmetic in float64: the exact result to f32
+    precision."""
+    b, h, sq, hd = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kv, h // kv, sq, hd).double()
+    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k.double()) * hd ** -0.5
+    live = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        live = live.tril()
+    s = torch.where(live, s, fa_ref.NEG)
+    p = torch.where(live, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    o = torch.einsum("bkgqs,bksh->bkgqh", p, v.double()) / p.sum(-1, True)
+    return o.reshape(b, h, sq, hd)
+
+
+# chip_smoke.py's f32 flash cases, the prefill shape (S 8192) cut to S 256.
+TF32X3_CASES = [((2, 16, 2, 256, 256, 128), True),
+                ((1, 16, 2, 256, 256, 128), True),
+                ((2, 8, 2, 512, 512, 128), True),
+                ((1, 4, 1, 300, 300, 64), True),
+                ((2, 2, 2, 128, 640, 64), False),
+                ((2, 4, 2, 16, 16, 16), True)]
+
+
+@pytest.mark.parametrize("q_scale", [1, 8])
+@pytest.mark.parametrize("shape,causal", TF32X3_CASES)
+def test_tf32x3_model_holds_to_plain(shape, causal, q_scale):
+    """The 3xTF32 products pass the f32 card check (2e-5 of the plain
+    version), also with q scaled x8, so the scores are 8 times larger and
+    the softmax amplifies their errors; there the plain version's own f32
+    rounding is up to 0.93 of the tolerance from the float64 result, and
+    the model lies within the tolerance of that result too."""
+    (_, q), (_, k), (_, v) = _flash_inputs(*shape, "float32")
+    q = q * q_scale
+    got = _flash_tf32x3(q, k, v, causal)
+    _hold_to_plain(got, fa_ref.flash_attention_ref, q, k, v, causal)
+    torch.testing.assert_close(got.double(), _attention_f64(q, k, v, causal),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape,causal", TF32X3_CASES)
+def test_one_term_tf32_fails_the_f32_check(shape, causal):
+    """The check has teeth: hi.hi alone (plain TF32) misses it by far."""
+    (_, q), (_, k), (_, v) = _flash_inputs(*shape, "float32")
+    with pytest.raises(AssertionError):
+        _hold_to_plain(_flash_tf32x3(q, k, v, causal, terms=1),
+                       fa_ref.flash_attention_ref, q, k, v, causal)
+
+
 def test_flash_route_by_dtype_and_head_dim():
-    """bf16 at head dim 128 goes to the tensor-core kernel; f32, and bf16
-    at the other head dims, to the SIMT kernel; other dtypes and head dims
-    raise before any launch."""
+    """bf16 at head dim 128 goes to the bf16 tensor-core kernel; f32, and
+    bf16 at the other head dims, to the 3xTF32 kernel; other dtypes and
+    head dims raise before any launch."""
     assert fa_ops.route(torch.bfloat16, 128) == "tc"
     for hd in (16, 32, 64):
-        assert fa_ops.route(torch.bfloat16, hd) == "simt"
+        assert fa_ops.route(torch.bfloat16, hd) == "tf32x3"
     for hd in (16, 32, 64, 128):
-        assert fa_ops.route(torch.float32, hd) == "simt"
+        assert fa_ops.route(torch.float32, hd) == "tf32x3"
     with pytest.raises(TypeError, match="dtype"):
         fa_ops.route(torch.float16, 128)
     for dtype, hd in ((torch.bfloat16, 96), (torch.float32, 256),

@@ -8,10 +8,15 @@ gradient, through the port's ``autograd.Function``, to ``jax.grad``
 through ``repro.ops.pillar_scatter`` with the ``ref`` and the ``pallas``
 backends (their shared VJP splits a pillar's cotangent among its tied
 maxima), within rtol = atol = 1e-6 — and, where counted ties meet random
-cotangents, bit for bit. The CUDA kernels run only on a card:
+cotangents, bit for bit. ``test_card_cases_equal_jax_ref`` holds the plain
+forward to JAX's oracle on the inputs of the card checks' special values,
+one-pillar and sorted cases. The CUDA kernels run only on a card:
 ``test_kernels_match_plain_on_card`` is marked ``cuda`` and skips without
 one (``python3 chip_smoke.py`` holds them to these plain versions there).
 """
+import importlib.util
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +34,7 @@ from repro_torch.kernels.pillar_scatter import ref as ps_ref  # noqa: E402
 jax.config.update("jax_platform_name", "cpu")
 
 TOL = dict(rtol=1e-6, atol=1e-6)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _t(a) -> torch.Tensor:
@@ -206,16 +212,60 @@ def test_other_devices_raise():
                               8)
 
 
+def _card_case(name):
+    """(feats, ids, mask, G, cotangent) of the card checks' cases beyond
+    ``GRAD_CASES``: ``specials`` (``chip_smoke.pillar_special_inputs``:
+    +-0, +-inf, NaN of either sign, subnormals, all-negative pillars, a
+    pillar of -inf only, an id at G - 1), ``one-pillar`` (every kept point
+    in one pillar) and ``sorted`` (points sorted by pillar)."""
+    if name == "specials":
+        spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                      ROOT / "chip_smoke.py")
+        chip_smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(chip_smoke)
+        f, idx, valid, g = chip_smoke.pillar_special_inputs(np)
+    else:
+        f, idx, valid = _inputs(4096, 32, 512, 11)
+        g = 512
+        if name == "one-pillar":
+            idx[:] = g // 3
+        else:
+            order = np.argsort(idx, kind="stable")
+            f, idx, valid = f[order], idx[order], valid[order]
+    ct = np.random.default_rng(5).normal(size=(g, f.shape[1]))
+    return f, idx, valid, g, ct.astype(np.float32)
+
+
+CARD_CASES = ["specials", "one-pillar", "sorted"]
+
+
+@pytest.mark.parametrize("name", CARD_CASES)
+def test_card_cases_equal_jax_ref(name):
+    """The plain forward equals JAX's oracle value for value on the card
+    checks' cases, except that XLA's CPU backend flushes subnormal values
+    to zero (as a TPU does) where the port, like the card, keeps them."""
+    f, idx, valid, g, _ = _card_case(name)
+    got = ops.pillar_scatter(_t(f), _t(idx), _t(valid), g).numpy()
+    want = np.asarray(jps_ref.pillar_scatter_ref(
+        jnp.asarray(f), jnp.asarray(idx), jnp.asarray(valid), g))
+    subnormal = (got != 0) & (np.abs(got) < np.finfo(np.float32).tiny)
+    np.testing.assert_array_equal(np.where(subnormal, 0.0, got), want)
+    assert subnormal.any() == (name == "specials")
+    if name == "specials":   # -inf only: 0; subnormals and zeros only: kept
+        assert not got[8].any() and got[9].any()
+        assert (got[:8] <= 0).all() and got[g - 1].any()
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """Forward equal by value, backward bit for bit, on card tensors."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run python3 chip_smoke.py there)")
     dev = torch.device("cuda")
-    for name in GRAD_CASES:
+    for name in GRAD_CASES + CARD_CASES:
+        case = _card_case(name) if name in CARD_CASES else _grad_case(name)
         f, idx, valid, g, ct = (
-            _t(a).to(dev) if not isinstance(a, int) else a
-            for a in _grad_case(name))
+            _t(a).to(dev) if not isinstance(a, int) else a for a in case)
         out = ps_ops.pillar_scatter(f, idx, valid, g)
         want = ps_ref.pillar_scatter_ref(f, idx, valid, g)
         assert torch.equal(out, want), name
