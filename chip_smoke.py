@@ -18,8 +18,11 @@ fatal on failure:
 1. the card's name and power limit, torch and CUDA versions;
 2. the kernel build (``nvcc`` for ``sm_90a``, one process per source),
    timed;
-3. each kernel against its plain PyTorch version on the card, at the
-   serving paths' shapes (and a few others; the attention kernels in f32 at
+3. the launch floor (a one-element ``zero_()`` timed as the kernels are),
+   then each kernel against its plain PyTorch version on the card, at the
+   serving paths' shapes (and a few others: K3 ``ransac_score`` also at
+   one point and one plane, with an object of invalid points, and at 4,000
+   points an object; the attention kernels in f32 at
    2e-5, and in bf16 against the plain version's f32 result on the same
    bf16 inputs, each value within half a bf16 ulp, plus, for the
    tensor-core flash route, which rounds p to bf16 for its P.V product, an
@@ -40,9 +43,9 @@ fatal on failure:
    value) and backward (bit for bit) at Det B's shape (the real pillar ids
    of a kitti-urban frame at 122,880 points), dense collisions, all points
    masked out, planted ties, special values, every point in one pillar,
-   points sorted by pillar, rows of 7 channels and rows at an unaligned
-   base, beside ``scatter_reduce(..., "amax")`` and autograd's gradient of
-   it, with the forward's passes timed from a profile;
+   points sorted by pillar, rows of 7 and of 40 channels and rows at an
+   unaligned base, beside ``scatter_reduce(..., "amax")`` and autograd's
+   gradient of it, with each direction's passes timed from a profile;
 4. the Moby serving path at KITTI's own size (``kitti-urban`` at 122,880
    points and a 375x1242 image, 24 frames) on the card, with every
    kernel's launch count checked against the run's frame kinds, after a
@@ -329,10 +332,14 @@ def check_iou2d(torch, np, dev, iou_ops, iou_ref, n, m, seed):
         (lambda: iou_ref.iou2d_ref(a, b))
 
 
-def check_ransac(torch, np, dev, rs_ops, rs_ref, o, k, p, seed):
+def check_ransac(torch, np, dev, rs_ops, rs_ref, o, k, p, seed, dead=None):
+    """Kernel vs plain version, counts exact; object ``dead`` (if given)
+    has every point masked out."""
     rng = np.random.default_rng(seed)
     pts = torch.from_numpy(rng.normal(0, 5, (o, p, 3)).astype(np.float32))
     valid = torch.from_numpy(rng.uniform(size=(o, p)) < 0.8)
+    if dead is not None:
+        valid[dead] = False
     nrm = rng.normal(size=(o, k, 3))
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
     nrm = torch.from_numpy(nrm.astype(np.float32))
@@ -342,7 +349,9 @@ def check_ransac(torch, np, dev, rs_ops, rs_ref, o, k, p, seed):
     want = rs_ref.ransac_score_ref(*args, 0.5)
     if not torch.equal(got, want):
         fail(f"ransac_score (O,K,P)=({o},{k},{p}): counts differ")
-    rec = dict(shape=f"O={o} K={k} P={p}", exact=True, max_abs_err=0.0,
+    shape = f"O={o} K={k} P={p}" + (
+        f", object {dead} all invalid" if dead is not None else "")
+    rec = dict(shape=shape, exact=True, max_abs_err=0.0,
                bytes=o * p * 13 + o * k * 16 + o * k * 4, ops=8 * o * k * p)
     return rec, (lambda: rs_ops.ransac_score(*args, 0.5)), \
         (lambda: rs_ref.ransac_score_ref(*args, 0.5))
@@ -565,8 +574,9 @@ def pillar_inputs(torch, np, dev, detector3d, kitti, kind: str, seed: int):
     most channels hold several equal maxima; ``specials``:
     ``pillar_special_inputs``; ``one-pillar``: every kept point in one
     pillar (the most contention, the most combining); ``rows-c7``: rows of
-    7 channels; ``unaligned``: rows at a base 4 bytes past a 16-byte
-    boundary."""
+    7 channels; ``rows-c40``: rows of 40 channels (the backward's second
+    mask word partial); ``unaligned``: rows at a base 4 bytes past a
+    16-byte boundary."""
     g = torch.Generator(device=dev).manual_seed(seed)
     if kind in ("kitti", "sorted"):
         cfg = detector3d.PillarConfig()
@@ -589,6 +599,7 @@ def pillar_inputs(torch, np, dev, detector3d, kitti, kind: str, seed: int):
                            "ties": (8192, 32, 512),
                            "one-pillar": (8192, 32, 1024),
                            "rows-c7": (4096, 7, 512),
+                           "rows-c40": (4096, 40, 512),
                            "unaligned": (4096, 32, 512)}[kind]
         if kind == "unaligned":
             feats = torch.randn((n * c + 1,), generator=g,
@@ -665,6 +676,9 @@ def check_pillar_scatter(torch, ps_ops, ps_ref, inputs, backward: bool):
         return rec, (lambda: ps_ops.pillar_scatter(f, idx, valid,
                                                    n_pillars)), \
             (lambda: ps_ref.pillar_scatter_ref(f, idx, valid, n_pillars))
+    safe = torch.where(kept, idx, 0).long()
+    ties = int((kept[:, None] & (f == want[safe])).sum())
+    shape += f"; {ties} tied values ({ties / max(n * c, 1):.4f} of the grad)"
     got = ps_ops.pillar_scatter_bwd(f, idx, valid, out, ct)
     ref = ps_ref.pillar_scatter_bwd_ref(f, idx, valid, want, ct)
     if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
@@ -1059,7 +1073,7 @@ def compare_rows(got, want, what: str) -> None:
 
 
 PILLAR_CASES = ("kitti", "dense", "invalid", "ties", "specials", "one-pillar",
-                "sorted", "rows-c7", "unaligned")
+                "sorted", "rows-c7", "rows-c40", "unaligned")
 
 
 def report_timing(name: str, r) -> None:
@@ -1199,6 +1213,11 @@ def main() -> None:
             lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 20, 30, 256,
                                    s),
             lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 3, 7, 1000,
+                                   s),
+            lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 1, 1, 1, s),
+            lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 5, 33, 33,
+                                   s, dead=2),
+            lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 2, 5, 4000,
                                    s)],
         # The 3xTF32 route (f32; bf16 at hd 16, 32, 64): LM B's prefill
         # shape first (full width in f32), LM C's prefill shape in f32 (also
@@ -1232,7 +1251,8 @@ def main() -> None:
             dec(2, 4, 2, 100, 16, bf16, [0, 97])],
         # Det B's shape first (the real pillar ids of a kitti-urban frame),
         # then dense collisions, every point masked out, planted ties,
-        # special values, one pillar, sorted points, the 4-byte path.
+        # special values, one pillar, sorted points, 7- and 40-channel
+        # rows, an unaligned base.
         "pillar_scatter": [k4(kind, False) for kind in PILLAR_CASES],
         "pillar_scatter_bwd": [k4(kind, True) for kind in PILLAR_CASES],
     }
@@ -1240,6 +1260,11 @@ def main() -> None:
     # are timed too: (kernel, case) -> key of its record.
     also_timed = {("flash_attention", 1): "f32_prefill",
                   ("pillar_scatter", PILLAR_CASES.index("sorted")): "sorted"}
+    # The launch floor: a one-element zero_() timed as the kernels are.
+    floor_t = torch.zeros(1, device=dev)
+    launch_floor = graph_ms(floor_t.zero_, torch)
+    print(f"launch floor: {launch_floor:.5f} ms a call (a one-element "
+          f"zero_(), CUDA-graph replays as for the kernels)", flush=True)
     records = {}
     for name, cases in checks.items():
         if only and name not in only:

@@ -39,13 +39,31 @@
 // Rows are read 4 bytes a lane, so any C and any 4-byte aligned base take
 // the same path.
 //
-// The backward counts the ties of each (pillar, channel) with an int
-// atomicAdd (a point ties where it is kept and equals the output), marks a
-// pillar whose raw maximum was +inf or NaN (it reads 0 and passes no
-// gradient), then writes every point's gradient: ct * (1.0f / count) for a
-// tie, 0 otherwise, with IEEE division and no FMA (-fmad=false), as the
-// plain version (repro_torch/kernels/pillar_scatter/ref.py) computes it.
-// Contention at KITTI size: 11.9 points a pillar on average, 60 at most.
+// Backward design. Two passes after a cudaMemsetAsync of the tie counts
+// (zero is the empty count), so each kept row and its pillar's output row
+// are read once:
+//   * tie_mask_kernel takes 4 points a warp, as the forward takes 8: their
+//     ids in one load, then for each 32-channel word every row and output
+//     row of the batch in flight before the first compare. A kept point
+//     ties where it equals the output: an atomicAdd counts the tie of its
+//     (pillar, channel), an atomicOr of kPoison marks a channel whose raw
+//     maximum was +inf or NaN (it reads 0 and passes no gradient), and the
+//     warp's __ballot_sync of the ties is the point's mask word, one for
+//     each 32 channels (0 for a dropped point);
+//   * tie_grad_kernel writes every point's gradient from the mask words:
+//     a clear bit is 0, with no read of the features, the output, the
+//     counts or the cotangent; a set bit reads its cell's count and
+//     cotangent and writes ct * (1.0f / count), or 0 if poisoned, with
+//     IEEE division and no FMA (-fmad=false), as the plain version
+//     (repro_torch/kernels/pillar_scatter/ref.py) computes it. A thread
+//     takes 4 values of a row (one float4 store, one 16-byte load each of
+//     the 4 cells' counts and cotangents) where C % 4 == 0, else one.
+// Ties are many: the detector's features are ReLU'd, so a pillar channel
+// whose maximum is 0 ties every point of the pillar. At Det B's frame 45%
+// of the gradient's values tie (1.78 M of 3.93 M; chip_smoke), so pass 1
+// sends that many atomicAdds and pass 2 gathers most quads' cells.
+#include <cstdint>
+
 #include "moby_kernels.cuh"
 
 namespace {
@@ -55,6 +73,11 @@ constexpr int kLanes = 32;
 // 7 resident blocks an SM; on the card 32-point (84 registers) and
 // 16-point batches read the rows slower, 2-point ones too.
 constexpr int kBatch = 8;
+// Points a warp of the backward's first pass takes: it loads each point's
+// row and its pillar's output row, so 4 points hold as many loads in
+// flight as the forward's 8 (32 registers; 8 points took 64 and ran ~2%
+// slower on the card).
+constexpr int kMaskBatch = 4;
 constexpr unsigned kFull = 0xffffffffu;
 // Set in a tie count whose pillar's raw maximum was +inf or NaN; the tie
 // counts stay below it (the wrapper bounds N).
@@ -73,14 +96,6 @@ __device__ __forceinline__ bool kept(const int* idx, const bool* valid,
                                      long long p, int g, int* id) {
   *id = idx[p];
   return valid[p] && *id >= 0 && *id < g;
-}
-
-__global__ void fill_kernel(int* __restrict__ dst, long long total,
-                            int value) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x)
-    dst[i] = value;
 }
 
 // One warp takes kBatch consecutive points at a time. Lane i < kBatch
@@ -160,57 +175,103 @@ __global__ void decode_kernel(float* __restrict__ grid, long long cells,
   }
 }
 
-__global__ void tie_count_kernel(const float* __restrict__ feats,
-                                 const int* __restrict__ idx,
-                                 const bool* __restrict__ valid,
-                                 const float* __restrict__ out, long long n,
-                                 int c, int g, int* __restrict__ count) {
+// Pass 1 of the backward: one warp a batch of kMaskBatch points, as in
+// scatter_max_kernel. For each 32-channel word, every kept row of the
+// batch and its pillar's output row are loaded before any is compared;
+// then each point's ties are counted and poisons marked with atomics (no
+// return value awaited), and lane r keeps the ballot of point r's ties,
+// its mask word, written as one coalesced store for the batch.
+__global__ void __launch_bounds__(kMobyThreads)
+tie_mask_kernel(const float* __restrict__ feats, const int* __restrict__ idx,
+                const bool* __restrict__ valid,
+                const float* __restrict__ out, long long n, int c, int g,
+                int words, int* __restrict__ count,
+                unsigned* __restrict__ masks) {
   const int lane = threadIdx.x % kLanes;
-  const long long warps =
-      static_cast<long long>(gridDim.x) * blockDim.x / kLanes;
-  for (long long p = (blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x) / kLanes;
-       p < n; p += warps) {
-    int id;
-    if (!kept(idx, valid, p, g, &id)) continue;
-    const float* row = feats + p * c;
-    const long long cell = static_cast<long long>(id) * c;
-    for (int ch = lane; ch < c; ch += kLanes) {
-      const float f = row[ch];
-      if (f == out[cell + ch]) atomicAdd(count + cell + ch, 1);
-      if (isnan(f) || f == INFINITY) atomicOr(count + cell + ch, kPoison);
+  const long long p0 = (blockIdx.x * static_cast<long long>(blockDim.x) +
+                        threadIdx.x) / kLanes * kMaskBatch;
+  if (p0 >= n) return;
+  int id = -1, at;
+  if (lane < kMaskBatch && p0 + lane < n &&
+      kept(idx, valid, p0 + lane, g, &at))
+    id = at;
+  int pid[kMaskBatch];   // the batch's pillar ids, -1 for a dropped point
+#pragma unroll
+  for (int r = 0; r < kMaskBatch; ++r) pid[r] = __shfl_sync(kFull, id, r);
+  for (int w = 0; w < words; ++w) {
+    const int ch = w * kLanes + lane;
+    const bool in_row = ch < c;
+    float f[kMaskBatch], o[kMaskBatch];
+#pragma unroll
+    for (int r = 0; r < kMaskBatch; ++r) {
+      const bool live = pid[r] >= 0 && in_row;
+      f[r] = live ? feats[(p0 + r) * c + ch] : 0.0f;
+      o[r] = live ? out[static_cast<long long>(pid[r]) * c + ch] : 0.0f;
     }
+    unsigned mine = 0;
+#pragma unroll
+    for (int r = 0; r < kMaskBatch; ++r) {
+      const bool live = pid[r] >= 0 && in_row;
+      const bool tie = live && f[r] == o[r];
+      int* cell = count + static_cast<long long>(live ? pid[r] : 0) * c + ch;
+      if (tie) atomicAdd(cell, 1);
+      if (live && (isnan(f[r]) || f[r] == INFINITY)) atomicOr(cell, kPoison);
+      const unsigned m = __ballot_sync(kFull, tie);
+      if (lane == r) mine = m;
+    }
+    if (lane < kMaskBatch && p0 + lane < n)
+      masks[(p0 + lane) * words + w] = mine;
   }
 }
 
-__global__ void tie_grad_kernel(const float* __restrict__ feats,
-                                const int* __restrict__ idx,
-                                const bool* __restrict__ valid,
-                                const float* __restrict__ out,
-                                const float* __restrict__ ct,
-                                const int* __restrict__ count, long long n,
-                                int c, int g, float* __restrict__ grad) {
-  const int lane = threadIdx.x % kLanes;
-  const long long warps =
-      static_cast<long long>(gridDim.x) * blockDim.x / kLanes;
-  for (long long p = (blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x) / kLanes;
-       p < n; p += warps) {
-    int id;
-    const bool keep = kept(idx, valid, p, g, &id);
-    const float* row = feats + p * c;
-    float* dst = grad + p * c;
-    const long long cell = static_cast<long long>(keep ? id : 0) * c;
-    for (int ch = lane; ch < c; ch += kLanes) {
-      float v = 0.0f;
-      if (keep && row[ch] == out[cell + ch]) {
-        const int k = count[cell + ch];
-        if (!(k & kPoison))
-          v = ct[cell + ch] * (1.0f / static_cast<float>(k));
-      }
-      dst[ch] = v;
+// A tied value's share of its cell's cotangent, from the cell's tie count
+// k (0 in a poisoned cell).
+__device__ __forceinline__ float tie_share(int k, float ct) {
+  return (k & kPoison) ? 0.0f : ct * (1.0f / static_cast<float>(k));
+}
+
+// Pass 2: a thread for each 4 values of the gradient where C % 4 == 0 and
+// the cotangent is 16-byte aligned (4 channels of one row, one mask word,
+// one float4 store; a set bit's cell and its 3 neighbours come in one
+// 16-byte load of the counts and one of the cotangent), else a thread a
+// value. The mask word and the point's id are loaded together; the cells
+// only where a bit is set (a dropped point's id is never used).
+__global__ void __launch_bounds__(kMobyThreads)
+tie_grad_kernel(const int* __restrict__ idx,
+                const unsigned* __restrict__ masks,
+                const float* __restrict__ ct, const int* __restrict__ count,
+                int total, int c, int words, int vec,
+                float* __restrict__ grad) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (vec) {
+    if (t >= total / 4) return;
+    const int e = 4 * t, p = e / c, ch = e - p * c;
+    const unsigned word = masks[p * words + ch / kLanes];
+    const int id = idx[p];
+    const unsigned bits = (word >> (ch % kLanes)) & 0xfu;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (bits) {
+      const long long cell = static_cast<long long>(id) * c + ch;
+      const int4 k = *reinterpret_cast<const int4*>(count + cell);
+      const float4 w = *reinterpret_cast<const float4*>(ct + cell);
+      if (bits & 1u) v.x = tie_share(k.x, w.x);
+      if (bits & 2u) v.y = tie_share(k.y, w.y);
+      if (bits & 4u) v.z = tie_share(k.z, w.z);
+      if (bits & 8u) v.w = tie_share(k.w, w.w);
     }
+    reinterpret_cast<float4*>(grad)[t] = v;
+    return;
   }
+  if (t >= total) return;
+  const int p = t / c, ch = t - p * c;
+  const unsigned word = masks[p * words + ch / kLanes];
+  const int id = idx[p];
+  float v = 0.0f;
+  if ((word >> (ch % kLanes)) & 1u) {
+    const long long cell = static_cast<long long>(id) * c + ch;
+    v = tie_share(count[cell], ct[cell]);
+  }
+  grad[t] = v;
 }
 
 unsigned grid_blocks(long long work_items) {
@@ -253,31 +314,40 @@ MOBY_API int moby_pillar_scatter(const void* feats, const void* idx,
 }
 
 // feats (N,C), idx (N,), valid (N,), out (G,C) and its cotangent ct (G,C)
-// -> grad (N,C); count (G,C) i32 is scratch.
+// -> grad (N,C); count (G,C) i32 and masks (N, ceil(C/32)) i32 are
+// scratch.
 MOBY_API int moby_pillar_scatter_bwd(const void* feats, const void* idx,
                                      const void* valid, const void* out,
                                      const void* ct, long long n, int c,
-                                     int g, void* count, void* grad,
-                                     void* stream) {
+                                     int g, void* count, void* masks,
+                                     void* grad, void* stream) {
   if (n == 0 || c == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long cells = static_cast<long long>(g) * c;
+  const int words = (c + kLanes - 1) / kLanes;
   if (cells > 0) {
-    fill_kernel<<<grid_blocks(cells), kMobyThreads, 0, s>>>(
-        static_cast<int*>(count), cells, 0);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    tie_count_kernel<<<grid_blocks(n * kLanes), kMobyThreads, 0, s>>>(
-        static_cast<const float*>(feats), static_cast<const int*>(idx),
-        static_cast<const bool*>(valid), static_cast<const float*>(out), n,
-        c, g, static_cast<int*>(count));
-    err = cudaGetLastError();
+    const cudaError_t err = cudaMemsetAsync(count, 0, cells * sizeof(int), s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  tie_grad_kernel<<<grid_blocks(n * kLanes), kMobyThreads, 0, s>>>(
+  // Pass 1: a warp a batch.
+  const long long warps = (n + kMaskBatch - 1) / kMaskBatch;
+  const unsigned blocks = static_cast<unsigned>(
+      (warps * kLanes + kMobyThreads - 1) / kMobyThreads);
+  tie_mask_kernel<<<blocks, kMobyThreads, 0, s>>>(
       static_cast<const float*>(feats), static_cast<const int*>(idx),
-      static_cast<const bool*>(valid), static_cast<const float*>(out),
-      static_cast<const float*>(ct), static_cast<const int*>(count), n, c, g,
-      static_cast<float*>(grad));
+      static_cast<const bool*>(valid), static_cast<const float*>(out), n, c,
+      g, words, static_cast<int*>(count), static_cast<unsigned*>(masks));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // count is the wrapper's (16-byte aligned); ct comes from autograd.
+  const int total = static_cast<int>(n * c);
+  const int vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(ct) % 16 == 0;
+  tie_grad_kernel<<<static_cast<unsigned>(
+                        (static_cast<long long>(vec ? total / 4 : total) +
+                         kMobyThreads - 1) / kMobyThreads),
+                    kMobyThreads, 0, s>>>(
+      static_cast<const int*>(idx), static_cast<const unsigned*>(masks),
+      static_cast<const float*>(ct), static_cast<const int*>(count), total,
+      c, words, vec, static_cast<float*>(grad));
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,66 +11,69 @@
 // nanoseconds against a launch of microseconds; the work grows as O*K*P,
 // and only at thousands of objects would the 67 TFLOP/s f32 rate matter.
 //
-// Design: one block per object. The block stages the object's P points
-// (as x, y, z planes) and their valid mask in shared memory (13 B/point:
-// 3.3 KB at P = 256). Each warp takes planes k, k + W, ... and tests 32
-// points per step; the per-plane count is the sum of
-// __popc(__ballot_sync(...)) over the steps — an exact integer, with no
-// atomics and no padding planes (the TPU wrapper padded K to 128 with
-// offset-1e9 planes). The distance is evaluated as in the plain version
+// Design: a warp for each (object, plane), 4 warps a block on a grid of
+// (O, ceil(K/4)) blocks: 360 warps at the serving shape, so no warp walks
+// planes one after another. Each lane loads its plane's normal and offset
+// once, then tests 32 points a step straight from device memory (one
+// object's points, 3 KB at P = 256, stay in L1 and L2 for its planes):
+// kSteps steps' loads are issued before the first compare, and the count
+// is the sum of __popc(__ballot_sync(...)) over the steps — an exact
+// integer, with no shared memory, no __syncthreads, no atomics and no
+// padding planes (the TPU wrapper padded K to 128 with offset-1e9 planes).
+// P is unbounded; K is bounded by the grid's y extent (65,535 blocks of 4
+// planes). The distance is evaluated as in the plain version
 // (repro_torch/kernels/ransac_score/ref.py): ((x*nx + y*ny) + z*nz) + d,
 // no FMA (-fmad=false), so the comparisons, and the counts, are exact.
 #include "moby_kernels.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kLanes = 32;
+// Planes (warps) a block.
+constexpr int kWarps = 4;
+// 32-point steps a warp has in flight at once: the serving shape's 256
+// points in one group.
+constexpr int kSteps = 8;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void ransac_score_kernel(const float* __restrict__ points,
-                                    const bool* __restrict__ valid,
-                                    const float* __restrict__ normals,
-                                    const float* __restrict__ offsets, int p,
-                                    int k, float thresh,
-                                    int* __restrict__ counts) {
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* ys = xs + p;
-  float* zs = ys + p;
-  bool* vs = reinterpret_cast<bool*>(zs + p);
-  const int o = blockIdx.x;
-  const float* pts = points + static_cast<long long>(o) * p * 3;
-  const bool* val = valid + static_cast<long long>(o) * p;
-  for (int i = threadIdx.x; i < p; i += blockDim.x) {
-    xs[i] = pts[3 * i];
-    ys[i] = pts[3 * i + 1];
-    zs[i] = pts[3 * i + 2];
-    vs[i] = val[i];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int kk = warp; kk < k; kk += kWarps) {
-    const long long h = static_cast<long long>(o) * k + kk;
-    const float nx = normals[3 * h], ny = normals[3 * h + 1],
-                nz = normals[3 * h + 2];
-    const float d = offsets[h];
-    int count = 0;
-    for (int base = 0; base < p; base += 32) {
-      const int i = base + lane;
-      bool inlier = false;
-      if (i < p && vs[i]) {
-        const float dist = fabsf(((xs[i] * nx + ys[i] * ny) + zs[i] * nz) + d);
-        inlier = dist < thresh;
-      }
-      count += __popc(__ballot_sync(0xffffffffu, inlier));
+__global__ void __launch_bounds__(kWarps * kLanes)
+ransac_score_kernel(const float* __restrict__ points,
+                    const bool* __restrict__ valid,
+                    const float* __restrict__ normals,
+                    const float* __restrict__ offsets, int p, int k,
+                    float thresh, int* __restrict__ counts) {
+  const int lane = threadIdx.x % kLanes;
+  const int kk = blockIdx.y * kWarps + threadIdx.x / kLanes;
+  if (kk >= k) return;
+  const long long o = blockIdx.x;
+  const long long h = o * k + kk;
+  const float nx = normals[3 * h], ny = normals[3 * h + 1],
+              nz = normals[3 * h + 2];
+  const float d = offsets[h];
+  const float* pts = points + o * p * 3;
+  const bool* val = valid + o * p;
+  int count = 0;
+  for (int base = 0; base < p; base += kSteps * kLanes) {
+    float x[kSteps], y[kSteps], z[kSteps];
+    bool v[kSteps];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const int i = base + s * kLanes + lane;
+      const bool in = i < p;
+      const float* q = pts + 3 * static_cast<long long>(in ? i : 0);
+      v[s] = in && val[i];
+      x[s] = in ? q[0] : 0.0f;
+      y[s] = in ? q[1] : 0.0f;
+      z[s] = in ? q[2] : 0.0f;
     }
-    if (lane == 0) counts[h] = count;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const bool inlier =
+          v[s] && fabsf(((x[s] * nx + y[s] * ny) + z[s] * nz) + d) < thresh;
+      count += __popc(__ballot_sync(kFull, inlier));
+    }
   }
-}
-
-// Dynamic shared memory the kernel stages for P points (13 bytes each).
-size_t smem_bytes(int p) {
-  return static_cast<size_t>(p) * (3 * sizeof(float) + sizeof(bool));
+  if (lane == 0) counts[h] = count;
 }
 
 }  // namespace
@@ -82,7 +85,8 @@ MOBY_API int moby_ransac_score(const void* points, const void* valid,
                                int o, int p, int k, float thresh, void* counts,
                                void* stream) {
   if (o > 0 && k > 0) {
-    ransac_score_kernel<<<o, kWarps * 32, smem_bytes(p),
+    const dim3 grid(o, (k + kWarps - 1) / kWarps);
+    ransac_score_kernel<<<grid, kWarps * kLanes, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(points), static_cast<const bool*>(valid),
         static_cast<const float*>(normals), static_cast<const float*>(offsets),

@@ -58,8 +58,8 @@ SIGNATURES = {
     "moby_decode_attention": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, ctypes.c_float, _P), _I),
     "moby_pillar_scatter": ((_P, _P, _P, _LL, _I, _I, _P, _P), _I),
-    "moby_pillar_scatter_bwd": ((_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P),
-                                _I),
+    "moby_pillar_scatter_bwd": ((_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P,
+                                 _P), _I),
 }
 
 

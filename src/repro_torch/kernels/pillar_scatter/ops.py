@@ -71,14 +71,19 @@ def pillar_scatter_bwd(feats: torch.Tensor, pillar_idx: torch.Tensor,
                        (g, c), dev)
     _launch.check_cuda("pillar_scatter_bwd", "ct", ct, torch.float32,
                        (g, c), dev)
+    if n * c >= 2 ** 31:
+        raise ValueError(f"pillar_scatter_bwd: {n} points x {c} channels "
+                         f"exceed the kernel's 32-bit gradient index")
     grad = torch.empty((n, c), dtype=torch.float32, device=dev)
+    # Scratch: the tie counts and a mask word a point and 32 channels.
     count = torch.empty((g, c), dtype=torch.int32, device=dev)
+    masks = torch.empty((n, -(-c // 32)), dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         code = lib.moby_pillar_scatter_bwd(
             feats.data_ptr(), pillar_idx.data_ptr(), valid.data_ptr(),
             out.data_ptr(), ct.data_ptr(), n, c, g, count.data_ptr(),
-            grad.data_ptr(), _launch.stream_handle(dev))
+            masks.data_ptr(), grad.data_ptr(), _launch.stream_handle(dev))
     _build.check(code, "pillar_scatter_bwd")
     bwd_launches += 1
     return grad

@@ -13,9 +13,10 @@ from repro_torch.kernels.ransac_score.ref import ransac_score_ref
 
 launches = 0
 
-# The kernel stages one object's points in the default 48 KB of dynamic
-# shared memory (13 bytes a point).
-MAX_POINTS = (48 * 1024) // 13
+# A warp a plane, 4 planes a block, and the grid's y extent (65,535
+# blocks) bounds K; the points are read from device memory, so P is
+# unbounded.
+MAX_PLANES = 4 * 65535
 
 
 def ransac_score(points: torch.Tensor, valid: torch.Tensor,
@@ -35,9 +36,9 @@ def ransac_score(points: torch.Tensor, valid: torch.Tensor,
                        (o, None, 3), dev)
     _launch.check_cuda("ransac_score", "offsets", offsets, torch.float32,
                        (o, k), dev)
-    if p > MAX_POINTS:
-        raise ValueError(f"ransac_score: {p} points per object exceed the "
-                         f"kernel's shared-memory stage ({MAX_POINTS})")
+    if k > MAX_PLANES:
+        raise ValueError(f"ransac_score: {k} planes per object exceed the "
+                         f"kernel's grid ({MAX_PLANES})")
     counts = torch.empty((o, k), dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):

@@ -3,6 +3,8 @@
 * ``repro_torch.api.Session(scenario("smoke", seed=0), torch_device="cpu")
   .run(16)`` equals a live JAX run and ``tests/goldens/smoke.csv``: ``kind``
   exact, floats within rtol 1e-4, atol 1e-5;
+* so do ``kitti-urban`` (seeds 0 and 4, the latter on ``jetson_orin``)
+  and ``lossy-uplink``, the KITTI-density presets;
 * the baselines and ``moby_onboard`` equal the JAX engine, and so does a
   tape-driven engine;
 * the preset table equals ``repro``'s field by field;
@@ -93,6 +95,23 @@ def test_smoke_seeds_match_jax(seed, policy):
     got = api.Session(api.scenario("smoke", seed=seed, policy=policy),
                       torch_device="cpu").run(16).to_csv()
     _assert_reports_match(got, want)
+
+
+@pytest.mark.parametrize("name,seed,frames,overrides", [
+    ("kitti-urban", 0, 12, {}),
+    ("lossy-uplink", 2, 16, {}),
+    ("kitti-urban", 4, 12, {"device": "jetson_orin"})])
+def test_kitti_presets_match_jax(name, seed, frames, overrides):
+    """Beyond ``smoke``: the KITTI-density presets (8,192 points, up to
+    12 objects a frame), the lossy ``fcc1`` uplink and a non-default edge
+    device, each a live JAX run against the port's."""
+    want = japi.Session(japi.scenario(name, seed=seed, backend="ref",
+                                      **overrides)).run(frames).to_csv()
+    got = api.Session(api.scenario(name, seed=seed, **overrides),
+                      torch_device="cpu").run(frames).to_csv()
+    _assert_reports_match(got, want)
+    assert {r["device"] for r in _rows(got)} == {
+        overrides.get("device", "jetson_tx2")}
 
 
 @pytest.mark.parametrize("mode,frames", [("edge_only", 6), ("cloud_only", 6),

@@ -45,18 +45,28 @@ def _t(a) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# (o, p, k) -> an object whose points are all masked out.
+DEAD_OBJECT = {(5, 33, 33): 2}
+
+
 def _ransac_inputs(o, p, k):
     rng = np.random.default_rng(o * 100 + p + k)
     pts = rng.normal(0, 5, (o, p, 3)).astype(np.float32)
     valid = rng.uniform(size=(o, p)) < 0.8
+    if (o, p, k) in DEAD_OBJECT:
+        valid[DEAD_OBJECT[o, p, k]] = False
     nrm = rng.normal(size=(o, k, 3))
     nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
     off = rng.normal(0, 3, (o, k)).astype(np.float32)
     return pts, valid, nrm.astype(np.float32), off
 
 
+# The serving shape and others, then the card checks' edge cases
+# (chip_smoke.py): one point and one plane, an object of invalid points,
+# 4,000 points an object.
 @pytest.mark.parametrize("o,p,k", [(1, 64, 30), (4, 256, 30), (8, 100, 60),
-                                   (2, 256, 128), (12, 256, 30)])
+                                   (2, 256, 128), (12, 256, 30), (1, 1, 1),
+                                   (5, 33, 33), (2, 4000, 5)])
 def test_ransac_score_matches_jax(o, p, k):
     pts, valid, nrm, off = _ransac_inputs(o, p, k)
     got = rs_ops.ransac_score(_t(pts), _t(valid), _t(nrm), _t(off), 0.5)
@@ -67,6 +77,8 @@ def test_ransac_score_matches_jax(o, p, k):
                                        0.5, interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want_ref))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want_pallas))
+    if (o, p, k) in DEAD_OBJECT:
+        assert not got[DEAD_OBJECT[o, p, k]].any()
 
 
 # ---------------------------------------------------------------------------

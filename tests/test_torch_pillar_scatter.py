@@ -10,7 +10,9 @@ backends (their shared VJP splits a pillar's cotangent among its tied
 maxima), within rtol = atol = 1e-6 — and, where counted ties meet random
 cotangents, bit for bit. ``test_card_cases_equal_jax_ref`` holds the plain
 forward to JAX's oracle on the inputs of the card checks' special values,
-one-pillar and sorted cases. The CUDA kernels run only on a card:
+one-pillar, sorted and 40-channel cases, and
+``test_card_cases_gradient_matches_jax_grad`` the gradient on all but the
+special values (XLA flushes subnormals). The CUDA kernels run only on a card:
 ``test_kernels_match_plain_on_card`` is marked ``cuda`` and skips without
 one (``python3 chip_smoke.py`` holds them to these plain versions there).
 """
@@ -217,13 +219,17 @@ def _card_case(name):
     ``GRAD_CASES``: ``specials`` (``chip_smoke.pillar_special_inputs``:
     +-0, +-inf, NaN of either sign, subnormals, all-negative pillars, a
     pillar of -inf only, an id at G - 1), ``one-pillar`` (every kept point
-    in one pillar) and ``sorted`` (points sorted by pillar)."""
+    in one pillar), ``sorted`` (points sorted by pillar) and ``rows-c40``
+    (40 channels: the backward kernel's second mask word partial)."""
     if name == "specials":
         spec = importlib.util.spec_from_file_location("chip_smoke",
                                                       ROOT / "chip_smoke.py")
         chip_smoke = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(chip_smoke)
         f, idx, valid, g = chip_smoke.pillar_special_inputs(np)
+    elif name == "rows-c40":
+        f, idx, valid = _inputs(4096, 40, 512, 13)
+        g = 512
     else:
         f, idx, valid = _inputs(4096, 32, 512, 11)
         g = 512
@@ -236,7 +242,7 @@ def _card_case(name):
     return f, idx, valid, g, ct.astype(np.float32)
 
 
-CARD_CASES = ["specials", "one-pillar", "sorted"]
+CARD_CASES = ["specials", "one-pillar", "sorted", "rows-c40"]
 
 
 @pytest.mark.parametrize("name", CARD_CASES)
@@ -254,6 +260,20 @@ def test_card_cases_equal_jax_ref(name):
     if name == "specials":   # -inf only: 0; subnormals and zeros only: kept
         assert not got[8].any() and got[9].any()
         assert (got[:8] <= 0).all() and got[g - 1].any()
+
+
+@pytest.mark.parametrize("name", ["one-pillar", "sorted", "rows-c40"])
+def test_card_cases_gradient_matches_jax_grad(name):
+    """The gradient on the card checks' cases, against ``jax.grad``
+    through the ``ref`` backend (the VJP is the one the ``pallas`` backend
+    shares). ``specials`` is left out: XLA flushes its subnormal maxima to
+    zero, so the two sides tie on different values
+    (``test_card_cases_equal_jax_ref``)."""
+    f, idx, valid, g, ct = _card_case(name)
+    got = _port_grad(f, idx, valid, g, ct)
+    want = _jax_grad(f, idx, valid, g, ct, "ref")
+    np.testing.assert_allclose(got, want, **TOL)
+    assert got.any()
 
 
 @pytest.mark.cuda
