@@ -20,7 +20,16 @@ fatal on failure:
    timed;
 3. the launch floor (a one-element ``zero_()`` timed as the kernels are),
    then each kernel against its plain PyTorch version on the card, at the
-   serving paths' shapes (and a few others: K3 ``ransac_score`` also at
+   serving paths' shapes (and a few others: K1 ``point_proj``'s two
+   instances, uv, depth, visible and flat (``point_proj``) and the labels
+   alone (``point_proj_labels``, the serving path's launch), each bit for
+   bit at 122,880 points, at an unaligned base (a points view 12 bytes
+   past a 16-byte boundary), at N = 77, the
+   full one also at 1,000,003 points, the labels one also on kitti-urban
+   frame 0's own points, instance-id image and calibration (timed too,
+   its visible share printed); K2 ``iou2d`` bit for bit at 24x12, 130x250,
+   1x1 and on each side of its one-CTA limit (32x32, 33x33); K3
+   ``ransac_score`` also at
    one point and one plane, with an object of invalid points, and at 4,000
    points an object; the attention kernels in f32 at
    2e-5, and in bf16 against the plain version's f32 result on the same
@@ -48,7 +57,9 @@ fatal on failure:
    gradient of it, with each direction's passes timed from a profile;
 4. the Moby serving path at KITTI's own size (``kitti-urban`` at 122,880
    points and a 375x1242 image, 24 frames) on the card, with every
-   kernel's launch count checked against the run's frame kinds, after a
+   kernel's launch count checked against the run's frame kinds (K1's
+   labels instance once a transform frame and its full instance never,
+   K2 once a frame, K3 once a transform frame), after a
    2-frame warm-up; then a torch.profiler window over 4 frames (device busy
    share, device ops per frame, the ops with the most device time);
 5. the same run on the CPU in this process: frame kinds equal, floats within
@@ -134,8 +145,12 @@ DET_GOLDEN = ROOT / "tests" / "goldens" / "det3d_smoke.npz"
 DET_FRAMES, DET_STEPS, DET_CPU_FRAMES = 24, 8, 2
 
 KERNELS = {
+    # K1's two instances: the full outputs, and the labels alone (the
+    # serving path's project_and_label).
     "point_proj": ("src/repro_torch/csrc/point_proj.cu",
                    "src/repro/kernels/point_proj/point_proj.py:43"),
+    "point_proj_labels": ("src/repro_torch/csrc/point_proj.cu",
+                          "src/repro/kernels/point_proj/point_proj.py:43"),
     "iou2d": ("src/repro_torch/csrc/iou2d.cu",
               "src/repro/kernels/iou2d/iou2d.py:36"),
     "ransac_score": ("src/repro_torch/csrc/ransac_score.cu",
@@ -283,34 +298,78 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float = PEAK_F32_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_point_proj(torch, np, dev, scenes, pp_ops, pp_ref, n, h, w, seed):
-    """Kernel vs plain version on KITTI calibration; returns the record."""
+def on_card(torch, dev, pts, unaligned: bool):
+    """(N, 3) numpy points on the card: contiguous, or a contiguous view
+    one row into a larger tensor (``big[1:]``, a base 12 bytes past a
+    16-byte boundary)."""
+    if not unaligned:
+        return torch.from_numpy(pts).to(dev)
+    big = torch.zeros((len(pts) + 1, 3), dtype=torch.float32, device=dev)
+    big[1:] = torch.from_numpy(pts).to(dev)
+    return big[1:]
+
+
+def proj_inputs(torch, np, dev, scenes, n, h, w, seed, unaligned=False):
+    """K1's synthetic inputs on the card: n points spread over KITTI's
+    field of view, KITTI's calibration, a random (h, w) label image."""
     rng = np.random.default_rng(seed)
     tr, p = scenes.make_calibration(scenes.SceneConfig(img_h=h, img_w=w))
     pts = np.concatenate([rng.uniform(-5, 70, (n, 1)),
                           rng.uniform(-25, 25, (n, 1)),
                           rng.uniform(-2, 2, (n, 1))], 1).astype(np.float32)
     lab = rng.integers(0, 13, (h, w)).astype(np.int32)
-    args = [torch.from_numpy(a).to(dev) for a in (pts, tr, p)]
-    lab_t = torch.from_numpy(lab).to(dev)
-    got = pp_ops.point_proj(*args, h, w, lab_t)
-    want = pp_ref.point_proj_ref(*args, h, w, lab_t)
-    names = ("uv", "depth", "visible", "flat", "labels")
-    for name, g, r in zip(names, got, want):
-        if name in ("visible", "flat", "labels") and not torch.equal(g, r):
-            fail(f"point_proj N={n}: {name} differs from the plain version")
-    err = max(float((g - r).abs().max()) for g, r in zip(got[:2], want[:2]))
-    if not all(torch.allclose(g, r, rtol=1e-4, atol=1e-3)
-               for g, r in zip(got[:2], want[:2])):
-        fail(f"point_proj N={n}: uv/depth off by {err}")
-    n_vis = int(got[2].sum())
-    # Bytes: xyz + calibration in, the gathered labels of visible points,
-    # uv + depth + visible + flat + labels out. Ops: two 3x4 affine maps,
-    # the divide, bounds and index arithmetic (~60 f32 ops a point).
-    rec = dict(shape=f"N={n} image={h}x{w}", exact=True, max_abs_err=err,
-               bytes=n * 12 + 96 + n_vis * 4 + n * 21, ops=60 * n)
-    return rec, (lambda: pp_ops.point_proj(*args, h, w, lab_t)), \
-        (lambda: pp_ref.point_proj_ref(*args, h, w, lab_t))
+    return (on_card(torch, dev, pts, unaligned),
+            *(torch.from_numpy(a).to(dev) for a in (tr, p, lab)))
+
+
+def proj_shape(pts, lab, visible, what: str = "") -> str:
+    n, (h, w) = pts.shape[0], lab.shape
+    n_vis = int(visible.sum())
+    base = f", base +{pts.data_ptr() % 16} B" if pts.data_ptr() % 16 else ""
+    return (f"N={n} image={h}x{w}{what}{base}, {n_vis} visible "
+            f"({n_vis / max(n, 1):.4f})")
+
+
+def check_point_proj(torch, pp_ops, pp_ref, pts, tr, p, lab):
+    """K1's full instance vs its plain version, every output bit for bit;
+    returns the record. ``lab`` gives the image's shape (the labels are
+    the other instance's)."""
+    h, w = lab.shape
+    got = pp_ops.point_proj(pts, tr, p, h, w)
+    want = pp_ref.point_proj_ref(pts, tr, p, h, w)[:4]
+    shape = proj_shape(pts, lab, want[2])
+    for name, g, r in zip(("uv", "depth", "visible", "flat"), got, want):
+        if not torch.equal(g, r):
+            fail(f"point_proj {shape}: {name} differs from the plain version"
+                 + (f" (max abs err {float((g - r).abs().max())})"
+                    if g.dtype == torch.float32 else ""))
+    n = pts.shape[0]
+    # Bytes: xyz + calibration in, uv + depth + visible + flat out. Ops:
+    # two 3x4 affine maps, the divide, bounds and index arithmetic (~60
+    # f32 ops a point).
+    rec = dict(shape=shape, exact=True, max_abs_err=0.0, tol="bit for bit",
+               bytes=n * 12 + 96 + n * 17, ops=60 * n)
+    return rec, (lambda: pp_ops.point_proj(pts, tr, p, h, w)), \
+        (lambda: pp_ref.point_proj_ref(pts, tr, p, h, w))
+
+
+def check_point_proj_labels(torch, pp_ops, pp_ref, pts, tr, p, lab,
+                            what: str = ""):
+    """K1's labels instance vs the plain version's labels, bit for bit;
+    returns the record. Its bound counts what it moves: xyz and the
+    calibration in, the visible points' gathers, the labels out."""
+    h, w = lab.shape
+    got = pp_ops.project_and_label(pts, tr, p, lab)
+    want = pp_ref.point_proj_ref(pts, tr, p, h, w, lab)
+    shape = proj_shape(pts, lab, want[2], what)
+    if not torch.equal(got, want[4]):
+        fail(f"point_proj_labels {shape}: labels differ from the plain "
+             f"version")
+    n, n_vis = pts.shape[0], int(want[2].sum())
+    rec = dict(shape=shape, exact=True, max_abs_err=0.0, tol="bit for bit",
+               bytes=n * 12 + 96 + n_vis * 4 + n * 4, ops=60 * n)
+    return rec, (lambda: pp_ops.project_and_label(pts, tr, p, lab)), \
+        (lambda: pp_ref.point_proj_ref(pts, tr, p, h, w, lab)[4])
 
 
 def check_iou2d(torch, np, dev, iou_ops, iou_ref, n, m, seed):
@@ -324,10 +383,12 @@ def check_iou2d(torch, np, dev, iou_ops, iou_ref, n, m, seed):
     a, b = boxes(n), boxes(m)
     got, want = iou_ops.iou2d(a, b), iou_ref.iou2d_ref(a, b)
     err = float((got - want).abs().max()) if n * m else 0.0
-    if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
-        fail(f"iou2d {n}x{m}: off by {err}")
-    rec = dict(shape=f"{n}x{m}", exact=bool(torch.equal(got, want)),
-               max_abs_err=err, bytes=(n + m) * 16 + n * m * 4, ops=17 * n * m)
+    if not torch.equal(got, want):
+        fail(f"iou2d {n}x{m}: not bit-equal to the plain version (off by "
+             f"{err})")
+    rec = dict(shape=f"{n}x{m}", exact=True, max_abs_err=err,
+               tol="bit for bit", bytes=(n + m) * 16 + n * m * 4,
+               ops=17 * n * m)
     return rec, (lambda: iou_ops.iou2d(a, b)), \
         (lambda: iou_ref.iou2d_ref(a, b))
 
@@ -524,16 +585,19 @@ def check_decode(torch, dev, dec_ops, dec_ref, b, h, kv, s, hd, dtype,
 
 def kitti_frames(np, api, scenes, n: int, seed: int = 0):
     """``n`` kitti-urban frames at KITTI's point count (stream seed 0):
-    (N, 4) points with an intensity column from a seeded generator, and
-    the ground-truth boxes and flags, as numpy arrays."""
+    (N, 4) points with an intensity column from a seeded generator, the
+    ground-truth boxes and flags and the (H, W) int32 instance-id image, as
+    numpy arrays; and the stream's calibration (Tr, P)."""
     scn = api.scenario("kitti-urban", seed=0, **KITTI)
     rng = np.random.default_rng(seed)
+    stream = scenes.SceneStream(scn.scene, seed=0)
     out = []
-    for fr in scenes.SceneStream(scn.scene, seed=0).frames(n):
+    for fr in stream.frames(n):
         inten = rng.uniform(0, 1, (len(fr.points), 1))
         out.append((np.concatenate([fr.points, inten], 1).astype(np.float32),
-                    fr.gt_boxes.astype(np.float32), fr.gt_valid))
-    return out
+                    fr.gt_boxes.astype(np.float32), fr.gt_valid,
+                    fr.label_img.astype(np.int32)))
+    return out, (stream.tr.astype(np.float32), stream.p.astype(np.float32))
 
 
 def pillar_special_inputs(np, seed: int = 0):
@@ -961,7 +1025,7 @@ def serve_detector(torch, dev, kernels, detector3d, params, optimizer,
     frames = [(torch.from_numpy(pts).to(dev),
                torch.ones(len(pts), dtype=torch.bool, device=dev),
                torch.from_numpy(gtb).to(dev), torch.from_numpy(gtv).to(dev))
-              for pts, gtb, gtv in kitti]
+              for pts, gtb, gtv, _ in kitti]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1115,7 +1179,7 @@ def kernel_entry(name: str, r, launches) -> dict:
     source, replaces = KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches, **timing(r)}
-    for key in ("f32_prefill", "sorted"):
+    for key in ("kitti", "f32_prefill", "sorted"):
         if key in r:
             entry[key] = timing(r[key])
     return entry
@@ -1185,7 +1249,8 @@ def main() -> None:
         return lambda s: check_decode(torch, dev, dec_ops, dec_ref, *shape, s)
 
     t0 = time.perf_counter()
-    kitti = kitti_frames(np, api, scenes, 1 if only else DET_FRAMES)
+    kitti, kitti_calib = kitti_frames(np, api, scenes,
+                                      1 if only else DET_FRAMES)
     print(f"kitti-urban: {len(kitti)} frames of {KITTI['n_points']} points "
           f"rendered in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1194,19 +1259,45 @@ def main() -> None:
             torch, ps_ops, ps_ref,
             pillar_inputs(torch, np, dev, detector3d, kitti, kind, s),
             backward)
+
+    def k1(check, *shape, unaligned=False):
+        return lambda s: check(torch, pp_ops, pp_ref, *proj_inputs(
+            torch, np, dev, scenes, *shape, s, unaligned))
+
+    def k1_kitti(_):
+        """Frame 0 of kitti-urban: its own points, instance-id image and
+        calibration, the data of the serving path's launches."""
+        pts, _, _, lab = kitti[0]
+        return check_point_proj_labels(
+            torch, pp_ops, pp_ref,
+            on_card(torch, dev, np.ascontiguousarray(pts[:, :3]), False),
+            *(torch.from_numpy(a).to(dev) for a in (*kitti_calib, lab)),
+            " (kitti-urban frame 0)")
     checks = {
+        # The serving shape, a million points (N % 4 = 3), an unaligned
+        # base, a small image with N % 4 = 1.
         "point_proj": [
-            lambda s: check_point_proj(torch, np, dev, scenes, pp_ops, pp_ref,
-                                       122880, 375, 1242, s),
-            lambda s: check_point_proj(torch, np, dev, scenes, pp_ops, pp_ref,
-                                       1000003, 375, 1242, s),
-            lambda s: check_point_proj(torch, np, dev, scenes, pp_ops, pp_ref,
-                                       77, 48, 160, s)],
+            k1(check_point_proj, 122880, 375, 1242),
+            k1(check_point_proj, 1000003, 375, 1242),
+            k1(check_point_proj, 5001, 375, 1242, unaligned=True),
+            k1(check_point_proj, 77, 48, 160)],
+        # The labels instance: the serving shape, kitti-urban frame 0 (also
+        # timed), an unaligned base, N = 77.
+        "point_proj_labels": [
+            k1(check_point_proj_labels, 122880, 375, 1242),
+            k1_kitti,
+            k1(check_point_proj_labels, 5001, 375, 1242, unaligned=True),
+            k1(check_point_proj_labels, 77, 48, 160)],
+        # The serving shape, a multi-CTA grid, one output, and the two
+        # sides of the one-CTA limit (1024 outputs).
         "iou2d": [
             lambda s: check_iou2d(torch, np, dev, iou_ops, iou_ref, 24, 12, s),
             lambda s: check_iou2d(torch, np, dev, iou_ops, iou_ref, 130, 250,
                                   s),
-            lambda s: check_iou2d(torch, np, dev, iou_ops, iou_ref, 1, 1, s)],
+            lambda s: check_iou2d(torch, np, dev, iou_ops, iou_ref, 1, 1, s),
+            lambda s: check_iou2d(torch, np, dev, iou_ops, iou_ref, 32, 32, s),
+            lambda s: check_iou2d(torch, np, dev, iou_ops, iou_ref, 33, 33,
+                                  s)],
         "ransac_score": [
             lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 12, 30, 256,
                                    s),
@@ -1258,7 +1349,8 @@ def main() -> None:
     }
     # Besides each kernel's first case (the serving path's shape), these
     # are timed too: (kernel, case) -> key of its record.
-    also_timed = {("flash_attention", 1): "f32_prefill",
+    also_timed = {("point_proj_labels", 1): "kitti",
+                  ("flash_attention", 1): "f32_prefill",
                   ("pillar_scatter", PILLAR_CASES.index("sorted")): "sorted"}
     # The launch floor: a one-element zero_() timed as the kernels are.
     floor_t = torch.zeros(1, device=dev)
@@ -1304,13 +1396,15 @@ def main() -> None:
     launches = kernels.launch_counts()
     kinds = report.kinds()
     n_transform = sum(k != "anchor" for k in kinds)
+    # The serving path launches K1's labels instance, never the full one.
     expect = dict.fromkeys(launches, 0)
-    expect.update(point_proj=n_transform, iou2d=KITTI_FRAMES,
+    expect.update(point_proj_labels=n_transform, iou2d=KITTI_FRAMES,
                   ransac_score=n_transform)
     if launches != expect:
         fail(f"launch counts {launches} != {expect} implied by kinds {kinds}")
     main_launches.update((k, launches[k]) for k in
-                         ("point_proj", "iou2d", "ransac_score"))
+                         ("point_proj", "point_proj_labels", "iou2d",
+                          "ransac_score"))
     walls = session.engine.frame_wall_s
     per_kind = {k: statistics.median(w for w, kk in zip(walls, kinds)
                                      if (kk == "anchor") == (k == "anchor"))

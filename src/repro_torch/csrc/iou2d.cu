@@ -4,49 +4,63 @@
 //
 // What bounds it on an H100: launch latency. On the serving path the matrix
 // is T = 2*max_obj predicted tracks by D = max_obj detections (24 x 12 in
-// kitti-urban): 1.5 KB in, 1.2 KB out and ~4k flops, nanoseconds of memory
-// or arithmetic time against microseconds of launch.
+// kitti-urban): 1.5 KB in, 1.2 KB out and ~5k flops, nanoseconds of memory
+// or arithmetic time against a microsecond of launch. What a design can
+// still win is the time one thread takes above the launch: one round trip
+// of loads (~0.3 us in the probes of tools/k1_k2_probes.py), the
+// arithmetic, one store, and blocks that do not work.
 //
-// Design: one thread per (n, m) output in a 2-D grid of 32 x 8 blocks; the
-// ragged edges are masked, so unlike the TPU kernel nothing is padded to
-// 128 x 128 tiles. Each thread evaluates the plain version's formula
-// (repro_torch/kernels/iou2d/ref.py) in the same order, with IEEE division
-// and no FMA.
+// Design: a 1-D grid, a thread an output (i, j) of the row-major (N, M)
+// matrix. A matrix of at most 1024 outputs is one CTA of as many threads,
+// rounded to whole warps (the serving shape: one CTA of 288 threads, all
+// working); a larger one takes CTAs of 256 threads. Each thread issues its
+// two boxes' 16-byte read-only loads together at entry, then evaluates the
+// plain version's formula (repro_torch/kernels/iou2d/ref.py) in the same
+// order, with IEEE division and no FMA, so the result equals the plain
+// version bit for bit. Most pairs of boxes do not overlap, so the division
+// is skipped where the intersection is 0 (0.06 us less in the probes): the
+// quotient is then that zero, sign and all, as the union is positive. The
+// ragged edge is masked, so unlike the TPU kernel nothing is padded to
+// 128 x 128 tiles. Indices are 32-bit: the wrapper takes fewer than 2^31
+// outputs.
 #include "moby_kernels.cuh"
 
 namespace {
 
-constexpr int kTileM = 32;
-constexpr int kTileN = 8;
+constexpr int kOneCta = 1024;
+constexpr int kThreads = 256;
 
-__global__ void iou2d_kernel(const float* __restrict__ a, int n,
-                             const float* __restrict__ b, int m,
-                             float* __restrict__ out) {
-  const int j = blockIdx.x * kTileM + threadIdx.x;
-  const int i = blockIdx.y * kTileN + threadIdx.y;
-  if (i >= n || j >= m) return;
-  const float4 p = reinterpret_cast<const float4*>(a)[i];
-  const float4 q = reinterpret_cast<const float4*>(b)[j];
+__global__ void iou2d_kernel(const float4* __restrict__ a,
+                             const float4* __restrict__ b, unsigned m,
+                             unsigned total, float* __restrict__ out) {
+  const unsigned k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= total) return;
+  const unsigned i = k / m;
+  const float4 p = __ldg(a + i);
+  const float4 q = __ldg(b + (k - i * m));
   const float ix = fmaxf(fminf(p.z, q.z) - fmaxf(p.x, q.x), 0.0f);
   const float iy = fmaxf(fminf(p.w, q.w) - fmaxf(p.y, q.y), 0.0f);
   const float inter = ix * iy;
   const float aa = fmaxf((p.z - p.x) * (p.w - p.y), 0.0f);
   const float ab = fmaxf((q.z - q.x) * (q.w - q.y), 0.0f);
   const float uni = aa + ab - inter;
-  out[static_cast<long long>(i) * m + j] = uni > 1e-9f ? inter / uni : 0.0f;
+  out[k] = uni > 1e-9f ? (inter != 0.0f ? inter / uni : inter) : 0.0f;
 }
 
 }  // namespace
 
-// a (N,4) f32, b (M,4) f32, both 16-byte aligned -> out (N,M) f32.
+// a (N,4) f32, b (M,4) f32, both 16-byte aligned, N*M < 2^31 -> out (N,M)
+// f32.
 MOBY_API int moby_iou2d(const void* a, int n, const void* b, int m, void* out,
                         void* stream) {
-  if (n > 0 && m > 0) {
-    const dim3 block(kTileM, kTileN);
-    const dim3 grid((m + kTileM - 1) / kTileM, (n + kTileN - 1) / kTileN);
-    iou2d_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(a), n, static_cast<const float*>(b), m,
-        static_cast<float*>(out));
+  const unsigned total = static_cast<unsigned>(n) * static_cast<unsigned>(m);
+  if (total > 0) {
+    const unsigned threads = total <= kOneCta ? (total + 31) / 32 * 32
+                                              : kThreads;
+    iou2d_kernel<<<(total + threads - 1) / threads, threads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float4*>(a), static_cast<const float4*>(b),
+        static_cast<unsigned>(m), total, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

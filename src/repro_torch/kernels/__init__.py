@@ -5,6 +5,8 @@ PyTorch version.
 kernel                  source                           replaces (TPU, Pallas)
 ======================  ===============================  ==================================
 ``point_proj``          ``csrc/point_proj.cu``           ``repro/kernels/point_proj``
+``point_proj_labels``   ``csrc/point_proj.cu``           ``repro/kernels/point_proj``
+                                                         (labels only: the serving path)
 ``iou2d``               ``csrc/iou2d.cu``                ``repro/kernels/iou2d``
 ``ransac_score``        ``csrc/ransac_score.cu``         ``repro/kernels/ransac_score``
 ``flash_attention``     ``csrc/flash_attention.cu``      ``repro/kernels/flash_attention``
@@ -18,8 +20,10 @@ kernel                  source                           replaces (TPU, Pallas)
 
 Each wrapper (``<kernel>/ops.py``) keeps a plain-integer launch count,
 raised by one per kernel launch and nowhere else, so a run can show that
-its main path went through the kernels. ``flash_attention`` has two
-kernels, one counter each; ``flash_attention.ops.route`` picks one.
+its main path went through the kernels. ``point_proj`` has two
+instances of one kernel, one counter each (``point_proj.ops.point_proj``
+and ``project_and_label``). ``flash_attention`` has two kernels, one
+counter each; ``flash_attention.ops.route`` picks one.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from repro_torch.kernels.ransac_score import ops as _ransac_score
 # kernel -> (wrapper module, name of its launch count)
 _COUNTERS: Dict[str, Tuple[ModuleType, str]] = {
     "point_proj": (_point_proj, "launches"),
+    "point_proj_labels": (_point_proj, "labels_launches"),
     "iou2d": (_iou2d, "launches"),
     "ransac_score": (_ransac_score, "launches"),
     "flash_attention": (_flash_attention, "launches"),

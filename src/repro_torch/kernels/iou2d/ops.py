@@ -26,8 +26,9 @@ def iou2d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if t.data_ptr() % 16:
             raise ValueError(f"iou2d: {name} is not 16-byte aligned")
     n, m = a.shape[0], b.shape[0]
-    if (n + 7) // 8 > 65535:
-        raise ValueError(f"iou2d: {n} rows exceed the kernel's grid")
+    if n * m >= 2 ** 31:
+        raise ValueError(f"iou2d: {n}x{m} outputs overflow the kernel's "
+                         f"32-bit index")
     out = torch.empty((n, m), dtype=torch.float32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):

@@ -26,19 +26,17 @@ def point_proj(points: torch.Tensor, tr: torch.Tensor, p: torch.Tensor,
     (N,3) points + (3,4) Tr/P calibration -> (uv (N,2), depth (N,),
     visible (N,) bool, flat (N,) int32 gather index).
     """
-    uv, depth, visible, flat, _ = _pp_ops.point_proj(points, tr, p, height,
-                                                     width)
-    return uv, depth, visible, flat
+    return _pp_ops.point_proj(points, tr, p, height, width)
 
 
 def project_and_label(points: torch.Tensor, tr: torch.Tensor,
                       p: torch.Tensor, label_img: torch.Tensor
                       ) -> torch.Tensor:
-    """:func:`point_proj` with the instance-id gather fused in (one kernel
-    launch on the card): (N,3) points, (H,W) int32 label image -> (N,)
-    int32 labels, 0 for background or invisible points."""
-    h, w = label_img.shape
-    return _pp_ops.point_proj(points, tr, p, h, w, label_img)[4]
+    """:func:`point_proj` with the instance-id gather fused in: (N,3)
+    points, (H,W) int32 label image -> (N,) int32 labels, 0 for background
+    or invisible points. On the card one launch of the kernel's labels
+    instance, which writes the labels and nothing else."""
+    return _pp_ops.project_and_label(points, tr, p, label_img)
 
 
 def label_points(flat: torch.Tensor, visible: torch.Tensor,

@@ -92,8 +92,10 @@ def _boxes(rng, cnt):
     return np.concatenate([xy, xy + wh], 1).astype(np.float32)
 
 
+# (32, 32) and (33, 33) sit on each side of the kernel's one-CTA limit
+# (1024 outputs).
 @pytest.mark.parametrize("n,m", [(1, 1), (7, 13), (24, 12), (128, 128),
-                                 (130, 250)])
+                                 (130, 250), (32, 32), (33, 33)])
 def test_iou2d_matches_jax(n, m):
     rng = np.random.default_rng(n * 97 + m)
     a, b = _boxes(rng, n), _boxes(rng, m)
@@ -116,7 +118,7 @@ def test_iou2d_degenerate_boxes():
 
 
 # ---------------------------------------------------------------------------
-# point_proj (+ fused label gather)
+# point_proj and its labels instance (project_and_label)
 # ---------------------------------------------------------------------------
 
 
@@ -128,12 +130,27 @@ def _proj_inputs(n, h, w, seed):
     return pts, tr, p, lab
 
 
-@pytest.mark.parametrize("n", [64, 512, 1000, 4096])
-def test_point_proj_matches_jax(n):
+def _unaligned(pts: np.ndarray, device="cpu") -> torch.Tensor:
+    """The (N, 3) points as a contiguous view one row into a larger tensor
+    (``big[1:]``): a base 12 bytes past the allocation."""
+    big = torch.zeros((len(pts) + 1, 3), dtype=torch.float32, device=device)
+    big[1:] = _t(pts).to(device)
+    view = big[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16 == 12
+    return view
+
+
+# N % 4 != 0 (77, 1001, 4099) and a points base that is not 16-byte
+# aligned, as the card's kernel takes them.
+@pytest.mark.parametrize("n,unaligned", [
+    *(pytest.param(n, False, id=str(n))
+      for n in (64, 512, 1000, 4096, 77, 1001, 4099)),
+    pytest.param(1001, True, id="1001-unaligned")])
+def test_point_proj_matches_jax(n, unaligned):
     h, w = 128, 416
     pts, tr, p, lab = _proj_inputs(n, h, w, n)
-    uv, depth, vis, flat, labels = pp_ops.point_proj(
-        _t(pts), _t(tr), _t(p), h, w, _t(lab))
+    pts_t = _unaligned(pts) if unaligned else _t(pts)
+    uv, depth, vis, flat = pp_ops.point_proj(pts_t, _t(tr), _t(p), h, w)
     assert vis.dtype == torch.bool and flat.dtype == torch.int32
     uv_r, d_r, vis_r, flat_r = (np.asarray(x) for x in jpp_ref.point_proj_ref(
         jnp.asarray(pts), jnp.asarray(tr), jnp.asarray(p), h, w))
@@ -151,9 +168,11 @@ def test_point_proj_matches_jax(n):
     # index (visible or not) and every label equal.
     np.testing.assert_array_equal(flat.numpy(), flat_r)
     np.testing.assert_array_equal(flat.numpy()[vis_k], flat_k[vis_k])
-    np.testing.assert_array_equal(labels.numpy(), lab_r)
     np.testing.assert_array_equal(
         ops.label_points(flat, vis, _t(lab)).numpy(), lab_r)
+    np.testing.assert_array_equal(
+        pp_ops.project_and_label(pts_t, _t(tr), _t(p), _t(lab)).numpy(),
+        lab_r)
 
 
 def test_project_and_label_matches_core_projection():
@@ -180,6 +199,29 @@ def test_project_and_label_matches_core_projection():
         np.asarray(want))
 
 
+@pytest.mark.parametrize("unaligned", [False, True],
+                         ids=["aligned", "unaligned"])
+def test_labels_instance_matches_core_projection(unaligned):
+    """The labels-only wrapper (the serving path's launch on the card)
+    reproduces ``repro.core.projection.project_and_label`` on a rendered
+    scene, also from points at an unaligned base."""
+    from repro.core import projection as jproj
+    cfg = scenes.SceneConfig(max_obj=8, n_points=3001, seed=7)
+    stream = scenes.SceneStream(cfg, seed=11)
+    frame = next(stream.frames(1))
+    jcal = jproj.Calibration(tr=jnp.asarray(stream.tr), p=jnp.asarray(stream.p),
+                             height=cfg.img_h, width=cfg.img_w)
+    want = np.asarray(jproj.project_and_label(
+        jnp.asarray(frame.points), jnp.asarray(frame.label_img), jcal,
+        backend="ref"))
+    assert want.any()
+    pts = _unaligned(frame.points) if unaligned else _t(frame.points)
+    got = pp_ops.project_and_label(pts, _t(stream.tr), _t(stream.p),
+                                   _t(frame.label_img))
+    assert got.dtype == torch.int32 and got.shape == (len(frame.points),)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # ---------------------------------------------------------------------------
 # The package around the kernels
 # ---------------------------------------------------------------------------
@@ -189,9 +231,11 @@ def test_cpu_tensors_never_launch_a_kernel():
     kernels.reset_launch_counts()
     pts, tr, p, lab = _proj_inputs(100, 48, 160, 0)
     ops.project_and_label(_t(pts), _t(tr), _t(p), _t(lab))
+    ops.point_proj(_t(pts), _t(tr), _t(p), 48, 160)
     ops.iou2d(_t(_boxes(np.random.default_rng(0), 3)),
               _t(_boxes(np.random.default_rng(1), 4)))
-    assert kernels.launch_counts() == {"point_proj": 0, "iou2d": 0,
+    assert kernels.launch_counts() == {"point_proj": 0,
+                                       "point_proj_labels": 0, "iou2d": 0,
                                        "ransac_score": 0,
                                        "flash_attention": 0,
                                        "flash_attention_tc": 0,
@@ -256,9 +300,14 @@ def test_kernels_match_plain_on_card():
     assert torch.equal(rs_ops.ransac_score(*args, 0.1),
                        rs_ref.ransac_score_ref(*args, 0.1))
     rng = np.random.default_rng(0)
-    a, b = _t(_boxes(rng, 24)).to(dev), _t(_boxes(rng, 12)).to(dev)
-    assert torch.equal(iou_ops.iou2d(a, b), iou_ref.iou2d_ref(a, b))
-    pts, tr, p, lab = (_t(x).to(dev) for x in _proj_inputs(5000, 375, 1242, 1))
-    for g, w in zip(pp_ops.point_proj(pts, tr, p, 375, 1242, lab),
-                    pp_ref.point_proj_ref(pts, tr, p, 375, 1242, lab)):
-        assert torch.equal(g, w)
+    for n, m in ((24, 12), (33, 33)):
+        a, b = _t(_boxes(rng, n)).to(dev), _t(_boxes(rng, m)).to(dev)
+        assert torch.equal(iou_ops.iou2d(a, b), iou_ref.iou2d_ref(a, b))
+    pts, tr, p, lab = _proj_inputs(5001, 375, 1242, 1)
+    tr, p, lab = (_t(x).to(dev) for x in (tr, p, lab))
+    for pts_t in (_t(pts).to(dev), _unaligned(pts, dev)):
+        want = pp_ref.point_proj_ref(pts_t, tr, p, 375, 1242, lab)
+        for g, w in zip(pp_ops.point_proj(pts_t, tr, p, 375, 1242), want):
+            assert torch.equal(g, w)
+        assert torch.equal(pp_ops.project_and_label(pts_t, tr, p, lab),
+                           want[4])
