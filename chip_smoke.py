@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) serves
-Moby, the dense LMs and the PointPillars detector on an NVIDIA H100.
+Moby (one stream and a fleet), the dense LMs and the PointPillars detector
+on an NVIDIA H100.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels flash_attention,pillar_scatter
@@ -27,11 +28,20 @@ fatal on failure:
    past a 16-byte boundary), at N = 77, the
    full one also at 1,000,003 points, the labels one also on kitti-urban
    frame 0's own points, instance-id image and calibration (timed too,
-   its visible share printed); K2 ``iou2d`` bit for bit at 24x12, 130x250,
-   1x1 and on each side of its one-CTA limit (32x32, 33x33); K3
+   its visible share printed), and with a stream axis (points (S, N, 3),
+   label images (S, H, W): the fleet's one launch a frame) bit for bit
+   against the plain version and, stream by stream, the 2-D kernel, at
+   the three fleets' shapes (timed: the full-width fleet's 16 x 122,880
+   points, fleet-16-congested, fleet-64-mixed), S = 1 and a ragged S = 3;
+   K2 ``iou2d`` bit for bit at 24x12, 130x250,
+   1x1 and on each side of its one-CTA limit (32x32, 33x33), and with a
+   stream axis ((S, T, 4) x (S, D, 4), the same two checks) at the
+   fleets' shapes (timed: 16 x 24x12, 16 x 16x8, 64 x 12x6), S = 1, S = 3
+   at 33x33 and S = 64 at 130x250; K3
    ``ransac_score`` also at
-   one point and one plane, with an object of invalid points, and at 4,000
-   points an object; the attention kernels in f32 at
+   one point and one plane, with an object of invalid points, at 4,000
+   points an object and at the fleets' S x O objects (timed: 192, 128 and
+   384 objects); the attention kernels in f32 at
    2e-5, and in bf16 against the plain version's f32 result on the same
    bf16 inputs, each value within half a bf16 ulp, plus, for the
    tensor-core flash route, which rounds p to bf16 for its P.V product, an
@@ -64,16 +74,30 @@ fatal on failure:
    share, device ops per frame, the ops with the most device time);
 5. the same run on the CPU in this process: frame kinds equal, floats within
    the golden tolerance;
-6. the ``smoke`` preset on the card against ``tests/goldens/smoke.csv``;
-7. LM A, the card against JAX: qwen2.5-3B SMOKE in f32 with the weights of
+6. the fleet, orchestrated mode (``api.Session`` builds the port's
+   ``FleetEngine`` for ``n_streams > 1``): ``fleet-16-congested`` (8
+   frames), ``fleet-64-mixed`` (6 frames; TX2/Orin edges, a 4-GPU cloud
+   pool), each as the preset defines it, and the full-width fleet,
+   ``kitti-urban`` with 16 streams at KITTI's own size on the ``fcc1``
+   cell (8 frames), each after a 2-frame warm-up, its tapes recorded
+   before the timed run; the launches checked per fleet frame (K1's
+   labels instance 1, K2 2: the anchor and the transform branch, K3 1,
+   the others 0); wall ms per fleet frame and per stream-frame (median),
+   the share spent copying the frame's inputs to the card, peak device
+   memory; a torch.profiler window over 2 frames of the full-width fleet;
+   each run held to the port's CPU run of the same preset in this
+   process (the full-width fleet's first 4 frames): kinds exact, floats
+   within the golden tolerance; one ``{"fleets": [...]}`` JSON line;
+7. the ``smoke`` preset on the card against ``tests/goldens/smoke.csv``;
+8. LM A, the card against JAX: qwen2.5-3B SMOKE in f32 with the weights of
    ``tests/goldens/lm_qwen2_5_3b_smoke.npz``, prefill and four decode
    steps within 1e-5 of the golden's logits;
-8. LM B, the card against the port's CPU run at full width: qwen2.5-3B with
+9. LM B, the card against the port's CPU run at full width: qwen2.5-3B with
    2 of its 36 layers in f32 (attention weights rescaled so the scores are
    of order 1, see ``check_lm``), prefill at B=2, S=256 and four decode
    steps (max_len 512), logits within 1e-4; the launches of A and B
    checked (the 3xTF32 flash route and decode attention, one a layer);
-9. LM C, serving qwen2.5-3B at full width (36 layers, bf16, seeded random
+10. LM C, serving qwen2.5-3B at full width (36 layers, bf16, seeded random
    weights): prefill at B=1, S=8192 (median of 3 after a warm-up) and 32
    greedy decode steps at B=16 over a 32,768-position cache filled from a
    seeded generator with ragged positions, every kernel's launch count
@@ -81,17 +105,17 @@ fatal on failure:
    3xTF32 route none, decode 36 per step); ms per prefill and
    per step, decode tokens/s, peak device memory, and a torch.profiler
    window over 4 decode steps;
-10. Det A, the card against JAX: the PointPillars detector at a small
+11. Det A, the card against JAX: the PointPillars detector at a small
    config (32x32 pillars) with the weights and frame of
    ``tests/goldens/det3d_smoke.npz``: forward, loss, every gradient,
    detect and three AdamW steps at the CPU parity tests' tolerances;
-11. Det B, the detector at full width (128x128 pillars, feat 32, backbone
+12. Det B, the detector at full width (128x128 pillars, feat 32, backbone
    (32, 64, 128), seeded random weights) on 24 kitti-urban frames at
    122,880 points: detect per frame and 8 training steps (loss, backward,
    AdamW) after a warm-up, K4's launches checked (one forward a forward
    pass, one backward a step), peak device memory, a torch.profiler window
    over 4 detect calls; then 2 frames on the CPU against the card;
-12. one ``{"kernels": [...]}`` JSON line, the card line again, and last the
+13. one ``{"kernels": [...]}`` JSON line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
@@ -125,6 +149,18 @@ FLOAT_COLS = ("latency_s", "onboard_s", "f1", "precision", "recall")
 
 KITTI = dict(n_points=122880, img_h=375, img_w=1242)
 KITTI_FRAMES = 24
+
+# The fleet phase: the two fleet presets as they are defined, and the
+# full-width fleet: 16 kitti-urban vehicles at KITTI's own size on the
+# congested fcc1 cell. (name, scenario overrides, frames on the card,
+# frames of the CPU run it is held to, timing keys of its phase-3 cases.)
+FLEETS = (
+    ("fleet-16-congested", {}, 8, 8, "fleet_16"),
+    ("fleet-64-mixed", {}, 6, 6, "fleet_64"),
+    ("kitti-urban", dict(n_streams=16, trace="fcc1", **KITTI), 8, 4,
+     "fleet_kitti"),
+)
+FLEET_WARMUP, FLEET_PROFILE_FRAMES = 2, 2
 
 # LM serving, qwen2.5-3B at full width. The repo's prefill_32k (S 32768,
 # batch 32) and decode_32k (batch 128) shapes are cut to what one card
@@ -372,23 +408,70 @@ def check_point_proj_labels(torch, pp_ops, pp_ref, pts, tr, p, lab,
         (lambda: pp_ref.point_proj_ref(pts, tr, p, h, w, lab)[4])
 
 
-def check_iou2d(torch, np, dev, iou_ops, iou_ref, n, m, seed):
+def proj_fleet_inputs(torch, np, dev, scenes, s, n, h, w, seed):
+    """K1's labels instance with a stream axis: S streams of ``proj_inputs``
+    stacked, (S, N, 3) points and (S, H, W) images, one calibration."""
+    ins = [proj_inputs(torch, np, dev, scenes, n, h, w, seed + i)
+           for i in range(s)]
+    return (torch.stack([x[0] for x in ins]), ins[0][1], ins[0][2],
+            torch.stack([x[3] for x in ins]))
+
+
+def check_labels_fleet(torch, pp_ops, pp_ref, pts, tr, p, lab,
+                       what: str = ""):
+    """The labels instance over a stream axis: bit for bit against the
+    plain version and, stream by stream, against the 2-D kernel (those
+    launches compare, they are no main path's)."""
+    s_n, n = pts.shape[:2]
+    h, w = lab.shape[1:]
+    got = pp_ops.project_and_label(pts, tr, p, lab)
+    want = pp_ref.point_proj_ref(pts, tr, p, h, w, lab)
+    n_vis = int(want[2].sum())
+    shape = (f"S={s_n} N={n} image={h}x{w}{what}, {n_vis} visible "
+             f"({n_vis / max(s_n * n, 1):.4f})")
+    if not torch.equal(got, want[4]):
+        fail(f"point_proj_labels {shape}: labels differ from the plain "
+             f"version")
+    for i in range(s_n):
+        if not torch.equal(got[i], pp_ops.project_and_label(pts[i], tr, p,
+                                                            lab[i])):
+            fail(f"point_proj_labels {shape}: stream {i} differs from the "
+                 f"2-D kernel")
+    rec = dict(shape=shape, exact=True, max_abs_err=0.0,
+               tol="bit for bit, and the 2-D kernel stream by stream",
+               bytes=s_n * n * 12 + 96 + n_vis * 4 + s_n * n * 4,
+               ops=60 * s_n * n)
+    return rec, (lambda: pp_ops.project_and_label(pts, tr, p, lab)), \
+        (lambda: pp_ref.point_proj_ref(pts, tr, p, h, w, lab)[4])
+
+
+def check_iou2d(torch, np, dev, iou_ops, iou_ref, n, m, seed, s=None):
+    """K2 against its plain version, bit for bit; with ``s``, over a stream
+    axis (S, N, 4) x (S, M, 4), also against the 2-D kernel stream by
+    stream."""
     rng = np.random.default_rng(seed)
+    lead = () if s is None else (s,)
 
     def boxes(cnt):
-        xy = rng.uniform(0, 1242, (cnt, 2))
-        wh = rng.uniform(1, 200, (cnt, 2))
-        return torch.from_numpy(np.concatenate([xy, xy + wh], 1)
+        xy = rng.uniform(0, 1242, (*lead, cnt, 2))
+        wh = rng.uniform(1, 200, (*lead, cnt, 2))
+        return torch.from_numpy(np.concatenate([xy, xy + wh], -1)
                                 .astype(np.float32)).to(dev)
     a, b = boxes(n), boxes(m)
     got, want = iou_ops.iou2d(a, b), iou_ref.iou2d_ref(a, b)
-    err = float((got - want).abs().max()) if n * m else 0.0
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    shape = f"{n}x{m}" if s is None else f"S={s} {n}x{m}"
     if not torch.equal(got, want):
-        fail(f"iou2d {n}x{m}: not bit-equal to the plain version (off by "
+        fail(f"iou2d {shape}: not bit-equal to the plain version (off by "
              f"{err})")
-    rec = dict(shape=f"{n}x{m}", exact=True, max_abs_err=err,
-               tol="bit for bit", bytes=(n + m) * 16 + n * m * 4,
-               ops=17 * n * m)
+    for i in range(s or 0):
+        if not torch.equal(got[i], iou_ops.iou2d(a[i], b[i])):
+            fail(f"iou2d {shape}: stream {i} differs from the 2-D kernel")
+    k = s or 1
+    rec = dict(shape=shape, exact=True, max_abs_err=err,
+               tol="bit for bit" + ("" if s is None else
+                                    ", and the 2-D kernel stream by stream"),
+               bytes=k * ((n + m) * 16 + n * m * 4), ops=17 * k * n * m)
     return rec, (lambda: iou_ops.iou2d(a, b)), \
         (lambda: iou_ref.iou2d_ref(a, b))
 
@@ -833,7 +916,7 @@ def check_lm(torch, np, dev, kernels, lm_configs, convert, lm, decode,
     prefill or step; returns those launch counts, checked."""
     f32 = torch.float32
     kernels.reset_launch_counts()
-    # -- 7. LM A: qwen2.5-3B SMOKE on the card vs the JAX golden -------------
+    # -- 8. LM A: qwen2.5-3B SMOKE on the card vs the JAX golden -------------
     cfg = dataclasses.replace(lm_configs.get_smoke(LM_ARCH), dtype=f32)
     smoke_layers = cfg.n_layers
     with np.load(LM_GOLDEN) as f:
@@ -853,7 +936,7 @@ def check_lm(torch, np, dev, kernels, lm_configs, convert, lm, decode,
           f"{LM_GOLDEN.name} (max abs err {err:.3g}, tolerance 1e-5)",
           flush=True)
 
-    # -- 8. LM B: full width, 2 layers, f32: the card vs the CPU ------------
+    # -- 9. LM B: full width, 2 layers, f32: the card vs the CPU ------------
     cfg = dataclasses.replace(lm_configs.get(LM_ARCH), n_layers=LM_B_LAYERS,
                               dtype=f32)
     p_card = params.init_params(lm.model_defs(cfg),
@@ -1118,6 +1201,79 @@ def serve_detector(torch, dev, kernels, detector3d, params, optimizer,
     return {k: launches[k] for k in ("pillar_scatter", "pillar_scatter_bwd")}
 
 
+def serve_fleet(torch, api, kernels, name: str, overrides, frames: int,
+                cpu_frames: int, profile: bool):
+    """One fleet run on the card through ``api.Session`` (the orchestrated
+    ``FleetEngine``) after a warm-up, its launches checked per fleet frame
+    (K1's labels instance 1, K2 2 (the anchor and the transform branch),
+    K3 1, every other kernel 0), then held to the port's CPU run of the
+    same preset (its first ``cpu_frames`` frames): kinds exact, floats
+    within the golden tolerance. Returns the run's launch counts and
+    numbers; prints wall ms per fleet frame and per stream-frame (median),
+    the share of it spent copying the frame's inputs to the card, peak
+    device memory and, with ``profile``, a torch.profiler window."""
+    scn = api.scenario(name, **overrides)
+    s_n = scn.n_streams
+    # Warm-up (allocator, cuSOLVER) outside the timed run.
+    api.Session(scn, torch_device="cuda").run(FLEET_WARMUP)
+    session = api.Session(scn, torch_device="cuda")
+    # The tapes (the streams' frames, rendered on the host) are set-up:
+    # recorded before the timed run.
+    t0 = time.perf_counter()
+    session.engine._stacked(frames)
+    record_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = session.run(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(point_proj_labels=frames, iou2d=2 * frames,
+                  ransac_score=frames)
+    if launches != expect:
+        fail(f"fleet {name}: launch counts {launches} != {expect} "
+             f"(1 labels, 2 iou2d, 1 ransac_score a fleet frame)")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    eng = session.engine
+    frame_ms = statistics.median(eng.frame_wall_s) * 1e3
+    input_ms = statistics.median(eng.input_wall_s) * 1e3
+    kinds = [k for s in range(s_n) for k in report.kinds(s)]
+    counts = {k: kinds.count(k) for k in ("anchor", "test", "transform")}
+    rows = csv_rows(report.to_csv())
+    if not all(math.isfinite(float(r[k])) for r in rows for k in FLOAT_COLS):
+        fail(f"fleet {name}: non-finite values in the card's report")
+    print(f"fleet {name}: {s_n} streams x {frames} frames on the card in "
+          f"{wall:.2f} s (tapes recorded beforehand in {record_s:.1f} s); "
+          f"median wall {frame_ms:.2f} ms a fleet frame, "
+          f"{frame_ms / s_n:.3f} ms a stream-frame, of which inputs to the "
+          f"card {input_ms:.2f} ms a fleet frame; peak device memory "
+          f"{peak_gib:.3f} GiB; kinds {counts}; launches {launches}; mean "
+          f"F1 {report.mean_f1:.4f}", flush=True)
+    line = None
+    if profile:
+        prof = api.Session(scn, torch_device="cuda")
+        prof.engine._stacked(FLEET_PROFILE_FRAMES)
+        line = profile_window(
+            torch, f"fleet {name}", lambda: prof.run(FLEET_PROFILE_FRAMES),
+            FLEET_PROFILE_FRAMES, "fleet frame")
+        print(line, flush=True)
+    t0 = time.perf_counter()
+    cpu = api.Session(scn, torch_device="cpu").run(cpu_frames)
+    compare_rows([r for r in rows if int(r["frame"]) < cpu_frames],
+                 csv_rows(cpu.to_csv()), f"fleet {name} card vs CPU")
+    print(f"fleet {name} x{cpu_frames} on the CPU: "
+          f"{time.perf_counter() - t0:.2f} s; the card's first {cpu_frames} "
+          f"frames of every stream match it", flush=True)
+    return launches, dict(
+        name=name, streams=s_n, frames=frames, cpu_frames=cpu_frames,
+        wall_s=wall, frame_ms=frame_ms, stream_frame_ms=frame_ms / s_n,
+        input_ms=input_ms, peak_gib=peak_gib, kinds=counts,
+        profile=line)
+
+
 def csv_rows(text: str):
     return list(csv.DictReader(io.StringIO(text)))
 
@@ -1179,7 +1335,8 @@ def kernel_entry(name: str, r, launches) -> dict:
     source, replaces = KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches, **timing(r)}
-    for key in ("kitti", "f32_prefill", "sorted"):
+    for key in ("kitti", "f32_prefill", "sorted", "fleet_kitti", "fleet_16",
+                "fleet_64"):
         if key in r:
             entry[key] = timing(r[key])
     return entry
@@ -1264,6 +1421,19 @@ def main() -> None:
         return lambda s: check(torch, pp_ops, pp_ref, *proj_inputs(
             torch, np, dev, scenes, *shape, s, unaligned))
 
+    def k1_fleet(*shape, what=""):
+        return lambda s: check_labels_fleet(
+            torch, pp_ops, pp_ref,
+            *proj_fleet_inputs(torch, np, dev, scenes, *shape, s), what)
+
+    def k2(n, m, streams=None):
+        return lambda s: check_iou2d(torch, np, dev, iou_ops, iou_ref, n, m,
+                                     s, streams)
+
+    def k3(o, k, p, dead=None):
+        return lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, o, k,
+                                      p, s, dead)
+
     def k1_kitti(_):
         """Frame 0 of kitti-urban: its own points, instance-id image and
         calibration, the data of the serving path's launches."""
@@ -1282,34 +1452,33 @@ def main() -> None:
             k1(check_point_proj, 5001, 375, 1242, unaligned=True),
             k1(check_point_proj, 77, 48, 160)],
         # The labels instance: the serving shape, kitti-urban frame 0 (also
-        # timed), an unaligned base, N = 77.
+        # timed), an unaligned base, N = 77; then with a stream axis: the
+        # three fleets' shapes (all timed: the full-width fleet, 16 streams
+        # at KITTI's size; fleet-16-congested; fleet-64-mixed, S = 64), S =
+        # 1 and a ragged S = 3 (N % 128 != 0).
         "point_proj_labels": [
             k1(check_point_proj_labels, 122880, 375, 1242),
             k1_kitti,
             k1(check_point_proj_labels, 5001, 375, 1242, unaligned=True),
-            k1(check_point_proj_labels, 77, 48, 160)],
+            k1(check_point_proj_labels, 77, 48, 160),
+            k1_fleet(16, 122880, 375, 1242, what=" (full-width fleet)"),
+            k1_fleet(16, 2048, 64, 208, what=" (fleet-16-congested)"),
+            k1_fleet(64, 512, 32, 104, what=" (fleet-64-mixed)"),
+            k1_fleet(1, 5001, 375, 1242),
+            k1_fleet(3, 4099, 48, 160)],
         # The serving shape, a multi-CTA grid, one output, and the two
-        # sides of the one-CTA limit (1024 outputs).
-        "iou2d": [
-            lambda s: check_iou2d(torch, np, dev, iou_ops, iou_ref, 24, 12, s),
-            lambda s: check_iou2d(torch, np, dev, iou_ops, iou_ref, 130, 250,
-                                  s),
-            lambda s: check_iou2d(torch, np, dev, iou_ops, iou_ref, 1, 1, s),
-            lambda s: check_iou2d(torch, np, dev, iou_ops, iou_ref, 32, 32, s),
-            lambda s: check_iou2d(torch, np, dev, iou_ops, iou_ref, 33, 33,
-                                  s)],
-        "ransac_score": [
-            lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 12, 30, 256,
-                                   s),
-            lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 20, 30, 256,
-                                   s),
-            lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 3, 7, 1000,
-                                   s),
-            lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 1, 1, 1, s),
-            lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 5, 33, 33,
-                                   s, dead=2),
-            lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, 2, 5, 4000,
-                                   s)],
+        # sides of the one-CTA limit (1024 outputs); then with a stream
+        # axis: the three fleets' shapes (timed), S = 1, a ragged S = 3
+        # across the one-CTA limit, S = 64 with multi-CTA matrices.
+        "iou2d": [k2(24, 12), k2(130, 250), k2(1, 1), k2(32, 32),
+                  k2(33, 33), k2(24, 12, 16), k2(16, 8, 16), k2(12, 6, 64),
+                  k2(24, 12, 1), k2(33, 33, 3), k2(130, 250, 64)],
+        # The serving shape and others; then the fleets' S x O objects
+        # (timed): 16 x 12, 16 x 8 and 64 x 6.
+        "ransac_score": [k3(12, 30, 256), k3(20, 30, 256), k3(3, 7, 1000),
+                         k3(1, 1, 1), k3(5, 33, 33, dead=2), k3(2, 5, 4000),
+                         k3(192, 30, 256), k3(128, 30, 256),
+                         k3(384, 30, 256)],
         # The 3xTF32 route (f32; bf16 at hd 16, 32, 64): LM B's prefill
         # shape first (full width in f32), LM C's prefill shape in f32 (also
         # timed), then GQA, ragged MQA, keys longer than queries, the SMOKE
@@ -1350,6 +1519,14 @@ def main() -> None:
     # Besides each kernel's first case (the serving path's shape), these
     # are timed too: (kernel, case) -> key of its record.
     also_timed = {("point_proj_labels", 1): "kitti",
+                  ("point_proj_labels", 4): "fleet_kitti",
+                  ("point_proj_labels", 5): "fleet_16",
+                  ("point_proj_labels", 6): "fleet_64",
+                  ("iou2d", 5): "fleet_kitti", ("iou2d", 6): "fleet_16",
+                  ("iou2d", 7): "fleet_64",
+                  ("ransac_score", 6): "fleet_kitti",
+                  ("ransac_score", 7): "fleet_16",
+                  ("ransac_score", 8): "fleet_64",
                   ("flash_attention", 1): "f32_prefill",
                   ("pillar_scatter", PILLAR_CASES.index("sorted")): "sorted"}
     # The launch floor: a one-element zero_() timed as the kernels are.
@@ -1432,32 +1609,51 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s; the card's report matches it",
           flush=True)
 
-    # -- 6. smoke on the card vs the JAX reference's golden -----------------
+    # -- 6. the fleet, orchestrated mode ------------------------------------
+    by_path = {k: {"kitti-urban": main_launches[k]} for k in
+               ("point_proj", "point_proj_labels", "iou2d", "ransac_score")}
+    fleets = []
+    for name, overrides, frames, cpu_frames, key in FLEETS:
+        launches, run = serve_fleet(torch, api, kernels, name, overrides,
+                                    frames, cpu_frames,
+                                    profile=key == "fleet_kitti")
+        path = f"{key} ({name})"
+        for k in by_path:
+            by_path[k][path] = launches[k]
+            main_launches[k] += launches[k]
+        fleets.append(run)
+        torch.cuda.empty_cache()
+    print(json.dumps({"fleets": fleets}), flush=True)
+
+    # -- 7. smoke on the card vs the JAX reference's golden -----------------
     smoke = api.Session(api.scenario("smoke", seed=0),
                         torch_device="cuda").run(16)
     compare_rows(csv_rows(smoke.to_csv()), csv_rows(GOLDEN.read_text()),
                  "smoke on the card vs tests/goldens/smoke.csv")
     print("smoke x16 on the card matches tests/goldens/smoke.csv", flush=True)
 
-    # -- 7-8. LM A and B: the card against JAX's golden and the CPU ------
+    # -- 8-9. LM A and B: the card against JAX's golden and the CPU ------
     main_launches.update(check_lm(torch, np, dev, kernels, lm_configs,
                                   convert, lm, decode, params))
     torch.cuda.empty_cache()
 
-    # -- 9. LM C: serving qwen2.5-3B at full width on the card --------------
+    # -- 10. LM C: serving qwen2.5-3B at full width on the card -------------
     main_launches.update(serve_lm(torch, dev, kernels, lm_configs, lm, decode,
                                   params))
 
-    # -- 10-11. Det A and B: the PointPillars detector ----------------------
+    # -- 11-12. Det A and B: the PointPillars detector ----------------------
     torch.cuda.empty_cache()
     check_detector_golden(testing)
     main_launches.update(serve_detector(torch, dev, kernels, detector3d,
                                         params, optimizer, testing, kitti))
 
-    # -- 12. result lines -----------------------------------------------------
-    print(json.dumps({"kernels": [
-        kernel_entry(name, records[name], main_launches[name])
-        for name in KERNELS]}))
+    # -- 13. result lines -----------------------------------------------------
+    entries = [kernel_entry(name, records[name], main_launches[name])
+               for name in KERNELS]
+    for e in entries:
+        if e["name"] in by_path:
+            e["launches_by_path"] = by_path[e["name"]]
+    print(json.dumps({"kernels": entries}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,9 @@
 * :func:`scenario` / :func:`list_scenarios` / :func:`register_scenario` —
   named presets of :class:`Scenario`, the frozen run spec (the JAX
   package's presets, field for field);
-* :class:`Session` — builds the single-stream ``MobyEngine`` on
-  ``torch_device`` (default ``"cuda"``) and runs;
+* :class:`Session` — builds the single-stream ``MobyEngine``, or the
+  orchestrated ``FleetEngine`` for ``n_streams > 1``, on ``torch_device``
+  (default ``"cuda"``) and runs;
 * :class:`RunReport` — the canonical packed outcome;
 * scheduler policies and device profiles resolve through the same
   registries as in ``repro.api``.

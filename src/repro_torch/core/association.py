@@ -15,7 +15,10 @@ Port of ``repro/core/association.py``:
   assigned, a round changes nothing but the counter, which the mask also
   holds — and the host tests for the end only every
   :data:`CHECK_EVERY` rounds, so the card is not synchronised once per
-  round. The result is exactly the while-loop's.
+  round. The result is exactly the while-loop's. Leading batch dims (a
+  fleet's streams) run one auction each, with its own condition and
+  counter, as ``jax.vmap`` of the ``while_loop`` does: the rounds go on
+  until no auction does, and a finished one is held by its mask.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import boxes as box_ops
+from repro_torch.core.batching import take
 
 _NEG = -1e9
 # float32(1 / 1000), the factor XLA's jit uses for "/ 1000.0".
@@ -86,45 +90,54 @@ def hungarian_numpy(cost: np.ndarray) -> np.ndarray:
 
 def _auction_phase(benefit: torch.Tensor, prices: torch.Tensor, eps: float,
                    max_iter: int):
-    """One auction phase at a fixed epsilon. benefit: (n, n) square."""
-    n = benefit.shape[0]
+    """One auction phase at a fixed epsilon. benefit: (..., n, n) square,
+    one auction per leading index, each with its own loop condition and
+    round counter (``jax.vmap`` of the JAX version's ``while_loop``)."""
+    n = benefit.shape[-1]
+    batch = benefit.shape[:-2]
     dev = benefit.device
     ar = torch.arange(n, device=dev)
-    neg_col = torch.full((n, 1), _NEG, dtype=benefit.dtype, device=dev)
-    neg_mat = torch.full((n, n), _NEG, dtype=benefit.dtype, device=dev)
-    person_to_obj = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    obj_to_person = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    it = torch.zeros((), dtype=torch.int64, device=dev)
+    neg_col = torch.full((*batch, n, 1), _NEG, dtype=benefit.dtype,
+                         device=dev)
+    neg_mat = torch.full((*batch, n, n), _NEG, dtype=benefit.dtype,
+                         device=dev)
+    person_to_obj = torch.full((*batch, n), -1, dtype=torch.int64, device=dev)
+    obj_to_person = torch.full((*batch, n), -1, dtype=torch.int64, device=dev)
+    it = torch.zeros(batch, dtype=torch.int64, device=dev)
     for rnd in range(max_iter):
-        # The while-loop's condition, evaluated on the device.
-        go = (person_to_obj < 0).any() & (it < max_iter)
-        if rnd % CHECK_EVERY == 0 and not bool(go):
+        # The while-loop's condition, evaluated on the device per auction;
+        # the host ends the loop once no auction goes on.
+        go = (person_to_obj < 0).any(dim=-1) & (it < max_iter)
+        if rnd % CHECK_EVERY == 0 and not bool(go.any()):
             break
         unassigned = person_to_obj < 0
-        values = benefit - prices[None, :]                      # (n, n)
+        values = benefit - prices[..., None, :]                 # (.., n, n)
         # Pad a -inf column so top-2 also works for n == 1.
-        top2 = torch.topk(torch.cat([values, neg_col], dim=1), 2,
-                          dim=1).values                         # (n, 2)
-        best_j = values.argmax(dim=1)                           # (n,)
-        bid = prices[best_j] + top2[:, 0] - top2[:, 1] + eps    # (n,)
+        top2 = torch.topk(torch.cat([values, neg_col], dim=-1), 2,
+                          dim=-1).values                        # (.., n, 2)
+        best_j = values.argmax(dim=-1)                          # (.., n)
+        bid = take(prices, best_j) + top2[..., 0] - top2[..., 1] + eps
         # Bid matrix: unassigned persons bid on their best object.
-        bid_mat = neg_mat.clone()
-        bid_mat[ar, best_j] = torch.where(unassigned, bid, _NEG)
-        best_bid = bid_mat.amax(dim=0)                          # (n,)
-        winner = bid_mat.argmax(dim=0)
+        bid_mat = neg_mat.scatter(
+            -1, best_j[..., None],
+            torch.where(unassigned, bid, _NEG)[..., None])
+        best_bid = bid_mat.amax(dim=-2)                         # (.., n)
+        winner = bid_mat.argmax(dim=-2)
         has_bid = best_bid > _NEG / 2
         # Gather-based (collision-free) state update:
         # person i wins iff it was unassigned, bid on j=best_j[i], and is the
         # argmax bidder for j.
-        won = unassigned & has_bid[best_j] & (winner[best_j] == ar)
+        won = unassigned & take(has_bid, best_j) & (take(winner, best_j) == ar)
         # person i is evicted iff its current object received a winning bid
         # from someone else.
         cur = person_to_obj.clamp(0, n - 1)
-        evicted = (person_to_obj >= 0) & has_bid[cur] & (winner[cur] != ar)
+        evicted = (person_to_obj >= 0) & take(has_bid, cur) \
+            & (take(winner, cur) != ar)
         new_p2o = torch.where(won, best_j,
                               torch.where(evicted, -1, person_to_obj))
-        has_bid = has_bid & go
-        person_to_obj = torch.where(go, new_p2o, person_to_obj)
+        go_n = go[..., None]
+        has_bid = has_bid & go_n
+        person_to_obj = torch.where(go_n, new_p2o, person_to_obj)
         obj_to_person = torch.where(has_bid, winner, obj_to_person)
         prices = torch.where(has_bid, best_bid, prices)
         it = it + go.long()
@@ -133,13 +146,13 @@ def _auction_phase(benefit: torch.Tensor, prices: torch.Tensor, eps: float,
 
 def auction_assign(benefit: torch.Tensor, eps_final: float = 1e-4,
                    max_iter_per_phase: int = 4000) -> torch.Tensor:
-    """Maximum-benefit perfect matching on a square benefit matrix.
+    """Maximum-benefit perfect matching on a square benefit matrix
+    (..., n, n), one per leading index.
 
-    Returns person_to_obj (n,) int64. Epsilon scaling: eps 0.1 -> eps_final
-    by factors of 10, reusing prices across phases.
+    Returns person_to_obj (..., n) int64. Epsilon scaling: eps 0.1 ->
+    eps_final by factors of 10, reusing prices across phases.
     """
-    n = benefit.shape[0]
-    prices = torch.zeros((n,), dtype=benefit.dtype, device=benefit.device)
+    prices = benefit.new_zeros(benefit.shape[:-1])
     eps = 0.1
     while True:
         person_to_obj, _, prices = _auction_phase(benefit, prices, eps,
@@ -155,23 +168,23 @@ def associate(track_boxes: torch.Tensor, track_valid: torch.Tensor,
               iou_thresh: float = 0.3):
     """Associate predicted track boxes with detections (both 2D aabb).
 
-    Args:
-      track_boxes: (T, 4) [x1,y1,x2,y2] Kalman-predicted boxes.
-      track_valid: (T,) bool.
-      det_boxes: (D, 4) current detections.
-      det_valid: (D,) bool.
+    Args (any leading batch dims, the same on every argument):
+      track_boxes: (..., T, 4) [x1,y1,x2,y2] Kalman-predicted boxes.
+      track_valid: (..., T) bool.
+      det_boxes: (..., D, 4) current detections.
+      det_valid: (..., D) bool.
       iou_thresh: association criterion (paper: 0.3).
 
     Returns:
-      track_to_det: (T,) int64, detection index or -1.
-      det_to_track: (D,) int64, track index or -1.
-      iou: (T, D) IoU matrix (for diagnostics).
+      track_to_det: (..., T) int64, detection index or -1.
+      det_to_track: (..., D) int64, track index or -1.
+      iou: (..., T, D) IoU matrix (for diagnostics).
     """
-    t, d = track_boxes.shape[0], det_boxes.shape[0]
+    t, d = track_boxes.shape[-2], det_boxes.shape[-2]
     n = max(t, d)
     dev = track_boxes.device
     iou = box_ops.aabb_iou_2d(track_boxes, det_boxes)
-    pair_ok = track_valid[:, None] & det_valid[None, :]
+    pair_ok = track_valid[..., :, None] & det_valid[..., None, :]
     benefit = torch.where(pair_ok, iou, 0.0)
     # Quantize so the auction's eps-optimality implies exact optimality on
     # the quantized benefits (grid 1e-3 >> n * eps_final). The JAX package
@@ -179,17 +192,18 @@ def associate(track_boxes: torch.Tensor, track_valid: torch.Tensor,
     # reciprocal instead; that rounding (one ulp off x / 1000 for some x)
     # decides between exactly tied assignments, so it is the one kept here.
     benefit = torch.round(benefit * 1000.0) * _INV_1000
-    sq = benefit.new_zeros((n, n))
-    sq[:t, :d] = benefit
+    sq = benefit.new_zeros((*benefit.shape[:-2], n, n))
+    sq[..., :t, :d] = benefit
     person_to_obj = auction_assign(sq)
-    track_to_det = person_to_obj[:t]
+    track_to_det = person_to_obj[..., :t]
     track_to_det = torch.where(track_to_det >= d, -1, track_to_det)
-    matched_iou = iou[torch.arange(t, device=dev), track_to_det.clamp(0, d - 1)]
+    matched_iou = torch.gather(iou, -1,
+                               track_to_det.clamp(0, d - 1)[..., None])[..., 0]
     good = (track_to_det >= 0) & (matched_iou >= iou_thresh) & track_valid
     track_to_det = torch.where(good, track_to_det, -1)
     # Invert the matching with a masked argmax per detection (collision-free).
-    onehot = (track_to_det[:, None] == torch.arange(d, device=dev)[None, :]) \
-        & good[:, None]
-    det_to_track = torch.where(onehot.any(dim=0),
-                               onehot.to(torch.int8).argmax(dim=0), -1)
+    onehot = (track_to_det[..., :, None] == torch.arange(d, device=dev)) \
+        & good[..., None]
+    det_to_track = torch.where(onehot.any(dim=-2),
+                               onehot.to(torch.int8).argmax(dim=-2), -1)
     return track_to_det, det_to_track, iou

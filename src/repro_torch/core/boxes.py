@@ -151,12 +151,13 @@ def iou_3d(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """Pairwise 3D IoU: (N, 7) x (M, 7) -> (N, M)."""
-    return iou_3d(boxes1[:, None, :], boxes2[None, :, :])
+    """Pairwise 3D IoU: (..., N, 7) x (..., M, 7) -> (..., N, M)."""
+    return iou_3d(boxes1[..., :, None, :], boxes2[..., None, :, :])
 
 
 def aabb_iou_2d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise axis-aligned 2D IoU. a: (N, 4) [x1,y1,x2,y2]; b: (M, 4).
+    """Pairwise axis-aligned 2D IoU. a: (..., N, 4) [x1,y1,x2,y2]; b: (...,
+    M, 4), the same leading dims (at most one on the card: a stream axis).
 
     Dispatches through ``repro_torch.ops`` (kernels/iou2d): the CUDA kernel
     for tensors on the card, the plain PyTorch version on the CPU.

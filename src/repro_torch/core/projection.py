@@ -10,7 +10,9 @@ buffers.
 
 Port of ``repro/core/projection.py``. :func:`project_and_label` is one
 launch of the fused ``point_proj`` kernel on the card (projection,
-visibility, flat index and label gather).
+visibility, flat index and label gather). It and :func:`build_clusters`
+take a leading stream axis (a fleet), as ``vmap`` gave them in JAX; the
+labels kernel then covers every stream in its one launch.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import ops
+from repro_torch.core.batching import take
 
 
 class Calibration(NamedTuple):
@@ -49,9 +52,10 @@ def project_and_label(points: torch.Tensor, label_img: torch.Tensor,
                       calib: Calibration) -> torch.Tensor:
     """Fused projection + visibility + flat-index + label gather.
 
-    Returns (N,) int32 instance labels (0 = background / invisible).
+    points (..., N, 3), label_img (..., H, W). Returns (..., N) int32
+    instance labels (0 = background / invisible).
     """
-    if tuple(label_img.shape) != (calib.height, calib.width):
+    if tuple(label_img.shape[-2:]) != (calib.height, calib.width):
         raise ValueError(f"label image {tuple(label_img.shape)} does not "
                          f"match the calibration's "
                          f"{(calib.height, calib.width)}")
@@ -76,23 +80,24 @@ def build_clusters(points: torch.Tensor, labels: torch.Tensor, max_obj: int,
     """Compact labeled points into fixed per-object buffers.
 
     Args:
-      points: (N, 3).
-      labels: (N,) int32 instance ids (0 = background).
+      points: (..., N, 3).
+      labels: (..., N) int32 instance ids (0 = background).
       max_obj: O, number of object slots.
       pts_per_obj: P, buffer size per object.
 
     Returns:
-      clusters: (O, P, 3) point buffers (zeros beyond valid).
-      valid: (O, P) bool masks.
-      counts: (O,) number of points per object (possibly > P before capping).
+      clusters: (..., O, P, 3) point buffers (zeros beyond valid).
+      valid: (..., O, P) bool masks.
+      counts: (..., O) number of points per object (possibly > P before
+        capping).
     """
     obj_ids = torch.arange(1, max_obj + 1, dtype=labels.dtype,
                            device=labels.device)
-    m = labels[None, :] == obj_ids[:, None]                    # (O, N)
+    m = labels[..., None, :] == obj_ids[:, None]               # (.., O, N)
     # Members first, in point order: a stable sort of the non-member flag
-    # (sorted as an integer tensor, not a bool one).
-    order = torch.argsort((~m).to(torch.int8), dim=1,
-                          stable=True)[:, :pts_per_obj]        # (O, P)
-    v = torch.gather(m, 1, order)
-    pts = torch.where(v[..., None], points[order], 0.0)
-    return pts, v, m.sum(dim=1)
+    # (sorted as an integer tensor, not a bool one), per (stream, object).
+    order = torch.argsort((~m).to(torch.int8), dim=-1,
+                          stable=True)[..., :pts_per_obj]      # (.., O, P)
+    v = torch.gather(m, -1, order)
+    pts = torch.where(v[..., None], take(points, order, 1), 0.0)
+    return pts, v, m.sum(dim=-1)

@@ -4,7 +4,8 @@ Moby finds the dominant visible surface of each point cluster by sampling
 three points, forming a plane, and keeping the plane with the most inliers.
 The paper uses 30 iterations (Fig. 16a/b sensitivity).
 
-Port of ``repro/core/ransac.py``, batched over objects. Inlier scoring
+Port of ``repro/core/ransac.py``, batched over objects (and over a
+fleet's streams, whose objects are scored together). Inlier scoring
 goes through ``repro_torch.ops.ransac_score`` (the CUDA kernel on the
 card); the triplets come from the port's threefry generator
 (``repro_torch.core.prng``), which draws the JAX package's bits exactly,
@@ -74,13 +75,19 @@ def ransac_planes(key: torch.Tensor, points: torch.Tensor,
     """Fit the dominant (near-vertical) plane of each cluster.
 
     Args:
-      key: (2,) PRNG key, split into one key per object.
-      points: (O, P, 3) buffers.
-      valid: (O, P) masks.
+      key: (..., 2) PRNG keys, each split into one key per object of its
+        leading index (a fleet's stream).
+      points: (..., O, P, 3) buffers.
+      valid: (..., O, P) masks.
 
-    Returns: PlaneFit with the best plane per object and its inlier mask.
+    Returns: PlaneFit with the best plane per object and its inlier mask,
+    (..., O, ...) leaves. The objects of every leading index are scored
+    together: one ``ransac_score`` launch on the card.
     """
-    keys = prng.split(key, points.shape[0])                   # (O, 2)
+    batch = points.shape[:-2]
+    keys = prng.split(key, points.shape[-3]).reshape(-1, 2)  # (B*O, 2)
+    points = points.reshape(-1, *points.shape[-2:])
+    valid = valid.reshape(-1, valid.shape[-1])
     tri = _sample_triplets(keys, valid, params.num_iters)     # (O, K, 3)
     normals, offsets, tri_ok = plane_from_triplets(points, tri)
     counts = ops.ransac_score(points, valid, normals.contiguous(),
@@ -95,5 +102,7 @@ def ransac_planes(key: torch.Tensor, points: torch.Tensor,
     inliers = (dist < params.inlier_thresh) & valid
     num = counts[rows, best]
     ok = num >= 3
-    return PlaneFit(normal=n_best, offset=d_best, inliers=inliers,
-                    num_inliers=num, ok=ok)
+    return PlaneFit(normal=n_best.reshape(*batch, 3),
+                    offset=d_best.reshape(batch),
+                    inliers=inliers.reshape(*batch, -1),
+                    num_inliers=num.reshape(batch), ok=ok.reshape(batch))

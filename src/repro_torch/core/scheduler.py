@@ -9,7 +9,8 @@ processing blocks on the cloud 3D result, which then reseeds the
 transformation.
 
 Port of ``repro/core/scheduler.py``. The state is a NamedTuple of 0-dim
-tensors on the engine's device; :func:`scheduler_pre` /
+tensors on the engine's device, or of (S,)-leading ones for a fleet
+(:func:`init_scheduler_fleet`; every policy takes either); :func:`scheduler_pre` /
 :func:`scheduler_post` dispatch through a registry keyed by
 ``SchedulerParams.policy``. Registered policies:
 
@@ -101,6 +102,16 @@ def init_scheduler(max_obj: int, device=None) -> SchedulerState:
         edge_cost_s=f32(0.0),
         offload_cost_s=f32(0.0),
     )
+
+
+def init_scheduler_fleet(n_streams: int, max_obj: int,
+                         device=None) -> SchedulerState:
+    """Batched scheduler state: one independent state machine per stream,
+    stacked on a leading stream axis. Every policy's ``pre`` and ``post``
+    advance all streams at once on it (the fleet engine)."""
+    one = init_scheduler(max_obj, device=device)
+    return SchedulerState(*(x.expand(n_streams, *x.shape).clone()
+                            for x in one))
 
 
 def observe_telemetry(state: SchedulerState, bw_mbps=None, edge_cost_s=None,
@@ -223,8 +234,10 @@ def _fos_post(state: SchedulerState, actions: SchedulerActions,
               test_valid: torch.Tensor,
               params: SchedulerParams) -> SchedulerState:
     # Buffer our own output when this frame is offloaded as a test.
-    buf_boxes = torch.where(actions.send_test, out_boxes, state.buf_boxes)
-    buf_valid = torch.where(actions.send_test, out_valid, state.buf_valid)
+    buf_boxes = torch.where(actions.send_test[..., None, None], out_boxes,
+                            state.buf_boxes)
+    buf_valid = torch.where(actions.send_test[..., None], out_valid,
+                            state.buf_valid)
 
     # Score the returned test frame against our buffered output.
     f1, _, _ = metrics.f1_score(buf_boxes, buf_valid, test_boxes, test_valid,

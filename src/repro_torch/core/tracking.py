@@ -11,7 +11,9 @@ is what the 2D->3D transformation consumes as its per-object prior.
 Port of ``repro/core/tracking.py``: ``jnp.linalg.solve`` becomes
 ``torch.linalg.solve_ex`` (no host sync for the singularity check), and
 the ``.at[].max`` scatter of :func:`spawn` becomes
-``scatter_reduce(..., "amax")``. Integer state is int64.
+``scatter_reduce(..., "amax")``. Integer state is int64. Every function
+takes leading batch dimensions (a fleet's stream axis) on the state and
+the detections alike, in place of ``vmap``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import functools
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core.batching import take
 
 STATE_DIM = 7
 OBS_DIM = 4
@@ -97,17 +101,19 @@ def init_tracks(max_tracks: int, dtype=torch.float32,
 
 
 def predict(state: TrackState) -> tuple[TrackState, torch.Tensor]:
-    """Kalman predict for all active slots. Returns predicted 2D boxes (T, 4)."""
+    """Kalman predict for all active slots. Returns predicted 2D boxes
+    (..., T, 4)."""
     f, _ = _fh_matrices(state.x.dtype, state.x.device)
     q, _ = _qr_matrices(state.x.dtype, state.x.device)
     x = state.x @ f.T
     # Clamp scale velocity so area stays positive (SORT convention).
-    neg = (x[:, 2] + x[:, 6]) <= 0
-    x = torch.cat([x[:, :6], torch.where(neg, 0.0, x[:, 6])[:, None]], dim=1)
+    neg = (x[..., 2] + x[..., 6]) <= 0
+    x = torch.cat([x[..., :6], torch.where(neg, 0.0, x[..., 6])[..., None]],
+                  dim=-1)
     p = f @ state.p @ f.T + q
-    x = torch.where(state.active[:, None], x, state.x)
-    p = torch.where(state.active[:, None, None], p, state.p)
-    boxes = z_to_bbox(x[:, :4])
+    x = torch.where(state.active[..., None], x, state.x)
+    p = torch.where(state.active[..., None, None], p, state.p)
+    boxes = z_to_bbox(x[..., :4])
     return state._replace(x=x, p=p), boxes
 
 
@@ -117,23 +123,23 @@ def update(state: TrackState, track_to_det: torch.Tensor,
     """Kalman update with matched detections; age unmatched; kill stale.
 
     Args:
-      track_to_det: (T,) detection index per track, -1 if unmatched.
-      det_boxes: (D, 4) detections.
+      track_to_det: (..., T) detection index per track, -1 if unmatched.
+      det_boxes: (..., D, 4) detections.
     """
     _, h = _fh_matrices(state.x.dtype, state.x.device)
     _, r = _qr_matrices(state.x.dtype, state.x.device)
     matched = (track_to_det >= 0) & state.active
-    det_idx = track_to_det.clamp(0, det_boxes.shape[0] - 1)
-    z = bbox_to_z(det_boxes[det_idx])  # (T, 4)
+    det_idx = track_to_det.clamp(0, det_boxes.shape[-2] - 1)
+    z = bbox_to_z(take(det_boxes, det_idx, 1))          # (..., T, 4)
     x, p = state.x, state.p
-    y = z - x @ h.T                                     # (T, 4)
-    s = h @ p @ h.T + r                                 # (T, 4, 4)
-    k = torch.linalg.solve_ex(s, h @ p)[0].transpose(1, 2)  # (T, 7, 4)
+    y = z - x @ h.T                                     # (..., T, 4)
+    s = h @ p @ h.T + r                                 # (..., T, 4, 4)
+    k = torch.linalg.solve_ex(s, h @ p)[0].transpose(-1, -2)  # (.., T, 7, 4)
     x2 = x + (k @ y[..., None])[..., 0]
     eye = torch.eye(STATE_DIM, dtype=x.dtype, device=x.device)
     p2 = (eye - k @ h) @ p
-    x = torch.where(matched[:, None], x2, state.x)
-    p = torch.where(matched[:, None, None], p2, state.p)
+    x = torch.where(matched[..., None], x2, state.x)
+    p = torch.where(matched[..., None, None], p2, state.p)
     age = torch.where(matched, 0, state.age + 1)
     hits = torch.where(matched, state.hits + 1, state.hits)
     active = state.active & (age <= params.max_age)
@@ -147,44 +153,46 @@ def spawn(state: TrackState, det_boxes: torch.Tensor, det_valid: torch.Tensor,
     Returns (state, det_to_track) where newly spawned detections now point at
     their new track slot.
     """
-    t = state.x.shape[0]
-    d = det_boxes.shape[0]
+    t = state.x.shape[-2]
+    d = det_boxes.shape[-2]
     dev = state.x.device
-    free = ~state.active                                    # (T,)
-    need = det_valid & (det_to_track < 0)                   # (D,)
+    free = ~state.active                                    # (..., T)
+    need = det_valid & (det_to_track < 0)                   # (..., D)
     # Rank free slots and needy detections; pair them by rank.
-    free_rank = torch.cumsum(free.long(), 0) - 1            # rank among free
-    need_rank = torch.cumsum(need.long(), 0) - 1            # rank among needy
+    free_rank = torch.cumsum(free.long(), -1) - 1           # rank among free
+    need_rank = torch.cumsum(need.long(), -1) - 1           # rank among needy
     # For each track slot: which detection (by rank) lands here?
     # slot with free_rank k takes the detection with need_rank k.
-    det_rank_for_slot = torch.where(free, free_rank, -1)    # (T,)
+    det_rank_for_slot = torch.where(free, free_rank, -1)    # (..., T)
     # Build rank -> det index map.
     capped_rank = need_rank.clamp(0, t - 1)
     arange_d = torch.arange(d, device=dev)
-    rank_to_det = torch.full((t,), -1, dtype=torch.int64, device=dev)
+    rank_to_det = torch.full(free.shape, -1, dtype=torch.int64, device=dev)
     rank_to_det = rank_to_det.scatter_reduce(
-        0, torch.where(need, capped_rank, t - 1),
+        -1, torch.where(need, capped_rank, t - 1),
         torch.where(need & (need_rank < t), arange_d, -1), "amax")
-    take = torch.where(det_rank_for_slot >= 0,
-                       rank_to_det[det_rank_for_slot.clamp(0, t - 1)], -1)
-    spawning = (take >= 0) & free & (det_rank_for_slot < need.sum())
-    z = bbox_to_z(det_boxes[take.clamp(0, d - 1)])
-    x_new = torch.cat([z, torch.zeros_like(state.x[:, 4:])], dim=1)
+    take_det = torch.where(det_rank_for_slot >= 0,
+                           take(rank_to_det, det_rank_for_slot.clamp(0, t - 1)),
+                           -1)
+    spawning = (take_det >= 0) & free \
+        & (det_rank_for_slot < need.sum(-1, keepdim=True))
+    z = bbox_to_z(take(det_boxes, take_det.clamp(0, d - 1), 1))
+    x_new = torch.cat([z, torch.zeros_like(state.x[..., 4:])], dim=-1)
     eye = torch.eye(STATE_DIM, dtype=state.x.dtype, device=dev)
-    p_new = (eye[None] * 10.0).expand(t, STATE_DIM, STATE_DIM)
-    ids_new = state.next_id + torch.cumsum(spawning.long(), 0) - 1
-    x = torch.where(spawning[:, None], x_new, state.x)
-    p = torch.where(spawning[:, None, None], p_new, state.p)
+    p_new = (eye * 10.0).expand(state.p.shape)
+    ids_new = state.next_id[..., None] + torch.cumsum(spawning.long(), -1) - 1
+    x = torch.where(spawning[..., None], x_new, state.x)
+    p = torch.where(spawning[..., None, None], p_new, state.p)
     active = state.active | spawning
     age = torch.where(spawning, 0, state.age)
     hits = torch.where(spawning, 1, state.hits)
     track_id = torch.where(spawning, ids_new, state.track_id)
     has_box3d = state.has_box3d & ~spawning
-    next_id = state.next_id + spawning.sum()
+    next_id = state.next_id + spawning.sum(-1)
     # Update det_to_track for spawned detections.
-    onehot = (take[:, None] == arange_d[None, :]) & spawning[:, None]
-    new_map = torch.where(onehot.any(dim=0),
-                          onehot.to(torch.int8).argmax(dim=0), det_to_track)
+    onehot = (take_det[..., :, None] == arange_d) & spawning[..., None]
+    new_map = torch.where(onehot.any(dim=-2),
+                          onehot.to(torch.int8).argmax(dim=-2), det_to_track)
     state = state._replace(x=x, p=p, active=active, age=age, hits=hits,
                            track_id=track_id, has_box3d=has_box3d,
                            next_id=next_id)
@@ -194,13 +202,13 @@ def spawn(state: TrackState, det_boxes: torch.Tensor, det_valid: torch.Tensor,
 def set_box3d(state: TrackState, det_to_track: torch.Tensor,
               boxes3d: torch.Tensor, boxes_ok: torch.Tensor) -> TrackState:
     """Write per-detection 3D boxes back onto their tracks."""
-    t = state.x.shape[0]
+    t = state.x.shape[-2]
     arange_t = torch.arange(t, device=state.x.device)
-    onehot = (det_to_track[:, None] == arange_t[None, :]) & \
-        boxes_ok[:, None] & (det_to_track >= 0)[:, None]      # (D, T)
-    has = onehot.any(dim=0)
-    src = onehot.to(torch.int8).argmax(dim=0)                 # (T,)
-    new_boxes = boxes3d[src]
-    box3d = torch.where(has[:, None], new_boxes, state.box3d)
+    onehot = (det_to_track[..., :, None] == arange_t) & \
+        (boxes_ok & (det_to_track >= 0))[..., None]          # (..., D, T)
+    has = onehot.any(dim=-2)
+    src = onehot.to(torch.int8).argmax(dim=-2)                # (..., T)
+    new_boxes = take(boxes3d, src, 1)
+    box3d = torch.where(has[..., None], new_boxes, state.box3d)
     has_box3d = state.has_box3d | has
     return state._replace(box3d=box3d, has_box3d=has_box3d)

@@ -31,10 +31,15 @@ constexpr int kOneCta = 1024;
 constexpr int kThreads = 256;
 
 __global__ void iou2d_kernel(const float4* __restrict__ a,
-                             const float4* __restrict__ b, unsigned m,
-                             unsigned total, float* __restrict__ out) {
+                             const float4* __restrict__ b, unsigned n,
+                             unsigned m, unsigned total,
+                             float* __restrict__ out) {
   const unsigned k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= total) return;
+  // Stream blockIdx.y's boxes and matrix.
+  a += static_cast<size_t>(blockIdx.y) * n;
+  b += static_cast<size_t>(blockIdx.y) * m;
+  out += static_cast<size_t>(blockIdx.y) * total;
   const unsigned i = k / m;
   const float4 p = __ldg(a + i);
   const float4 q = __ldg(b + (k - i * m));
@@ -49,18 +54,19 @@ __global__ void iou2d_kernel(const float4* __restrict__ a,
 
 }  // namespace
 
-// a (N,4) f32, b (M,4) f32, both 16-byte aligned, N*M < 2^31 -> out (N,M)
-// f32.
-MOBY_API int moby_iou2d(const void* a, int n, const void* b, int m, void* out,
-                        void* stream) {
+// a (S,N,4) f32, b (S,M,4) f32, both 16-byte aligned, N*M < 2^31,
+// S < 2^16 -> out (S,N,M) f32.
+MOBY_API int moby_iou2d(const void* a, int n, const void* b, int m, int s,
+                        void* out, void* stream) {
   const unsigned total = static_cast<unsigned>(n) * static_cast<unsigned>(m);
-  if (total > 0) {
+  if (total > 0 && s > 0) {
     const unsigned threads = total <= kOneCta ? (total + 31) / 32 * 32
                                               : kThreads;
-    iou2d_kernel<<<(total + threads - 1) / threads, threads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid((total + threads - 1) / threads, static_cast<unsigned>(s));
+    iou2d_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(a), static_cast<const float4*>(b),
-        static_cast<unsigned>(m), total, static_cast<float*>(out));
+        static_cast<unsigned>(n), static_cast<unsigned>(m), total,
+        static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,12 @@
 //   outputs. ~29 bytes a point.
 // * labels (moby_point_proj_labels): xyz and the label image in, the (N,)
 //   int32 labels out, nothing else: what the serving path's
-//   project_and_label keeps. ~16 bytes a point plus the gathers.
+//   project_and_label keeps. ~16 bytes a point plus the gathers. It takes
+//   a stream axis: points (S,N,3) and label images (S,H,W) with one
+//   calibration -> labels (S,N), the grid's y dimension the stream (block
+//   (x, s) projects block x of stream s's points into stream s's image),
+//   so a fleet frame is one launch, as vmap made of the Pallas call. The
+//   2-D call is S = 1, the same blocks doing the same arithmetic.
 //
 // What bounds it on an H100: latency. At N = 122,880 the full instance
 // moves ~3.6 MB (1.1 us at 3.35 TB/s), the labels instance ~2.3 MB
@@ -59,6 +64,12 @@ __global__ void __launch_bounds__(kThreads) point_proj_kernel(
   const long long i =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
+  // Stream blockIdx.y (always 0 for the full instance).
+  pts += static_cast<long long>(blockIdx.y) * n * 3;
+  if (!kFull) {
+    label_img += static_cast<long long>(blockIdx.y) * height * width;
+    labels += static_cast<long long>(blockIdx.y) * n;
+  }
   const float x = __ldg(pts + 3 * i), y = __ldg(pts + 3 * i + 1),
               z = __ldg(pts + 3 * i + 2);
   float m[24];  // Tr (3x4) then P (3x4), row-major.
@@ -97,12 +108,14 @@ __global__ void __launch_bounds__(kThreads) point_proj_kernel(
 }
 
 template <bool kFull>
-int launch(const void* points, long long n, const void* tr, const void* p,
-           int height, int width, const void* label_img, void* uv,
-           void* depth, void* vis, void* flat, void* labels, void* stream) {
-  if (n > 0) {
+int launch(const void* points, long long n, int s, const void* tr,
+           const void* p, int height, int width, const void* label_img,
+           void* uv, void* depth, void* vis, void* flat, void* labels,
+           void* stream) {
+  if (n > 0 && s > 0) {
     const long long blocks = (n + kThreads - 1) / kThreads;
-    point_proj_kernel<kFull><<<static_cast<unsigned>(blocks), kThreads, 0,
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(s));
+    point_proj_kernel<kFull><<<grid, kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(points), n, static_cast<const float*>(tr),
         static_cast<const float*>(p), height, width,
@@ -121,17 +134,17 @@ MOBY_API int moby_point_proj(const void* points, long long n, const void* tr,
                              const void* p, int height, int width, void* uv,
                              void* depth, void* vis, void* flat,
                              void* stream) {
-  return launch<true>(points, n, tr, p, height, width, nullptr, uv, depth,
-                      vis, flat, nullptr, stream);
+  return launch<true>(points, n, 1, tr, p, height, width, nullptr, uv,
+                      depth, vis, flat, nullptr, stream);
 }
 
-// points (N,3) f32, tr/p (3,4) f32 row-major, label_img (H,W) i32 ->
-// labels (N,) i32 (0 where a point is not visible).
-MOBY_API int moby_point_proj_labels(const void* points, long long n,
+// points (S,N,3) f32, tr/p (3,4) f32 row-major, label_img (S,H,W) i32 ->
+// labels (S,N) i32 (0 where a point is not visible); S < 2^16.
+MOBY_API int moby_point_proj_labels(const void* points, long long n, int s,
                                     const void* tr, const void* p,
                                     int height, int width,
                                     const void* label_img, void* labels,
                                     void* stream) {
-  return launch<false>(points, n, tr, p, height, width, label_img, nullptr,
-                       nullptr, nullptr, nullptr, labels, stream);
+  return launch<false>(points, n, s, tr, p, height, width, label_img,
+                       nullptr, nullptr, nullptr, nullptr, labels, stream);
 }

@@ -1,2 +1,17 @@
-"""The cloud batcher configuration (a copy of ``repro.fleet.cloud``); the
-fleet engine itself waits for a later slice of the port."""
+"""Fleet serving: batched multi-stream Moby (port of ``repro.fleet``).
+
+S concurrent vehicle streams advance through one step per frame (a
+leading stream axis on every core function, both frame treatments
+computed and selected per stream), contending for a shared cell uplink
+and a batching cloud detector. See fleet.engine.FleetEngine. Scan mode
+is not ported yet (ROADMAP item 8).
+"""
+from repro_torch.fleet.cloud import CloudBatcher, CloudBatcherConfig
+from repro_torch.fleet.engine import FleetEngine
+from repro_torch.fleet.step import (FleetState, FrameInputs, init_fleet_state,
+                                    make_fleet_step)
+
+__all__ = [
+    "CloudBatcher", "CloudBatcherConfig", "FleetEngine", "FleetState",
+    "FrameInputs", "init_fleet_state", "make_fleet_step",
+]

@@ -46,8 +46,9 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "moby_error_string": ((_I,), ctypes.c_char_p),
     "moby_point_proj": ((_P, _LL, _P, _P, _I, _I, _P, _P, _P, _P, _P), _I),
-    "moby_point_proj_labels": ((_P, _LL, _P, _P, _I, _I, _P, _P, _P), _I),
-    "moby_iou2d": ((_P, _I, _P, _I, _P, _P), _I),
+    "moby_point_proj_labels": ((_P, _LL, _I, _P, _P, _I, _I, _P, _P, _P),
+                               _I),
+    "moby_iou2d": ((_P, _I, _P, _I, _I, _P, _P), _I),
     "moby_ransac_score": ((_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P),
                           _I),
     "moby_flash_attention": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -24,18 +24,27 @@ labels_launches = 0
 def _check(kernel: str, points: torch.Tensor, tr: torch.Tensor,
            p: torch.Tensor, height: int, width: int,
            label_img: Optional[torch.Tensor]) -> None:
-    """Raise unless the kernel takes these card tensors. ``points`` may
-    start anywhere (an (N, 3) view offset by any number of rows)."""
+    """Raise unless the kernel takes these card tensors. ``points`` is
+    (N, 3) and may start anywhere (a view offset by any number of rows);
+    the labels instance also takes (S, N, 3) with label images (S, H, W)."""
     dev = points.device
-    _launch.check_cuda(kernel, "points", points, torch.float32, (None, 3))
+    lead = (None,) * (points.dim() - 2) if label_img is not None else ()
+    if len(lead) > 1:
+        raise ValueError(f"{kernel}: points has shape {tuple(points.shape)}"
+                         f", expected (N, 3) or (S, N, 3)")
+    _launch.check_cuda(kernel, "points", points, torch.float32,
+                       (*lead, None, 3))
     _launch.check_cuda(kernel, "tr", tr, torch.float32, (3, 4), dev)
     _launch.check_cuda(kernel, "p", p, torch.float32, (3, 4), dev)
     if label_img is not None:
         _launch.check_cuda(kernel, "label_img", label_img, torch.int32,
-                           (height, width), dev)
+                           (*points.shape[:-2], height, width), dev)
     if height * width >= 2 ** 31:
         raise ValueError(f"{kernel}: image {height}x{width} overflows the "
                          f"int32 flat index")
+    if points.dim() == 3 and points.shape[0] >= 2 ** 16:
+        raise ValueError(f"{kernel}: {points.shape[0]} streams overflow "
+                         f"the kernel's grid")
 
 
 def point_proj(points: torch.Tensor, tr: torch.Tensor, p: torch.Tensor,
@@ -68,19 +77,23 @@ def project_and_label(points: torch.Tensor, tr: torch.Tensor,
                       ) -> torch.Tensor:
     """(N,3) points, (H,W) int32 label image -> (N,) int32 instance ids
     at the projected pixels, 0 where a point is not visible: the pixels of
-    :func:`point_proj`, from a launch that writes nothing else."""
+    :func:`point_proj`, from a launch that writes nothing else. With a
+    stream axis, (S,N,3) points and (S,H,W) images -> (S,N), one launch
+    for all S; point ``i`` of stream ``s`` reads ``label_img[s]``."""
     global labels_launches
-    height, width = label_img.shape
+    height, width = label_img.shape[-2:]
     if _launch.dispatch_device("point_proj_labels", points) == "cpu":
         return point_proj_ref(points, tr, p, height, width, label_img)[4]
     _check("point_proj_labels", points, tr, p, height, width, label_img)
+    s = points.shape[0] if points.dim() == 3 else 1
     dev = points.device
-    labels = torch.empty((points.shape[0],), dtype=torch.int32, device=dev)
+    n = points.shape[-2]
+    labels = torch.empty(points.shape[:-1], dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         code = lib.moby_point_proj_labels(
-            points.data_ptr(), points.shape[0], tr.data_ptr(), p.data_ptr(),
-            height, width, label_img.data_ptr(), labels.data_ptr(),
+            points.data_ptr(), n, s, tr.data_ptr(), p.data_ptr(), height,
+            width, label_img.data_ptr(), labels.data_ptr(),
             _launch.stream_handle(dev))
     _build.check(code, "point_proj_labels")
     labels_launches += 1

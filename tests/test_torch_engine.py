@@ -8,7 +8,9 @@
 * the baselines and ``moby_onboard`` equal the JAX engine, and so does a
   tape-driven engine;
 * the preset table equals ``repro``'s field by field;
-* the fleet (``n_streams > 1`` in a moby mode, ``run(scan=True)``) raises;
+* the fleet's scan mode (``run(scan=True)``, ``run_scan``) raises, and a
+  fleet preset's baselines run one stream (tests/test_torch_fleet.py holds
+  the fleet itself);
 * every copied numpy data-plane module gives the original's output;
 * importing and running the port pulls in neither jax nor ``repro``.
 """
@@ -171,15 +173,20 @@ def test_preset_table_equals_jax():
     assert api.scenario("smoke", n_points=99).scene.n_points == 99
 
 
-def test_fleet_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="Fleet"):
-        api.Session(api.scenario("fleet-16-congested"), torch_device="cpu")
-    s = api.Session(api.scenario("fleet-16-congested", mode="edge_only"),
-                    torch_device="cpu")
-    assert s.n_streams == 1
+def test_scan_raises_until_ported():
     with pytest.raises(NotImplementedError, match="scan"):
         api.Session(api.scenario("smoke"), torch_device="cpu").run(2,
                                                                    scan=True)
+    fleet = api.Session(api.scenario("fleet-16-congested"),
+                        torch_device="cpu")
+    assert fleet.n_streams == 16
+    with pytest.raises(NotImplementedError, match="scan"):
+        fleet.run(2, scan=True)
+    with pytest.raises(NotImplementedError, match="scan"):
+        fleet.engine.run_scan(2)
+    s = api.Session(api.scenario("fleet-16-congested", mode="edge_only"),
+                    torch_device="cpu")
+    assert s.n_streams == 1
 
 
 # ---------------------------------------------------------------------------

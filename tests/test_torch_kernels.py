@@ -311,3 +311,31 @@ def test_kernels_match_plain_on_card():
             assert torch.equal(g, w)
         assert torch.equal(pp_ops.project_and_label(pts_t, tr, p, lab),
                            want[4])
+
+
+@pytest.mark.cuda
+def test_stream_axis_kernels_match_plain_on_card():
+    """K1's labels instance and K2 with a stream axis, on the card: equal
+    to their plain versions and, stream by stream, to the 2-D kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run python3 chip_smoke.py there)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    for s_n, n, m in ((1, 24, 12), (3, 7, 13), (64, 12, 6)):
+        a = _t(np.stack([_boxes(rng, n) for _ in range(s_n)])).to(dev)
+        b = _t(np.stack([_boxes(rng, m) for _ in range(s_n)])).to(dev)
+        got = iou_ops.iou2d(a, b)
+        assert torch.equal(got, iou_ref.iou2d_ref(a, b))
+        for s in range(s_n):
+            assert torch.equal(got[s], iou_ops.iou2d(a[s], b[s]))
+    for s_n, n in ((1, 5001), (3, 4099), (16, 2048)):
+        ins = [_proj_inputs(n, 375, 1242, s) for s in range(s_n)]
+        pts = _t(np.stack([x[0] for x in ins])).to(dev)
+        lab = _t(np.stack([x[3] for x in ins])).to(dev)
+        tr, p = _t(ins[0][1]).to(dev), _t(ins[0][2]).to(dev)
+        got = pp_ops.project_and_label(pts, tr, p, lab)
+        assert torch.equal(got, pp_ref.point_proj_ref(pts, tr, p, 375, 1242,
+                                                      lab)[4])
+        for s in range(s_n):
+            assert torch.equal(got[s], pp_ops.project_and_label(
+                pts[s], tr, p, lab[s]))
