@@ -64,12 +64,22 @@ fatal on failure:
    masked out, planted ties, special values, every point in one pillar,
    points sorted by pillar, rows of 7 and of 40 channels and rows at an
    unaligned base, beside ``scatter_reduce(..., "amax")`` and autograd's
-   gradient of it, with each direction's passes timed from a profile;
+   gradient of it, with each direction's passes timed from a profile; the
+   auction kernel (no Pallas counterpart: JAX's ``lax.while_loop``
+   auction) bit for bit in the assignment, the prices and the rounds
+   against its plain version, with the assignment's total benefit within
+   n x 1e-4 of ``hungarian_numpy``'s optimum, on the benefits of a
+   kitti-urban transform frame and of the full-width fleet's transform
+   branch (both recorded from the serving path on the card, both timed,
+   its plain version eagerly, as it synchronises), seeded benefits on the
+   1e-3 grid with many exact ties at n = 1, 2, 12, 16, 24, 40 and the cap
+   (128) with batch 1, 16, 64 and 256, rows and columns of zeros, and all
+   zeros;
 4. the Moby serving path at KITTI's own size (``kitti-urban`` at 122,880
    points and a 375x1242 image, 24 frames) on the card, with every
    kernel's launch count checked against the run's frame kinds (K1's
    labels instance once a transform frame and its full instance never,
-   K2 once a frame, K3 once a transform frame), after a
+   K2 and the auction once a frame, K3 once a transform frame), after a
    2-frame warm-up; then a torch.profiler window over 4 frames (device busy
    share, device ops per frame, the ops with the most device time);
 5. the same run on the CPU in this process: frame kinds equal, floats within
@@ -81,13 +91,28 @@ fatal on failure:
    ``kitti-urban`` with 16 streams at KITTI's own size on the ``fcc1``
    cell (8 frames), each after a 2-frame warm-up, its tapes recorded
    before the timed run; the launches checked per fleet frame (K1's
-   labels instance 1, K2 2: the anchor and the transform branch, K3 1,
-   the others 0); wall ms per fleet frame and per stream-frame (median),
+   labels instance 1, K2 and the auction 2: the anchor and the transform
+   branch, K3 1, the others 0); wall ms per fleet frame and per
+   stream-frame (median),
    the share spent copying the frame's inputs to the card, peak device
    memory; a torch.profiler window over 2 frames of the full-width fleet;
    each run held to the port's CPU run of the same preset in this
    process (the full-width fleet's first 4 frames): kinds exact, floats
    within the golden tolerance; one ``{"fleets": [...]}`` JSON line;
+   then the same three fleets in scan mode (``run(scan=True)``: the tape
+   copied to the card once, one frame of the body captured in a CUDA
+   graph and replayed a frame under sync debug mode "error", one fetch),
+   each after a warm-up: the captured frame's launches checked (as a
+   fleet frame's), replays of a second capture bit for bit against the
+   same body run eagerly on the card, a profiled replay window (busy
+   share, device ops a fleet frame, each kernel's launches by name), wall
+   ms a fleet frame and a stream-frame, the tape's copy, warm-up and
+   capture times, peak memory, and the rows held to the port's CPU scan
+   (the full-width fleet's first 4 frames); ``fleet-256-congested`` (4
+   frames) against ``tests/goldens/fleet-256-congested-scan.csv`` (stream,
+   frame, kind, device exact; the modelled times at the golden tolerance)
+   and, every column, against its CPU scan; one ``{"scans": [...]}`` JSON
+   line;
 7. the ``smoke`` preset on the card against ``tests/goldens/smoke.csv``;
 8. LM A, the card against JAX: qwen2.5-3B SMOKE in f32 with the weights of
    ``tests/goldens/lm_qwen2_5_3b_smoke.npz``, prefill and four decode
@@ -161,6 +186,9 @@ FLEETS = (
      "fleet_kitti"),
 )
 FLEET_WARMUP, FLEET_PROFILE_FRAMES = 2, 2
+# The kernels of the Moby serving path (one stream, a fleet, scan mode).
+MOBY_KERNELS = ("point_proj", "point_proj_labels", "iou2d", "ransac_score",
+                "auction")
 
 # LM serving, qwen2.5-3B at full width. The repo's prefill_32k (S 32768,
 # batch 32) and decode_32k (batch 128) shapes are cut to what one card
@@ -208,6 +236,9 @@ KERNELS = {
     # The gradient: the VJP around the Pallas call (repro/ops/api.py).
     "pillar_scatter_bwd": ("src/repro_torch/csrc/pillar_scatter.cu",
                            "src/repro/ops/api.py:105"),
+    # No Pallas counterpart: the association's lax.while_loop auction.
+    "auction": ("src/repro_torch/csrc/auction.cu",
+                "src/repro/core/association.py:121"),
 }
 
 
@@ -499,6 +530,83 @@ def check_ransac(torch, np, dev, rs_ops, rs_ref, o, k, p, seed, dead=None):
                bytes=o * p * 13 + o * k * 16 + o * k * 4, ops=8 * o * k * p)
     return rec, (lambda: rs_ops.ransac_score(*args, 0.5)), \
         (lambda: rs_ref.ransac_score_ref(*args, 0.5))
+
+
+# The auction's phase-3 cases: persons a matrix (the kernel's cap last) and
+# auctions a launch.
+AUCTION_NS = (1, 2, 12, 16, 24, 40, 128)
+AUCTION_BATCHES = (1, 16, 64, 256)
+
+
+def auction_benefits(np, n, batch, seed, zero_rows=False):
+    """Seeded (batch, n, n) benefits on the association's 1e-3 grid, drawn
+    from 20 levels so that many tie exactly; with ``zero_rows`` about a
+    third of the rows and of the columns are 0 (the invalid pairs and the
+    padding of a non-square association)."""
+    rng = np.random.default_rng(seed)
+    b = (rng.integers(0, 20, (batch, n, n)) * np.float32(1e-3)) \
+        .astype(np.float32)
+    if zero_rows:
+        b[:, rng.uniform(size=n) < 1 / 3, :] = 0.0
+        b[:, :, rng.uniform(size=n) < 1 / 3] = 0.0
+    return b
+
+
+def record_auctions(torch, au_ops, run):
+    """The benefit matrices that ``run()`` hands the auction, in call
+    order (copies on the card)."""
+    real, seen = au_ops.auction, []
+
+    def recording(benefit, *args, **kw):
+        seen.append(benefit.clone())
+        return real(benefit, *args, **kw)
+    au_ops.auction = recording
+    try:
+        run()
+    finally:
+        au_ops.auction = real
+    torch.cuda.synchronize()
+    return seen
+
+
+def check_auction(torch, np, au_ops, au_ref, hungarian, benefit, what):
+    """The auction kernel against its plain version on the card, bit for bit
+    in person_to_obj, the prices and the rounds; the assignment a
+    permutation whose total benefit is within n x eps_final (1e-4) of
+    ``hungarian_numpy``'s optimum on the first matrices (up to 4; 1 at
+    n > 40)."""
+    lead, n = tuple(benefit.shape[:-2]), benefit.shape[-1]
+    got, want = au_ops.auction(benefit), au_ref.auction_ref(benefit)
+    shape = f"B={math.prod(lead)} n={n}{what}"
+    for name, g, w in zip(("person_to_obj", "prices", "rounds"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(
+                g.view(torch.int32) if g.dtype == torch.float32 else g,
+                w.view(torch.int32) if w.dtype == torch.float32 else w):
+            fail(f"auction {shape}: {name} differs from the plain version")
+    b = benefit.reshape(-1, n, n).cpu().double().numpy()
+    p2o = got[0].reshape(-1, n).cpu().numpy()
+    ar = np.arange(n)
+    worst = 0.0
+    for i in range(len(b)):
+        if sorted(p2o[i]) != list(ar):
+            fail(f"auction {shape}: matrix {i} is not assigned a permutation")
+        if i < (4 if n <= 40 else 1):
+            opt = b[i][ar, hungarian(-b[i])].sum()
+            gap = opt - b[i][ar, p2o[i]].sum()
+            worst = max(worst, gap)
+            if gap > n * 1e-4 + 1e-6:
+                fail(f"auction {shape}: matrix {i}'s total benefit is "
+                     f"{gap} under the optimum (limit n x 1e-4)")
+    rounds = got[2].reshape(-1).cpu()
+    rec = dict(shape=shape, exact=True, max_abs_err=0.0,
+               tol="bit for bit (person_to_obj, prices, rounds); total "
+                   "benefit within n x 1e-4 of hungarian_numpy's",
+               optimality_gap=worst, rounds_max=int(rounds.max()),
+               rounds_sum=int(rounds.sum()),
+               bytes=len(b) * (n * n * 4 + n * 12 + 4),
+               ops=6 * n * n * int(rounds.sum()), plain_eager=True)
+    return rec, (lambda: au_ops.auction(benefit)), \
+        (lambda: au_ref.auction_ref(benefit))
 
 
 def bf16_limit(torch, want):
@@ -867,6 +975,12 @@ def measure(torch, rec, kern, plain) -> None:
         kern, torch, runs=max(5, min(100, int(1000 / max(est, 1e-2)))))
     rec["kernels"] = device_kernels(torch, kern)
     library = rec.pop("library", None)
+    if rec.pop("plain_eager", False):
+        # The plain version synchronises with the host (the auction's end
+        # check), which a graph cannot hold: timed eagerly.
+        rec["plain_ms"] = rec["plain_eager_ms"] = eager_ms(
+            plain, torch, runs=3, warmup=1)
+        return
     if library is None:
         rec["plain_ms"] = graph_ms(plain, torch)
         rec["plain_eager_ms"] = eager_ms(plain, torch)
@@ -1232,10 +1346,11 @@ def serve_fleet(torch, api, kernels, name: str, overrides, frames: int,
     launches = kernels.launch_counts()
     expect = dict.fromkeys(launches, 0)
     expect.update(point_proj_labels=frames, iou2d=2 * frames,
-                  ransac_score=frames)
+                  ransac_score=frames, auction=2 * frames)
     if launches != expect:
         fail(f"fleet {name}: launch counts {launches} != {expect} "
-             f"(1 labels, 2 iou2d, 1 ransac_score a fleet frame)")
+             f"(1 labels, 2 iou2d, 1 ransac_score, 2 auction a fleet "
+             f"frame)")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     eng = session.engine
     frame_ms = statistics.median(eng.frame_wall_s) * 1e3
@@ -1274,6 +1389,187 @@ def serve_fleet(torch, api, kernels, name: str, overrides, frames: int,
         profile=line)
 
 
+# The kernels of one captured scan frame: K1's labels instance, K2 and the
+# auction in each branch (anchor and transform), K3.
+SCAN_FRAME_LAUNCHES = dict(point_proj_labels=1, iou2d=2, ransac_score=1,
+                           auction=2)
+# The kernels' names as the profiler shows them.
+SCAN_KERNEL_NAMES = dict(point_proj_labels="point_proj_kernel",
+                         iou2d="iou2d_kernel",
+                         ransac_score="ransac_score_kernel",
+                         auction="auction_kernel")
+SCAN_GOLDEN = ROOT / "tests" / "goldens" / "fleet-256-congested-scan.csv"
+SCAN_GOLDEN_FRAMES = 4
+
+
+def replay_profile(torch, run, n: int):
+    """A torch.profiler window over ``run()`` (``n`` fleet frames of graph
+    replays): the device busy share, device ops a fleet frame, and the
+    launches of each scan kernel by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    counts = {k: sum(e.count for e in dev if name in e.key)
+              for k, name in SCAN_KERNEL_NAMES.items()}
+    top = sorted(dev, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:4]
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+                busy_share=busy_us / wall_us if busy_us else None,
+                device_ops_per_frame=sum(e.count for e in dev) / n,
+                kernel_counts=counts,
+                top=[[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                     for e in top])
+
+
+def serve_scan(torch, api, kernels, report_from_packed, name: str,
+               overrides, frames: int, cpu_frames: int):
+    """One fleet run in scan mode on the card through ``api.Session``
+    (``run(scan=True)``: the tape copied to the card once, one frame of
+    the body captured in a CUDA graph, replayed a frame under sync debug
+    mode "error", one fetch) after a warm-up. Checks the captured frame's
+    launches (SCAN_FRAME_LAUNCHES) and the counters (the warm-up's call of
+    the body and the capture), replays of a second capture against the
+    same body run eagerly on the card (bit for bit) and against the run's
+    report, a profiled replay window (each kernel launched its captured
+    count a frame), and the card's rows against the port's CPU scan of
+    the same preset (its first ``cpu_frames`` frames): kinds exact, floats
+    within the golden tolerance. Returns the counters and the numbers."""
+    scn = api.scenario(name, **overrides)
+    s_n = scn.n_streams
+    api.Session(scn, torch_device="cuda").run(FLEET_WARMUP, scan=True)
+    session = api.Session(scn, torch_device="cuda")
+    eng = session.engine
+    t0 = time.perf_counter()
+    eng._stacked(frames)
+    record_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = session.run(frames, scan=True)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    scan = eng._scan_fn()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(SCAN_FRAME_LAUNCHES)
+    if scan.captured_launches != expect:
+        fail(f"scan {name}: captured launches {scan.captured_launches} != "
+             f"{expect}")
+    if launches != {k: 2 * v for k, v in expect.items()}:
+        fail(f"scan {name}: counted launches {launches} != twice the "
+             f"captured frame's (warm-up and capture)")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    timing = dict(eng.scan_timing)
+    frame_ms = timing["replay_s"] / frames * 1e3
+
+    stacked = eng._scan_inputs(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, eager = scan.run_eager(eng._init_state(), stacked, frames)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / frames * 1e3
+    graph = scan.capture(eng._init_state(), stacked, frames)
+    _, replayed = graph.replay(stacked)
+    if not torch.equal(replayed, eager):
+        fail(f"scan {name}: graph replays differ from the eager body on "
+             f"the card")
+    again = report_from_packed(replayed.cpu().numpy().transpose(1, 0, 2))
+    for col in ("kind", "latency_s", "onboard_s", "f1", "precision",
+                "recall"):
+        if not (getattr(again, col) == getattr(report, col)).all():
+            fail(f"scan {name}: a second capture's {col} differs from the "
+                 f"run's")
+    prof = replay_profile(torch, lambda: graph.replay(stacked), frames)
+    want_counts = {k: v * frames for k, v in SCAN_FRAME_LAUNCHES.items()}
+    if prof["busy_ms"] and prof["kernel_counts"] != want_counts:
+        fail(f"scan {name}: profiled kernel launches "
+             f"{prof['kernel_counts']} != {want_counts}")
+    del graph, eager, replayed
+    kinds = [k for s in range(s_n) for k in report.kinds(s)]
+    counts = {k: kinds.count(k) for k in ("anchor", "test", "transform")}
+    rows = csv_rows(report.to_csv())
+    if not all(math.isfinite(float(r[k])) for r in rows for k in FLOAT_COLS):
+        fail(f"scan {name}: non-finite values in the card's report")
+    print(f"scan {name}: {s_n} streams x {frames} frames on the card in "
+          f"{wall:.3f} s (tapes recorded beforehand in {record_s:.1f} s): "
+          f"tape to the card {timing['tape_s'] * 1e3:.2f} ms, warm-up "
+          f"{timing['warmup_s'] * 1e3:.1f} ms, capture "
+          f"{timing['capture_s'] * 1e3:.1f} ms, replays and the fetch "
+          f"{timing['replay_s'] * 1e3:.2f} ms: {frame_ms:.3f} ms a fleet "
+          f"frame, {frame_ms / s_n:.4f} ms a stream-frame (the same body "
+          f"eagerly on the card {eager_ms:.2f} ms a fleet frame); peak "
+          f"device memory {peak_gib:.3f} GiB; kinds {counts}; captured "
+          f"launches a frame {SCAN_FRAME_LAUNCHES}; replays equal the "
+          f"eager body bit for bit; mean F1 {report.mean_f1:.4f}",
+          flush=True)
+    if prof["busy_ms"]:
+        print(f"profile scan {name} x{frames} fleet frames of replays: wall "
+              f"{prof['wall_ms']:.2f} ms, device busy {prof['busy_ms']:.2f}"
+              f" ms ({100 * prof['busy_share']:.1f}% of wall), "
+              f"{prof['device_ops_per_frame']:.0f} device ops/fleet frame; "
+              f"kernels {prof['kernel_counts']}; top: {prof['top']}",
+              flush=True)
+    else:
+        print(f"profile scan {name}: no device time in the trace (not "
+              f"measured)", flush=True)
+    t0 = time.perf_counter()
+    cpu = api.Session(scn, torch_device="cpu").run(cpu_frames, scan=True)
+    compare_rows([r for r in rows if int(r["frame"]) < cpu_frames],
+                 csv_rows(cpu.to_csv()), f"scan {name} card vs CPU")
+    print(f"scan {name} x{cpu_frames} on the CPU: "
+          f"{time.perf_counter() - t0:.2f} s; the card's first {cpu_frames} "
+          f"frames of every stream match it", flush=True)
+    return launches, dict(
+        name=name, streams=s_n, frames=frames, cpu_frames=cpu_frames,
+        wall_s=wall, frame_ms=frame_ms, stream_frame_ms=frame_ms / s_n,
+        eager_body_frame_ms=eager_ms, tape_ms=timing["tape_s"] * 1e3,
+        warmup_ms=timing["warmup_s"] * 1e3,
+        capture_ms=timing["capture_s"] * 1e3, peak_gib=peak_gib,
+        kinds=counts, captured_launches=SCAN_FRAME_LAUNCHES,
+        replayed_launches={k: v * frames
+                           for k, v in SCAN_FRAME_LAUNCHES.items()},
+        profile=prof)
+
+
+def scan_golden(torch, api):
+    """``fleet-256-congested`` in scan mode on the card against
+    ``tests/goldens/fleet-256-congested-scan.csv``: stream, frame, kind
+    and device exact, the modelled latency_s and onboard_s at the golden
+    tolerance; F1, precision and recall, which drift from today's JAX
+    engine (ROADMAP R1), against the port's CPU scan instead."""
+    scn = api.scenario("fleet-256-congested")
+    card = csv_rows(api.Session(scn, torch_device="cuda").run(
+        SCAN_GOLDEN_FRAMES, scan=True).to_csv())
+    gold = csv_rows(SCAN_GOLDEN.read_text())
+    if len(card) != len(gold):
+        fail(f"scan golden: {len(card)} rows vs {len(gold)}")
+    for g, w in zip(card, gold):
+        bad = [k for k in ("stream", "frame", "kind", "device")
+               if g[k] != w[k]]
+        bad += [k for k in ("latency_s", "onboard_s")
+                if abs(float(g[k]) - float(w[k]))
+                > ATOL + RTOL * abs(float(w[k]))]
+        if bad:
+            fail(f"scan fleet-256-congested vs {SCAN_GOLDEN.name}: {bad} "
+                 f"at stream {w['stream']} frame {w['frame']}")
+    cpu = api.Session(scn, torch_device="cpu").run(SCAN_GOLDEN_FRAMES,
+                                                   scan=True)
+    compare_rows(card, csv_rows(cpu.to_csv()),
+                 "scan fleet-256-congested card vs CPU")
+    print(f"scan fleet-256-congested x{SCAN_GOLDEN_FRAMES} on the card: "
+          f"stream, frame, kind, device, latency_s and onboard_s match "
+          f"{SCAN_GOLDEN.name} ({len(gold)} rows); every column matches "
+          f"the port's CPU scan", flush=True)
+
+
 def csv_rows(text: str):
     return list(csv.DictReader(io.StringIO(text)))
 
@@ -1310,7 +1606,9 @@ def report_timing(name: str, r) -> None:
           f" ms), bound {r['bound_ms']:.6f} ms ({r['bound_by']}; "
           f"{n_bytes / 1e6:.2f} MB)"
           + (f", f32 SIMT bound {r['f32_simt_ms']:.5f} ms"
-             if "f32_simt_ms" in r else ""), flush=True)
+             if "f32_simt_ms" in r else "")
+          + (f", rounds {r['rounds_sum']} (the longest auction "
+             f"{r['rounds_max']})" if "rounds_sum" in r else ""), flush=True)
     print("  " + kernels_line(f"{name} kernel", r["kernels"]), flush=True)
     if "library_kernels" in r:
         print("  " + kernels_line(f"{name} library",
@@ -1328,7 +1626,9 @@ def timing(r) -> dict:
             "bound_by": r["bound_by"], "f32_simt_bound_ms": r.get(
                 "f32_simt_ms"), "library_ms": r.get("library_ms"),
             "library_kernel": lib[0][0] if lib else None,
-            "passes": [[k, ms] for k, ms, _ in r["kernels"]]}
+            "passes": [[k, ms] for k, ms, _ in r["kernels"]],
+            **{k: r[k] for k in ("rounds_max", "rounds_sum",
+                                 "optimality_gap") if k in r}}
 
 
 def kernel_entry(name: str, r, launches) -> dict:
@@ -1366,6 +1666,8 @@ def main() -> None:
     from repro_torch.data import scenes
     from repro_torch import configs as lm_configs, convert
     from repro_torch.kernels import _build
+    from repro_torch.core import association
+    from repro_torch.kernels.auction import ops as au_ops, ref as au_ref
     from repro_torch.kernels.decode_attention import ops as dec_ops, \
         ref as dec_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops, \
@@ -1433,6 +1735,35 @@ def main() -> None:
     def k3(o, k, p, dead=None):
         return lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, o, k,
                                       p, s, dead)
+
+    def auction_synthetic(n, batch, seed, zero_rows=False, what=""):
+        return lambda _: check_auction(
+            torch, np, au_ops, au_ref, association.hungarian_numpy,
+            torch.from_numpy(auction_benefits(np, n, batch, seed, zero_rows))
+            .to(dev), what)
+
+    real_auctions = {}
+
+    def auction_real(key):
+        """The benefits of a kitti-urban transform frame (frame 2 of a run
+        on the card) or of the full-width fleet's transform branch (frame
+        1), recorded from the serving path."""
+        def case(_):
+            if key not in real_auctions:
+                name, overrides, frames = (
+                    ("kitti-urban", KITTI, 3) if key == "kitti" else
+                    (FLEETS[2][0], FLEETS[2][1], 2))
+                scn = api.scenario(name, seed=0, **overrides)
+                real_auctions[key] = record_auctions(
+                    torch, au_ops, lambda: api.Session(
+                        scn, torch_device="cuda").run(frames))[-1]
+            b = real_auctions[key]
+            label = "kitti-urban frame 2" if key == "kitti" else \
+                "full-width fleet frame 1, transform branch"
+            return check_auction(torch, np, au_ops, au_ref,
+                                 association.hungarian_numpy, b,
+                                 f" ({label})")
+        return case
 
     def k1_kitti(_):
         """Frame 0 of kitti-urban: its own points, instance-id image and
@@ -1515,6 +1846,18 @@ def main() -> None:
         # rows, an unaligned base.
         "pillar_scatter": [k4(kind, False) for kind in PILLAR_CASES],
         "pillar_scatter_bwd": [k4(kind, True) for kind in PILLAR_CASES],
+        # A kitti-urban transform frame's benefits (the serving shape) and
+        # the full-width fleet's (both timed), then seeded tied benefits
+        # at every n and batch, zero rows and columns, all zeros.
+        "auction": [auction_real("kitti"), auction_real("fleet")]
+        + [auction_synthetic(n, batch, 100 * n + batch)
+           for n in AUCTION_NS for batch in AUCTION_BATCHES]
+        + [auction_synthetic(24, 16, 1, zero_rows=True, what=" zero rows"),
+           auction_synthetic(40, 64, 2, zero_rows=True, what=" zero rows"),
+           lambda _: check_auction(torch, np, au_ops, au_ref,
+                                   association.hungarian_numpy,
+                                   torch.zeros((1, 24, 24), device=dev),
+                                   " all zeros")],
     }
     # Besides each kernel's first case (the serving path's shape), these
     # are timed too: (kernel, case) -> key of its record.
@@ -1528,6 +1871,7 @@ def main() -> None:
                   ("ransac_score", 7): "fleet_16",
                   ("ransac_score", 8): "fleet_64",
                   ("flash_attention", 1): "f32_prefill",
+                  ("auction", 1): "fleet_kitti",
                   ("pillar_scatter", PILLAR_CASES.index("sorted")): "sorted"}
     # The launch floor: a one-element zero_() timed as the kernels are.
     floor_t = torch.zeros(1, device=dev)
@@ -1576,12 +1920,10 @@ def main() -> None:
     # The serving path launches K1's labels instance, never the full one.
     expect = dict.fromkeys(launches, 0)
     expect.update(point_proj_labels=n_transform, iou2d=KITTI_FRAMES,
-                  ransac_score=n_transform)
+                  ransac_score=n_transform, auction=KITTI_FRAMES)
     if launches != expect:
         fail(f"launch counts {launches} != {expect} implied by kinds {kinds}")
-    main_launches.update((k, launches[k]) for k in
-                         ("point_proj", "point_proj_labels", "iou2d",
-                          "ransac_score"))
+    main_launches.update((k, launches[k]) for k in MOBY_KERNELS)
     walls = session.engine.frame_wall_s
     per_kind = {k: statistics.median(w for w, kk in zip(walls, kinds)
                                      if (kk == "anchor") == (k == "anchor"))
@@ -1610,8 +1952,7 @@ def main() -> None:
           flush=True)
 
     # -- 6. the fleet, orchestrated mode ------------------------------------
-    by_path = {k: {"kitti-urban": main_launches[k]} for k in
-               ("point_proj", "point_proj_labels", "iou2d", "ransac_score")}
+    by_path = {k: {"kitti-urban": main_launches[k]} for k in MOBY_KERNELS}
     fleets = []
     for name, overrides, frames, cpu_frames, key in FLEETS:
         launches, run = serve_fleet(torch, api, kernels, name, overrides,
@@ -1624,6 +1965,21 @@ def main() -> None:
         fleets.append(run)
         torch.cuda.empty_cache()
     print(json.dumps({"fleets": fleets}), flush=True)
+
+    # -- 6b. the fleet, scan mode: one CUDA graph of the frame, replayed --
+    from repro_torch.fleet.engine import report_from_packed
+    scans = []
+    for name, overrides, frames, cpu_frames, key in FLEETS:
+        launches, run = serve_scan(torch, api, kernels, report_from_packed,
+                                   name, overrides, frames, cpu_frames)
+        path = f"scan {key} ({name})"
+        for k in by_path:
+            by_path[k][path] = launches[k]
+            main_launches[k] += launches[k]
+        scans.append(run)
+        torch.cuda.empty_cache()
+    scan_golden(torch, api)
+    print(json.dumps({"scans": scans}), flush=True)
 
     # -- 7. smoke on the card vs the JAX reference's golden -----------------
     smoke = api.Session(api.scenario("smoke", seed=0),

@@ -2,15 +2,16 @@
 
 Port of ``repro/api/session.py``: a single stream (``n_streams == 1``)
 through ``MobyEngine``, a fleet (``n_streams > 1`` in a moby mode) through
-the orchestrated ``FleetEngine``, and the ``edge_only`` / ``cloud_only``
-baselines (single-stream notions, as in the JAX package). The fleet's
-single-dispatch ``run(scan=True)`` is ROADMAP item 8, "Fleet, scan mode",
-and raises ``NotImplementedError`` until then; the observability hooks
-(``obs=``) and the stream mesh are not ported either.
+``FleetEngine``, and the ``edge_only`` / ``cloud_only`` baselines
+(single-stream notions, as in the JAX package). ``run(scan=True)`` is the
+fleet's scan (benchmark) mode, ``FleetEngine.run_scan``: at S=1 an
+equivalent single-stream fleet slice is built for it, and a baseline mode
+raises ``ValueError`` as the JAX package does. The observability hooks
+(``obs=``) and the stream mesh are not ported.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -19,9 +20,6 @@ from repro_torch.api.scenario import Scenario, scenario as _scenario
 from repro_torch.fleet.engine import FleetEngine
 from repro_torch.serving.common import RunReport
 from repro_torch.serving.engine import MobyEngine
-
-_SCAN_TODO = ("the fleet's scan mode is not ported yet (ROADMAP item 8, "
-              "'Fleet, scan mode')")
 
 
 class Session:
@@ -41,6 +39,8 @@ class Session:
         devices = scn.stream_devices()  # fail fast on unknown devices
         if scn.n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {scn.n_streams}")
+        self.torch_device = torch_device
+        self._scan_engine: Optional[FleetEngine] = None
         # Baselines (edge_only/cloud_only) are single-stream notions — a
         # fleet preset's baseline comparison runs on one stream, on stream
         # 0's resolved device.
@@ -51,12 +51,20 @@ class Session:
                 tparams=scn.tparams, sparams=sparams, seed=scn.seed,
                 comp=scn.comp, device=devices[0], torch_device=torch_device)
         else:
-            self.engine = FleetEngine(
-                scn.scene, scn.detector, n_streams=scn.n_streams,
-                trace=scn.trace, mode=scn.mode, use_fos=scn.use_fos,
-                use_tba=scn.use_tba, tparams=scn.tparams, sparams=sparams,
-                seed=scn.seed, comp=scn.comp, cloud_cfg=scn.cloud,
-                device=scn.device, torch_device=torch_device)
+            self.engine = self._scan_engine = self._fleet(scn.n_streams)
+
+    def _fleet(self, n_streams: int) -> FleetEngine:
+        scn = self.scenario
+        # A lazily built S=1 slice of a fleet scenario keeps stream 0's
+        # resolved device; full-size fleets pass the spec through.
+        device = scn.device if n_streams == scn.n_streams \
+            else list(scn.stream_devices()[:n_streams])
+        return FleetEngine(
+            scn.scene, scn.detector, n_streams=n_streams, trace=scn.trace,
+            mode=scn.mode, use_fos=scn.use_fos, use_tba=scn.use_tba,
+            tparams=scn.tparams, sparams=scn.scheduler_params(),
+            seed=scn.seed, comp=scn.comp, cloud_cfg=scn.cloud, device=device,
+            torch_device=self.torch_device)
 
     @property
     def n_streams(self) -> int:
@@ -64,11 +72,19 @@ class Session:
         return getattr(self.engine, "n_streams", 1)
 
     def run(self, n_frames: int, scan: bool = False) -> RunReport:
-        """Serve ``n_frames`` per stream. ``scan=True`` (the fleet's
-        single-dispatch mode) is not ported yet and raises."""
+        """Serve ``n_frames`` per stream.
+
+        ``scan=True`` uses the fleet's scan mode (on the card, one CUDA
+        graph of the frame replayed ``n_frames`` times). At S=1 an
+        equivalent single-stream fleet slice is built lazily for it (S=1
+        fleet parity is a tested invariant).
+        """
         if scan:
-            raise NotImplementedError(f"run(scan=True): {_SCAN_TODO}")
-        report = self.engine.run(n_frames)
+            if self._scan_engine is None:
+                self._scan_engine = self._fleet(1)
+            report = self._scan_engine.run_scan(n_frames)
+        else:
+            report = self.engine.run(n_frames)
         report.scenario = self.scenario.name
         report.policy = self.scenario.scheduler_params().policy \
             if self.scenario.use_fos else ""

@@ -10,15 +10,13 @@ Port of ``repro/core/association.py``:
   algorithm in NumPy, copied as the test oracle.
 * :func:`auction_assign` — Bertsekas auction with epsilon scaling. The JAX
   version runs each phase as a ``lax.while_loop`` (``association.py:121``)
-  of up to 4000 bidding rounds. Here each round is masked with the loop's
-  own condition (``any unassigned & it < max_iter``) — once every person is
-  assigned, a round changes nothing but the counter, which the mask also
-  holds — and the host tests for the end only every
-  :data:`CHECK_EVERY` rounds, so the card is not synchronised once per
-  round. The result is exactly the while-loop's. Leading batch dims (a
-  fleet's streams) run one auction each, with its own condition and
-  counter, as ``jax.vmap`` of the ``while_loop`` does: the rounds go on
-  until no auction does, and a finished one is held by its mask.
+  of up to 4000 bidding rounds, inside the jitted step. Here it dispatches
+  by device to ``kernels/auction``: on the CPU the plain version (the
+  rounds as masked tensor ops, ``kernels/auction/ref.py``), on the card
+  one kernel for every auction and phase (``csrc/auction.cu``), so the
+  step never waits on the host. Leading batch dims (a fleet's streams) run
+  one auction each, with its own condition and counter, as ``jax.vmap`` of
+  the ``while_loop`` does.
 """
 from __future__ import annotations
 
@@ -26,14 +24,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import boxes as box_ops
-from repro_torch.core.batching import take
+from repro_torch.kernels.auction import ops as auction_ops
 
-_NEG = -1e9
 # float32(1 / 1000), the factor XLA's jit uses for "/ 1000.0".
 _INV_1000 = float(np.float32(1e-3))
-
-# Bidding rounds between two host checks for the end of an auction phase.
-CHECK_EVERY = 8
 
 
 def hungarian_numpy(cost: np.ndarray) -> np.ndarray:
@@ -88,79 +82,17 @@ def hungarian_numpy(cost: np.ndarray) -> np.ndarray:
     return row_to_col
 
 
-def _auction_phase(benefit: torch.Tensor, prices: torch.Tensor, eps: float,
-                   max_iter: int):
-    """One auction phase at a fixed epsilon. benefit: (..., n, n) square,
-    one auction per leading index, each with its own loop condition and
-    round counter (``jax.vmap`` of the JAX version's ``while_loop``)."""
-    n = benefit.shape[-1]
-    batch = benefit.shape[:-2]
-    dev = benefit.device
-    ar = torch.arange(n, device=dev)
-    neg_col = torch.full((*batch, n, 1), _NEG, dtype=benefit.dtype,
-                         device=dev)
-    neg_mat = torch.full((*batch, n, n), _NEG, dtype=benefit.dtype,
-                         device=dev)
-    person_to_obj = torch.full((*batch, n), -1, dtype=torch.int64, device=dev)
-    obj_to_person = torch.full((*batch, n), -1, dtype=torch.int64, device=dev)
-    it = torch.zeros(batch, dtype=torch.int64, device=dev)
-    for rnd in range(max_iter):
-        # The while-loop's condition, evaluated on the device per auction;
-        # the host ends the loop once no auction goes on.
-        go = (person_to_obj < 0).any(dim=-1) & (it < max_iter)
-        if rnd % CHECK_EVERY == 0 and not bool(go.any()):
-            break
-        unassigned = person_to_obj < 0
-        values = benefit - prices[..., None, :]                 # (.., n, n)
-        # Pad a -inf column so top-2 also works for n == 1.
-        top2 = torch.topk(torch.cat([values, neg_col], dim=-1), 2,
-                          dim=-1).values                        # (.., n, 2)
-        best_j = values.argmax(dim=-1)                          # (.., n)
-        bid = take(prices, best_j) + top2[..., 0] - top2[..., 1] + eps
-        # Bid matrix: unassigned persons bid on their best object.
-        bid_mat = neg_mat.scatter(
-            -1, best_j[..., None],
-            torch.where(unassigned, bid, _NEG)[..., None])
-        best_bid = bid_mat.amax(dim=-2)                         # (.., n)
-        winner = bid_mat.argmax(dim=-2)
-        has_bid = best_bid > _NEG / 2
-        # Gather-based (collision-free) state update:
-        # person i wins iff it was unassigned, bid on j=best_j[i], and is the
-        # argmax bidder for j.
-        won = unassigned & take(has_bid, best_j) & (take(winner, best_j) == ar)
-        # person i is evicted iff its current object received a winning bid
-        # from someone else.
-        cur = person_to_obj.clamp(0, n - 1)
-        evicted = (person_to_obj >= 0) & take(has_bid, cur) \
-            & (take(winner, cur) != ar)
-        new_p2o = torch.where(won, best_j,
-                              torch.where(evicted, -1, person_to_obj))
-        go_n = go[..., None]
-        has_bid = has_bid & go_n
-        person_to_obj = torch.where(go_n, new_p2o, person_to_obj)
-        obj_to_person = torch.where(has_bid, winner, obj_to_person)
-        prices = torch.where(has_bid, best_bid, prices)
-        it = it + go.long()
-    return person_to_obj, obj_to_person, prices
-
-
 def auction_assign(benefit: torch.Tensor, eps_final: float = 1e-4,
                    max_iter_per_phase: int = 4000) -> torch.Tensor:
     """Maximum-benefit perfect matching on a square benefit matrix
     (..., n, n), one per leading index.
 
     Returns person_to_obj (..., n) int64. Epsilon scaling: eps 0.1 ->
-    eps_final by factors of 10, reusing prices across phases.
+    eps_final by factors of 10, reusing prices across phases. A CPU tensor
+    runs the plain version, a CUDA tensor the kernel (one launch for every
+    auction and phase); both give the same assignment bit for bit.
     """
-    prices = benefit.new_zeros(benefit.shape[:-1])
-    eps = 0.1
-    while True:
-        person_to_obj, _, prices = _auction_phase(benefit, prices, eps,
-                                                  max_iter_per_phase)
-        if eps <= eps_final:
-            break
-        eps = max(eps / 10.0, eps_final)
-    return person_to_obj
+    return auction_ops.auction(benefit, eps_final, max_iter_per_phase)[0]
 
 
 def associate(track_boxes: torch.Tensor, track_valid: torch.Tensor,

@@ -1,4 +1,4 @@
-"""FleetEngine: batched multi-stream Moby serving, orchestrated mode.
+"""FleetEngine: batched multi-stream Moby serving.
 
 Port of ``repro/fleet/engine.py``. Runs S concurrent vehicle streams
 through one call of the fleet step per frame (see fleet.step) on
@@ -16,11 +16,20 @@ clocks live, line for line as in the JAX package:
   list or a mix spec (``profiles.ProfileVector``): per-stream component
   times, edge inference and scheduler cost telemetry.
 
-The ``RunReport`` latencies are modelled edge and network times computed
-on the host, not wall times of any chip. With S=1 the inputs and the
-timing reduce to the single-stream ``MobyEngine``. Not ported yet: scan
-mode (``run_scan``, ROADMAP item 8), the stream mesh (``mesh=``, item 11)
-and the observability hooks (``obs=``, item 9).
+Two run modes:
+
+* :meth:`FleetEngine.run`, orchestrated: one call of the fleet step and
+  one packed ``(S, 7)`` fetch a frame, byte-accurate host netsim timing;
+* :meth:`FleetEngine.run_scan`, benchmark: the network/cloud model runs
+  on the device beside the step (``step_lib.FleetScan``); on the card the
+  run is one CUDA graph of the frame, replayed a frame, with one fetch at
+  the end; on the CPU the same body runs frame by frame.
+
+The ``RunReport`` latencies are modelled edge and network times, not
+wall times of any chip. With S=1 the inputs and the timing reduce to the
+single-stream ``MobyEngine``. Not ported yet: the stream mesh
+(``mesh=``, ROADMAP item 11) and the observability hooks (``obs=``, item
+9).
 """
 from __future__ import annotations
 
@@ -130,6 +139,8 @@ class FleetEngine:
         self._stack: Optional[tape_lib.FrameTape] = None
         self._step = step_lib.make_fleet_step(
             self.calib, self.tparams, self.sparams, use_fos)
+        self._scan_cache: Optional[step_lib.FleetScan] = None
+        self.scan_timing: dict = {}
         # Host wall seconds of the last run, per frame: the whole frame
         # (inputs to the card, the step, the stats fetch, the host's
         # contention model), and the share spent putting the frame's
@@ -210,7 +221,8 @@ class FleetEngine:
                 state = self._observe_telemetry(state)
             state, packed = self._step(
                 state, inp, torch.from_numpy(arrived).to(self.torch_device),
-                t)
+                torch.full((), t, dtype=torch.int32,
+                           device=self.torch_device))
             pk = packed.cpu().numpy()        # the one fetch per frame
             is_anchor = pk[:, step_lib.COL_IS_ANCHOR] > 0.5
             send_test = pk[:, step_lib.COL_SEND_TEST] > 0.5
@@ -266,8 +278,57 @@ class FleetEngine:
                                          device=self.torch_device)
 
     def run_scan(self, n_frames: int) -> RunReport:
-        """Benchmark mode (the whole run as one dispatch with the
-        network/cloud model on the device) is not ported yet."""
-        raise NotImplementedError(
-            "FleetEngine.run_scan: the fleet's scan mode is not ported yet "
-            "(ROADMAP item 8, 'Fleet, scan mode')")
+        """Benchmark mode: the network/cloud model runs on the device with
+        the fleet step (``step_lib.FleetScan``). The tape goes to the
+        device once; on the card the run is one CUDA graph of the frame,
+        captured once and replayed ``n_frames`` times, with one fetch of
+        the ``(F, S, 9)`` rows at the end; on the CPU the same body runs
+        frame by frame. ``scan_timing`` keeps the host seconds of the
+        last run's parts."""
+        scan = self._scan_fn()
+        t0 = time.perf_counter()
+        stacked = self._scan_inputs(n_frames)
+        if self.torch_device.type == "cuda":
+            torch.cuda.synchronize(self.torch_device)
+        t1 = time.perf_counter()
+        _, outs = scan.run(self._init_state(), stacked, n_frames)
+        packed = outs.cpu().numpy().transpose(1, 0, 2)  # (F,S,C)->(S,F,C)
+        t2 = time.perf_counter()
+        self.scan_timing = dict(tape_s=t1 - t0, run_s=t2 - t1, **scan.timing)
+        if "replay_start" in self.scan_timing:
+            # From the first replay to the fetched rows.
+            self.scan_timing["replay_s"] = \
+                t2 - self.scan_timing.pop("replay_start")
+        report = report_from_packed(packed, devices=self.stream_devices)
+        report.frame_dt = self.frame_dt
+        return report
+
+    def _scan_inputs(self, n_frames: int) -> step_lib.FrameInputs:
+        """The tape as (F, S, ...) tensors on the device, copied once."""
+        stack = self._stacked(n_frames)
+        return step_lib.FrameInputs(**{
+            name: torch.from_numpy(np.ascontiguousarray(
+                getattr(stack, name).swapaxes(0, 1))).to(self.torch_device,
+                                                        _DTYPES[name])
+            for name in step_lib.FrameInputs._fields})
+
+    def _scan_fn(self) -> step_lib.FleetScan:
+        if self._scan_cache is not None:
+            return self._scan_cache
+        net = step_lib.ScanNetParams(
+            bw_mbps=netsim.synthesize_trace(self.trace, seed=self.seed)
+            .astype(np.float32),
+            trace_dt=0.1, rtt_s=self.uplink.rtt_s, frame_dt=self.frame_dt,
+            pc_mbits=PC_BYTES * 8 / 1e6,
+            result_mbits=RESULT_BYTES * 8 / 1e6,
+            infer_s=self.cloud_cfg.infer_s,
+            marginal=self.cloud_cfg.marginal,
+            max_batch=self.cloud_cfg.max_batch,
+            n_gpus=self.cloud_cfg.n_gpus)
+        self._scan_cache = step_lib.FleetScan(
+            self.n_streams, self.calib, self.tparams, self.sparams,
+            self.comp, net, self.use_fos,
+            onboard_anchors=self.mode == "moby_onboard",
+            edge_infer_s=self._edge_infer(),
+            charge_fos=self._charge_fos, device=self.torch_device)
+        return self._scan_cache

@@ -16,6 +16,9 @@ kernel                  source                           replaces (TPU, Pallas)
 ``decode_attention``    ``csrc/decode_attention.cu``     ``repro/kernels/decode_attention``
 ``pillar_scatter``      ``csrc/pillar_scatter.cu``       ``repro/kernels/pillar_scatter``
 ``pillar_scatter_bwd``  ``csrc/pillar_scatter.cu``       its VJP, ``repro/ops/api.py``
+``auction``             ``csrc/auction.cu``              no Pallas kernel: the
+                                                         ``lax.while_loop`` auction of
+                                                         ``repro/core/association.py``
 ======================  ===============================  ==================================
 
 Each wrapper (``<kernel>/ops.py``) keeps a plain-integer launch count,
@@ -30,6 +33,7 @@ from __future__ import annotations
 from types import ModuleType
 from typing import Dict, Tuple
 
+from repro_torch.kernels.auction import ops as _auction
 from repro_torch.kernels.decode_attention import ops as _decode_attention
 from repro_torch.kernels.flash_attention import ops as _flash_attention
 from repro_torch.kernels.iou2d import ops as _iou2d
@@ -47,7 +51,8 @@ _COUNTERS: Dict[str, Tuple[ModuleType, str]] = {
     "flash_attention_tc": (_flash_attention, "tc_launches"),
     "decode_attention": (_decode_attention, "launches"),
     "pillar_scatter": (_pillar_scatter, "launches"),
-    "pillar_scatter_bwd": (_pillar_scatter, "bwd_launches")}
+    "pillar_scatter_bwd": (_pillar_scatter, "bwd_launches"),
+    "auction": (_auction, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 SOURCES = ("errors.cu", "point_proj.cu", "iou2d.cu", "ransac_score.cu",
            "flash_attention.cu", "flash_attention_tc.cu",
            "decode_attention.cu",
-           "pillar_scatter.cu")
+           "pillar_scatter.cu", "auction.cu")
 HEADERS = ("moby_kernels.cuh",)
 # Where the CUDA toolkit installs nvcc when it is not on PATH.
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
@@ -61,6 +61,8 @@ SIGNATURES = {
     "moby_pillar_scatter": ((_P, _P, _P, _LL, _I, _I, _P, _P), _I),
     "moby_pillar_scatter_bwd": ((_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P,
                                  _P), _I),
+    "moby_auction": ((_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I, _I, _P,
+                      _P, _P, _P), _I),
 }
 
 

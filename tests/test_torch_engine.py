@@ -8,9 +8,10 @@
 * the baselines and ``moby_onboard`` equal the JAX engine, and so does a
   tape-driven engine;
 * the preset table equals ``repro``'s field by field;
-* the fleet's scan mode (``run(scan=True)``, ``run_scan``) raises, and a
-  fleet preset's baselines run one stream (tests/test_torch_fleet.py holds
-  the fleet itself);
+* the fleet's scan mode (``run(scan=True)``, ``run_scan``) runs, a
+  baseline mode's scan raises, and a fleet preset's baselines run one
+  stream (tests/test_torch_fleet.py and tests/test_torch_scan.py hold the
+  fleet itself);
 * every copied numpy data-plane module gives the original's output;
 * importing and running the port pulls in neither jax nor ``repro``.
 """
@@ -174,19 +175,24 @@ def test_preset_table_equals_jax():
 
 
 def test_scan_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="scan"):
-        api.Session(api.scenario("smoke"), torch_device="cpu").run(2,
-                                                                   scan=True)
+    """Scan mode is ported (tests/test_torch_scan.py holds it to JAX): a
+    single stream scans through a lazily built S=1 fleet slice, a fleet
+    through its own engine; only a baseline mode, which has no fleet,
+    raises (``ValueError``, as in the JAX package)."""
+    one = api.Session(api.scenario("smoke"), torch_device="cpu")
+    report = one.run(2, scan=True)
+    assert report.kind.shape == (1, 2) and report.scenario == "smoke"
+    assert one._scan_engine.n_streams == 1
     fleet = api.Session(api.scenario("fleet-16-congested"),
                         torch_device="cpu")
     assert fleet.n_streams == 16
-    with pytest.raises(NotImplementedError, match="scan"):
-        fleet.run(2, scan=True)
-    with pytest.raises(NotImplementedError, match="scan"):
-        fleet.engine.run_scan(2)
+    assert fleet._scan_engine is fleet.engine
+    assert fleet.engine.run_scan(1).kind.shape == (16, 1)
     s = api.Session(api.scenario("fleet-16-congested", mode="edge_only"),
                     torch_device="cpu")
     assert s.n_streams == 1
+    with pytest.raises(ValueError, match="moby modes"):
+        s.run(2, scan=True)
 
 
 # ---------------------------------------------------------------------------

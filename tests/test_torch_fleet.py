@@ -390,6 +390,7 @@ def test_fleet_engine_defaults_to_the_card():
         FleetEngine(cfg, "pointpillar", n_streams=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.Session(api.scenario("fleet-16-congested"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        FleetEngine(cfg, "pointpillar", n_streams=2,
-                    torch_device="cpu").run_scan(2)
+    # Scan mode runs on the CPU only when asked for (ROADMAP item 8, done).
+    report = FleetEngine(cfg, "pointpillar", n_streams=2,
+                         torch_device="cpu").run_scan(2)
+    assert report.kind.shape == (2, 2)

@@ -26,6 +26,7 @@ from repro.kernels.point_proj import ref as jpp_ref  # noqa: E402
 from repro.kernels.ransac_score import ops as jrs_ops  # noqa: E402
 from repro.kernels.ransac_score import ref as jrs_ref  # noqa: E402
 from repro_torch import kernels, ops  # noqa: E402
+from repro_torch.kernels.auction import ops as au_ops  # noqa: E402
 from repro_torch.kernels.iou2d import ops as iou_ops  # noqa: E402
 from repro_torch.kernels.iou2d import ref as iou_ref  # noqa: E402
 from repro_torch.kernels.point_proj import ops as pp_ops  # noqa: E402
@@ -234,6 +235,7 @@ def test_cpu_tensors_never_launch_a_kernel():
     ops.point_proj(_t(pts), _t(tr), _t(p), 48, 160)
     ops.iou2d(_t(_boxes(np.random.default_rng(0), 3)),
               _t(_boxes(np.random.default_rng(1), 4)))
+    au_ops.auction(torch.zeros((2, 5, 5)))
     assert kernels.launch_counts() == {"point_proj": 0,
                                        "point_proj_labels": 0, "iou2d": 0,
                                        "ransac_score": 0,
@@ -241,7 +243,8 @@ def test_cpu_tensors_never_launch_a_kernel():
                                        "flash_attention_tc": 0,
                                        "decode_attention": 0,
                                        "pillar_scatter": 0,
-                                       "pillar_scatter_bwd": 0}
+                                       "pillar_scatter_bwd": 0,
+                                       "auction": 0}
 
 
 def test_other_devices_raise():
