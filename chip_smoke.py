@@ -71,10 +71,13 @@ fatal on failure:
    n x 1e-4 of ``hungarian_numpy``'s optimum, on the benefits of a
    kitti-urban transform frame and of the full-width fleet's transform
    branch (both recorded from the serving path on the card, both timed,
-   its plain version eagerly, as it synchronises), seeded benefits on the
-   1e-3 grid with many exact ties at n = 1, 2, 12, 16, 24, 40 and the cap
-   (128) with batch 1, 16, 64 and 256, rows and columns of zeros, and all
-   zeros;
+   its plain version eagerly, as it synchronises, with the time of a
+   round and of a skeleton of the same rounds that only synchronises the
+   warp and tests for the end), seeded benefits on the 1e-3 grid with many
+   exact ties at n = 1, 2, 12, 16, 24, 31, 32, 33, 40, 64 and the cap
+   (128) with batch 1, 16, 64 and 256, rows and columns of zeros, every
+   row equal (all persons bid on one object) and all zeros, each of these
+   timed too (device ms and us a round);
 4. the Moby serving path at KITTI's own size (``kitti-urban`` at 122,880
    points and a 375x1242 image, 24 frames) on the card, with every
    kernel's launch count checked against the run's frame kinds (K1's
@@ -532,23 +535,26 @@ def check_ransac(torch, np, dev, rs_ops, rs_ref, o, k, p, seed, dead=None):
         (lambda: rs_ref.ransac_score_ref(*args, 0.5))
 
 
-# The auction's phase-3 cases: persons a matrix (the kernel's cap last) and
-# auctions a launch.
-AUCTION_NS = (1, 2, 12, 16, 24, 40, 128)
+# The auction's phase-3 cases: persons a matrix (each side of one warp's 32,
+# two warps' 64, the kernel's cap last) and auctions a launch.
+AUCTION_NS = (1, 2, 12, 16, 24, 31, 32, 33, 40, 64, 128)
 AUCTION_BATCHES = (1, 16, 64, 256)
 
 
-def auction_benefits(np, n, batch, seed, zero_rows=False):
+def auction_benefits(np, n, batch, seed, zero_rows=False, equal_rows=False):
     """Seeded (batch, n, n) benefits on the association's 1e-3 grid, drawn
     from 20 levels so that many tie exactly; with ``zero_rows`` about a
     third of the rows and of the columns are 0 (the invalid pairs and the
-    padding of a non-square association)."""
+    padding of a non-square association); with ``equal_rows`` every row is
+    the first (all persons bid on one object each round)."""
     rng = np.random.default_rng(seed)
     b = (rng.integers(0, 20, (batch, n, n)) * np.float32(1e-3)) \
         .astype(np.float32)
     if zero_rows:
         b[:, rng.uniform(size=n) < 1 / 3, :] = 0.0
         b[:, :, rng.uniform(size=n) < 1 / 3] = 0.0
+    if equal_rows:
+        b[:] = b[:, :1]
     return b
 
 
@@ -605,8 +611,25 @@ def check_auction(torch, np, au_ops, au_ref, hungarian, benefit, what):
                rounds_sum=int(rounds.sum()),
                bytes=len(b) * (n * n * 4 + n * 12 + 4),
                ops=6 * n * n * int(rounds.sum()), plain_eager=True)
+    # The probe of a round's synchronisation and end test alone (a tree
+    # from before it, timed with this script, has none).
+    skeleton = getattr(au_ops, "auction_skeleton", None)
+    if skeleton is not None:
+        rec["skeleton"] = lambda: skeleton(got[2])
     return rec, (lambda: au_ops.auction(benefit)), \
         (lambda: au_ref.auction_ref(benefit))
+
+
+def time_auction(torch, rec, kern) -> None:
+    """Device ms of an auction case that is not measured in full, and its
+    time a round (over its longest auction's rounds)."""
+    est = eager_ms(kern, torch, runs=3, warmup=1)
+    rec["kernel_ms"] = graph_ms(kern, torch,
+                                reps=max(1, min(20, int(40 / est))),
+                                replays=5)
+    rec["us_per_round"] = rec["kernel_ms"] * 1e3 / rec["rounds_max"]
+    print(f"  device {rec['kernel_ms']:.5f} ms, {rec['us_per_round']:.4f} us"
+          f" a round ({rec['rounds_max']} rounds)", flush=True)
 
 
 def bf16_limit(torch, want):
@@ -971,6 +994,10 @@ def measure(torch, rec, kern, plain) -> None:
         return est, max(1, min(50, int(100 / max(est, 1e-3))))
     est, n = reps(kern)
     rec["kernel_ms"] = graph_ms(kern, torch, reps=n)
+    if "rounds_max" in rec:
+        rec["us_per_round"] = rec["kernel_ms"] * 1e3 / rec["rounds_max"]
+    if "skeleton" in rec:
+        rec["skeleton_ms"] = graph_ms(rec.pop("skeleton"), torch, reps=n)
     rec["kernel_eager_ms"] = eager_ms(
         kern, torch, runs=max(5, min(100, int(1000 / max(est, 1e-2)))))
     rec["kernels"] = device_kernels(torch, kern)
@@ -1608,7 +1635,11 @@ def report_timing(name: str, r) -> None:
           + (f", f32 SIMT bound {r['f32_simt_ms']:.5f} ms"
              if "f32_simt_ms" in r else "")
           + (f", rounds {r['rounds_sum']} (the longest auction "
-             f"{r['rounds_max']})" if "rounds_sum" in r else ""), flush=True)
+             f"{r['rounds_max']}, {r['us_per_round']:.4f} us a round)"
+             if "rounds_sum" in r else "")
+          + (f", skeleton {r['skeleton_ms']:.5f} ms (the rounds' warp "
+             f"synchronisation and end test alone)"
+             if "skeleton_ms" in r else ""), flush=True)
     print("  " + kernels_line(f"{name} kernel", r["kernels"]), flush=True)
     if "library_kernels" in r:
         print("  " + kernels_line(f"{name} library",
@@ -1628,7 +1659,8 @@ def timing(r) -> dict:
             "library_kernel": lib[0][0] if lib else None,
             "passes": [[k, ms] for k, ms, _ in r["kernels"]],
             **{k: r[k] for k in ("rounds_max", "rounds_sum",
-                                 "optimality_gap") if k in r}}
+                                 "optimality_gap", "us_per_round",
+                                 "skeleton_ms", "cases") if k in r}}
 
 
 def kernel_entry(name: str, r, launches) -> dict:
@@ -1736,11 +1768,12 @@ def main() -> None:
         return lambda s: check_ransac(torch, np, dev, rs_ops, rs_ref, o, k,
                                       p, s, dead)
 
-    def auction_synthetic(n, batch, seed, zero_rows=False, what=""):
+    def auction_synthetic(n, batch, seed, zero_rows=False, equal_rows=False,
+                          what=""):
         return lambda _: check_auction(
             torch, np, au_ops, au_ref, association.hungarian_numpy,
-            torch.from_numpy(auction_benefits(np, n, batch, seed, zero_rows))
-            .to(dev), what)
+            torch.from_numpy(auction_benefits(np, n, batch, seed, zero_rows,
+                                              equal_rows)).to(dev), what)
 
     real_auctions = {}
 
@@ -1847,14 +1880,18 @@ def main() -> None:
         "pillar_scatter": [k4(kind, False) for kind in PILLAR_CASES],
         "pillar_scatter_bwd": [k4(kind, True) for kind in PILLAR_CASES],
         # A kitti-urban transform frame's benefits (the serving shape) and
-        # the full-width fleet's (both timed), then seeded tied benefits
-        # at every n and batch, zero rows and columns, all zeros.
+        # the full-width fleet's (both measured in full), then seeded tied
+        # benefits at every n and batch, zero rows and columns, every row
+        # equal, all zeros (each timed too).
         "auction": [auction_real("kitti"), auction_real("fleet")]
         + [auction_synthetic(n, batch, 100 * n + batch)
            for n in AUCTION_NS for batch in AUCTION_BATCHES]
         + [auction_synthetic(24, 16, 1, zero_rows=True, what=" zero rows"),
-           auction_synthetic(40, 64, 2, zero_rows=True, what=" zero rows"),
-           lambda _: check_auction(torch, np, au_ops, au_ref,
+           auction_synthetic(40, 64, 2, zero_rows=True, what=" zero rows")]
+        + [auction_synthetic(n, batch, 3 * n, equal_rows=True,
+                             what=" all tied")
+           for n, batch in ((24, 16), (33, 4), (40, 16), (128, 1))]
+        + [lambda _: check_auction(torch, np, au_ops, au_ref,
                                    association.hungarian_numpy,
                                    torch.zeros((1, 24, 24), device=dev),
                                    " all zeros")],
@@ -1896,6 +1933,11 @@ def main() -> None:
                     records[name] = rec
                 else:
                     records[name][also_timed[name, i]] = rec
+            elif name == "auction":
+                time_auction(torch, rec, kern)
+                records[name].setdefault("cases", []).append(
+                    [rec["shape"], rec["kernel_ms"], rec["us_per_round"],
+                     rec["rounds_max"]])
             del rec, kern, plain
             torch.cuda.empty_cache()
     if only:

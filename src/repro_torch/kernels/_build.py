@@ -61,8 +61,9 @@ SIGNATURES = {
     "moby_pillar_scatter": ((_P, _P, _P, _LL, _I, _I, _P, _P), _I),
     "moby_pillar_scatter_bwd": ((_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P,
                                  _P), _I),
-    "moby_auction": ((_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I, _I, _P,
-                      _P, _P, _P), _I),
+    "moby_auction": ((_P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), _I, _I,
+                      _P, _P, _P, _P), _I),
+    "moby_auction_skeleton": ((_P, _I, _P, _P), _I),
 }
 
 

@@ -140,20 +140,50 @@ def test_auction_wrapper_on_the_cpu_is_the_plain_version():
         au_ops.auction(torch.zeros((2, 2), device="meta"))
 
 
+def test_auction_instance_and_refusals():
+    """Every n from 1 to MAX_N runs on the smallest instance that takes it
+    (32 x warps persons); the kernel's limits raise before a launch."""
+    for n in range(1, au_ops.MAX_N + 1):
+        batch, got_n, eps, warps = au_ops.plan((2, 3, n, n), torch.float32,
+                                               1e-4)
+        assert (batch, got_n, eps) == (6, n, au_ref.phase_epsilons(1e-4))
+        assert warps in au_ops.WARPS and n <= 32 * warps
+        assert warps == 1 or n > 16 * warps
+    with pytest.raises(ValueError, match="persons"):
+        au_ops.plan((1, 0, 0), torch.float32, 1e-4)
+    with pytest.raises(ValueError, match="persons"):
+        au_ops.plan((1, au_ops.MAX_N + 1, au_ops.MAX_N + 1), torch.float32,
+                    1e-4)
+    with pytest.raises(ValueError, match="phases"):
+        au_ops.plan((1, 4, 4), torch.float32, 1e-9)
+    assert len(au_ref.phase_epsilons(1e-9)) > au_ops.MAX_PHASES
+    with pytest.raises(TypeError, match="dtype"):
+        au_ops.plan((1, 4, 4), torch.float64, 1e-4)
+    with pytest.raises(ValueError, match="shape"):
+        au_ops.plan((4, 5), torch.float32, 1e-4)
+
+
 @pytest.mark.cuda
 def test_auction_kernel_matches_plain_on_card():
     """The kernel equals its plain version bit for bit (assignment,
-    prices, rounds) on the same card tensors, and refuses what it does
-    not take."""
+    prices, rounds) on the same card tensors, on each side of the lane and
+    warp boundaries and with every row equal (all persons bid on one
+    object), and refuses what it does not take."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run python3 chip_smoke.py there)")
     dev = torch.device("cuda")
-    for n, batch, tied in ((1, 4, True), (12, 16, True), (24, 64, False),
-                           (40, 8, True), (au_ops.MAX_N, 2, True)):
-        b = torch.from_numpy(_benefits(n, batch, n, tied)).to(dev)
+    cases = [(_benefits(n, batch, n, tied), n) for n, batch, tied in (
+        (1, 4, True), (12, 16, True), (24, 64, False), (31, 8, True),
+        (32, 8, False), (33, 8, True), (40, 8, True), (64, 4, True),
+        (au_ops.MAX_N, 2, True))]
+    for n, batch in ((24, 16), (33, 4), (au_ops.MAX_N, 1)):
+        b = _benefits(n, batch, 7 * n, True)
+        cases.append((np.repeat(b[:, :1], n, axis=1), n))
+    for b, n in cases:
+        b = torch.from_numpy(np.ascontiguousarray(b)).to(dev)
         got, want = au_ops.auction(b), au_ref.auction_ref(b)
         for g, w in zip(got, want):
-            assert g.dtype == w.dtype and torch.equal(g, w)
+            assert g.dtype == w.dtype and torch.equal(g, w), n
     with pytest.raises(ValueError, match="persons"):
         au_ops.auction(torch.zeros((1, au_ops.MAX_N + 1, au_ops.MAX_N + 1),
                                    device=dev))
