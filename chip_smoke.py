@@ -68,16 +68,24 @@ fatal on failure:
    auction kernel (no Pallas counterpart: JAX's ``lax.while_loop``
    auction) bit for bit in the assignment, the prices and the rounds
    against its plain version, with the assignment's total benefit within
-   n x 1e-4 of ``hungarian_numpy``'s optimum, on the benefits of a
-   kitti-urban transform frame and of the full-width fleet's transform
-   branch (both recorded from the serving path on the card, both timed,
-   its plain version eagerly, as it synchronises, with the time of a
-   round and of a skeleton of the same rounds that only synchronises the
-   warp and tests for the end), seeded benefits on the 1e-3 grid with many
-   exact ties at n = 1, 2, 12, 16, 24, 31, 32, 33, 40, 64 and the cap
-   (128) with batch 1, 16, 64 and 256, rows and columns of zeros, every
-   row equal (all persons bid on one object) and all zeros, each of these
-   timed too (device ms and us a round);
+   n x 1e-4 of the optimum (``hungarian_numpy``'s up to 128 persons,
+   SciPy's ``linear_sum_assignment`` above, the two held equal at 129), on
+   the benefits of a kitti-urban transform frame and of the full-width
+   fleet's transform branch (both recorded from the serving path on the
+   card, both timed, its plain version eagerly, as it synchronises, with
+   the time of a round and of a skeleton of the same rounds that only
+   synchronises the warp and tests for the end), seeded benefits on the
+   1e-3 grid with many exact ties at n = 1, 2, 12, 16, 24, 31, 32, 33, 40,
+   64 and the row instances' cap (128) with batch 1, 16, 64 and 256, rows
+   and columns of zeros, every row equal (all persons bid on one object)
+   and all zeros, each of these timed too (device ms and us a round; the
+   plain version too at n = 40 and 128, one auction); its wide instance
+   (``auction_wide``, n > 128) the same way on the benefits of a
+   kitti-urban transform frame with max_obj = 80 (n = 160, recorded on
+   the card, measured in full) and on seeded tied benefits at n = 129,
+   256, 512 and 1024 (batch 1 and 16), rows and columns of zeros and every
+   row equal at n = 256, these at 20,000 rounds a phase (their ties need
+   more than 4,000 from n = 512), each timed;
 4. the Moby serving path at KITTI's own size (``kitti-urban`` at 122,880
    points and a 375x1242 image, 24 frames) on the card, with every
    kernel's launch count checked against the run's frame kinds (K1's
@@ -86,7 +94,24 @@ fatal on failure:
    2-frame warm-up; then a torch.profiler window over 4 frames (device busy
    share, device ops per frame, the ops with the most device time);
 5. the same run on the CPU in this process: frame kinds equal, floats within
-   the golden tolerance;
+   the golden tolerance; then kitti-urban at KITTI's size with max_obj = 80
+   (auctions of n = 160 persons: the wide instance once a frame, the row
+   instances never, checked) on the card after a warm-up, 6 frames, held
+   to its CPU run the same way; then the observability hooks on the card
+   (``Session(obs=ObsConfig(...))``): kitti-urban, 8 frames, unobserved,
+   with metrics and the trace, and with every switch on, each counting
+   its synchronising CUDA calls under ``set_sync_debug_mode("warn")``: the
+   observed reports equal the unobserved one bit for bit, metrics and the
+   trace add no synchronisation (fatal), the all-on run's audit rows and
+   modelled trace lanes equal its CPU run's at the golden tolerance; the
+   medians of the host spans ``moby/transform_step`` (the host's enqueue)
+   and ``moby/frame_stats_fetch`` (its wait on the card) beside the
+   transform frame's wall ms, observed and not; fleet-16-congested
+   orchestrated with every switch on (4 frames, bit for bit with its
+   unobserved run, audit rows, cloud and uplink records) and in scan mode
+   with metrics and the trace (the first ``fleet/scan_dispatch`` span
+   marked compiled: the graph capture), scan mode's refusal of the audit;
+   one ``{"observability": ...}`` JSON line;
 6. the fleet, orchestrated mode (``api.Session`` builds the port's
    ``FleetEngine`` for ``n_streams > 1``): ``fleet-16-congested`` (8
    frames), ``fleet-64-mixed`` (6 frames; TX2/Orin edges, a 4-GPU cloud
@@ -191,7 +216,13 @@ FLEETS = (
 FLEET_WARMUP, FLEET_PROFILE_FRAMES = 2, 2
 # The kernels of the Moby serving path (one stream, a fleet, scan mode).
 MOBY_KERNELS = ("point_proj", "point_proj_labels", "iou2d", "ransac_score",
-                "auction")
+                "auction", "auction_wide")
+# The single-stream path past 128 persons an auction: kitti-urban at KITTI's
+# size with max_obj = 80 (n = 160), on the card and on the CPU.
+WIDE_MAX_OBJ, WIDE_FRAMES = 80, 6
+# The observability phase: kitti-urban (single stream) and
+# fleet-16-congested frames observed on the card.
+OBS_FRAMES, OBS_FLEET_FRAMES = 8, 4
 
 # LM serving, qwen2.5-3B at full width. The repo's prefill_32k (S 32768,
 # batch 32) and decode_32k (batch 128) shapes are cut to what one card
@@ -239,9 +270,12 @@ KERNELS = {
     # The gradient: the VJP around the Pallas call (repro/ops/api.py).
     "pillar_scatter_bwd": ("src/repro_torch/csrc/pillar_scatter.cu",
                            "src/repro/ops/api.py:105"),
-    # No Pallas counterpart: the association's lax.while_loop auction.
+    # No Pallas counterpart: the association's lax.while_loop auction; its
+    # wide instance takes n > 128.
     "auction": ("src/repro_torch/csrc/auction.cu",
                 "src/repro/core/association.py:121"),
+    "auction_wide": ("src/repro_torch/csrc/auction.cu",
+                     "src/repro/core/association.py:121"),
 }
 
 
@@ -536,9 +570,17 @@ def check_ransac(torch, np, dev, rs_ops, rs_ref, o, k, p, seed, dead=None):
 
 
 # The auction's phase-3 cases: persons a matrix (each side of one warp's 32,
-# two warps' 64, the kernel's cap last) and auctions a launch.
+# two warps' 64, the row instances' cap last) and auctions a launch; the
+# plain version is timed too at n = 40 and 128, one auction.
 AUCTION_NS = (1, 2, 12, 16, 24, 31, 32, 33, 40, 64, 128)
 AUCTION_BATCHES = (1, 16, 64, 256)
+AUCTION_PLAIN_TIMED = ((40, 1), (128, 1))
+# The wide instance's seeded cases (n > 128). Their ties take more rounds a
+# phase than the serving default of 4,000 from n = 512 (at n = 1024 one
+# phase needs more), so both versions run them with this cap.
+AUCTION_WIDE_NS = (129, 256, 512, 1024)
+AUCTION_WIDE_BATCHES = (1, 16)
+WIDE_MAX_ITER = 20000
 
 
 def auction_benefits(np, n, batch, seed, zero_rows=False, equal_rows=False):
@@ -575,15 +617,37 @@ def record_auctions(torch, au_ops, run):
     return seen
 
 
-def check_auction(torch, np, au_ops, au_ref, hungarian, benefit, what):
+def optimum_cols(np, hungarian, b):
+    """A maximum-benefit assignment of the square matrix ``b``:
+    ``hungarian_numpy`` (pure Python, O(n^3)) up to 128 persons, SciPy's
+    ``linear_sum_assignment`` above; at n = 129 both, their optima held
+    equal."""
+    n = b.shape[0]
+    if n <= 128:
+        return hungarian(-b)
+    from scipy.optimize import linear_sum_assignment
+    cols = linear_sum_assignment(-b)[1]
+    if n == 129:
+        ar = np.arange(n)
+        h = hungarian(-b)
+        if abs(b[ar, h].sum() - b[ar, cols].sum()) > 1e-9:
+            fail(f"auction: hungarian_numpy's and SciPy's optima differ at "
+                 f"n = {n}")
+    return cols
+
+
+def check_auction(torch, np, au_ops, au_ref, hungarian, benefit, what,
+                  max_iter: int = 4000, skeleton: bool = True):
     """The auction kernel against its plain version on the card, bit for bit
     in person_to_obj, the prices and the rounds; the assignment a
-    permutation whose total benefit is within n x eps_final (1e-4) of
-    ``hungarian_numpy``'s optimum on the first matrices (up to 4; 1 at
-    n > 40)."""
+    permutation whose total benefit is within n x eps_final (1e-4) of the
+    optimum (``optimum_cols``) on the first matrices (up to 4; 1 at
+    n > 40). ``max_iter``: rounds a phase, both versions."""
     lead, n = tuple(benefit.shape[:-2]), benefit.shape[-1]
-    got, want = au_ops.auction(benefit), au_ref.auction_ref(benefit)
-    shape = f"B={math.prod(lead)} n={n}{what}"
+    got = au_ops.auction(benefit, max_iter_per_phase=max_iter)
+    want = au_ref.auction_ref(benefit, max_iter_per_phase=max_iter)
+    shape = f"B={math.prod(lead)} n={n}{what}" + (
+        f", {max_iter} rounds a phase" if max_iter != 4000 else "")
     for name, g, w in zip(("person_to_obj", "prices", "rounds"), got, want):
         if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(
                 g.view(torch.int32) if g.dtype == torch.float32 else g,
@@ -597,7 +661,7 @@ def check_auction(torch, np, au_ops, au_ref, hungarian, benefit, what):
         if sorted(p2o[i]) != list(ar):
             fail(f"auction {shape}: matrix {i} is not assigned a permutation")
         if i < (4 if n <= 40 else 1):
-            opt = b[i][ar, hungarian(-b[i])].sum()
+            opt = b[i][ar, optimum_cols(np, hungarian, b[i])].sum()
             gap = opt - b[i][ar, p2o[i]].sum()
             worst = max(worst, gap)
             if gap > n * 1e-4 + 1e-6:
@@ -606,30 +670,37 @@ def check_auction(torch, np, au_ops, au_ref, hungarian, benefit, what):
     rounds = got[2].reshape(-1).cpu()
     rec = dict(shape=shape, exact=True, max_abs_err=0.0,
                tol="bit for bit (person_to_obj, prices, rounds); total "
-                   "benefit within n x 1e-4 of hungarian_numpy's",
+                   "benefit within n x 1e-4 of the optimum",
                optimality_gap=worst, rounds_max=int(rounds.max()),
                rounds_sum=int(rounds.sum()),
                bytes=len(b) * (n * n * 4 + n * 12 + 4),
                ops=6 * n * n * int(rounds.sum()), plain_eager=True)
     # The probe of a round's synchronisation and end test alone (a tree
-    # from before it, timed with this script, has none).
-    skeleton = getattr(au_ops, "auction_skeleton", None)
-    if skeleton is not None:
-        rec["skeleton"] = lambda: skeleton(got[2])
-    return rec, (lambda: au_ops.auction(benefit)), \
-        (lambda: au_ref.auction_ref(benefit))
+    # from before it, timed with this script, has none), for the one-warp
+    # instance's rounds.
+    probe = getattr(au_ops, "auction_skeleton", None)
+    if skeleton and probe is not None:
+        rec["skeleton"] = lambda: probe(got[2])
+    return rec, (lambda: au_ops.auction(benefit,
+                                        max_iter_per_phase=max_iter)), \
+        (lambda: au_ref.auction_ref(benefit, max_iter_per_phase=max_iter))
 
 
-def time_auction(torch, rec, kern) -> None:
-    """Device ms of an auction case that is not measured in full, and its
-    time a round (over its longest auction's rounds)."""
+def time_auction(torch, rec, kern, plain=None) -> None:
+    """Device ms of an auction case that is not measured in full, its time
+    a round (over its longest auction's rounds) and, given ``plain``, its
+    plain version's ms (eagerly: it synchronises)."""
     est = eager_ms(kern, torch, runs=3, warmup=1)
     rec["kernel_ms"] = graph_ms(kern, torch,
                                 reps=max(1, min(20, int(40 / est))),
                                 replays=5)
     rec["us_per_round"] = rec["kernel_ms"] * 1e3 / rec["rounds_max"]
+    rec["plain_ms"] = None if plain is None else eager_ms(
+        plain, torch, runs=3, warmup=1)
     print(f"  device {rec['kernel_ms']:.5f} ms, {rec['us_per_round']:.4f} us"
-          f" a round ({rec['rounds_max']} rounds)", flush=True)
+          f" a round ({rec['rounds_max']} rounds)"
+          + ("" if plain is None else f"; plain {rec['plain_ms']:.4f} ms"),
+          flush=True)
 
 
 def bf16_limit(torch, want):
@@ -1597,6 +1668,245 @@ def scan_golden(torch, api):
           f"the port's CPU scan", flush=True)
 
 
+def serve_wide(torch, api, kernels):
+    """kitti-urban at KITTI's size with max_obj = 80 (an association of
+    n = 160 persons, the auction's wide instance) on the card after a
+    warm-up, its launches checked as phase 4's (the wide instance once a
+    frame, the row instances never), then held to its CPU run in this
+    process. Returns the run's launch counts."""
+    scn = api.scenario("kitti-urban", seed=0, max_obj=WIDE_MAX_OBJ, **KITTI)
+    api.Session(scn, torch_device="cuda").run(2)
+    session = api.Session(scn, torch_device="cuda")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = session.run(WIDE_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    kinds = report.kinds()
+    n_transform = sum(k != "anchor" for k in kinds)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(point_proj_labels=n_transform, iou2d=WIDE_FRAMES,
+                  ransac_score=n_transform, auction_wide=WIDE_FRAMES)
+    if launches != expect:
+        fail(f"kitti-urban max_obj={WIDE_MAX_OBJ}: launch counts {launches} "
+             f"!= {expect} implied by kinds {kinds}")
+    walls = session.engine.frame_wall_s
+    per_kind = {k: statistics.median(w for w, kk in zip(walls, kinds)
+                                     if (kk == "anchor") == (k == "anchor"))
+                * 1e3 for k in ("anchor", "transform")}
+    rows = csv_rows(report.to_csv())
+    if not all(math.isfinite(float(r[k])) for r in rows for k in FLOAT_COLS):
+        fail(f"kitti-urban max_obj={WIDE_MAX_OBJ}: non-finite values")
+    t1 = time.perf_counter()
+    cpu = api.Session(scn, torch_device="cpu").run(WIDE_FRAMES)
+    compare_rows(rows, csv_rows(cpu.to_csv()),
+                 f"kitti-urban max_obj={WIDE_MAX_OBJ} card vs CPU")
+    print(f"serve kitti-urban max_obj={WIDE_MAX_OBJ} (auctions of n = "
+          f"{2 * WIDE_MAX_OBJ}) x{WIDE_FRAMES} on the card: {wall:.2f} s, "
+          f"kinds {''.join(k[0] for k in kinds)}, launches {launches}, "
+          f"median wall ms/frame: transform {per_kind['transform']:.2f}, "
+          f"anchor {per_kind['anchor']:.2f}; the CPU run "
+          f"({time.perf_counter() - t1:.2f} s) matches it", flush=True)
+    return launches
+
+
+def count_syncs(torch, run):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result and the number of synchronising CUDA calls it made."""
+    import warnings
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+
+
+def within_tol(g, w) -> bool:
+    return abs(g - w) <= ATOL + RTOL * abs(w)
+
+
+def compare_observed(got, want, what: str) -> None:
+    """Audit rows (kind exact, floats at the golden tolerance) and the
+    modelled trace lanes (streams, uplink, cloud GPUs: names and lanes
+    exact, times in us and float args at the golden tolerance, 1e-5 s =
+    10 us) of two observed runs."""
+    g_rows, w_rows = got.obs.audit.rows, want.obs.audit.rows
+    if len(g_rows) != len(w_rows) or not g_rows:
+        fail(f"{what}: {len(g_rows)} audit rows vs {len(w_rows)}")
+    for g, w in zip(g_rows, w_rows):
+        bad = [k for k in ("stream", "frame", "policy", "device", "kind",
+                           "frames_since_anchor") if g[k] != w[k]]
+        bad += [k for k in ("err_ewma", "bw_mbps", "edge_cost_s",
+                            "offload_cost_s") if not within_tol(g[k], w[k])]
+        if bad:
+            fail(f"{what}: audit row differs in {bad}: {g} vs {w}")
+
+    def events(rep):
+        return [e for e in rep.to_trace()["traceEvents"]
+                if e["ph"] == "X" and e["pid"] in (1, 2, 3)]
+    g_ev, w_ev = events(got), events(want)
+    if len(g_ev) != len(w_ev):
+        fail(f"{what}: {len(g_ev)} modelled trace events vs {len(w_ev)}")
+    for g, w in zip(g_ev, w_ev):
+        args_ok = g.get("args", {}).keys() == w.get("args", {}).keys() and \
+            all(g["args"][k] == v if isinstance(v, str) else
+                within_tol(g["args"][k], v) for k, v in w.get("args", {}).items())
+        if (g["name"], g["pid"], g["tid"]) != (w["name"], w["pid"], w["tid"])\
+                or abs(g["ts"] - w["ts"]) > ATOL * 1e6 + RTOL * abs(w["ts"])\
+                or abs(g["dur"] - w["dur"]) > ATOL * 1e6 + RTOL * abs(
+                    w["dur"]) or not args_ok:
+            fail(f"{what}: trace event differs: {g} vs {w}")
+
+
+def span_ms(rep, name: str, frames=None):
+    """Median ms of an observed run's host span ``name`` (over ``frames``
+    when given)."""
+    d = [r["dur"] for r in rep.obs.measured if r["name"] == name
+         and (frames is None or r.get("frame") in frames)]
+    return statistics.median(d) * 1e3 if d else None
+
+
+def serve_observed(torch, api, kernels):
+    """The observability hooks on the card. kitti-urban at KITTI's size
+    (``OBS_FRAMES`` after phase 4's warm-up) unobserved, with metrics and
+    the trace, and with every switch on, twice each in the order ABC CBA,
+    each run counting its synchronising CUDA calls: the observed reports
+    equal the unobserved one bit for bit, metrics and the trace add no
+    synchronisation (fatal), the all-on run's audit rows and modelled
+    trace lanes equal its CPU run's; prints the host spans' medians (the
+    transform step's enqueue, the stats fetch) beside the frame's wall ms,
+    each over both runs of its kind. Then
+    fleet-16-congested orchestrated with every switch on (bit for bit
+    with its unobserved run) and in scan mode with metrics and the trace
+    (the first run's ``fleet/scan_dispatch`` marked compiled: the graph
+    capture), and scan mode's refusal of the audit. Returns the launch
+    counts of the first metrics-and-trace run."""
+    from repro_torch import obs as obs_lib
+    scn = api.scenario("kitti-urban", seed=0, **KITTI)
+
+    def cfg(audit):
+        return api.ObsConfig(metrics=True, trace=True, audit=audit,
+                             registry=obs_lib.MetricsRegistry())
+
+    def run(obs):
+        s = api.Session(scn, torch_device="cuda", obs=obs)
+        return s.run(OBS_FRAMES), s.engine
+
+    # None: unobserved; False: metrics and the trace; True: every switch.
+    runs, syncs, launches = {}, {}, None
+    for audit in (None, False, True, True, False, None):
+        if audit is False and launches is None:
+            kernels.reset_launch_counts()
+        out, n_sync = count_syncs(torch, lambda: run(
+            None if audit is None else cfg(audit)))
+        if audit is False and launches is None:
+            launches = kernels.launch_counts()
+        runs.setdefault(audit, []).append(out)
+        syncs.setdefault(audit, []).append(n_sync)
+    off_syncs, mt_syncs, full_syncs = (syncs[k] for k in (None, False, True))
+    if not min(off_syncs):
+        fail("observability: no synchronising call counted in the "
+             "unobserved run, so the count cannot see one")
+    if max(mt_syncs) > min(off_syncs):
+        fail(f"observability: metrics and the trace made {mt_syncs} "
+             f"synchronising calls, the unobserved runs {off_syncs}")
+    off, mt, full = (runs[k][0][0] for k in (None, False, True))
+    kinds = off.kinds()
+    n_transform = sum(k != "anchor" for k in kinds)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(point_proj_labels=n_transform, iou2d=OBS_FRAMES,
+                  ransac_score=n_transform, auction=OBS_FRAMES)
+    if launches != expect:
+        fail(f"observability: launch counts {launches} != {expect}")
+    for key, what in ((None, "no switch"), (False, "metrics and trace"),
+                      (True, "every switch")):
+        if any(r.to_csv() != off.to_csv() for r, _ in runs[key]):
+            fail(f"observability: a run with {what} on differs from the "
+                 f"first unobserved run")
+    cpu = api.Session(scn, torch_device="cpu", obs=cfg(True)).run(OBS_FRAMES)
+    compare_observed(full, cpu, "observed kitti-urban card vs CPU")
+    if not full.to_prometheus() or not full.to_audit():
+        fail("observability: empty exposition or audit")
+    tf = {t for t, k in enumerate(kinds) if k != "anchor"}
+
+    def wall_ms(key):
+        return statistics.median(eng.frame_wall_s[t] for _, eng in runs[key]
+                                 for t in tf) * 1e3
+
+    def spans_ms(name, frames=None):
+        return statistics.median(
+            r["dur"] for rep, _ in runs[False] for r in rep.obs.measured
+            if r["name"] == name
+            and (frames is None or r["frame"] in frames)) * 1e3
+    split = dict(
+        frame_ms=wall_ms(False), unobserved_frame_ms=wall_ms(None),
+        all_on_frame_ms=wall_ms(True),
+        transform_step_ms=spans_ms("moby/transform_step", tf),
+        frame_stats_fetch_ms=spans_ms("moby/frame_stats_fetch", tf),
+        anchor_step_ms=spans_ms("moby/anchor_step"),
+        syncs=dict(unobserved=off_syncs, metrics_trace=mt_syncs,
+                   all_on=full_syncs))
+    print(f"observed kitti-urban x{OBS_FRAMES} on the card, twice each "
+          f"(transform frames, medians): wall {split['frame_ms']:.2f} ms a frame with "
+          f"metrics and the trace (unobserved {split['unobserved_frame_ms']:.2f}"
+          f", every switch {split['all_on_frame_ms']:.2f}); host spans: "
+          f"moby/transform_step (enqueue) {split['transform_step_ms']:.3f} "
+          f"ms, moby/frame_stats_fetch (the wait on the card) "
+          f"{split['frame_stats_fetch_ms']:.3f} ms, the rest of the frame "
+          f"{split['frame_ms'] - split['transform_step_ms'] - split['frame_stats_fetch_ms']:.3f}"
+          f" ms; synchronising calls: unobserved {off_syncs}, metrics and "
+          f"trace {mt_syncs}, every switch {full_syncs}; reports equal the "
+          f"unobserved run's bit for bit; audit rows and modelled trace "
+          f"lanes match the CPU run", flush=True)
+
+    fleet = api.scenario("fleet-16-congested")
+    f_off = api.Session(fleet, torch_device="cuda").run(OBS_FLEET_FRAMES)
+    f_on = api.Session(fleet, torch_device="cuda",
+                       obs=cfg(True)).run(OBS_FLEET_FRAMES)
+    if f_on.to_csv() != f_off.to_csv():
+        fail("observability: the observed fleet differs from the unobserved")
+    if len(f_on.obs.audit) != fleet.n_streams * OBS_FLEET_FRAMES or \
+            not f_on.obs.gpu_busy or not f_on.obs.uplink_spans:
+        fail("observability: the fleet's audit, cloud or uplink records "
+             "are missing")
+    scan_session = api.Session(fleet, torch_device="cuda", obs=cfg(False))
+    s_on = scan_session.run(OBS_FLEET_FRAMES, scan=True)
+    first = s_on.obs.measured[0]
+    if first["name"] != "fleet/scan_dispatch" or not first.get("compiled"):
+        fail(f"observability: scan mode's first span {first} is not a "
+             f"compiled fleet/scan_dispatch")
+    try:
+        api.Session(fleet, torch_device="cuda",
+                    obs=api.ObsConfig(audit=True)).run(2, scan=True)
+    except ValueError as e:
+        if "scan" not in str(e):
+            raise
+    else:
+        fail("observability: scan mode took the audit")
+    split.update(
+        fleet_dispatch_ms=span_ms(f_on, "fleet/dispatch"),
+        fleet_fetch_ms=span_ms(f_on, "fleet/fetch"),
+        scan_dispatch_ms=first["dur"] * 1e3,
+        scan_fetch_ms=span_ms(s_on, "fleet/scan_fetch"))
+    print(f"observed fleet-16-congested x{OBS_FLEET_FRAMES} on the card: "
+          f"orchestrated, every switch on, equals the unobserved run "
+          f"({len(f_on.obs.audit)} audit rows, {len(f_on.obs.gpu_busy)} "
+          f"cloud batches): fleet/dispatch {split['fleet_dispatch_ms']:.3f} "
+          f"ms, fleet/fetch {split['fleet_fetch_ms']:.3f} ms (medians); "
+          f"scan mode: fleet/scan_dispatch {split['scan_dispatch_ms']:.2f} ms"
+          f" (compiled: the capture), fleet/scan_fetch "
+          f"{split['scan_fetch_ms']:.3f} ms; scan mode refuses the audit",
+          flush=True)
+    print(json.dumps({"observability": split}), flush=True)
+    return launches
+
+
 def csv_rows(text: str):
     return list(csv.DictReader(io.StringIO(text)))
 
@@ -1769,33 +2079,45 @@ def main() -> None:
                                       p, s, dead)
 
     def auction_synthetic(n, batch, seed, zero_rows=False, equal_rows=False,
-                          what=""):
-        return lambda _: check_auction(
-            torch, np, au_ops, au_ref, association.hungarian_numpy,
-            torch.from_numpy(auction_benefits(np, n, batch, seed, zero_rows,
-                                              equal_rows)).to(dev), what)
+                          what="", max_iter=4000):
+        def case(_):
+            rec, kern, plain = check_auction(
+                torch, np, au_ops, au_ref, association.hungarian_numpy,
+                torch.from_numpy(auction_benefits(
+                    np, n, batch, seed, zero_rows, equal_rows)).to(dev),
+                what, max_iter=max_iter, skeleton=n <= 128)
+            rec["time_plain"] = (n, batch) in AUCTION_PLAIN_TIMED and \
+                not (zero_rows or equal_rows)
+            return rec, kern, plain
+        return case
 
     real_auctions = {}
 
     def auction_real(key):
         """The benefits of a kitti-urban transform frame (frame 2 of a run
-        on the card) or of the full-width fleet's transform branch (frame
-        1), recorded from the serving path."""
+        on the card; ``kitti_wide``: with max_obj = 80, n = 160) or of the
+        full-width fleet's transform branch (frame 1), recorded from the
+        serving path."""
         def case(_):
             if key not in real_auctions:
-                name, overrides, frames = (
-                    ("kitti-urban", KITTI, 3) if key == "kitti" else
-                    (FLEETS[2][0], FLEETS[2][1], 2))
+                name, overrides, frames = {
+                    "kitti": ("kitti-urban", KITTI, 3),
+                    "kitti_wide": ("kitti-urban",
+                                   dict(KITTI, max_obj=WIDE_MAX_OBJ), 3),
+                    "fleet": (FLEETS[2][0], FLEETS[2][1], 2)}[key]
                 scn = api.scenario(name, seed=0, **overrides)
                 real_auctions[key] = record_auctions(
                     torch, au_ops, lambda: api.Session(
                         scn, torch_device="cuda").run(frames))[-1]
             b = real_auctions[key]
-            label = "kitti-urban frame 2" if key == "kitti" else \
-                "full-width fleet frame 1, transform branch"
+            label = {"kitti": "kitti-urban frame 2",
+                     "kitti_wide": f"kitti-urban max_obj={WIDE_MAX_OBJ} "
+                                   f"frame 2",
+                     "fleet": "full-width fleet frame 1, transform "
+                              "branch"}[key]
             return check_auction(torch, np, au_ops, au_ref,
                                  association.hungarian_numpy, b,
-                                 f" ({label})")
+                                 f" ({label})", skeleton=key != "kitti_wide")
         return case
 
     def k1_kitti(_):
@@ -1895,6 +2217,18 @@ def main() -> None:
                                    association.hungarian_numpy,
                                    torch.zeros((1, 24, 24), device=dev),
                                    " all zeros")],
+        # The wide instance (n > 128): the benefits of a kitti-urban
+        # transform frame at max_obj = 80 (n = 160, measured in full), then
+        # seeded tied benefits at n = 129 to 1024, one auction and 16, zero
+        # rows and columns, every row equal (each timed too).
+        "auction_wide": [auction_real("kitti_wide")]
+        + [auction_synthetic(n, batch, 100 * n + batch,
+                             max_iter=WIDE_MAX_ITER)
+           for n in AUCTION_WIDE_NS for batch in AUCTION_WIDE_BATCHES]
+        + [auction_synthetic(256, 1, 5, zero_rows=True, what=" zero rows",
+                             max_iter=WIDE_MAX_ITER),
+           auction_synthetic(256, 1, 6, equal_rows=True, what=" all tied",
+                             max_iter=WIDE_MAX_ITER)],
     }
     # Besides each kernel's first case (the serving path's shape), these
     # are timed too: (kernel, case) -> key of its record.
@@ -1921,6 +2255,7 @@ def main() -> None:
             continue
         for i, case in enumerate(cases):
             rec, kern, plain = case(i)
+            time_plain = rec.pop("time_plain", False)
             torch.cuda.synchronize()
             print(f"kernel {name} [{rec['shape']}]: matches the plain version"
                   f" (max abs err {rec['max_abs_err']}"
@@ -1933,11 +2268,11 @@ def main() -> None:
                     records[name] = rec
                 else:
                     records[name][also_timed[name, i]] = rec
-            elif name == "auction":
-                time_auction(torch, rec, kern)
+            elif name in ("auction", "auction_wide"):
+                time_auction(torch, rec, kern, plain if time_plain else None)
                 records[name].setdefault("cases", []).append(
                     [rec["shape"], rec["kernel_ms"], rec["us_per_round"],
-                     rec["rounds_max"]])
+                     rec["rounds_max"], rec["plain_ms"]])
             del rec, kern, plain
             torch.cuda.empty_cache()
     if only:
@@ -1992,9 +2327,22 @@ def main() -> None:
     print(f"serve kitti-urban x{KITTI_FRAMES} on the CPU: "
           f"{time.perf_counter() - t0:.2f} s; the card's report matches it",
           flush=True)
+    by_path = {k: {"kitti-urban": main_launches[k]} for k in MOBY_KERNELS}
+
+    # -- 5b. past 128 persons: kitti-urban with max_obj = 80 -----------------
+    launches = serve_wide(torch, api, kernels)
+    for k in by_path:
+        by_path[k][f"kitti-urban max_obj={WIDE_MAX_OBJ}"] = launches[k]
+        main_launches[k] += launches[k]
+
+    # -- 5c. observability on the card ----------------------------------------
+    launches = serve_observed(torch, api, kernels)
+    for k in by_path:
+        by_path[k]["kitti-urban observed"] = launches[k]
+        main_launches[k] += launches[k]
+    torch.cuda.empty_cache()
 
     # -- 6. the fleet, orchestrated mode ------------------------------------
-    by_path = {k: {"kitti-urban": main_launches[k]} for k in MOBY_KERNELS}
     fleets = []
     for name, overrides, frames, cpu_frames, key in FLEETS:
         launches, run = serve_fleet(torch, api, kernels, name, overrides,

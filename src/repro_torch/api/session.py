@@ -6,8 +6,10 @@ through ``MobyEngine``, a fleet (``n_streams > 1`` in a moby mode) through
 (single-stream notions, as in the JAX package). ``run(scan=True)`` is the
 fleet's scan (benchmark) mode, ``FleetEngine.run_scan``: at S=1 an
 equivalent single-stream fleet slice is built for it, and a baseline mode
-raises ``ValueError`` as the JAX package does. The observability hooks
-(``obs=``) and the stream mesh are not ported.
+raises ``ValueError`` as the JAX package does. ``obs=``
+(``repro_torch.obs.ObsConfig``) is threaded into every engine the session
+builds; after each run the metrics are flushed and the export paths
+written. The stream mesh is not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.api.scenario import Scenario, scenario as _scenario
 from repro_torch.fleet.engine import FleetEngine
+from repro_torch.obs import ObsConfig, export_artifacts
 from repro_torch.serving.common import RunReport
 from repro_torch.serving.engine import MobyEngine
 
@@ -31,10 +34,14 @@ class Session:
     """
 
     def __init__(self, scn: Union[Scenario, str],
-                 torch_device: Union[str, torch.device] = device_lib.DEFAULT):
+                 torch_device: Union[str, torch.device] = device_lib.DEFAULT,
+                 obs: Optional[ObsConfig] = None):
         if isinstance(scn, str):
             scn = _scenario(scn)
         self.scenario = scn
+        # Observability (repro_torch.obs): off by default; threaded into
+        # the engine constructor, so every run of this session is observed.
+        self.obs = obs
         sparams = scn.scheduler_params()
         devices = scn.stream_devices()  # fail fast on unknown devices
         if scn.n_streams < 1:
@@ -49,7 +56,8 @@ class Session:
                 scn.scene, scn.detector, trace=scn.trace, mode=scn.mode,
                 use_fos=scn.use_fos, use_tba=scn.use_tba,
                 tparams=scn.tparams, sparams=sparams, seed=scn.seed,
-                comp=scn.comp, device=devices[0], torch_device=torch_device)
+                comp=scn.comp, device=devices[0], torch_device=torch_device,
+                obs=obs)
         else:
             self.engine = self._scan_engine = self._fleet(scn.n_streams)
 
@@ -64,7 +72,7 @@ class Session:
             mode=scn.mode, use_fos=scn.use_fos, use_tba=scn.use_tba,
             tparams=scn.tparams, sparams=scn.scheduler_params(),
             seed=scn.seed, comp=scn.comp, cloud_cfg=scn.cloud, device=device,
-            torch_device=self.torch_device)
+            torch_device=self.torch_device, obs=self.obs)
 
     @property
     def n_streams(self) -> int:
@@ -88,4 +96,10 @@ class Session:
         report.scenario = self.scenario.name
         report.policy = self.scenario.scheduler_params().policy \
             if self.scenario.use_fos else ""
+        # After the provenance stamp (so scenario/policy make it into the
+        # metric labels and path placeholders): flush this run into the
+        # registry and write whatever export paths the config names.
+        if report.obs is not None:
+            report.obs.flush_metrics(report)
+        export_artifacts(report, self.obs)
         return report

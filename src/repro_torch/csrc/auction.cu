@@ -52,6 +52,29 @@
 // One warp carrying 2 or 4 persons a lane (rows in shared memory at an odd
 // stride) took 1.02 and 5.7 us a round at n = 33-64 and 128, the 2 and 4
 // warps here 0.58 and 0.91.
+//
+// Above 128 persons (auction_wide_kernel): the rows no longer fit a
+// thread's registers, so they stay in global memory (L2-resident: 256 KB
+// at n = 256), read by a warp a person, lane l taking columns l, l + 32,
+// ...: coalesced, and the prices' shared-memory reads conflict-free. One
+// CTA of 32 warps an auction; warp w bids for persons w, w + 32, ... that
+// are unassigned. The round is the same three steps:
+//   1. a warp a person: top-1 / top-2 over the lane's columns in index
+//      order (the first maximum kept by a strict >), then across the lanes
+//      by shuffles (the larger value, the lower index among equal ones;
+//      top-2 merged as max(t2, t2', min(t1, t1')), so it equals top-1 when
+//      the maximum repeats), the -1e9 pad after the merge; lane 0 writes
+//      the person's object and bid to the workspace and posts the bid's
+//      key with atomicMax;
+//   2. a thread a person: the bidders whose key stands post their person
+//      with atomicMin;
+//   3. a thread a person: the gather-based update, as above.
+// Dynamic shared memory holds the prices, the round's best keys and the
+// winners: 12 n bytes, opted in above 48 KB, so n is bounded by the card's
+// opt-in shared memory a block (19,370 persons on an H100). The per-person
+// state (the assignment, the best object and the bid) lives in a workspace
+// in global memory that the caller allocates: 12 n bytes an auction.
+#include <climits>
 #include <cstdint>
 
 #include "moby_kernels.cuh"
@@ -197,6 +220,129 @@ __global__ void __launch_bounds__(32 * W)
   if (i == 0) rounds_out[a] = rounds;
 }
 
+// Threads of the wide instance: one CTA of 32 warps an auction.
+constexpr int kWideWarps = 32;
+constexpr int kWideThreads = 32 * kWideWarps;
+
+__global__ void __launch_bounds__(kWideThreads)
+    auction_wide_kernel(const float* __restrict__ benefit, int n,
+                        Phases phases, int n_phases, int max_iter,
+                        int* work, int64_t* __restrict__ p2o_out,
+                        float* __restrict__ prices_out,
+                        int* __restrict__ rounds_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* price_s = reinterpret_cast<float*>(smem);
+  // The round's best bid on each object as a key (0: none), and its
+  // person (the lowest among equal bids; INT_MAX: none).
+  unsigned* best_s = reinterpret_cast<unsigned*>(price_s + n);
+  int* winner_s = reinterpret_cast<int*>(best_s + n);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const size_t a = blockIdx.x;
+  const float* src = benefit + a * n * n;
+  // Per person: the assignment, the best object and the bid (as bits).
+  int* p2o = work + a * 3 * n;
+  int* best_j = p2o + n;
+  float* bid_w = reinterpret_cast<float*>(best_j + n);
+  const unsigned has_bid_key = order_key(kHasBid);
+
+  for (int j = tid; j < n; j += kWideThreads) price_s[j] = 0.0f;
+
+  int rounds = 0;
+  for (int ph = 0; ph < n_phases; ++ph) {
+    const float eps = phases.eps[ph];
+    bool open = false;
+    for (int i = tid; i < n; i += kWideThreads) {
+      p2o[i] = -1;
+      open = true;
+    }
+    int it = 0;
+    // The barrier also orders the last round's writes before this one.
+    while (it < max_iter && __syncthreads_or(open)) {
+      for (int j = tid; j < n; j += kWideThreads) {
+        best_s[j] = 0u;
+        winner_s[j] = INT_MAX;
+      }
+      __syncthreads();
+
+      // 1. A warp a person: its best object and bid.
+      for (int i = warp; i < n; i += kWideWarps) {
+        if (p2o[i] >= 0) continue;
+        const float* row = src + static_cast<size_t>(i) * n;
+        float t1 = -__int_as_float(0x7f800000), t2 = t1;
+        int jb = INT_MAX;
+        for (int j = lane; j < n; j += 32) {
+          const float v = row[j] - price_s[j];
+          if (v > t1) jb = j;
+          t2 = fmaxf(t2, fminf(t1, v));
+          t1 = fmaxf(t1, v);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const float o1 = __shfl_xor_sync(kFull, t1, off);
+          const float o2 = __shfl_xor_sync(kFull, t2, off);
+          const int oj = __shfl_xor_sync(kFull, jb, off);
+          if (o1 > t1 || (o1 == t1 && oj < jb)) jb = oj;
+          t2 = fmaxf(fmaxf(t2, o2), fminf(t1, o1));
+          t1 = fmaxf(t1, o1);
+        }
+        if (lane == 0) {
+          // The -1e9 pad column of the plain version's top-2.
+          if (kNeg > t1) {
+            t2 = t1;
+            t1 = kNeg;
+          } else if (kNeg > t2) {
+            t2 = kNeg;
+          }
+          const float bid = ((price_s[jb] + t1) - t2) + eps;
+          best_j[i] = jb;
+          bid_w[i] = bid;
+          atomicMax(&best_s[jb], order_key(bid));
+        }
+      }
+      __syncthreads();
+
+      // 2. A thread a person: the tied bidders post their person.
+      for (int i = tid; i < n; i += kWideThreads) {
+        if (p2o[i] >= 0) continue;
+        const int j = best_j[i];
+        if (best_s[j] == order_key(bid_w[i])) atomicMin(&winner_s[j], i);
+      }
+      __syncthreads();
+
+      // 3. A thread a person: the gather-based update.
+      open = false;
+      for (int i = tid; i < n; i += kWideThreads) {
+        const int cur = p2o[i];
+        if (cur < 0) {
+          const int j = best_j[i];
+          const float bid = bid_w[i];
+          if (best_s[j] == order_key(bid) && bid > kHasBid &&
+              winner_s[j] == i) {
+            price_s[j] = bid;
+            p2o[i] = j;
+          } else {
+            open = true;
+          }
+        } else if (best_s[cur] > has_bid_key) {
+          p2o[i] = -1;
+          open = true;
+        }
+      }
+      ++it;
+    }
+    rounds += it;
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += kWideThreads) {
+    p2o_out[a * n + i] = p2o[i];
+    prices_out[a * n + i] = price_s[i];
+  }
+  if (tid == 0) rounds_out[a] = rounds;
+}
+
 // A probe of what a round costs before any work: an auction's rounds (the
 // kernel's own count) of the one-warp instance's synchronisation and end
 // test.
@@ -253,6 +399,56 @@ MOBY_API int moby_auction(const void* benefit, int batch, int n, int warps,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The wide instance, n > 128: benefit (B,n,n) f32 contiguous, eps as
+// above, work (B,3,n) int32 scratch -> person_to_obj (B,n) int64, prices
+// (B,n) f32, rounds (B,) int32. Refuses n whose 12 n bytes of shared
+// memory exceed the device's opt-in limit a block.
+MOBY_API int moby_auction_wide(const void* benefit, int batch, int n,
+                               const float* eps, int n_phases, int max_iter,
+                               void* work, void* p2o, void* prices,
+                               void* rounds, void* stream) {
+  if (n < 1 || n_phases < 1 || n_phases > kMaxPhases)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = static_cast<size_t>(n) * 12;
+  if (smem > static_cast<size_t>(optin))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return static_cast<int>(cudaGetLastError());
+  // Opted in once a device, to the whole limit, so that no later call (a
+  // CUDA graph capture among them) changes the function's attributes.
+  static bool opted_in[64] = {};
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[dev]) {
+    err = cudaFuncSetAttribute(auction_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[dev] = true;
+  }
+  Phases ph{};
+  for (int k = 0; k < n_phases; ++k) ph.eps[k] = eps[k];
+  auction_wide_kernel<<<batch, kWideThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(benefit), n, ph, n_phases, max_iter,
+      static_cast<int*>(work), static_cast<int64_t*>(p2o),
+      static_cast<float*>(prices), static_cast<int*>(rounds));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The device's opt-in shared memory a block, in bytes (negative: the CUDA
+// error of the query).
+MOBY_API int moby_smem_optin(int device) {
+  int bytes = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return err == cudaSuccess ? bytes : -static_cast<int>(err);
 }
 
 // rounds (B,) int32 on the card -> out (B,) int32, the rounds run.

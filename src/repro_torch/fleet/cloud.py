@@ -55,8 +55,8 @@ class CloudBatcher:
         if cfg.n_gpus < 1:
             raise ValueError(f"n_gpus must be >= 1, got {cfg.n_gpus}")
         self.cfg = cfg
-        # Optional observability sink (repro.obs.Observer): receives one
-        # on_cloud_batch(gpu, start, finish, batch, last_arrive) call per
+        # Optional observability sink (repro_torch.obs.Observer): receives
+        # one on_cloud_batch(gpu, start, finish, batch, last_arrive) call per
         # dispatched batch. None (the default) is a single pointer test
         # per batch — the timing model itself never consults it.
         self.sink = None

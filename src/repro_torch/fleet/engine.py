@@ -27,12 +27,14 @@ Two run modes:
 
 The ``RunReport`` latencies are modelled edge and network times, not
 wall times of any chip. With S=1 the inputs and the timing reduce to the
-single-stream ``MobyEngine``. Not ported yet: the stream mesh
-(``mesh=``, ROADMAP item 11) and the observability hooks (``obs=``, item
-9).
+single-stream ``MobyEngine``. ``obs=`` (``repro_torch.obs.ObsConfig``)
+turns on the metrics, the trace and (orchestrated mode only) the decision
+audit; off, every hook is one pointer test. Not ported yet: the stream
+mesh (``mesh=``, ROADMAP item 11).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import List, Optional, Sequence, Union
 
@@ -44,6 +46,8 @@ from repro_torch.core import projection, scheduler, transform
 from repro_torch.data import scenes
 from repro_torch.fleet import cloud as cloud_lib
 from repro_torch.fleet import step as step_lib
+from repro_torch.kernels import _build
+from repro_torch.obs import observe as obs_lib
 from repro_torch.runtime import netsim, profiles
 from repro_torch.serving import tape as tape_lib
 from repro_torch.serving.common import (PC_BYTES, RESULT_BYTES, ComponentTimes,
@@ -54,6 +58,8 @@ from repro_torch.serving.common import (PC_BYTES, RESULT_BYTES, ComponentTimes,
 _DTYPES = dict(points=torch.float32, det2d=torch.float32, val2d=torch.bool,
                label_img=torch.int32, det3d=torch.float32, val3d=torch.bool,
                gt_boxes=torch.float32, gt_visible=torch.bool)
+
+_NULL_CTX = contextlib.nullcontext()
 
 
 def report_from_packed(packed_sf: np.ndarray,
@@ -88,7 +94,8 @@ class FleetEngine:
                  cloud_cfg: Optional[cloud_lib.CloudBatcherConfig] = None,
                  device: profiles.DeviceSpec = "jetson_tx2",
                  stream_seeds: Optional[Sequence[int]] = None,
-                 torch_device: Union[str, torch.device] = device_lib.DEFAULT):
+                 torch_device: Union[str, torch.device] = device_lib.DEFAULT,
+                 obs: Optional[obs_lib.ObsConfig] = None):
         if mode not in ("moby", "moby_onboard"):
             raise ValueError(f"FleetEngine serves moby modes, got {mode!r}")
         self.torch_device = device_lib.resolve(torch_device)
@@ -135,6 +142,9 @@ class FleetEngine:
             cc = cloud_lib.replace_config(cc, infer_s=infer)
         self.cloud_cfg = cc
         self.batcher = cloud_lib.CloudBatcher(self.cloud_cfg)
+        # Observability config (repro_torch.obs): None/all-off keeps every
+        # hook below a single pointer test.
+        self.obs_config = obs
         self._given_tapes = list(tapes) if tapes is not None else None
         self._stack: Optional[tape_lib.FrameTape] = None
         self._step = step_lib.make_fleet_step(
@@ -172,17 +182,21 @@ class FleetEngine:
         return np.asarray(
             profiles.detector_latency(self.detector, self.pvec), np.float64)
 
-    def _observe_telemetry(self, state: step_lib.FleetState
+    def _observe_telemetry(self, state: step_lib.FleetState,
+                           obs: Optional[obs_lib.Observer] = None
                            ) -> step_lib.FleetState:
         """Per-frame telemetry for cost-aware policies: every stream of
         the fleet shares the cell, so each observes its fair share of the
         current trace bandwidth; edge/offload costs are per-stream vectors
-        from the profile vector."""
+        from the profile vector. ``obs`` records the same host-computed
+        values for the decision audit."""
         bw = self.uplink.current_bw_mbps(n_sharers=self.n_streams)
         edge, off = modeled_frame_costs(
             self.comp, self.detector, bw, self.uplink.rtt_s, self.use_tba,
             self._charge_fos, onboard_anchors=self.mode == "moby_onboard",
             edge_device=self.pvec)
+        if obs is not None:
+            obs.note_telemetry(bw, edge, off)
         sched = scheduler.observe_telemetry(state.sched, bw_mbps=bw,
                                             edge_cost_s=edge,
                                             offload_cost_s=off)
@@ -203,6 +217,12 @@ class FleetEngine:
         frame for all S streams; byte-accurate shared-uplink/cloud timing."""
         stack = self._stacked(n_frames)
         s_n = self.n_streams
+        obs = obs_lib.make_observer(
+            self.obs_config, n_streams=s_n, devices=self.stream_devices,
+            policy=self.sparams.policy if self.use_fos else "",
+            detector=self.detector, frame_dt=self.frame_dt)
+        want_audit = obs is not None and obs.cfg.want_audit
+        self.batcher.sink = obs
         state = self._init_state()
         edge_inf = self._edge_infer()   # (S,), frame-invariant
         walls = np.zeros(s_n)
@@ -218,12 +238,23 @@ class FleetEngine:
             self.input_wall_s.append(time.perf_counter() - t_start)
             arrived = walls >= inflight_at
             if self.use_fos:
-                state = self._observe_telemetry(state)
-            state, packed = self._step(
-                state, inp, torch.from_numpy(arrived).to(self.torch_device),
-                torch.full((), t, dtype=torch.int32,
-                           device=self.torch_device))
-            pk = packed.cpu().numpy()        # the one fetch per frame
+                state = self._observe_telemetry(state, obs)
+            if want_audit:
+                # The only obs-added fetch: the state-resident policy
+                # inputs at decision time (one small (2, S) tensor).
+                pre_tel = scheduler.decision_telemetry(
+                    state.sched).cpu().numpy()
+            with obs.measured_span("fleet/dispatch", _build.build_count,
+                                   frame=t) \
+                    if obs is not None else _NULL_CTX:
+                state, packed = self._step(
+                    state, inp,
+                    torch.from_numpy(arrived).to(self.torch_device),
+                    torch.full((), t, dtype=torch.int32,
+                               device=self.torch_device))
+            with obs.measured_span("fleet/fetch", frame=t) \
+                    if obs is not None else _NULL_CTX:
+                pk = packed.cpu().numpy()        # the one fetch per frame
             is_anchor = pk[:, step_lib.COL_IS_ANCHOR] > 0.5
             send_test = pk[:, step_lib.COL_SEND_TEST] > 0.5
             inflight_at[arrived] = np.inf
@@ -243,6 +274,17 @@ class FleetEngine:
                     [self.uplink.t + up] * n_up)
                 for j, s in enumerate(idxs):
                     roundtrip[s] = (done[j] - self.uplink.t) + down
+                if obs is not None:
+                    bd = self.uplink.transfer_breakdown(
+                        PC_BYTES, up, n_sharers=n_up)
+                    obs.record_uplink("up", self.uplink.t, up, n_up,
+                                      PC_BYTES, bd["eff_mbps"])
+                    bdd = self.uplink.transfer_breakdown(
+                        RESULT_BYTES, down, n_sharers=n_up)
+                    for d in sorted(set(done)):
+                        obs.record_uplink("down", d, down,
+                                          done.count(d), RESULT_BYTES,
+                                          bdd["eff_mbps"])
 
             lat = np.zeros(s_n)
             onb = np.zeros(s_n)
@@ -260,6 +302,10 @@ class FleetEngine:
                 if send_test[s]:
                     inflight_at[s] = walls[s] + roundtrip[s]
 
+            if want_audit:
+                kinds = np.where(is_anchor, "anchor",
+                                 np.where(send_test, "test", "transform"))
+                obs.audit_frame(t, kinds, pre_tel[0], pre_tel[1])
             out[:, t, :step_lib.N_COLS] = pk
             out[:, t, step_lib.COL_LATENCY] = lat
             out[:, t, step_lib.COL_ONBOARD] = onb
@@ -269,6 +315,9 @@ class FleetEngine:
             self.frame_wall_s.append(time.perf_counter() - t_start)
         report = report_from_packed(out, devices=self.stream_devices)
         report.frame_dt = self.frame_dt
+        if obs is not None:
+            self.batcher.sink = None
+            obs.finalize(report, busy_s_g=self.batcher.busy_s_g)
         return report
 
     # ------------------------------------------------------------------
@@ -284,15 +333,36 @@ class FleetEngine:
         captured once and replayed ``n_frames`` times, with one fetch of
         the ``(F, S, 9)`` rows at the end; on the CPU the same body runs
         frame by frame. ``scan_timing`` keeps the host seconds of the
-        last run's parts."""
+        last run's parts.
+
+        Observability: metrics and the (array-reconstructed) trace work;
+        the scheduler audit needs the orchestrated :meth:`run` — scan mode
+        keeps the telemetry on the device, and auditing it would mean the
+        per-frame fetches scan mode exists to avoid."""
+        obs = obs_lib.make_observer(
+            self.obs_config, n_streams=self.n_streams,
+            devices=self.stream_devices,
+            policy=self.sparams.policy if self.use_fos else "",
+            detector=self.detector, frame_dt=self.frame_dt)
+        if obs is not None and obs.cfg.want_audit:
+            raise ValueError(
+                "ObsConfig(audit=...) requires the orchestrated "
+                "FleetEngine.run(); scan mode keeps the scheduler "
+                "telemetry on device")
         scan = self._scan_fn()
         t0 = time.perf_counter()
         stacked = self._scan_inputs(n_frames)
         if self.torch_device.type == "cuda":
             torch.cuda.synchronize(self.torch_device)
         t1 = time.perf_counter()
-        _, outs = scan.run(self._init_state(), stacked, n_frames)
-        packed = outs.cpu().numpy().transpose(1, 0, 2)  # (F,S,C)->(S,F,C)
+        with obs.measured_span(
+                "fleet/scan_dispatch",
+                lambda: _build.build_count() + scan.captures,
+                n_frames=n_frames) if obs is not None else _NULL_CTX:
+            _, outs = scan.run(self._init_state(), stacked, n_frames)
+        with obs.measured_span("fleet/scan_fetch") if obs is not None \
+                else _NULL_CTX:
+            packed = outs.cpu().numpy().transpose(1, 0, 2)  # (F,S,C)->(S,F,C)
         t2 = time.perf_counter()
         self.scan_timing = dict(tape_s=t1 - t0, run_s=t2 - t1, **scan.timing)
         if "replay_start" in self.scan_timing:
@@ -301,6 +371,8 @@ class FleetEngine:
                 t2 - self.scan_timing.pop("replay_start")
         report = report_from_packed(packed, devices=self.stream_devices)
         report.frame_dt = self.frame_dt
+        if obs is not None:
+            obs.finalize(report)
         return report
 
     def _scan_inputs(self, n_frames: int) -> step_lib.FrameInputs:

@@ -306,6 +306,9 @@ class FleetScan:
         # Kernel launches recorded into the last captured graph (each
         # replay launches them again).
         self.captured_launches: dict = {}
+        # CUDA graphs captured so far (the observability hooks mark a span
+        # in which this grew as a compile, repro_torch.obs).
+        self.captures = 0
 
     def init_carry(self, state: FleetState) -> ScanCarry:
         dev = state.inflight_boxes.device
@@ -501,6 +504,7 @@ class FleetScan:
             t_buf.add_(1)
         after = kernels.launch_counts()
         self.captured_launches = {k: after[k] - before[k] for k in after}
+        self.captures += 1
         self.timing = dict(warmup_s=t1 - t0,
                            capture_s=time.perf_counter() - t1)
         return ScanGraph(graph, carry, static, t_buf, inp_buf, out)

@@ -19,6 +19,7 @@ kernel                  source                           replaces (TPU, Pallas)
 ``auction``             ``csrc/auction.cu``              no Pallas kernel: the
                                                          ``lax.while_loop`` auction of
                                                          ``repro/core/association.py``
+``auction_wide``        ``csrc/auction.cu``              the same, above 128 persons
 ======================  ===============================  ==================================
 
 Each wrapper (``<kernel>/ops.py``) keeps a plain-integer launch count,
@@ -26,7 +27,8 @@ raised by one per kernel launch and nowhere else, so a run can show that
 its main path went through the kernels. ``point_proj`` has two
 instances of one kernel, one counter each (``point_proj.ops.point_proj``
 and ``project_and_label``). ``flash_attention`` has two kernels, one
-counter each; ``flash_attention.ops.route`` picks one.
+counter each; ``flash_attention.ops.route`` picks one. So has the auction
+(``auction.ops.plan`` picks by n).
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ _COUNTERS: Dict[str, Tuple[ModuleType, str]] = {
     "decode_attention": (_decode_attention, "launches"),
     "pillar_scatter": (_pillar_scatter, "launches"),
     "pillar_scatter_bwd": (_pillar_scatter, "bwd_launches"),
-    "auction": (_auction, "launches")}
+    "auction": (_auction, "launches"),
+    "auction_wide": (_auction, "wide_launches")}
 
 
 def launch_counts() -> Dict[str, int]:

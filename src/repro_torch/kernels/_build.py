@@ -14,6 +14,9 @@ started together, then one link step makes the library.
   register and shared-memory report) is kept beside it.
 * Nothing here runs at import: the CPU tests import every module on hosts
   without ``nvcc``.
+* ``builds`` counts the real builds of this process (not the loads of a
+  library already on disk): the observability hooks mark a span in which
+  it grew as a compile (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -39,6 +42,9 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
                      "-fPIC", "-Xptxas", "-v")
 
+# Libraries compiled by this process (a library found on disk is none).
+builds = 0
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -63,6 +69,9 @@ SIGNATURES = {
                                  _P), _I),
     "moby_auction": ((_P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), _I, _I,
                       _P, _P, _P, _P), _I),
+    "moby_auction_wide": ((_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I,
+                           _I, _P, _P, _P, _P, _P), _I),
+    "moby_smem_optin": ((_I,), _I),
     "moby_auction_skeleton": ((_P, _I, _P, _P), _I),
 }
 
@@ -95,6 +104,7 @@ def build() -> Path:
     and moved into place in one rename, so a concurrent or interrupted
     build never leaves a partial library behind.
     """
+    global builds
     lib = library_path()
     if lib.exists():
         return lib
@@ -124,7 +134,13 @@ def build() -> Path:
         lib.with_suffix(".log").write_text(
             "".join(f"--- {n}\n{log}" for n, log in zip(SOURCES, logs)))
         os.replace(out, lib)
+    builds += 1
     return lib
+
+
+def build_count() -> int:
+    """Libraries compiled by this process so far (``builds``)."""
+    return builds
 
 
 @functools.cache

@@ -113,7 +113,7 @@ class NetworkSim:
                            n_sharers: int = 1) -> Dict[str, float]:
         """Decompose an already-computed :meth:`transfer_time` result into
         the handshake/payload parts plus the effective fair-share rate —
-        span annotations for the repro.obs virtual timeline (pure
+        span annotations for the repro_torch.obs virtual timeline (pure
         bookkeeping: never re-integrates the trace, so observability adds
         no timing work)."""
         payload = max(total_s - self.rtt_s, 1e-12)

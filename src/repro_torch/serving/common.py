@@ -1,13 +1,13 @@
 """Shared serving-layer pieces: wire sizes, the on-board latency model,
 modeled per-frame cost estimates (scheduler telemetry), and the canonical
-:class:`RunReport` — used by the single-stream ``MobyEngine`` and the
+:class:`RunReport` — used by the single-stream ``MobyEngine``, the
+batched multi-stream ``FleetEngine`` (repro_torch.fleet) and the
 ``repro_torch.api`` facade.
 
 A copy of ``repro/serving/common.py`` (plain numpy, no tensors) so the port
-imports nothing of ``repro``; the observability views of the original
-(``to_trace``, ``metrics_registry``, ``to_prometheus``, ``to_audit`` and
-the ``obs`` field) wait for the port's observability hooks. The CSV and
-summary exports are byte-for-byte those of the original.
+imports nothing of ``repro``; its observability views read
+``repro_torch.obs``. The CSV and summary exports are byte-for-byte those of
+the original.
 
 ``ComponentTimes`` itself lives in :mod:`repro_torch.runtime.profiles`
 (the single modeled-latency source, derived per device profile); it is
@@ -131,9 +131,12 @@ class RunReport:
     # Per-stream edge device-profile names, shape (S,) (None when the run
     # predates device stamping — exported as an empty CSV column then).
     device: Optional[np.ndarray] = None
-    # Scene frame period — lets a virtual timeline replay the engines'
+    # Scene frame period — lets the virtual timeline replay the engines'
     # wall-clock recurrence exactly from the packed arrays.
     frame_dt: float = 0.1
+    # The run's repro_torch.obs.Observer when observability was enabled
+    # (None otherwise; never exported to CSV).
+    obs: Optional[object] = None
 
     # -- construction ---------------------------------------------------
     @classmethod
@@ -287,3 +290,43 @@ class RunReport:
                 with open(file, "w") as f:
                     f.write(text)
         return text
+
+    # -- observability views (repro_torch.obs) ---------------------------
+    def to_trace(self, path=None) -> dict:
+        """The run's virtual timeline as a Chrome trace-event document
+        (Perfetto-loadable), written to ``path`` when given. With an
+        attached observer (ObsConfig(trace=True)) the trace carries
+        uplink, per-GPU cloud and measured host lanes; without one, the
+        per-stream lanes are reconstructed from the packed arrays."""
+        from repro_torch.obs import trace as trace_lib
+        tl = trace_lib.trace_from_report(self, obs=self.obs)
+        return tl.write(path) if path is not None else tl.to_chrome()
+
+    def metrics_registry(self):
+        """The metrics registry this run reported into — or, for an
+        unobserved run, a fresh registry filled from the packed arrays
+        (same numbers, nothing run-external like GPU-pool accounting)."""
+        from repro_torch import obs as obs_lib
+        if self.obs is not None and self.obs.cfg.want_metrics:
+            self.obs.flush_metrics(self)   # idempotent
+            return self.obs.registry
+        reg = obs_lib.MetricsRegistry()
+        obs_lib.fill_report_metrics(reg, self)
+        return reg
+
+    def to_prometheus(self, file=None) -> str:
+        """Prometheus text exposition of this run's metrics."""
+        return self.metrics_registry().to_prometheus(file)
+
+    def to_audit(self, file=None, fmt: Optional[str] = None) -> str:
+        """The scheduler decision audit (one row per stream-frame) as
+        JSONL, or CSV when ``fmt="csv"`` / the path ends in .csv.
+        Requires the run to have been observed with audit on."""
+        if self.obs is None or not len(self.obs.audit):
+            raise ValueError(
+                "no audit log attached to this report; run through an "
+                "engine/Session with obs=ObsConfig(audit=True)")
+        if fmt is None:
+            fmt = "csv" if str(file).endswith(".csv") else "jsonl"
+        return self.obs.audit.to_csv(file) if fmt == "csv" \
+            else self.obs.audit.to_jsonl(file)

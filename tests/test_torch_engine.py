@@ -316,6 +316,9 @@ def test_port_sources_import_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
+    # The observability package is among them.
+    assert {p.name for p in files if p.parent.name == "obs"} >= {
+        "__init__.py", "audit.py", "metrics.py", "observe.py", "trace.py"}
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -329,7 +332,9 @@ def test_port_run_leaves_jax_and_repro_unimported():
         "import repro_torch\n"
         "from repro_torch import api\n"
         "rep = api.Session(api.scenario('smoke', seed=0),"
-        " torch_device='cpu').run(3)\n"
+        " torch_device='cpu', obs=api.ObsConfig(metrics=True, trace=True,"
+        " audit=True)).run(3)\n"
+        "rep.to_prometheus(); rep.to_trace(); rep.to_audit()\n"
         "assert rep.n_frames == 3\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"

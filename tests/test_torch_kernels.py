@@ -236,6 +236,8 @@ def test_cpu_tensors_never_launch_a_kernel():
     ops.iou2d(_t(_boxes(np.random.default_rng(0), 3)),
               _t(_boxes(np.random.default_rng(1), 4)))
     au_ops.auction(torch.zeros((2, 5, 5)))
+    au_ops.auction(torch.zeros((1, au_ops.ROW_MAX_N + 2,
+                                au_ops.ROW_MAX_N + 2)))
     assert kernels.launch_counts() == {"point_proj": 0,
                                        "point_proj_labels": 0, "iou2d": 0,
                                        "ransac_score": 0,
@@ -244,7 +246,7 @@ def test_cpu_tensors_never_launch_a_kernel():
                                        "decode_attention": 0,
                                        "pillar_scatter": 0,
                                        "pillar_scatter_bwd": 0,
-                                       "auction": 0}
+                                       "auction": 0, "auction_wide": 0}
 
 
 def test_other_devices_raise():

@@ -141,19 +141,23 @@ def test_auction_wrapper_on_the_cpu_is_the_plain_version():
 
 
 def test_auction_instance_and_refusals():
-    """Every n from 1 to MAX_N runs on the smallest instance that takes it
-    (32 x warps persons); the kernel's limits raise before a launch."""
-    for n in range(1, au_ops.MAX_N + 1):
+    """Every n from 1 to ROW_MAX_N runs on the smallest row instance that
+    takes it (32 x warps persons), n above on the wide instance
+    (tests/test_torch_auction.py holds its bound); the kernel's limits
+    raise before a launch."""
+    for n in range(1, au_ops.ROW_MAX_N + 1):
         batch, got_n, eps, warps = au_ops.plan((2, 3, n, n), torch.float32,
                                                1e-4)
         assert (batch, got_n, eps) == (6, n, au_ref.phase_epsilons(1e-4))
         assert warps in au_ops.WARPS and n <= 32 * warps
         assert warps == 1 or n > 16 * warps
+    assert au_ops.ROW_MAX_N == 128
+    assert au_ops.plan((1, 129, 129), torch.float32, 1e-4)[3] == \
+        au_ops.WIDE_WARPS
     with pytest.raises(ValueError, match="persons"):
         au_ops.plan((1, 0, 0), torch.float32, 1e-4)
     with pytest.raises(ValueError, match="persons"):
-        au_ops.plan((1, au_ops.MAX_N + 1, au_ops.MAX_N + 1), torch.float32,
-                    1e-4)
+        au_ops.plan((1, 20000, 20000), torch.float32, 1e-4)
     with pytest.raises(ValueError, match="phases"):
         au_ops.plan((1, 4, 4), torch.float32, 1e-9)
     assert len(au_ref.phase_epsilons(1e-9)) > au_ops.MAX_PHASES
@@ -175,8 +179,8 @@ def test_auction_kernel_matches_plain_on_card():
     cases = [(_benefits(n, batch, n, tied), n) for n, batch, tied in (
         (1, 4, True), (12, 16, True), (24, 64, False), (31, 8, True),
         (32, 8, False), (33, 8, True), (40, 8, True), (64, 4, True),
-        (au_ops.MAX_N, 2, True))]
-    for n, batch in ((24, 16), (33, 4), (au_ops.MAX_N, 1)):
+        (au_ops.ROW_MAX_N, 2, True))]
+    for n, batch in ((24, 16), (33, 4), (au_ops.ROW_MAX_N, 1)):
         b = _benefits(n, batch, 7 * n, True)
         cases.append((np.repeat(b[:, :1], n, axis=1), n))
     for b, n in cases:
@@ -185,8 +189,7 @@ def test_auction_kernel_matches_plain_on_card():
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w), n
     with pytest.raises(ValueError, match="persons"):
-        au_ops.auction(torch.zeros((1, au_ops.MAX_N + 1, au_ops.MAX_N + 1),
-                                   device=dev))
+        au_ops.auction(torch.zeros((1, 20000, 20000), device=dev))
     with pytest.raises(TypeError, match="dtype"):
         au_ops.auction(torch.zeros((1, 4, 4), dtype=torch.float64,
                                    device=dev))
