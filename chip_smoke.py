@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) serves
-Moby (one stream and a fleet), the dense LMs and the PointPillars detector
-on an NVIDIA H100.
+Moby (one stream and a fleet), serves and trains the dense LMs, and serves
+and trains the PointPillars detector on an NVIDIA H100.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels flash_attention,pillar_scatter
@@ -58,7 +58,17 @@ fatal on failure:
    tensor at the prefill shape), and PyTorch's
    ``scaled_dot_product_attention`` on the same inputs as their library
    yardstick (timed here, used nowhere in the port; the kernels it ran
-   are named from a profile); K4 ``pillar_scatter`` forward (equal by
+   are named from a profile); the two attention gradients
+   (``flash_attention_bwd``: LM T's bf16 shape, LM T's f32 correctness
+   shape, G = 1, 4 and 8, Sq = Sk = 1, 77, 256 and 4096, causal and not,
+   every head dim in f32, hd 64 and 128 in bf16, keys longer than
+   queries, strided views and contiguous operands;
+   ``decode_attention_bwd``: the decode shape with ragged positions and
+   an empty request, f32 GQA and MQA, SMOKE's head dim, 48 query heads a
+   kv head), f32 within 2e-5 of the gradient's scale, bf16 within half a
+   bf16 ulp + 2e-5 rel + 1e-6 of the plain gradient computed in float64
+   on the same bf16 inputs (``grads_close``), timed beside SDPA's autograd
+   backward; K4 ``pillar_scatter`` forward (equal by
    value) and backward (bit for bit) at Det B's shape (the real pillar ids
    of a kitti-urban frame at 122,880 points), dense collisions, all points
    masked out, planted ties, special values, every point in one pillar,
@@ -158,17 +168,33 @@ fatal on failure:
    3xTF32 route none, decode 36 per step); ms per prefill and
    per step, decode tokens/s, peak device memory, and a torch.profiler
    window over 4 decode steps;
-11. Det A, the card against JAX: the PointPillars detector at a small
+11. LM T, training qwen2.5-3B on the card: gradients reach q, k, v and
+   the caches through both backward kernels (each counter up by one, the
+   same values as the kernels called directly; fatal: F3); full width with
+   2 layers in f32 (LM B's rescaled weights) at B=2, S=256: the loss and
+   every gradient, three ``make_train_step`` steps and one with
+   ``grad_accum=2`` against the same on the CPU in this process, within
+   1e-4 of the values' scale (the parameters also within the sum of the
+   steps' learning rates, AdamW's move of an entry whose gradient is near
+   eps); 36 layers in bf16 over f32 master weights, ``remat="full"``, at
+   B=1, S=4096 (cut from the 32k context so the f32 AdamW state fits beside
+   the logits): a warm-up step, then 4 steps timed by CUDA events, ms a
+   step, tokens/s, peak memory, launches a step checked (the tensor-core
+   flash route 72: forward and remat's recompute, its gradient 36, the
+   rest 0), a profile over 2 steps; ``fit`` at the SMOKE config in f32,
+   checkpoints every 2 steps, cut after 4 and resumed: losses equal to the
+   uncut run's bit for bit;
+12. Det A, the card against JAX: the PointPillars detector at a small
    config (32x32 pillars) with the weights and frame of
    ``tests/goldens/det3d_smoke.npz``: forward, loss, every gradient,
    detect and three AdamW steps at the CPU parity tests' tolerances;
-12. Det B, the detector at full width (128x128 pillars, feat 32, backbone
+13. Det B, the detector at full width (128x128 pillars, feat 32, backbone
    (32, 64, 128), seeded random weights) on 24 kitti-urban frames at
    122,880 points: detect per frame and 8 training steps (loss, backward,
    AdamW) after a warm-up, K4's launches checked (one forward a forward
    pass, one backward a step), peak device memory, a torch.profiler window
    over 4 detect calls; then 2 frames on the CPU against the card;
-13. one ``{"kernels": [...]}`` JSON line, the card line again, and last the
+14. one ``{"kernels": [...]}`` JSON line, the card line again, and last the
    ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
@@ -181,6 +207,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -235,6 +262,12 @@ DECODE_POS_LO = 8192
 # LM B: full width with 2 layers in f32, prefill at B 2, S 256 (the 3xTF32
 # flash route's shape on the main path).
 LM_B_BATCH, LM_B_S, LM_B_LAYERS = 2, 256, 2
+# LM T, training qwen2.5-3B at full width (36 layers, bf16 over f32 master
+# weights, AdamW, remat "full"): B 1, S 4096, cut from the model's 32k
+# context so the f32 AdamW state (~49 GB) fits beside the logits. A
+# warm-up step, then T_STEPS timed steps; the correctness steps are LM B's
+# shape (2 layers, f32) against the CPU.
+T_BATCH, T_SEQ, T_STEPS = 1, 4096, 4
 
 # The PointPillars detector (models/detector3d.py). Det A holds the card to
 # the JAX golden at a small config; Det B runs the default config (128x128
@@ -264,6 +297,12 @@ KERNELS = {
     "decode_attention": (
         "src/repro_torch/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:63"),
+    # The two attention gradients: the VJPs around the Pallas calls
+    # (repro/ops/api.py; plain JAX, recomputing the scores).
+    "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/ops/api.py:54"),
+    "decode_attention_bwd": ("src/repro_torch/csrc/decode_attention_bwd.cu",
+                             "src/repro/ops/api.py:87"),
     "pillar_scatter": (
         "src/repro_torch/csrc/pillar_scatter.cu",
         "src/repro/kernels/pillar_scatter/pillar_scatter.py:50"),
@@ -868,6 +907,156 @@ def check_decode(torch, dev, dec_ops, dec_ref, b, h, kv, s, hd, dtype,
         (lambda: dec_ref.decode_attention_ref(q, ck, cv, pos))
 
 
+def grads_close(torch, got, want, what: str):
+    """Hold a backward kernel's (dq, dk, dv) against its plain version's:
+    in f32 each within 2e-5 of the gradient's scale (the largest magnitude
+    of the three) on the same inputs (with one key, dq and dk are exactly
+    0 and both versions give the rounding of dP - D, terms of dV's size);
+    in bf16 each value within ``bf16_limit`` of the plain
+    version's result on the same bf16 inputs computed in float64 (the
+    kernels sum in f32 and round once, so no allowance for a rounded P or
+    dS; the exact gradient, since the plain version's own f32 result
+    strays from it by up to 0.6 of that limit at S = 2048, long sums of
+    cancelling terms). Returns (max abs err, tolerance text, worst
+    difference over its limit)."""
+    err = worst = 0.0
+    scale = max((float(w.abs().max()) for w in want if w.numel()),
+                default=0.0)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if tuple(g.shape) != tuple(w.shape):
+            fail(f"{what}: {name} has shape {tuple(g.shape)}, want "
+                 f"{tuple(w.shape)}")
+        diff = (g.double() - w.double()).abs()
+        if g.dtype == torch.float32:
+            limit = torch.full_like(diff, max(2e-5 * scale, 1e-30))
+        else:
+            limit = bf16_limit(torch, w.double())
+        if g.numel():
+            err = max(err, float(diff.max()))
+            worst = max(worst, float((diff / limit).max()))
+        if not bool(torch.isfinite(g).all()) or worst > 1:
+            fail(f"{what}: {name} off by {float(diff.max())}, {worst:.3g} "
+                 f"times the tolerance (or not finite)")
+    tol = ("2e-5 of the gradient's scale" if got[0].dtype == torch.float32
+           else "half a bf16 ulp + 2e-5 rel + 1e-6 of the float64 result")
+    return err, f"{tol} (worst {worst:.3g} of it)", worst
+
+
+def check_flash_bwd(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
+                    causal, seed, views=True):
+    """K5's backward kernel vs its plain version, on the forward kernel's
+    output and a random cotangent: q, k, v, o and do are (B, heads, S, hd)
+    views of (B, S, heads, hd) storage, as the model passes them, or
+    contiguous (``views`` False). bf16 against the plain gradient on the
+    same bf16 inputs computed in float64 (``grads_close``). Timed beside
+    PyTorch's SDPA backward (its autograd gradient on the same inputs)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def act(heads, s):
+        x = torch.randn(b, s, heads, hd, generator=g, device=dev, dtype=dtype)
+        return x.transpose(1, 2) if views else \
+            x.transpose(1, 2).contiguous()
+    q, k, v = act(h, sq), act(kv, sk), act(kv, sk)
+    o = fa_ops.flash_attention(q, k, v, causal)
+    if not views:
+        o = o.contiguous()
+    do = act(h, sq)
+    before = fa_ops.bwd_launches
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal)
+    if fa_ops.bwd_launches != before + 1:
+        fail("flash_attention_bwd: the kernel did not launch")
+    shape = (f"({b},{h},{kv},{sq},{sk},{hd}) {str(dtype)[6:]} "
+             + ("causal" if causal else "full")
+             + ("" if views else ", contiguous"))
+    wide = torch.float32 if dtype == torch.float32 else torch.float64
+    want = fa_ref.flash_attention_bwd_ref(
+        *(t.to(wide) for t in (q, k, v, o, do)), causal)
+    err, tol, worst = grads_close(torch, got, want,
+                                  f"flash_attention_bwd {shape}")
+    exact = all(bool(torch.equal(x, w.to(x.dtype)))
+                for x, w in zip(got, want))
+    del got, want
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    # The five products of the gradient (S recomputed, dP, dV, dQ, dK),
+    # 2 hd flops a live (query head, key) pair each.
+    ops = 10 * hd * b * h * pairs
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qr, kr, vr, is_causal=causal, enable_gqa=True)
+    rec = dict(shape=shape, exact=exact, max_abs_err=err, tol=tol,
+               worst=worst,
+               bytes=(4 * b * h * sq + 4 * b * kv * sk) * hd * q.element_size(),
+               ops=ops,
+               peak=PEAK_BF16_PER_S if dtype == torch.bfloat16
+               else PEAK_F32_PER_S,
+               f32_simt_ms=ops / PEAK_F32_PER_S * 1e3, library_eager=True,
+               library=lambda: torch.autograd.grad(
+                   lib_out, (qr, kr, vr), do, retain_graph=True))
+    return rec, (lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, causal)), \
+        (lambda: fa_ref.flash_attention_bwd_ref(q, k, v, o, do, causal))
+
+
+def check_decode_bwd(torch, dev, dec_ops, dec_ref, b, h, kv, s, hd, dtype,
+                     pos, seed, empty=()):
+    """K6's backward kernel vs its plain version on (B, S, KV, hd) caches
+    passed as (B, KV, S, hd) views; ``pos`` as in ``check_decode``, then
+    the requests of ``empty`` set to cache_pos = 0. Timed beside SDPA's
+    autograd backward on the same inputs."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, 1, h, hd, generator=gen, device=dev, dtype=dtype)[:, 0]
+    ck, cv = (torch.randn(b, s, kv, hd, generator=gen, device=dev,
+                          dtype=dtype).transpose(1, 2) for _ in range(2))
+    do = torch.randn(b, h, hd, generator=gen, device=dev, dtype=dtype)
+    if isinstance(pos, tuple):
+        pos = torch.randint(*pos, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    else:
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    for i in empty:
+        pos[i] = 0
+    o = dec_ops.decode_attention(q, ck, cv, pos)
+    before = dec_ops.bwd_launches
+    got = dec_ops.decode_attention_bwd(q, ck, cv, pos, o, do)
+    if dec_ops.bwd_launches != before + 1:
+        fail("decode_attention_bwd: the kernel did not launch")
+    shape = (f"B={b} H={h} KV={kv} S={s} hd={hd} {str(dtype)[6:]} "
+             f"pos {int(pos.min())}..{int(pos.max())}"
+             + (f", {len(empty)} empty" if empty else ""))
+    wide = torch.float32 if dtype == torch.float32 else torch.float64
+    want = dec_ref.decode_attention_bwd_ref(
+        q.to(wide), ck.to(wide), cv.to(wide), pos, o.to(wide), do.to(wide))
+    err, tol, worst = grads_close(torch, got, want,
+                                  f"decode_attention_bwd {shape}")
+    for i in empty:
+        if got[0][i].any() or got[1][i].any() or got[2][i].any():
+            fail(f"decode_attention_bwd {shape}: request {i} has no live "
+                 f"position but a gradient")
+    exact = all(bool(torch.equal(x, w.to(x.dtype)))
+                for x, w in zip(got, want))
+    del got, want
+    live = int(pos.clamp(max=s).sum())
+    elt = q.element_size()
+    mask = (torch.arange(s, device=dev)[None, :] < pos[:, None])[:, None,
+                                                                  None]
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, ck, cv))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qr[:, :, None], kr, vr, attn_mask=mask, enable_gqa=True)
+    # Bytes: q, o, do in, the live positions of both caches in, dq and
+    # both cache-sized cotangents out. Operations: S recomputed, dP, dV,
+    # dK and dq, 2 hd flops a (query head, live position) pair each.
+    rec = dict(shape=shape, exact=exact, max_abs_err=err, tol=tol,
+               worst=worst,
+               bytes=(4 * b * h * hd + 2 * kv * hd * live
+                      + 2 * b * kv * s * hd) * elt + 4 * b,
+               ops=10 * hd * (h // kv) * kv * live,
+               peak=PEAK_BF16_PER_S if dtype == torch.bfloat16
+               else PEAK_F32_PER_S, library_eager=True,
+               library=lambda: torch.autograd.grad(
+                   lib_out, (qr, kr, vr), do[:, :, None], retain_graph=True))
+    return rec, (lambda: dec_ops.decode_attention_bwd(q, ck, cv, pos, o, do)), \
+        (lambda: dec_ref.decode_attention_bwd_ref(q, ck, cv, pos, o, do))
+
+
 def kitti_frames(np, api, scenes, n: int, seed: int = 0):
     """``n`` kitti-urban frames at KITTI's point count (stream seed 0):
     (N, 4) points with an intensity column from a seeded generator, the
@@ -1273,6 +1462,237 @@ def serve_lm(torch, dev, kernels, lm_configs, lm, decode, params):
           flush=True)
     return {k: launches[k] for k in ("flash_attention_tc",
                                      "decode_attention")}
+
+
+def check_gradients_reach(torch, dev, ops, fa_ops, dec_ops) -> None:
+    """F3 on the card: autograd through ``ops.flash_attention`` and
+    ``ops.decode_attention`` gives q, k and v (and the caches) their
+    gradients through the backward kernels (each counter up by one), the
+    same as the kernels called directly. Fatal otherwise."""
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def leaf(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev,
+                           dtype=dtype).requires_grad_()
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (leaf(1, n, 333, 128, dtype=dtype) for n in (16, 2, 2))
+        out = ops.flash_attention(q, k, v, True)
+        do = torch.randn(out.shape, generator=g, device=dev, dtype=dtype)
+        before = fa_ops.bwd_launches
+        out.backward(do)
+        if fa_ops.bwd_launches != before + 1 or any(
+                t.grad is None for t in (q, k, v)):
+            fail(f"flash_attention ({dtype}): the backward kernel did not "
+                 f"give q, k and v their gradients")
+        want = fa_ops.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                          out.detach(), do, True)
+        if not all(torch.equal(t.grad, w) for t, w in zip((q, k, v), want)):
+            fail(f"flash_attention ({dtype}): autograd's gradients differ "
+                 f"from the backward kernel's")
+    q, ck, cv = leaf(4, 16, 128), leaf(4, 2, 700, 128), leaf(4, 2, 700, 128)
+    pos = torch.tensor([1, 300, 700, 0], dtype=torch.int32, device=dev)
+    out = ops.decode_attention(q, ck, cv, pos)
+    do = torch.randn(out.shape, generator=g, device=dev, dtype=out.dtype)
+    before = dec_ops.bwd_launches
+    out.backward(do)
+    if dec_ops.bwd_launches != before + 1 or any(
+            t.grad is None for t in (q, ck, cv)):
+        fail("decode_attention: the backward kernel did not give q and the "
+             "caches their gradients")
+    want = dec_ops.decode_attention_bwd(q.detach(), ck.detach(), cv.detach(),
+                                        pos, out.detach(), do)
+    if not all(torch.equal(t.grad, w) for t, w in zip((q, ck, cv), want)):
+        fail("decode_attention: autograd's gradients differ from the "
+             "backward kernel's")
+    print("LM T: gradients reach q, k, v and the caches through both "
+          "backward kernels (flash bf16 and f32, decode bf16; F3)",
+          flush=True)
+
+
+def tree_close(torch, params, got, want, tol: float, what: str,
+               extra: float = 0.0) -> float:
+    """Every leaf of ``got`` finite and within ``tol`` of its scale (the
+    leaf's largest magnitude in ``want``) plus ``extra``; returns the
+    largest difference over its scale."""
+    want = dict(params.leaves(want))
+    worst = 0.0
+    for path, g in params.leaves(got):
+        w = want[path].to(g.device)
+        scale = float(w.abs().max())
+        diff = float((g.float() - w.float()).abs().max())
+        if not bool(torch.isfinite(g).all()) or \
+                diff > tol * scale + extra:
+            fail(f"{what} {'/'.join(path)}: off by {diff} (scale {scale}, "
+                 f"tolerance {tol} of it + {extra})")
+        worst = max(worst, diff / max(scale, 1e-30))
+    return worst
+
+
+def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
+             trainstep, loop):
+    """LM T: training qwen2.5-3B on the card. Correctness: full width with
+    2 layers in f32 (LM B's rescaled attention weights), loss and every
+    gradient, three train steps and one with grad_accum 2, the card against
+    the CPU within 1e-4 of the values' scale (the parameters also within
+    the sum of the steps' learning rates: AdamW's normalised move of an
+    entry whose gradient is near eps). Timed: 36 layers in bf16 over f32
+    masters, remat "full", B=T_BATCH, S=T_SEQ, a warm-up then T_STEPS
+    steps, launches checked. Then ``fit`` at the SMOKE config cut and
+    resumed. Returns K5's and K6's launch counts (both directions) over
+    the timed steps."""
+    f32 = torch.float32
+    cpu = torch.device("cpu")
+    # -- correctness: 2 layers at full width, f32, card vs CPU ---------------
+    cfg = dataclasses.replace(lm_configs.get(LM_ARCH), n_layers=LM_B_LAYERS,
+                              dtype=f32)
+    p_card = params.init_params(lm.model_defs(cfg),
+                                torch.Generator(device=dev).manual_seed(4),
+                                dev)
+    attn = p_card["blocks"]["attn"]         # as LM B rescales them
+    for name in ("wq", "wk", "wv"):
+        attn[name].mul_((attn[name].shape[-2] / cfg.d_model) ** 0.5)
+    attn["wo"].mul_((attn["wo"].shape[-2] / cfg.d_head_total) ** 0.5)
+    p_cpu = params.tree_map(lambda t: t.to(cpu, copy=True), p_card)
+    gen = torch.Generator().manual_seed(5)
+
+    def batch_pair(b):
+        host = {k: torch.randint(0, cfg.vocab, (b, LM_B_S), generator=gen,
+                                 dtype=torch.int32)
+                for k in ("tokens", "labels")}
+        return {k: v.to(dev) for k, v in host.items()}, host
+    t0 = time.perf_counter()
+    card_batch, cpu_batch = batch_pair(LM_B_BATCH)
+    grads = {}
+    for where, p, batch in (("card", p_card, card_batch),
+                            ("cpu", p_cpu, cpu_batch)):
+        req = params.tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss = lm.loss_fn(req, cfg, batch)
+        g = torch.autograd.grad(loss, [t for _, t in params.leaves(req)])
+        grads[where] = (float(loss.detach()), params.from_leaves(zip(
+            (path for path, _ in params.leaves(req)), g)))
+    if abs(grads["card"][0] - grads["cpu"][0]) > 1e-4 * abs(grads["cpu"][0]):
+        fail(f"LM T: loss on the card {grads['card'][0]} vs the CPU "
+             f"{grads['cpu'][0]}")
+    worst = tree_close(torch, params, grads["card"][1], grads["cpu"][1],
+                       1e-4, "LM T gradient")
+    print(f"LM T: {cfg.name} x{LM_B_LAYERS} layers f32 B={LM_B_BATCH} "
+          f"S={LM_B_S}: loss {grads['card'][0]:.6f} (CPU "
+          f"{grads['cpu'][0]:.6f}), every gradient within {worst:.3g} of "
+          f"its scale of the CPU's (tolerance 1e-4)", flush=True)
+    del grads
+    ocfg = optimizer.AdamWConfig()
+    steps = {w: (p, optimizer.init(p)) for w, p in (("card", p_card),
+                                                    ("cpu", p_cpu))}
+    lr_sum = 0.0
+    for i, accum in enumerate((1, 1, 1, 2)):
+        c = dataclasses.replace(cfg, grad_accum=accum)
+        card_batch, cpu_batch = batch_pair(2 * LM_B_BATCH if accum > 1
+                                           else LM_B_BATCH)
+        out = {}
+        for where, batch in (("card", card_batch), ("cpu", cpu_batch)):
+            p, state = steps[where]
+            p, state, m = trainstep.make_train_step(c, ocfg)(p, state, batch)
+            steps[where] = (p, state)
+            out[where] = m
+        lr_sum += float(out["cpu"]["lr"])
+        lc, lp = float(out["card"]["loss"]), float(out["cpu"]["loss"])
+        if abs(lc - lp) > 1e-4 * abs(lp):
+            fail(f"LM T step {i + 1} (grad_accum {accum}): loss {lc} on the "
+                 f"card vs {lp} on the CPU")
+        for name in ("m", "v"):
+            tree_close(torch, params, getattr(steps["card"][1], name),
+                       getattr(steps["cpu"][1], name), 1e-4,
+                       f"LM T step {i + 1} {name}")
+        worst = tree_close(torch, params, steps["card"][0], steps["cpu"][0],
+                           1e-4, f"LM T step {i + 1} params", lr_sum)
+        print(f"LM T: step {i + 1} (grad_accum {accum}): loss {lc:.6f} "
+              f"(CPU {lp:.6f}), grad norm {float(out['card']['grad_norm']):.6f}"
+              f" (CPU {float(out['cpu']['grad_norm']):.6f}); moments within "
+              f"1e-4 of their scale, parameters within {worst:.3g} of theirs",
+              flush=True)
+    print(f"LM T: correctness on the card vs the CPU in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del steps, p_card, p_cpu
+    torch.cuda.empty_cache()
+
+    # -- timed: 36 layers, bf16 compute over f32 masters ---------------------
+    cfg = lm_configs.get(LM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    t0 = time.perf_counter()
+    p = params.init_params(lm.model_defs(cfg), gen, dev)
+    state = optimizer.init(p)
+    step = trainstep.make_train_step(cfg, ocfg)
+    batches = [{k: torch.randint(0, cfg.vocab, (T_BATCH, T_SEQ),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int32)
+                for k in ("tokens", "labels")} for _ in range(T_STEPS + 3)]
+    torch.cuda.synchronize()
+    print(f"LM T: {cfg.name} ({cfg.n_layers} layers, {str(cfg.dtype)[6:]} "
+          f"over f32 masters, remat {cfg.remat}) weights and AdamW state on "
+          f"the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    p, state, m = step(p, state, batches[-1])        # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for batch in batches[:T_STEPS]:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        p, state, m = step(p, state, batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attention_tc=2 * cfg.n_layers * T_STEPS,
+                  flash_attention_bwd=cfg.n_layers * T_STEPS)
+    if launches != expect:
+        fail(f"LM T launch counts {launches} != {expect}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"LM T losses {losses} not finite")
+    med = statistics.median(ms)
+    print(f"LM T: train step B={T_BATCH} S={T_SEQ}: median {med:.2f} ms "
+          f"(steps {', '.join(f'{x:.2f}' for x in ms)}), "
+          f"{T_BATCH * T_SEQ / med * 1e3:.1f} tokens/s; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; launches a step "
+          f"{ {k: v // T_STEPS for k, v in launches.items() if v} }; peak "
+          f"device memory {peak:.2f} GiB", flush=True)
+    it = iter(batches[T_STEPS:T_STEPS + 2])
+
+    def two_steps():
+        nonlocal p, state
+        for batch in it:
+            p, state, _ = step(p, state, batch)
+    print(profile_window(torch, f"{cfg.name} train step B={T_BATCH} "
+                         f"S={T_SEQ}", two_steps, 2, "step"), flush=True)
+    del p, state, batches, it
+    torch.cuda.empty_cache()
+
+    # -- fit, cut and resumed ------------------------------------------------
+    cfg = dataclasses.replace(lm_configs.get_smoke(LM_ARCH), dtype=f32)
+    kw = dict(global_batch=4, seq_len=64, ckpt_every=2, seed=1,
+              log_every=100, torch_device=dev, ocfg=optimizer.AdamWConfig(
+                  lr=1e-3, warmup_steps=2, total_steps=6))
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        uncut = loop.fit(cfg, 6, ckpt_dir=f"{tmp}/a", **kw)
+        first = loop.fit(cfg, 4, ckpt_dir=f"{tmp}/b", **kw)
+        resumed = loop.fit(cfg, 6, ckpt_dir=f"{tmp}/b", **kw)
+    if resumed.restored_from != 4 or first.losses != uncut.losses[:4] or \
+            resumed.losses != uncut.losses[4:]:
+        fail(f"LM T fit: cut at 4 and resumed from {resumed.restored_from}: "
+             f"{first.losses} + {resumed.losses} != {uncut.losses}")
+    print(f"LM T: fit {cfg.name} on the card, 6 steps, checkpoints every 2:"
+          f" cut after 4 and resumed from step {resumed.restored_from}, the "
+          f"losses equal the uncut run's bit for bit ({', '.join(f'{x:.5f}' for x in uncut.losses)}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    return {k: launches[k] for k in ("flash_attention_tc",
+                                     "flash_attention_bwd",
+                                     "decode_attention", "decode_attention_bwd")}
 
 
 def checked(what: str, check, *args):
@@ -2020,8 +2440,8 @@ def main() -> None:
     from repro_torch.kernels.point_proj import ops as pp_ops, ref as pp_ref
     from repro_torch.kernels.ransac_score import ops as rs_ops, ref as rs_ref
     from repro_torch.models import decode, detector3d, lm, params
-    from repro_torch import testing
-    from repro_torch.train import optimizer
+    from repro_torch import ops, testing
+    from repro_torch.train import loop, optimizer, trainstep
     if any(m == "jax" or m.startswith(("jax.", "repro."))
            or m == "repro" for m in sys.modules):
         fail("the port pulled in jax or the JAX package")
@@ -2048,6 +2468,14 @@ def main() -> None:
 
     def dec(*shape):
         return lambda s: check_decode(torch, dev, dec_ops, dec_ref, *shape, s)
+
+    def flash_bwd(*shape, views=True):
+        return lambda s: check_flash_bwd(torch, dev, fa_ops, fa_ref, *shape,
+                                         s, views)
+
+    def dec_bwd(*shape, empty=()):
+        return lambda s: check_decode_bwd(torch, dev, dec_ops, dec_ref,
+                                          *shape, s, empty)
 
     t0 = time.perf_counter()
     kitti, kitti_calib = kitti_frames(np, api, scenes,
@@ -2195,6 +2623,37 @@ def main() -> None:
             dec(2, 8, 1, 700, 64, f32, [1, 700]),
             dec(2, 4, 2, 32, 16, f32, [0, 17]),
             dec(2, 4, 2, 100, 16, bf16, [0, 97])],
+        # K5's gradient: LM T's timed shape first (bf16, hd 128, S 4096,
+        # G 8), then LM T's f32 correctness shape, G = 1, 4 and 8, Sq = Sk
+        # = 1, 77, 256 and 4096, causal and not, every head dim in f32 and
+        # hd 64 and 128 in bf16, keys longer than queries, contiguous
+        # operands; all others as (B, S, heads, hd) views.
+        "flash_attention_bwd": [
+            flash_bwd(T_BATCH, 16, 2, T_SEQ, T_SEQ, 128, bf16, True),
+            flash_bwd(LM_B_BATCH, 16, 2, LM_B_S, LM_B_S, 128, f32, True),
+            flash_bwd(1, 4, 4, 77, 77, 16, f32, True),
+            flash_bwd(2, 8, 2, 77, 77, 32, f32, False),
+            flash_bwd(1, 8, 1, 256, 256, 64, f32, True),
+            flash_bwd(2, 4, 1, 1, 1, 128, f32, True),
+            flash_bwd(1, 4, 4, 1, 1, 64, bf16, False),
+            flash_bwd(1, 8, 2, 4096, 4096, 64, f32, True),
+            flash_bwd(1, 16, 2, 4096, 4096, 128, f32, False),
+            flash_bwd(2, 8, 2, 77, 77, 64, bf16, True),
+            flash_bwd(1, 16, 2, 256, 256, 128, bf16, False),
+            flash_bwd(2, 4, 2, 128, 640, 64, f32, False),
+            flash_bwd(2, 8, 2, 77, 77, 128, bf16, True, views=False)],
+        # K6's gradient: LM C's decode shape with ragged positions and one
+        # empty request first, then f32 GQA, MQA with positions 1 and S,
+        # SMOKE's head dim with an empty request, bf16 at hd 16, and 48
+        # query heads a kv head (granite-20B's MQA).
+        "decode_attention_bwd": [
+            dec_bwd(DECODE_B, 16, 2, DECODE_MAX, 128, bf16,
+                    (DECODE_POS_LO, DECODE_MAX), empty=(3,)),
+            dec_bwd(4, 8, 2, 1024, 128, f32, (1, 1025)),
+            dec_bwd(2, 8, 1, 700, 64, f32, [1, 700]),
+            dec_bwd(2, 4, 2, 32, 16, f32, [0, 17]),
+            dec_bwd(2, 4, 2, 100, 16, bf16, [0, 97]),
+            dec_bwd(3, 48, 1, 300, 128, bf16, [5, 256, 300])],
         # Det B's shape first (the real pillar ids of a kitti-urban frame),
         # then dense collisions, every point masked out, planted ties,
         # special values, one pillar, sorted points, 7- and 40-channel
@@ -2384,16 +2843,26 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 10. LM C: serving qwen2.5-3B at full width on the card -------------
-    main_launches.update(serve_lm(torch, dev, kernels, lm_configs, lm, decode,
-                                  params))
+    serving = serve_lm(torch, dev, kernels, lm_configs, lm, decode, params)
+    main_launches.update(serving)
 
-    # -- 11-12. Det A and B: the PointPillars detector ----------------------
+    # -- 11. LM T: training qwen2.5-3B on the card -------------------------
+    torch.cuda.empty_cache()
+    check_gradients_reach(torch, dev, ops, fa_ops, dec_ops)
+    training = train_lm(torch, dev, kernels, lm_configs, lm, params,
+                        optimizer, trainstep, loop)
+    for k, n in training.items():
+        main_launches[k] = main_launches.get(k, 0) + n
+        by_path[k] = {"LM C serving": serving.get(k, 0),
+                      "LM T training": n}
+
+    # -- 12-13. Det A and B: the PointPillars detector ----------------------
     torch.cuda.empty_cache()
     check_detector_golden(testing)
     main_launches.update(serve_detector(torch, dev, kernels, detector3d,
                                         params, optimizer, testing, kitti))
 
-    # -- 13. result lines -----------------------------------------------------
+    # -- 14. result lines -----------------------------------------------------
     entries = [kernel_entry(name, records[name], main_launches[name])
                for name in KERNELS]
     for e in entries:

@@ -1,1 +1,2 @@
-"""Host-side scene simulation (a numpy copy of ``repro.data.scenes``)."""
+"""Data substrate: synthetic KITTI-like scenes and LM token pipelines
+(numpy copies of ``repro.data.scenes`` and ``repro.data.tokens``)."""

@@ -13,7 +13,9 @@ kernel                  source                           replaces (TPU, Pallas)
                                                          (f32; bf16 at hd 16, 32, 64)
 ``flash_attention_tc``  ``csrc/flash_attention_tc.cu``   ``repro/kernels/flash_attention``
                                                          (bf16 at hd 128, tensor cores)
+``flash_attention_bwd`` ``csrc/flash_attention_bwd.cu``  its VJP, ``repro/ops/api.py``
 ``decode_attention``    ``csrc/decode_attention.cu``     ``repro/kernels/decode_attention``
+``decode_attention_bwd`` ``csrc/decode_attention_bwd.cu`` its VJP, ``repro/ops/api.py``
 ``pillar_scatter``      ``csrc/pillar_scatter.cu``       ``repro/kernels/pillar_scatter``
 ``pillar_scatter_bwd``  ``csrc/pillar_scatter.cu``       its VJP, ``repro/ops/api.py``
 ``auction``             ``csrc/auction.cu``              no Pallas kernel: the
@@ -51,7 +53,9 @@ _COUNTERS: Dict[str, Tuple[ModuleType, str]] = {
     "ransac_score": (_ransac_score, "launches"),
     "flash_attention": (_flash_attention, "launches"),
     "flash_attention_tc": (_flash_attention, "tc_launches"),
+    "flash_attention_bwd": (_flash_attention, "bwd_launches"),
     "decode_attention": (_decode_attention, "launches"),
+    "decode_attention_bwd": (_decode_attention, "bwd_launches"),
     "pillar_scatter": (_pillar_scatter, "launches"),
     "pillar_scatter_bwd": (_pillar_scatter, "bwd_launches"),
     "auction": (_auction, "launches"),

@@ -33,7 +33,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("errors.cu", "point_proj.cu", "iou2d.cu", "ransac_score.cu",
            "flash_attention.cu", "flash_attention_tc.cu",
-           "decode_attention.cu",
+           "flash_attention_bwd.cu", "decode_attention.cu",
+           "decode_attention_bwd.cu",
            "pillar_scatter.cu", "auction.cu")
 HEADERS = ("moby_kernels.cuh",)
 # Where the CUDA toolkit installs nvcc when it is not on PATH.
@@ -61,9 +62,17 @@ SIGNATURES = {
                               _I, ctypes.c_float, _P), _I),
     "moby_flash_attention_tc": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  ctypes.c_float, _P), _I),
+    "moby_flash_attention_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I,
+                                  ctypes.c_float, _P), _I),
     "moby_decode_attention_chunk": ((), _I),
     "moby_decode_attention": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, ctypes.c_float, _P), _I),
+    "moby_decode_attention_bwd_chunk": ((), _I),
+    "moby_decode_attention_bwd_smem": ((_I, _I), _I),
+    "moby_decode_attention_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _I, _I, _I, _I, _I, _I,
+                                   ctypes.c_float, _P), _I),
     "moby_pillar_scatter": ((_P, _P, _P, _LL, _I, _I, _P, _P), _I),
     "moby_pillar_scatter_bwd": ((_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P,
                                  _P), _I),

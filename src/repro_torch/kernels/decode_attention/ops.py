@@ -12,6 +12,12 @@ shared memory by 16-byte asynchronous copies, so their base addresses and
 byte strides must be multiples of 16, and a (request, kv head)'s S
 positions must span fewer than 2^31 elements (32-bit offsets): the
 wrapper checks and raises, it never copies.
+
+The gradient (``decode_attention_bwd``) is a second kernel,
+``csrc/decode_attention_bwd.cu`` (``bwd_launches`` counts its launches);
+a CPU tensor goes to ``ref.decode_attention_bwd_ref``.
+:class:`DecodeAttention` ties the two directions into one differentiable
+op (the int positions get no gradient).
 """
 from __future__ import annotations
 
@@ -20,15 +26,28 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, _launch
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention import ref as _ref
 
 launches = 0
+bwd_launches = 0
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # Query heads a block serves (kHeads in csrc/decode_attention.cu): a kv
 # head's G query heads take ceil(G / 8) blocks per cache chunk.
 HEADS_PER_BLOCK = 8
+
+
+def _check_heads(kernel: str, dtype: torch.dtype, hd: int, h: int,
+                 kv: int) -> None:
+    if dtype not in DTYPES:
+        raise TypeError(f"{kernel}: dtype {dtype}, the kernel takes "
+                        f"{DTYPES}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{kernel}: head dim {hd}, the kernel takes "
+                         f"{HEAD_DIMS}")
+    if kv == 0 or h % kv:
+        raise ValueError(f"{kernel}: {h} query heads over {kv} kv heads")
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
@@ -41,7 +60,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     """
     global launches
     if _launch.dispatch_device("decode_attention", q) == "cpu":
-        return decode_attention_ref(q, cache_k, cache_v, cache_pos)
+        return _ref.decode_attention_ref(q, cache_k, cache_v, cache_pos)
     b, h, hd = q.shape
     kv, s = cache_k.shape[1], cache_k.shape[2]
     dev = q.device
@@ -62,15 +81,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                              f"kernel's 32-bit offsets")
     _launch.check_cuda("decode_attention", "cache_pos", cache_pos,
                        torch.int32, (b,), dev)
-    if q.dtype not in DTYPES:
-        raise TypeError(f"decode_attention: dtype {q.dtype}, the kernel "
-                        f"takes {DTYPES}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head dim {hd}, the kernel "
-                         f"takes {HEAD_DIMS}")
-    if kv == 0 or h % kv:
-        raise ValueError(f"decode_attention: {h} query heads over {kv} kv "
-                         f"heads")
+    _check_heads("decode_attention", q.dtype, hd, h, kv)
     blocks = b * kv * -(-(h // kv) // HEADS_PER_BLOCK)
     if blocks > 65535:
         raise ValueError(f"decode_attention: {blocks} (request, kv head, "
@@ -94,3 +105,90 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     _build.check(code, "decode_attention")
     launches += 1
     return out
+
+
+# The backward kernel's shared memory a block may use (227 KB on an H100).
+MAX_SMEM = 232448
+
+
+def decode_attention_bwd(q: torch.Tensor, cache_k: torch.Tensor,
+                         cache_v: torch.Tensor, cache_pos: torch.Tensor,
+                         o: torch.Tensor, do: torch.Tensor):
+    """The gradient of :func:`decode_attention`: (dq (B, H, hd), dk, dv
+    (B, KV, S, hd)) for the output cotangent ``do`` (B, H, hd), given the
+    forward's output ``o``; dk and dv are 0 at positions >= cache_pos.
+
+    On the card one launch of ``csrc/decode_attention_bwd.cu`` (a stats
+    pass, the gradients a cache chunk, the dq sum). Every operand is read
+    through its strides (the head dim contiguous; no alignment needed);
+    dk and dv are (B, KV, S, hd) views of (B, S, KV, hd) storage, the
+    caches' layout.
+    """
+    global bwd_launches
+    if _launch.dispatch_device("decode_attention_bwd", q) == "cpu":
+        return _ref.decode_attention_bwd_ref(q, cache_k, cache_v, cache_pos,
+                                             o, do)
+    b, h, hd = q.shape
+    kv, s = cache_k.shape[1], cache_k.shape[2]
+    dev, dt = q.device, q.dtype
+    for name, t, shape in (("q", q, (b, h, hd)), ("o", o, (b, h, hd)),
+                           ("do", do, (b, h, hd)),
+                           ("cache_k", cache_k, (b, kv, s, hd)),
+                           ("cache_v", cache_v, (b, kv, s, hd))):
+        _launch.check_cuda("decode_attention_bwd", name, t, dt, shape, dev,
+                           strided=True)
+    _launch.check_cuda("decode_attention_bwd", "cache_pos", cache_pos,
+                       torch.int32, (b,), dev)
+    _check_heads("decode_attention_bwd", dt, hd, h, kv)
+    if b * kv > 65535:
+        raise ValueError(f"decode_attention_bwd: {b * kv} (request, kv "
+                         f"head) blocks exceed the kernel's grid")
+    lib = _build.load()
+    smem = lib.moby_decode_attention_bwd_smem(h // kv, hd)
+    if smem > MAX_SMEM:
+        raise ValueError(f"decode_attention_bwd: {h // kv} query heads a kv "
+                         f"head at head dim {hd} need {smem} bytes of shared "
+                         f"memory a block, over {MAX_SMEM}")
+    n_chunks = -(-s // lib.moby_decode_attention_bwd_chunk())
+    dq = torch.empty((b, h, hd), dtype=dt, device=dev)
+    dk = torch.empty((b, s, kv, hd), dtype=dt, device=dev).transpose(1, 2)
+    dv = torch.empty((b, s, kv, hd), dtype=dt, device=dev).transpose(1, 2)
+    part_m = torch.empty((n_chunks, b * h), dtype=torch.float32, device=dev)
+    part_l = torch.empty_like(part_m)
+    part_dq = torch.empty((n_chunks, b * h, hd), dtype=torch.float32,
+                          device=dev)
+    strides = (ctypes.c_longlong * 20)(
+        *(st for t in (q, o, do, dq) for st in t.stride()[:2]),
+        *(st for t in (cache_k, cache_v, dk, dv) for st in t.stride()[:3]))
+    with torch.cuda.device(dev):
+        code = lib.moby_decode_attention_bwd(
+            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            cache_pos.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), part_m.data_ptr(),
+            part_l.data_ptr(), part_dq.data_ptr(), strides, b, h, kv, s, hd,
+            int(dt == torch.bfloat16), hd ** -0.5,
+            _launch.stream_handle(dev))
+    _build.check(code, "decode_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class DecodeAttention(torch.autograd.Function):
+    """:func:`decode_attention` whose backward is
+    :func:`decode_attention_bwd`: the kernel on a CUDA tensor, the plain
+    gradient on a CPU tensor. ``cache_pos`` gets no gradient. Saves the
+    operands and the output only where an input needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, cache_k, cache_v, cache_pos):
+        out = decode_attention(q, cache_k, cache_v, cache_pos)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, cache_k, cache_v, cache_pos, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, cache_k, cache_v, cache_pos, out = ctx.saved_tensors
+        dq, dk, dv = decode_attention_bwd(q, cache_k, cache_v, cache_pos,
+                                          out, do)
+        return dq, dk, dv, None

@@ -19,6 +19,12 @@ view of (B, SQ, H, hd) storage, the layout the model continues in. Both
 kernels copy their operands by 16-byte units (TMA, cp.async), which need
 16-byte aligned base addresses and strides: the wrapper checks both and
 raises, it never copies.
+
+The gradient (``flash_attention_bwd``) is a third kernel,
+``csrc/flash_attention_bwd.cu`` (SIMT f32, both dtypes and every head
+dim the forward takes; ``bwd_launches`` counts its launches); a CPU tensor
+goes to ``ref.flash_attention_bwd_ref``. :class:`FlashAttention` ties the
+two directions into one differentiable op.
 """
 from __future__ import annotations
 
@@ -27,10 +33,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, _launch
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention import ref as _ref
 
 launches = 0      # the 3xTF32 kernel
 tc_launches = 0   # the tensor-core kernel
+bwd_launches = 0  # the gradient kernel
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -53,13 +60,22 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def _check_aligned(name: str, t: torch.Tensor, path: str) -> None:
-    """The kernels copy ``t`` by 16-byte units (TMA, cp.async): 16-byte
-    aligned base address and byte strides."""
+    """The kernels copy ``t`` by 16-byte units (TMA, cp.async, 16-byte
+    loads): 16-byte aligned base address and byte strides."""
     if t.data_ptr() % 16 or any(s * t.element_size() % 16
                                 for s in t.stride()[:3]):
         raise ValueError(f"flash_attention: {name} (address {t.data_ptr():#x},"
                          f" strides {t.stride()}) is not 16-byte aligned, as "
                          f"the {path} kernel's 16-byte loads need")
+
+
+def _check_heads(b: int, h: int, kv: int) -> None:
+    if kv == 0 or h % kv:
+        raise ValueError(f"flash_attention: {h} query heads over {kv} kv "
+                         f"heads")
+    if b * h > 65535:
+        raise ValueError(f"flash_attention: {b * h} (batch, head) pairs "
+                         f"exceed the kernel's grid")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,7 +87,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     global launches, tc_launches
     if _launch.dispatch_device("flash_attention", q) == "cpu":
-        return flash_attention_ref(q, k, v, causal)
+        return _ref.flash_attention_ref(q, k, v, causal)
     b, h, sq, hd = q.shape
     kv, sk = k.shape[1], k.shape[2]
     for name, t, shape in (("q", q, (b, h, sq, hd)), ("k", k, (b, kv, sk, hd)),
@@ -79,12 +95,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _launch.check_cuda("flash_attention", name, t, q.dtype, shape,
                            q.device, strided=True)
     path = route(q.dtype, hd)
-    if kv == 0 or h % kv:
-        raise ValueError(f"flash_attention: {h} query heads over {kv} kv "
-                         f"heads")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention: {b * h} (batch, head) pairs "
-                         f"exceed the kernel's grid")
+    _check_heads(b, h, kv)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_aligned(name, t, path)
     out = torch.empty((b, sq, h, hd), dtype=q.dtype,
@@ -109,3 +120,72 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         launches += 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True):
+    """The gradient of :func:`flash_attention`: (dq, dk, dv) for the output
+    cotangent ``do`` (B, H, SQ, hd), given the forward's output ``o``.
+
+    On the card one launch of ``csrc/flash_attention_bwd.cu`` for every
+    dtype and head dim the forward takes (its rows' statistics are
+    recomputed, not saved by the forward). All five inputs are read
+    through their strides (the head dim contiguous, 16-byte aligned);
+    dq is a (B, H, SQ, hd) view of (B, SQ, H, hd) storage and dk, dv
+    (B, KV, SK, hd) views of (B, SK, KV, hd) storage, the layouts the
+    model's projections continue in.
+    """
+    global bwd_launches
+    if _launch.dispatch_device("flash_attention_bwd", q) == "cpu":
+        return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
+    b, h, sq, hd = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    for name, t, shape in (("q", q, (b, h, sq, hd)), ("k", k, (b, kv, sk, hd)),
+                           ("v", v, (b, kv, sk, hd)), ("o", o, (b, h, sq, hd)),
+                           ("do", do, (b, h, sq, hd))):
+        _launch.check_cuda("flash_attention_bwd", name, t, q.dtype, shape,
+                           q.device, strided=True)
+    route(q.dtype, hd)    # the forward's dtypes and head dims, or raise
+    _check_heads(b, h, kv)
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _check_aligned(name, t, "backward")
+    dev, dt = q.device, q.dtype
+    dq = torch.empty((b, sq, h, hd), dtype=dt, device=dev).transpose(1, 2)
+    dk = torch.empty((b, sk, kv, hd), dtype=dt, device=dev).transpose(1, 2)
+    dv = torch.empty((b, sk, kv, hd), dtype=dt, device=dev).transpose(1, 2)
+    stats = torch.empty((3, b * h, sq), dtype=torch.float32, device=dev)
+    part = torch.empty((2, b * h, sk, hd), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+    with torch.cuda.device(dev):
+        code = _build.load().moby_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), part.data_ptr(), strides, b, h, kv, sq, sk, hd,
+            int(causal), int(dt == torch.bfloat16), hd ** -0.5,
+            _launch.stream_handle(dev))
+    _build.check(code, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` whose backward is
+    :func:`flash_attention_bwd`: the kernel on a CUDA tensor, the plain
+    gradient on a CPU tensor (never autograd of the plain forward). Saves
+    q, k, v and the output only where an input needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out = flash_attention(q, k, v, causal)
+        ctx.causal = causal
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, ctx.causal)
+        return dq, dk, dv, None

@@ -2,11 +2,11 @@
 (``repro/models/config.py``).
 
 The fields and defaults are the JAX package's, so the two configs compare
-field by field, with ``dtype`` a torch dtype, except for five fields the
+field by field, with ``dtype`` a torch dtype, except for three fields the
 port drops: ``backend`` (the port dispatches each op by its tensors'
 device, not by a backend string), ``rules_override`` and ``seq_shard``
-(there is no mesh) and ``grad_accum`` and ``remat`` (there is no training
-loop yet).
+(there is no mesh). ``grad_accum`` and ``remat`` are the training
+controls of ``train.trainstep`` and ``models.lm.forward``.
 """
 from __future__ import annotations
 
@@ -75,6 +75,12 @@ class ArchConfig:
 
     # Numerics
     dtype: Any = torch.bfloat16
+
+    # Training controls: microbatches a step (train.trainstep), and
+    # whether the layers' activations are recomputed in the backward pass
+    # ("full": each layer under torch.utils.checkpoint) or kept ("none").
+    grad_accum: int = 1
+    remat: str = "full"          # full | none
 
     @property
     def d_head_total(self) -> int:

@@ -43,15 +43,41 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
     return y.reshape(*lead, *k)
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """``x @ w`` (x (..., K), w (K, N), both of one 16-bit dtype) as one
+    GEMM that writes f32 (``torch.mm``'s ``out_dtype``, which has no
+    autograd formula). Backward: the f32 cotangent rounded once to the
+    inputs' dtype, then the two products in that dtype with f32
+    accumulation (JAX multiplies the f32 cotangent by the 16-bit operand
+    and rounds the product instead; the bf16 training path is held to its
+    own f32 run, not to JAX, see chip_smoke's LM T)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        g = dy.reshape(-1, dy.shape[-1]).to(x.dtype)
+        dx = (g @ w.t()).reshape(x.shape) if ctx.needs_input_grad[0] \
+            else None
+        dw = x.reshape(-1, x.shape[-1]).t() @ g if ctx.needs_input_grad[1] \
+            else None
+        return dx, dw
+
+
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for a 2-d ``w`` with an f32 result, as JAX's
     ``einsum(..., preferred_element_type=float32)``: the products of the
     inputs as they are, summed in f32 and not rounded to the input type.
-    On the card a bf16 GEMM writes f32 (``out_dtype``); elsewhere the
-    operands are widened, which gives the same exact products."""
+    On the card a bf16 GEMM writes f32 (:class:`_MatmulF32Out`);
+    elsewhere the operands are widened, which gives the same exact
+    products."""
     if x.is_cuda and x.dtype != torch.float32:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(*x.shape[:-1], w.shape[1])
+        return _MatmulF32Out.apply(x, w)
     return x.float() @ w.float()
 
 

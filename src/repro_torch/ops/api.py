@@ -74,8 +74,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q: (B,H,SQ,hd); k/v: (B,KV,SK,hd) -> (B,H,SQ,hd). Requires the
     value head dim to equal the qk head dim. q, k and v may be transposed
-    views (the head dim contiguous): the kernel reads them in place."""
-    return _fa_ops.flash_attention(q, k, v, causal)
+    views (the head dim contiguous): the kernel reads them in place.
+    Differentiable for q, k and v: the gradient is a kernel on the card
+    (``flash_attention_bwd``), the plain gradient on the CPU, as the JAX
+    package's VJP recomputes the scores."""
+    return _fa_ops.FlashAttention.apply(q, k, v, causal)
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
@@ -83,5 +86,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      ) -> torch.Tensor:
     """Single-token decode: q (B,H,hd) over caches (B,KV,S,hd), attending
     positions [0, cache_pos) per request -> (B,H,hd). The caches may be
-    transposed views of (B,S,KV,hd) storage."""
-    return _dec_ops.decode_attention(q, cache_k, cache_v, cache_pos)
+    transposed views of (B,S,KV,hd) storage. Differentiable for q and the
+    caches (``decode_attention_bwd`` on the card); the positions get no
+    gradient."""
+    return _dec_ops.DecodeAttention.apply(q, cache_k, cache_v, cache_pos)

@@ -1,1 +1,1 @@
-"""Training substrate: the optimizer and its schedule."""
+"""Training substrate: optimizer, schedules, train step, loop."""

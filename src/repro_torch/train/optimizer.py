@@ -2,9 +2,12 @@
 
 Generic over the port's parameter trees (nested dicts of tensors, leaves
 in sorted-key order as JAX flattens a dict). Like the JAX version it is
-functional: :func:`update` returns new parameters and a new state and
-leaves its inputs as they were; the step count and the learning rate stay
-on the parameters' device, so a step makes no host sync. ZeRO-1
+functional by default: :func:`update` returns new parameters and a new
+state and leaves its inputs as they were; with ``inplace=True`` (the LM
+train step, whose masters and moments would not fit twice on one card) it
+writes the same values into the parameters and moments, leaf by leaf.
+The step count and the learning rate stay on the parameters' device, so a
+step makes no host sync. ZeRO-1
 (``zero1_specs``) shards moments over a device mesh and has no
 counterpart here.
 """
@@ -64,9 +67,12 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, grads, state: OptState, params):
+def update(cfg: AdamWConfig, grads, state: OptState, params,
+           inplace: bool = False):
     """Returns (new_params, new_state, metrics): one AdamW step on the
-    gradients clipped to a global norm of ``grad_clip``."""
+    gradients clipped to a global norm of ``grad_clip``. With ``inplace``
+    the new values are written into ``params``, ``state.m`` and
+    ``state.v`` (the same numbers), which are returned."""
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gnorm, 1e-9),
                             1.0)
@@ -79,17 +85,23 @@ def update(cfg: AdamWConfig, grads, state: OptState, params):
     p_of = dict(params_mod.leaves(params))
     new_p, new_m, new_v = [], [], []
     for path, g in params_mod.leaves(grads):
-        p = p_of[path]
+        p, m, v = p_of[path], m_of[path], v_of[path]
+        if not inplace:
+            p, m, v = p.clone(), m.clone(), v.clone()
+        # Each step rounds as m2 = b1 m + (1 - b1) g, v2 = b2 v + (1 - b2)
+        # g^2, delta = (m2 / b1c) / (sqrt(v2 / b2c) + eps) + wd p, p - lr
+        # delta would, with at most two leaf-sized temporaries alive.
         g = g.float() * scale
-        m2 = cfg.b1 * m_of[path] + (1 - cfg.b1) * g
-        v2 = cfg.b2 * v_of[path] + (1 - cfg.b2) * torch.square(g)
-        mhat = m2 / b1c
-        vhat = v2 / b2c
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * \
-            p.float()
-        new_p.append((path, (p.float() - lr * delta).to(p.dtype)))
-        new_m.append((path, m2))
-        new_v.append((path, v2))
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+        del g
+        delta = m / b1c
+        delta.div_((v / b2c).sqrt_().add_(cfg.eps))
+        delta.add_(cfg.weight_decay * p.float())
+        p.copy_(p.float() - delta.mul_(lr))
+        new_p.append((path, p))
+        new_m.append((path, m))
+        new_v.append((path, v))
     metrics = {"grad_norm": gnorm, "lr": lr}
     return (params_mod.from_leaves(new_p),
             OptState(step=step, m=params_mod.from_leaves(new_m),

@@ -243,7 +243,9 @@ def test_cpu_tensors_never_launch_a_kernel():
                                        "ransac_score": 0,
                                        "flash_attention": 0,
                                        "flash_attention_tc": 0,
+                                       "flash_attention_bwd": 0,
                                        "decode_attention": 0,
+                                       "decode_attention_bwd": 0,
                                        "pillar_scatter": 0,
                                        "pillar_scatter_bwd": 0,
                                        "auction": 0, "auction_wide": 0}

@@ -128,7 +128,7 @@ def _port_run(cfg, p, tokens, dec_tokens, dev="cpu"):
 
 
 # The JAX config fields the port drops (see repro_torch/models/config.py).
-JAX_ONLY = {"backend", "rules_override", "seq_shard", "grad_accum", "remat"}
+JAX_ONLY = {"backend", "rules_override", "seq_shard"}
 
 
 def _fields(cfg):
@@ -190,13 +190,26 @@ def test_params_from_jax_checks_the_tree():
 
 
 def test_entry_points_default_to_the_card():
+    """Serving and training default to the card: without one they raise.
+    The train step takes no device of its own: it runs where the
+    parameters are (here the CPU, with a numpy batch copied there)."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
+    from repro_torch.train import loop, optimizer, trainstep
     cfg = configs.get_smoke("qwen2_5_3b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params.init_params(lm.model_defs(cfg), torch.Generator())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decode.init_decode(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.fit(cfg, 1, 2, 8)
+    p = params.init_params(lm.model_defs(cfg),
+                           torch.Generator().manual_seed(0), "cpu")
+    tokens = np.zeros((2, 8), np.int32)
+    _, state, metrics = trainstep.make_train_step(
+        cfg, optimizer.AdamWConfig())(p, optimizer.init(p),
+                                      {"tokens": tokens, "labels": tokens})
+    assert metrics["loss"].device.type == "cpu" and int(state.step) == 1
 
 
 def test_init_params_draws_from_the_generator():
