@@ -58,17 +58,23 @@ fatal on failure:
    tensor at the prefill shape), and PyTorch's
    ``scaled_dot_product_attention`` on the same inputs as their library
    yardstick (timed here, used nowhere in the port; the kernels it ran
-   are named from a profile); the two attention gradients
-   (``flash_attention_bwd``: LM T's bf16 shape, LM T's f32 correctness
-   shape, G = 1, 4 and 8, Sq = Sk = 1, 77, 256 and 4096, causal and not,
-   every head dim in f32, hd 64 and 128 in bf16, keys longer than
-   queries, strided views and contiguous operands;
-   ``decode_attention_bwd``: the decode shape with ragged positions and
-   an empty request, f32 GQA and MQA, SMOKE's head dim, 48 query heads a
-   kv head), f32 within 2e-5 of the gradient's scale, bf16 within half a
-   bf16 ulp + 2e-5 rel + 1e-6 of the plain gradient computed in float64
-   on the same bf16 inputs (``grads_close``), timed beside SDPA's autograd
-   backward; K4 ``pillar_scatter`` forward (equal by
+   are named from a profile); the two attention gradients, K5's on both
+   routes of ``fa_ops.route`` (``flash_attention_bwd``, the SIMT kernel:
+   LM T's shape in f32, LM T's f32 correctness shape, G = 1, 4 and 8, Sq
+   = Sk = 1, 77, 256 and 4096, causal and not, every head dim in f32, hd
+   64 in bf16, keys longer than queries; ``flash_attention_bwd_tc``, the
+   tensor-core kernel: LM T's bf16 shape, Sq = Sk = 1, a ragged 77 with
+   contiguous operands, keys longer than queries, full attention at S
+   256, S 1024 causal, each called twice and the two results equal bit
+   for bit; ``decode_attention_bwd``: the decode shape with ragged
+   positions and an empty request, f32 GQA and MQA, SMOKE's head dim, 48
+   query heads a kv head), f32 within 2e-5 of the gradient's scale, bf16
+   within half a bf16 ulp + 2e-5 rel + 1e-6 of the plain gradient
+   computed in float64 on the same bf16 inputs, plus, for the tensor-core
+   route, which rounds P and dS to bf16 as operands of its products,
+   ``P_ROUNDING`` times each value's rounding term (``grads_close``,
+   ``bwd_rounding_terms``), timed beside SDPA's autograd backward; K4
+   ``pillar_scatter`` forward (equal by
    value) and backward (bit for bit) at Det B's shape (the real pillar ids
    of a kitti-urban frame at 122,880 points), dense collisions, all points
    masked out, planted ties, special values, every point in one pillar,
@@ -169,8 +175,9 @@ fatal on failure:
    per step, decode tokens/s, peak device memory, and a torch.profiler
    window over 4 decode steps;
 11. LM T, training qwen2.5-3B on the card: gradients reach q, k, v and
-   the caches through both backward kernels (each counter up by one, the
-   same values as the kernels called directly; fatal: F3); full width with
+   the caches through the backward kernels (bf16 flash on the tensor-core
+   route, f32 on the SIMT one, decode; each counter up by one, the same
+   values as the kernels called directly; fatal: F3); full width with
    2 layers in f32 (LM B's rescaled weights) at B=2, S=256: the loss and
    every gradient, three ``make_train_step`` steps and one with
    ``grad_accum=2`` against the same on the CPU in this process, within
@@ -180,8 +187,9 @@ fatal on failure:
    B=1, S=4096 (cut from the 32k context so the f32 AdamW state fits beside
    the logits): a warm-up step, then 4 steps timed by CUDA events, ms a
    step, tokens/s, peak memory, launches a step checked (the tensor-core
-   flash route 72: forward and remat's recompute, its gradient 36, the
-   rest 0), a profile over 2 steps; ``fit`` at the SMOKE config in f32,
+   flash route 72: forward and remat's recompute, its tensor-core
+   gradient 36, the rest 0), a profile over 2 steps naming the attention
+   kernels' device time a step; ``fit`` at the SMOKE config in f32,
    checkpoints every 2 steps, cut after 4 and resumed: losses equal to the
    uncut run's bit for bit;
 12. Det A, the card against JAX: the PointPillars detector at a small
@@ -268,6 +276,10 @@ LM_B_BATCH, LM_B_S, LM_B_LAYERS = 2, 256, 2
 # warm-up step, then T_STEPS timed steps; the correctness steps are LM B's
 # shape (2 layers, f32) against the CPU.
 T_BATCH, T_SEQ, T_STEPS = 1, 4096, 4
+# The attention kernels whose device time LM T's profile names: the
+# forward (tensor-core route) and the three launches of its gradient.
+T_PROFILED = ("flash_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel",
+              "reduce_tc_kernel")
 
 # The PointPillars detector (models/detector3d.py). Det A holds the card to
 # the JAX golden at a small config; Det B runs the default config (128x128
@@ -301,6 +313,10 @@ KERNELS = {
     # (repro/ops/api.py; plain JAX, recomputing the scores).
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/ops/api.py:54"),
+    # K5's gradient on the tensor cores (bf16 at head dim 128: training).
+    "flash_attention_bwd_tc": (
+        "src/repro_torch/csrc/flash_attention_bwd_tc.cu",
+        "src/repro/ops/api.py:54"),
     "decode_attention_bwd": ("src/repro_torch/csrc/decode_attention_bwd.cu",
                              "src/repro/ops/api.py:87"),
     "pillar_scatter": (
@@ -375,10 +391,12 @@ def graph_ms(fn, torch, reps: int = 50, replays: int = 20) -> float:
     return statistics.median(times)
 
 
-def profile_window(torch, label: str, run, n: int, unit: str) -> str:
+def profile_window(torch, label: str, run, n: int, unit: str,
+                   names=()) -> str:
     """A torch.profiler window over ``run()`` (``n`` ``unit``s of work):
-    device busy share of the window, device ops per unit, and the ops (and
-    kernels) with the most device time."""
+    device busy share of the window, device ops per unit, the ops (and
+    kernels) with the most device time, and the device time and launches
+    per unit of the kernels whose names contain one of ``names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -402,11 +420,16 @@ def profile_window(torch, label: str, run, n: int, unit: str) -> str:
                   reverse=True)[:4]
     top_k = ", ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms"
                       f" x{e.count}" for e in kern)
+    named = "".join(
+        f"; {name} {sum(e.self_device_time_total for e in hit) / 1e3 / n:.3f}"
+        f" ms x{sum(e.count for e in hit) / n:g} a {unit}"
+        for name in names
+        for hit in [[e for e in dev if name in e.key]])
     return (f"profile {label} x{n} {unit}s: wall "
             f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
             f"({100 * busy_us / wall_us:.1f}% of wall), "
             f"{launches / n:.0f} device ops/{unit}; top device time: "
-            f"{top}; top kernels: {top_k}")
+            f"{top}; top kernels: {top_k}{named}")
 
 
 def device_kernels(torch, fn, calls: int = 10):
@@ -907,22 +930,64 @@ def check_decode(torch, dev, dec_ops, dec_ref, b, h, kv, s, hd, dtype,
         (lambda: dec_ref.decode_attention_ref(q, ck, cv, pos))
 
 
-def grads_close(torch, got, want, what: str):
+def bwd_rounding_terms(torch, q, k, v, o, do, causal: bool):
+    """The rounding terms of the tensor-core gradient's allowance, in
+    float64, for q, o, do (B, H, SQ, hd) and k, v (B, KV, SK, hd): with a
+    the plain version's softmax weights and ds its dS (float64, its
+    masking), dQ[i,d]: scale sqrt(sum_j (ds_ij k_jd)^2), dK[j,d]: scale
+    sqrt(sum_i (ds_ij q_id)^2), dV[j,d]: sqrt(sum_i (a_ij do_id)^2), the
+    sums of dK and dV running over the G query heads of a kv head too.
+    One query head at a time, so LM T's S = 4096 holds one (SQ, SK)
+    matrix of each. Returns (dq, dk, dv) terms."""
+    b, h, sq, hd = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    f64 = torch.float64
+    scale = hd ** -0.5
+    tq = torch.zeros((b, h, sq, hd), dtype=f64, device=q.device)
+    tk = torch.zeros((b, kv, sk, hd), dtype=f64, device=q.device)
+    tv = torch.zeros_like(tk)
+    live = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        live = live.tril()
+    for head in range(h):
+        kh = head // (h // kv)
+        qh, kh_, vh = q[:, head].to(f64), k[:, kh].to(f64), v[:, kh].to(f64)
+        oh, doh = o[:, head].to(f64), do[:, head].to(f64)
+        s = torch.where(live, qh @ kh_.transpose(-1, -2) * scale, -1e30)
+        p = torch.where(live, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+        a = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+        del s, p
+        ds = a * (doh @ vh.transpose(-1, -2)
+                  - (doh * oh).sum(-1, keepdim=True))
+        tv[:, kh] += (a * a).transpose(-1, -2) @ (doh * doh)
+        del a
+        ds = ds * ds
+        tq[:, head] = ds @ (kh_ * kh_)
+        tk[:, kh] += ds.transpose(-1, -2) @ (qh * qh)
+        del ds
+    return scale * tq.sqrt(), scale * tk.sqrt(), tv.sqrt()
+
+
+def grads_close(torch, got, want, what: str, p_rounding=None):
     """Hold a backward kernel's (dq, dk, dv) against its plain version's:
     in f32 each within 2e-5 of the gradient's scale (the largest magnitude
     of the three) on the same inputs (with one key, dq and dk are exactly
     0 and both versions give the rounding of dP - D, terms of dV's size);
     in bf16 each value within ``bf16_limit`` of the plain
     version's result on the same bf16 inputs computed in float64 (the
-    kernels sum in f32 and round once, so no allowance for a rounded P or
-    dS; the exact gradient, since the plain version's own f32 result
-    strays from it by up to 0.6 of that limit at S = 2048, long sums of
-    cancelling terms). Returns (max abs err, tolerance text, worst
-    difference over its limit)."""
+    exact gradient, since the plain version's own f32 result strays from
+    it by up to 0.6 of that limit at S = 2048, long sums of cancelling
+    terms). The SIMT kernel sums in f32 and rounds once, so that is all;
+    the tensor-core kernel rounds P and dS to bf16 as operands of its
+    products, so its check adds ``P_ROUNDING`` times each value's
+    rounding term (``p_rounding``: ``bwd_rounding_terms`` of the inputs,
+    the root-sum-square of those roundings' contributions). Returns (max
+    abs err, tolerance text, worst difference over its limit)."""
     err = worst = 0.0
     scale = max((float(w.abs().max()) for w in want if w.numel()),
                 default=0.0)
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+    terms = p_rounding if p_rounding is not None else (None,) * 3
+    for name, g, w, term in zip(("dq", "dk", "dv"), got, want, terms):
         if tuple(g.shape) != tuple(w.shape):
             fail(f"{what}: {name} has shape {tuple(g.shape)}, want "
                  f"{tuple(w.shape)}")
@@ -931,14 +996,24 @@ def grads_close(torch, got, want, what: str):
             limit = torch.full_like(diff, max(2e-5 * scale, 1e-30))
         else:
             limit = bf16_limit(torch, w.double())
+            if term is not None:
+                limit = limit + P_ROUNDING * term.to(limit.device)
         if g.numel():
             err = max(err, float(diff.max()))
             worst = max(worst, float((diff / limit).max()))
         if not bool(torch.isfinite(g).all()) or worst > 1:
+            at = int((diff / limit).argmax())   # g is not empty here
+            where = [int(x) for x in torch.unravel_index(
+                torch.tensor(at), tuple(g.shape))]
             fail(f"{what}: {name} off by {float(diff.max())}, {worst:.3g} "
-                 f"times the tolerance (or not finite)")
+                 f"times the tolerance (or not finite); the worst at "
+                 f"{where}: {float(g.flatten()[at])} for "
+                 f"{float(w.flatten()[at])}, limit "
+                 f"{float(limit.flatten()[at])}")
     tol = ("2e-5 of the gradient's scale" if got[0].dtype == torch.float32
            else "half a bf16 ulp + 2e-5 rel + 1e-6 of the float64 result")
+    if p_rounding is not None:
+        tol += " + 2^-6 x its rounding term (P and dS rounded to bf16)"
     return err, f"{tol} (worst {worst:.3g} of it)", worst
 
 
@@ -947,7 +1022,10 @@ def check_flash_bwd(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
     """K5's backward kernel vs its plain version, on the forward kernel's
     output and a random cotangent: q, k, v, o and do are (B, heads, S, hd)
     views of (B, S, heads, hd) storage, as the model passes them, or
-    contiguous (``views`` False). bf16 against the plain gradient on the
+    contiguous (``views`` False). The wrapper's route (``fa_ops.route``)
+    picks the kernel: the tensor-core route's result must equal a second
+    call's bit for bit, and its check allows for its P and dS rounded to
+    bf16 (``bwd_rounding_terms``). bf16 against the plain gradient on the
     same bf16 inputs computed in float64 (``grads_close``). Timed beside
     PyTorch's SDPA backward (its autograd gradient on the same inputs)."""
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -961,18 +1039,31 @@ def check_flash_bwd(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
     if not views:
         o = o.contiguous()
     do = act(h, sq)
-    before = fa_ops.bwd_launches
+    route = fa_ops.route(dtype, hd)
+    counter = "bwd_tc_launches" if route == "tc" else "bwd_launches"
+    before = getattr(fa_ops, counter)
     got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal)
-    if fa_ops.bwd_launches != before + 1:
-        fail("flash_attention_bwd: the kernel did not launch")
+    if getattr(fa_ops, counter) != before + 1:
+        fail(f"flash_attention_bwd: the {route} route's kernel did not "
+             f"launch")
     shape = (f"({b},{h},{kv},{sq},{sk},{hd}) {str(dtype)[6:]} "
              + ("causal" if causal else "full")
              + ("" if views else ", contiguous"))
+    if route == "tc":
+        again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            fail(f"flash_attention_bwd (tc) {shape}: two calls on the same "
+                 f"inputs differ")
+        del again
     wide = torch.float32 if dtype == torch.float32 else torch.float64
     want = fa_ref.flash_attention_bwd_ref(
         *(t.to(wide) for t in (q, k, v, o, do)), causal)
+    p_rounding = bwd_rounding_terms(torch, q, k, v, o, do, causal) \
+        if route == "tc" else None
     err, tol, worst = grads_close(torch, got, want,
-                                  f"flash_attention_bwd {shape}")
+                                  f"flash_attention_bwd ({route}) {shape}",
+                                  p_rounding)
+    del p_rounding
     exact = all(bool(torch.equal(x, w.to(x.dtype)))
                 for x, w in zip(got, want))
     del got, want
@@ -1478,9 +1569,11 @@ def check_gradients_reach(torch, dev, ops, fa_ops, dec_ops) -> None:
         q, k, v = (leaf(1, n, 333, 128, dtype=dtype) for n in (16, 2, 2))
         out = ops.flash_attention(q, k, v, True)
         do = torch.randn(out.shape, generator=g, device=dev, dtype=dtype)
-        before = fa_ops.bwd_launches
+        counter = "bwd_tc_launches" if fa_ops.route(dtype, 128) == "tc" \
+            else "bwd_launches"
+        before = getattr(fa_ops, counter)
         out.backward(do)
-        if fa_ops.bwd_launches != before + 1 or any(
+        if getattr(fa_ops, counter) != before + 1 or any(
                 t.grad is None for t in (q, k, v)):
             fail(f"flash_attention ({dtype}): the backward kernel did not "
                  f"give q, k and v their gradients")
@@ -1504,9 +1597,9 @@ def check_gradients_reach(torch, dev, ops, fa_ops, dec_ops) -> None:
     if not all(torch.equal(t.grad, w) for t, w in zip((q, ck, cv), want)):
         fail("decode_attention: autograd's gradients differ from the "
              "backward kernel's")
-    print("LM T: gradients reach q, k, v and the caches through both "
-          "backward kernels (flash bf16 and f32, decode bf16; F3)",
-          flush=True)
+    print("LM T: gradients reach q, k, v and the caches through the "
+          "backward kernels (flash bf16 on the tensor-core route and f32 on "
+          "the SIMT one, decode bf16; F3)", flush=True)
 
 
 def tree_close(torch, params, got, want, tol: float, what: str,
@@ -1648,7 +1741,7 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     expect = dict.fromkeys(launches, 0)
     expect.update(flash_attention_tc=2 * cfg.n_layers * T_STEPS,
-                  flash_attention_bwd=cfg.n_layers * T_STEPS)
+                  flash_attention_bwd_tc=cfg.n_layers * T_STEPS)
     if launches != expect:
         fail(f"LM T launch counts {launches} != {expect}")
     if not all(math.isfinite(x) for x in losses):
@@ -1667,7 +1760,8 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
         for batch in it:
             p, state, _ = step(p, state, batch)
     print(profile_window(torch, f"{cfg.name} train step B={T_BATCH} "
-                         f"S={T_SEQ}", two_steps, 2, "step"), flush=True)
+                         f"S={T_SEQ}", two_steps, 2, "step",
+                         names=T_PROFILED), flush=True)
     del p, state, batches, it
     torch.cuda.empty_cache()
 
@@ -1692,6 +1786,7 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
           f"{time.perf_counter() - t0:.1f} s)", flush=True)
     return {k: launches[k] for k in ("flash_attention_tc",
                                      "flash_attention_bwd",
+                                     "flash_attention_bwd_tc",
                                      "decode_attention", "decode_attention_bwd")}
 
 
@@ -2454,7 +2549,7 @@ def main() -> None:
           f"{lib.relative_to(ROOT)}", flush=True)
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "Compiling entry" in line or \
-                "spill" in line:
+                "spill" in line or "Performance Loss" in line:
             print(f"  ptxas: {line.strip()}")
 
     # -- 3. kernels vs plain versions on the card --------------------------
@@ -2623,13 +2718,13 @@ def main() -> None:
             dec(2, 8, 1, 700, 64, f32, [1, 700]),
             dec(2, 4, 2, 32, 16, f32, [0, 17]),
             dec(2, 4, 2, 100, 16, bf16, [0, 97])],
-        # K5's gradient: LM T's timed shape first (bf16, hd 128, S 4096,
-        # G 8), then LM T's f32 correctness shape, G = 1, 4 and 8, Sq = Sk
-        # = 1, 77, 256 and 4096, causal and not, every head dim in f32 and
-        # hd 64 and 128 in bf16, keys longer than queries, contiguous
-        # operands; all others as (B, S, heads, hd) views.
+        # K5's gradient, the SIMT route (f32; bf16 at hd 16-64): LM T's
+        # shape in f32 first (timed), then LM T's f32 correctness shape,
+        # G = 1, 4 and 8, Sq = Sk = 1, 77, 256 and 4096, causal and not,
+        # every head dim in f32 and hd 64 in bf16, keys longer than
+        # queries; all as (B, S, heads, hd) views.
         "flash_attention_bwd": [
-            flash_bwd(T_BATCH, 16, 2, T_SEQ, T_SEQ, 128, bf16, True),
+            flash_bwd(T_BATCH, 16, 2, T_SEQ, T_SEQ, 128, f32, True),
             flash_bwd(LM_B_BATCH, 16, 2, LM_B_S, LM_B_S, 128, f32, True),
             flash_bwd(1, 4, 4, 77, 77, 16, f32, True),
             flash_bwd(2, 8, 2, 77, 77, 32, f32, False),
@@ -2639,9 +2734,19 @@ def main() -> None:
             flash_bwd(1, 8, 2, 4096, 4096, 64, f32, True),
             flash_bwd(1, 16, 2, 4096, 4096, 128, f32, False),
             flash_bwd(2, 8, 2, 77, 77, 64, bf16, True),
+            flash_bwd(2, 4, 2, 128, 640, 64, f32, False)],
+        # The tensor-core route (bf16 at hd 128): LM T's timed shape first
+        # (S 4096, G 8, causal), then Sq = Sk = 1, a ragged 77 with
+        # contiguous operands, keys longer than queries (not causal), full
+        # attention at S 256, and the CPU model's shape (S 1024, causal);
+        # each also called twice, the two results equal bit for bit.
+        "flash_attention_bwd_tc": [
+            flash_bwd(T_BATCH, 16, 2, T_SEQ, T_SEQ, 128, bf16, True),
+            flash_bwd(2, 4, 1, 1, 1, 128, bf16, True),
+            flash_bwd(2, 8, 2, 77, 77, 128, bf16, True, views=False),
+            flash_bwd(2, 8, 2, 128, 640, 128, bf16, False),
             flash_bwd(1, 16, 2, 256, 256, 128, bf16, False),
-            flash_bwd(2, 4, 2, 128, 640, 64, f32, False),
-            flash_bwd(2, 8, 2, 77, 77, 128, bf16, True, views=False)],
+            flash_bwd(1, 4, 2, 1024, 1024, 128, bf16, True)],
         # K6's gradient: LM C's decode shape with ragged positions and one
         # empty request first, then f32 GQA, MQA with positions 1 and S,
         # SMOKE's head dim with an empty request, bf16 at hd 16, and 48

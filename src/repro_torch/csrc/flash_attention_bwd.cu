@@ -15,12 +15,14 @@
 // H=16, KV=2, S=4096, hd=128, causal) the five products of the gradient
 // are 1.7e11 flops on ~40 MB of inputs and outputs: 2.6 ms of float32
 // arithmetic outside the tensor cores at 67 TFLOP/s (0.17 ms at the bf16
-// tensor rate), against 0.012 ms of memory. This first kernel is SIMT f32
+// tensor rate), against 0.012 ms of memory. This kernel is SIMT f32
 // (fused multiply-adds on the CUDA cores), accurate to f32 in both input
 // types, and recomputes more than the minimum: eight 64x64xhd products a
-// (query block, key block) pair instead of five. Tensor cores (mma.sync on
-// bf16, 3xTF32 for f32, as flash_attention.cu) and a forward that writes
-// its row statistics are later work (ROADMAP).
+// (query block, key block) pair instead of five. It takes the "tf32x3"
+// route of kernels/flash_attention/ops.py::route: f32 at every head dim,
+// bf16 at head dims 16-64. bf16 at head dim 128 (training's route) runs
+// flash_attention_bwd_tc.cu on the tensor cores; 3xTF32 tensor-core
+// products for f32, as flash_attention.cu, are later work (ROADMAP).
 //
 // Design, deterministic and without float atomics (three launches of one
 // entry point, in stream order):

@@ -1,0 +1,659 @@
+// Backward pass of blocked softmax attention (prefill) on Hopper's tensor
+// cores: bf16 operands, f32 accumulation, wgmma fed by TMA. Head dim 128,
+// GQA-aware: dQ, dK and dV from Q, K, V, the forward's output O and its
+// cotangent dO.
+//
+// Replaces the VJP around the TPU kernel: repro/ops/api.py (_flash_bwd),
+// jax.vjp of repro/models/layers.py::_chunked_attention, for bf16 at head
+// dim 128, the width of every full-size dense config (the route that
+// training takes). flash_attention_bwd.cu (SIMT f32) keeps f32 and bf16 at
+// head dims 16-64; kernels/flash_attention/ops.py::route chooses before any
+// launch. Its plain version is
+// kernels/flash_attention/ref.py::flash_attention_bwd_ref:
+//   A = softmax(scale Q.K^T) with the forward's masking (masked keys give
+//   p = 0, the causal limit kj <= qi, keys past sk masked),
+//   dV = A^T dO, dP = dO V^T, dS = A * (dP - rowsum(dO * O)),
+//   dQ = scale dS K, dK = scale dS^T Q,
+// with the G = H / KV query heads of a kv head summed into its dK and dV.
+//
+// What bounds it on an H100: operations. At the training shape (B=1,
+// H=16, KV=2, S=4096, hd=128, causal) the five products of the gradient
+// are 1.7e11 flops on ~40 MB of inputs and outputs: 0.17 ms at the 989
+// TFLOP/s dense bf16 tensor rate, 0.012 ms of memory. This kernel executes
+// seven products a (query tile, key tile) pair (S and dP twice: once in
+// each of its two kernels), all of them as wgmma on the tensor cores; the
+// f32 work outside them (the softmax and dS, ~10 instructions and one
+// exp2 a score, twice) competes with them for issue slots and the SFU.
+//
+// Precision: every product has bf16 operands and an f32 accumulator. P and
+// dS are rounded to bf16 (round to nearest even) only as the A operands of
+// dV += P^T.dO, dK += dS^T.Q and dQ += dS.K, as every tensor-core flash
+// attention backward does; the softmax, dS = P (dP - D), the row
+// statistics and every accumulator stay f32, and each output is rounded
+// once to bf16. chip_smoke.py (grads_close, bwd_rounding_terms) states the
+// allowance this needs against the float64 gradient.
+//
+// Design (the shape of FlashAttention-3's backward, without its atomics,
+// so two calls give the same bits), three launches of one entry point in
+// stream order, each of the first two with 384 threads: warpgroup 0 the
+// producer (`setmaxnreg` cuts it to 24 registers; one thread issues TMA
+// loads, the resident 128-row tiles once and 64-row tiles into a 2-stage
+// ring with full and empty mbarriers), warpgroups 1 and 2 consumers of 64
+// rows each at 240 registers, whose f32 work interleaves with each
+// other's products:
+// * dq_tc_kernel, a CTA per (b*h, 128-row query tile), the heaviest causal
+//   tiles first: Q, dO and O resident; D = rowsum(dO * O) as the diagonals
+//   of dO.O^T and O.dO^T on the tensor cores (summed as dP and dP^T are,
+//   so a row whose only live key is j gets dS = 0 exactly in both kernels,
+//   as in the exact gradient); one walk over the 64-key tiles, online as
+//   the forward: S = Q.K^T and dP = dO.V^T as `wgmma.m64n64k16` (A and B
+//   from shared memory, K-major), the rows' running max m and sum l,
+//   P~ = exp2(S c - m), dS~ = P~ (dP - D) in the accumulators' registers,
+//   then dQ~ += dS~.K as `wgmma.m64n128k16` with dS~ fed from registers in
+//   the accumulator-to-A-fragment layout and K read MN-major (the
+//   transpose bit), dQ~ rescaled as m grows; dQ = scale dQ~ / l. Writes dQ
+//   (bf16) and the rows' (lse = m + log2 l, D) as f32 statistics, rows
+//   past sq with lse = +inf so that they give p = 0 below;
+// * dkv_tc_kernel, a CTA per (b*h, 128-key tile), the heaviest first: K and
+//   V resident; the ring brings each 64-row query tile that sees the keys
+//   with its rows' (lse, D) (a bulk copy each, on the same barrier); S^T =
+//   K.Q^T and dP^T = V.dO^T (m64n64k16), P^T = exp2(S^T c - lse) and dS^T
+//   in registers, dV += P^T.dO and dK += dS^T.Q (m64n128k16, A from
+//   registers, B MN-major). The two 64x128 f32 accumulators stay in
+//   registers over the walk; the CTA writes f32 partials of its query
+//   head. One CTA a query head keeps 512 CTAs at the training shape busy
+//   (one a kv head would give 64 for the 132 SMs);
+// * reduce_tc_kernel sums the G partials of each kv head in head order and
+//   rounds once to bf16.
+// Shared memory: 2 resident tiles of 32 KB, 2 stages of 2 x 16 KB, then O
+// (dq, 32 KB) or 2 x 512 bytes of statistics (dkv): ~161 KB. Each tile is
+// two TMA boxes of 64 columns (128 bytes, the widest a 128-byte swizzle
+// allows), one after the other; the wgmma descriptors use the same swizzle
+// (8-row atoms of 1024 bytes: stride byte offset 1024; MN-major: leading
+// byte offset = the box size). Tensor maps are built on the host per call
+// over the strided (B, S, heads, hd) storage and passed as
+// __grid_constant__ parameters, so a CUDA graph can capture the launches;
+// TMA fills rows and keys past the end with zeros. Masking is applied
+// only to the tiles that need it (the causal diagonal, the ragged last key
+// tile). The library builds with -fmad=false: each intended fused
+// multiply-add is an explicit __fmaf_rn.
+//
+// Tried on the card and left out (tools/bwd_tc_probe.py): a first pass for
+// the rows' statistics before dQ's walk (0.14 ms more at the training
+// shape); a tile's next products issued before its f32 work, or kept in
+// flight across loop iterations (ptxas then serializes every wgmma:
+// warnings C7515, C7512); a 3-stage ring; two tiles' S in one commit group.
+//
+// ptxas (-Xptxas -v, sm_90a): 168 registers a thread at launch for both
+// kernels (the consumers raise theirs to 240 with setmaxnreg, the producer
+// drops to 24), no spills; chip_smoke.py prints the build log.
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+#include "moby_kernels.cuh"
+
+namespace {
+
+constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 384;          // producer + 2 consumer warpgroups
+constexpr int kStages = 2;
+constexpr int kBox = 64;               // TMA box width: 64 bf16 = 128 bytes
+constexpr int kWide = 128;             // rows of a resident tile (2 x 64)
+constexpr int kNarrow = 64;            // rows of a streamed tile
+constexpr int kWideBytes = kWide * 128 * 2;        // 32 KB
+constexpr int kWideBox = kWideBytes / 2;           // one 64-column box
+constexpr int kNarrowBytes = kNarrow * 128 * 2;    // 16 KB
+constexpr int kNarrowBox = kNarrowBytes / 2;
+// Shared memory: two resident tiles (dq: Q, dO; dkv: K, V), kStages stages
+// of two streamed tiles (dq: K, V; dkv: Q, dO), then a third region (dq:
+// the resident O tile; dkv: each stage's lse and D of its 64 query rows),
+// the barriers.
+constexpr int kSmemA = 0;
+constexpr int kSmemB = kWideBytes;
+constexpr int kSmemRing = 2 * kWideBytes;
+constexpr int kStageBytes = 2 * kNarrowBytes;
+constexpr int kSmemC = kSmemRing + kStages * kStageBytes;   // 128 KB
+constexpr int kStatBytes = 2 * kNarrow * 4;
+constexpr int kSmemBar = kSmemC + kWideBytes;
+constexpr int kNumBars = 1 + 2 * kStages;    // resident; full and empty
+constexpr int kSmemBytes = kSmemBar + 8 * kNumBars + 1024;  // + alignment
+
+// Defined to 1 only by tools/bwd_tc_probe.py, to time what a forward that
+// saved its rows' log-sum-exp would leave of the dq kernel: that build keeps
+// the running max at 0 (no row max, no rescaling; right only while the
+// scaled scores stay far from f32's exponent range, as on the probe's
+// normal inputs).
+#ifndef MOBY_BWD_TC_PROBE_FIXED_MAX
+#define MOBY_BWD_TC_PROBE_FIXED_MAX 0
+#endif
+constexpr bool kProbeFixedMax = MOBY_BWD_TC_PROBE_FIXED_MAX;
+
+struct Args {
+  __nv_bfloat16* dq;
+  float* stats;                // (2, B*H, rows): lse, D
+  float* part;                 // (2, B*H, SK, 128): dK, dV of each query head
+  long long dq_b, dq_h, dq_s;  // elements
+  int n_bh, n_heads, group, sq, sk, rows, causal;
+  float scale, scale_log2;     // hd^-0.5, and times log2(e)
+};
+
+// S (64 x 64 f32) = A.B^T over the head dim: A the warpgroup's 64 rows of
+// a resident 128-row tile (boxes 16 KB apart), B 64 rows of a tile whose
+// boxes lie BBox apart (a streamed 64-row tile, or the warpgroup's rows of
+// a resident one), both K-major; 4 steps of 16 in each 64-wide box (not
+// committed).
+template <int BBox = kNarrowBox>
+__device__ __forceinline__ void issue_nt(float (&s)[32], uint32_t a_addr,
+                                         uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss_n64(s, smem_desc(a_addr + (kk / 4) * kWideBox + col, 16, 1024),
+                 smem_desc(b_addr + (kk / 4) * BBox + col, 16, 1024),
+                 kk > 0);
+  }
+}
+
+// acc (64 x 128 f32) += A.B over 64 rows: A from registers (four 16-wide
+// fragments), B a streamed 64-row tile read MN-major (the head dim
+// contiguous; its two boxes 8 KB apart, the leading byte offset; each
+// 16-row step 2 KB further) (not committed).
+__device__ __forceinline__ void issue_nn(float (&acc)[64],
+                                         const uint32_t (&a)[4][4],
+                                         uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs(acc, a[kk], smem_desc(b_addr + kk * 16 * 128, kNarrowBox, 1024));
+}
+
+// A 64 x 64 f32 accumulator, rounded to bf16, as the A operand: its
+// register pairs are the A fragments of the four 16-wide steps, in place.
+__device__ __forceinline__ void pack(const float (&x)[32],
+                                     uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+__device__ __forceinline__ void init_bars(uint32_t bar_res,
+                                          uint32_t bar_full,
+                                          uint32_t bar_empty) {
+  if (threadIdx.x == 0) {
+    mbar_init(bar_res, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kThreads - 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Two TMA boxes (the 128 head dims) of `map` at (row, head, b).
+__device__ __forceinline__ void load_tile(uint32_t dst, uint32_t box_bytes,
+                                          const CUtensorMap* map,
+                                          uint32_t bar, int row, int head,
+                                          int b) {
+  tma_load(dst, map, bar, 0, row, head, b);
+  tma_load(dst + box_bytes, map, bar, kBox, row, head, b);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
+             const __grid_constant__ CUtensorMap domap,   // 128-row boxes
+             const __grid_constant__ CUtensorMap omap,    // 128-row boxes
+             const __grid_constant__ CUtensorMap kmap,    // 64-row boxes
+             const __grid_constant__ CUtensorMap vmap,    // 64-row boxes
+             const Args a) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_res = base + kSmemBar;
+  const uint32_t bar_full = bar_res + 8;                 // [kStages]
+  const uint32_t bar_empty = bar_full + 8 * kStages;     // [kStages]
+  const int bh = blockIdx.x;
+  const int b = bh / a.n_heads, h = bh % a.n_heads, kvh = h / a.group;
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kWide;
+  // Keys past the tile's last query row are masked for every row.
+  const int k_end = a.causal ? min(a.sk, q0 + kWide) : a.sk;
+  const int n_tiles = (k_end + kNarrow - 1) / kNarrow;
+  init_bars(bar_res, bar_full, bar_empty);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the TMA loads in flight ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_res, 3 * kWideBytes);
+      load_tile(base + kSmemA, kWideBox, &qmap, bar_res, q0, h, b);
+      load_tile(base + kSmemB, kWideBox, &domap, bar_res, q0, h, b);
+      load_tile(base + kSmemC, kWideBox, &omap, bar_res, q0, h, b);
+      // A key and a value tile a stage. The first round finds the ring
+      // empty (parity 1 passes at once).
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const uint32_t dst = base + kSmemRing + s * kStageBytes;
+        mbar_wait(bar_empty + 8 * s, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar_full + 8 * s, kStageBytes);
+        load_tile(dst, kNarrowBox, &kmap, bar_full + 8 * s, i * kNarrow, kvh,
+                  b);
+        load_tile(dst + kNarrowBytes, kNarrowBox, &vmap, bar_full + 8 * s,
+                  i * kNarrow, kvh, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int me = wg - 1;
+    const int t = threadIdx.x - 128 * wg;
+    const int warp = t / 32, lane = t % 32;
+    // Accumulator layout of wgmma m64nN (f32): register j of a thread holds
+    // row r_lo (+8 when (j/2) is odd), column (j/4)*8 + col0 + (j%2).
+    const int row0 = q0 + 64 * me;
+    const int r_lo = row0 + 16 * warp + lane / 4;
+    const int r_hi = r_lo + 8;
+    const int col0 = 2 * (lane % 4);
+    const uint32_t q_addr = base + kSmemA + me * 64 * 128;
+    const uint32_t do_addr = base + kSmemB + me * 64 * 128;
+    auto masked = [&](int i) {   // the tile's masking is needed
+      return i * kNarrow + kNarrow > a.sk ||
+             (a.causal && i * kNarrow + kNarrow - 1 > row0);
+    };
+    auto live = [&](int kj, int qi) {
+      return kj < a.sk && (!a.causal || kj <= qi);
+    };
+
+    // D = rowsum(dO * O), O as the forward stored it, twice: the diagonal
+    // of dO.O^T, summed exactly as this kernel's dP = dO.V^T is, and of
+    // O.dO^T, summed as the dkv kernel's dP^T = V.dO^T is (written to the
+    // statistics). Where O_i is V_j (a row whose only live key is j), D_i
+    // then equals dP_ij bit for bit in each kernel and dS_ij is 0, as in
+    // the exact gradient. The diagonal (r, r) lies on one of row r's four
+    // threads: a quad sum of it and three zeros.
+    float s[32], dp[32];
+    float d_lo = 0.f, d_hi = 0.f, dkv_lo = 0.f, dkv_hi = 0.f;
+    const uint32_t o_addr = base + kSmemC + me * 64 * 128;
+    mbar_wait(bar_res, 0);
+    wgmma_fence();
+    issue_nt<kWideBox>(s, do_addr, o_addr);
+    issue_nt<kWideBox>(dp, o_addr, do_addr);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const bool hi = (j / 2) % 2;
+      if ((j / 4) * 8 + col0 + (j % 2) == 16 * warp + lane / 4 + 8 * hi) {
+        (hi ? d_hi : d_lo) = s[j];
+        (hi ? dkv_hi : dkv_lo) = dp[j];
+      }
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      d_lo += __shfl_xor_sync(0xffffffffu, d_lo, x);
+      d_hi += __shfl_xor_sync(0xffffffffu, d_hi, x);
+      dkv_lo += __shfl_xor_sync(0xffffffffu, dkv_lo, x);
+      dkv_hi += __shfl_xor_sync(0xffffffffu, dkv_hi, x);
+    }
+
+    // One walk over the key tiles, online as the forward's softmax: S =
+    // Q.K^T and dP = dO.V^T, the rows' running max m (of the scores times
+    // scale * log2 e; a row lives on 4 threads: its max by two quad
+    // shuffles) and sum l (per thread until the end), P~ = exp2(S c - m),
+    // dS~ = P~ (dP - D), and dQ~ += dS~.K, dQ~ rescaled by exp2(m_old - m)
+    // as m grows; at the end dQ = scale dQ~ / l. dS~ is dS times l
+    // exp2(m_final - m): the operand rounded to bf16 is dS up to a factor,
+    // with dS's own relative rounding error.
+    float m_lo = kProbeFixedMax ? 0.f : kNeg, m_hi = m_lo;
+    float l_lo = 0.f, l_hi = 0.f;
+    float acc[64];
+    uint32_t f[4][4];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      const uint32_t k_addr = base + kSmemRing + st * kStageBytes;
+      mbar_wait(bar_full + 8 * st, (i / kStages) & 1);
+      wgmma_fence();
+      issue_nt(s, q_addr, k_addr);
+      issue_nt(dp, do_addr, k_addr + kNarrowBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      if (masked(i)) {   // masked keys: s = -inf, so p = 0
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int kj = i * kNarrow + (j / 4) * 8 + col0 + (j % 2);
+          if (!live(kj, (j / 2) % 2 ? r_hi : r_lo)) s[j] = -INFINITY;
+        }
+      }
+      float corr_lo = 1.f, corr_hi = 1.f;
+      if (!kProbeFixedMax) {
+        float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          if ((j / 2) % 2) mx_hi = fmaxf(mx_hi, s[j]);
+          else mx_lo = fmaxf(mx_lo, s[j]);
+        }
+#pragma unroll
+        for (int x = 1; x <= 2; x <<= 1) {
+          mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, x));
+          mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, x));
+        }
+        const float mn_lo = fmaxf(m_lo, mx_lo * a.scale_log2);
+        const float mn_hi = fmaxf(m_hi, mx_hi * a.scale_log2);
+        corr_lo = exp2f(m_lo - mn_lo);
+        corr_hi = exp2f(m_hi - mn_hi);
+        m_lo = mn_lo;
+        m_hi = mn_hi;
+      }
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const bool hi = (j / 2) % 2;
+        const float p = exp2f(__fmaf_rn(s[j], a.scale_log2,
+                                        hi ? -m_hi : -m_lo));
+        if (hi) sum_hi += p;
+        else sum_lo += p;
+        dp[j] = p * (dp[j] - (hi ? d_hi : d_lo));
+      }
+      l_lo = __fmaf_rn(l_lo, corr_lo, sum_lo);
+      l_hi = __fmaf_rn(l_hi, corr_hi, sum_hi);
+      if (!kProbeFixedMax) {
+#pragma unroll
+        for (int j = 0; j < 64; ++j) acc[j] *= (j / 2) % 2 ? corr_hi : corr_lo;
+      }
+      pack(dp, f);
+      wgmma_fence();
+      issue_nn(acc, f, k_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(f);
+      mbar_arrive(bar_empty + 8 * st);
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, x);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
+    }
+    const float lse_lo = m_lo + log2f(l_lo), lse_hi = m_hi + log2f(l_hi);
+    // A row with no key (sk = 0) has acc = 0 and l = 0: dQ = 0.
+    const float inv_lo = a.scale / fmaxf(l_lo, 1e-30f);
+    const float inv_hi = a.scale / fmaxf(l_hi, 1e-30f);
+
+    __nv_bfloat16* dqb = a.dq + b * a.dq_b + h * a.dq_h;
+#pragma unroll
+    for (int j = 0; j < 64; j += 2) {
+      const bool hi = (j / 2) % 2;
+      const int qi = hi ? r_hi : r_lo;
+      if (qi >= a.sq) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dqb + qi * a.dq_s + (j / 4) * 8 +
+                                         col0) =
+          __float22bfloat162_rn(make_float2(acc[j] * (hi ? inv_hi : inv_lo),
+                                            acc[j + 1] * (hi ? inv_hi : inv_lo)));
+    }
+    if (lane % 4 == 0) {
+      float* lse = a.stats + static_cast<long long>(bh) * a.rows;
+      float* dsum = lse + static_cast<long long>(a.n_bh) * a.rows;
+      lse[r_lo] = r_lo < a.sq ? lse_lo : INFINITY;
+      lse[r_hi] = r_hi < a.sq ? lse_hi : INFINITY;
+      dsum[r_lo] = dkv_lo;
+      dsum[r_hi] = dkv_hi;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
+              const __grid_constant__ CUtensorMap vmap,   // 128-row boxes
+              const __grid_constant__ CUtensorMap qmap,   // 64-row boxes
+              const __grid_constant__ CUtensorMap domap,  // 64-row boxes
+              const Args a) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_res = base + kSmemBar;
+  const uint32_t bar_full = bar_res + 8;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const int bh = blockIdx.x;
+  const int b = bh / a.n_heads, h = bh % a.n_heads, kvh = h / a.group;
+  const int k0 = blockIdx.y * kWide;
+  // Causal: query rows below k0 see none of these keys.
+  const int t0 = a.causal ? k0 / kNarrow : 0;
+  const int n_qt = (a.sq + kNarrow - 1) / kNarrow;
+  init_bars(bar_res, bar_full, bar_empty);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      const float* lse = a.stats + static_cast<long long>(bh) * a.rows;
+      const float* dsum = lse + static_cast<long long>(a.n_bh) * a.rows;
+      mbar_expect_tx(bar_res, 2 * kWideBytes);
+      load_tile(base + kSmemA, kWideBox, &kmap, bar_res, k0, kvh, b);
+      load_tile(base + kSmemB, kWideBox, &vmap, bar_res, k0, kvh, b);
+      for (int qt = t0; qt < n_qt; ++qt) {
+        const int e = qt - t0, s = e % kStages;
+        const uint32_t dst = base + kSmemRing + s * kStageBytes;
+        const uint32_t sdst = base + kSmemC + s * kStatBytes;
+        const uint32_t full = bar_full + 8 * s;
+        mbar_wait(bar_empty + 8 * s, ((e / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, kStageBytes + kStatBytes);
+        load_tile(dst, kNarrowBox, &qmap, full, qt * kNarrow, h, b);
+        load_tile(dst + kNarrowBytes, kNarrowBox, &domap, full, qt * kNarrow,
+                  h, b);
+        bulk_load(sdst, lse + qt * kNarrow, kStatBytes / 2, full);
+        bulk_load(sdst + kStatBytes / 2, dsum + qt * kNarrow, kStatBytes / 2,
+                  full);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int me = wg - 1;
+    const int t = threadIdx.x - 128 * wg;
+    const int warp = t / 32, lane = t % 32;
+    // Accumulator rows are keys, columns queries (S^T).
+    const int key0 = k0 + 64 * me;
+    const int kr_lo = key0 + 16 * warp + lane / 4;
+    const int kr_hi = kr_lo + 8;
+    const int col0 = 2 * (lane % 4);
+    const uint32_t k_addr = base + kSmemA + me * 64 * 128;
+    const uint32_t v_addr = base + kSmemB + me * 64 * 128;
+    const float* stats_smem = reinterpret_cast<const float*>(
+        smem_raw + (base - smem_u32(smem_raw)) + kSmemC);
+
+    float s[32], dp[32], dk[64], dv[64];
+    uint32_t pf[4][4], sf[4][4];
+#pragma unroll
+    for (int j = 0; j < 64; ++j) dk[j] = dv[j] = 0.f;
+    mbar_wait(bar_res, 0);
+    for (int qt = t0; qt < n_qt; ++qt) {
+      const int e = qt - t0, st = e % kStages;
+      const uint32_t q_addr = base + kSmemRing + st * kStageBytes;
+      const uint32_t do_addr = q_addr + kNarrowBytes;
+      const float* lse = stats_smem + st * (kStatBytes / 4);
+      const float* dsum = lse + kNarrow;
+      mbar_wait(bar_full + 8 * st, (e / kStages) & 1);
+      wgmma_fence();
+      issue_nt(s, k_addr, q_addr);      // S^T = K.Q^T
+      issue_nt(dp, v_addr, do_addr);    // dP^T = V.dO^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // Rows past sq have lse = +inf: p = 0 without a mask.
+      const bool mask = a.causal && key0 + 63 > qt * kNarrow;
+#pragma unroll
+      for (int g = 0; g < 8; ++g) {   // query columns 8g + col0 + (0, 1)
+        const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * g + col0);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(dsum + 8 * g + col0);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = 4 * g + u;
+          const float row_lse = u % 2 ? l2.y : l2.x;
+          const float row_d = u % 2 ? d2.y : d2.x;
+          float p = exp2f(__fmaf_rn(s[j], a.scale_log2, -row_lse));
+          if (mask && (u / 2 ? kr_hi : kr_lo) >
+                          qt * kNarrow + 8 * g + col0 + u % 2)
+            p = 0.f;
+          s[j] = p;
+          dp[j] = p * (dp[j] - row_d);   // dS^T
+        }
+      }
+      pack(s, pf);
+      pack(dp, sf);
+      wgmma_fence();
+      issue_nn(dv, pf, do_addr);
+      issue_nn(dk, sf, q_addr);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pf);
+      fence_regs(sf);
+      mbar_arrive(bar_empty + 8 * st);
+    }
+
+    // Partials of this query head: (2, B*H, SK, 128) f32, keys < sk.
+    float* out = a.part + static_cast<long long>(bh) * a.sk * 128;
+    const long long half = static_cast<long long>(a.n_bh) * a.sk * 128;
+#pragma unroll
+    for (int j = 0; j < 64; j += 2) {
+      const int kr = (j / 2) % 2 ? kr_hi : kr_lo;
+      if (kr >= a.sk) continue;
+      const long long at = static_cast<long long>(kr) * 128 + (j / 4) * 8 +
+                           col0;
+      *reinterpret_cast<float2*>(out + at) =
+          make_float2(dk[j] * a.scale, dk[j + 1] * a.scale);
+      *reinterpret_cast<float2*>(out + half + at) =
+          make_float2(dv[j], dv[j + 1]);
+    }
+  }
+}
+
+// dK, dV of each kv head: its G query heads' partials summed in head
+// order, rounded once to bf16; 4 head dims a thread.
+__global__ void reduce_tc_kernel(const float* __restrict__ part,
+                                 __nv_bfloat16* dk, __nv_bfloat16* dv,
+                                 long long dk_b, long long dk_h,
+                                 long long dk_s, long long dv_b,
+                                 long long dv_h, long long dv_s, int batch,
+                                 int n_heads, int n_kv, int sk) {
+  const int g = n_heads / n_kv;
+  const long long n = static_cast<long long>(batch) * n_kv * sk * 32;
+  const long long half = static_cast<long long>(batch) * n_heads * sk * 128;
+  const long long head = static_cast<long long>(sk) * 128;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int d = static_cast<int>(i % 32) * 4;
+    const long long row = i / 32;
+    const int c = static_cast<int>(row % sk);
+    const int bkv = static_cast<int>(row / sk);
+    const int b = bkv / n_kv, kvh = bkv % n_kv;
+    const float* src = part +
+        ((static_cast<long long>(b) * n_heads + kvh * g) * sk + c) * 128 + d;
+    float4 sk4 = make_float4(0.f, 0.f, 0.f, 0.f), sv4 = sk4;
+    for (int j = 0; j < g; ++j) {
+      const float4 x = *reinterpret_cast<const float4*>(src + j * head);
+      const float4 y = *reinterpret_cast<const float4*>(src + half + j * head);
+      sk4 = make_float4(sk4.x + x.x, sk4.y + x.y, sk4.z + x.z, sk4.w + x.w);
+      sv4 = make_float4(sv4.x + y.x, sv4.y + y.y, sv4.z + y.z, sv4.w + y.w);
+    }
+    __nv_bfloat162* pk = reinterpret_cast<__nv_bfloat162*>(
+        dk + b * dk_b + kvh * dk_h + c * dk_s + d);
+    __nv_bfloat162* pv = reinterpret_cast<__nv_bfloat162*>(
+        dv + b * dv_b + kvh * dv_h + c * dv_s + d);
+    pk[0] = __float22bfloat162_rn(make_float2(sk4.x, sk4.y));
+    pk[1] = __float22bfloat162_rn(make_float2(sk4.z, sk4.w));
+    pv[0] = __float22bfloat162_rn(make_float2(sv4.x, sv4.y));
+    pv[1] = __float22bfloat162_rn(make_float2(sv4.z, sv4.w));
+  }
+}
+
+}  // namespace
+
+// bf16 q, o, dout, dq (B,H,SQ,128) and k, v, dk, dv (B,KV,SK,128) through
+// element strides st[3 t .. 3 t + 2] = {b, head, s} for t = q, k, v, o,
+// dout, dq, dk, dv; the head dim contiguous; base addresses 16-byte
+// aligned and the strides of q, k, v, o and dout multiples of 8 elements
+// (TMA's and the 16-byte loads' 16 bytes). H is a multiple of KV. Scratch:
+// stats (2, B*H, stats_rows) with stats_rows >= SQ rounded up to 128, and
+// part (2, B*H, SK, 128), f32. Returns a CUDA error code
+// (cudaErrorInvalidValue when a tensor map cannot describe an operand or
+// stats_rows is short).
+MOBY_API int moby_flash_attention_bwd_tc(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, void* stats, void* part,
+    const long long* st, int batch, int n_heads, int n_kv_heads, int sq,
+    int sk, int stats_rows, int causal, float scale, void* stream) {
+  if (batch * n_heads == 0 || (sq == 0 && sk == 0)) return 0;
+  const int n_qt = (sq + kWide - 1) / kWide, n_kt = (sk + kWide - 1) / kWide;
+  if (stats_rows < n_qt * kWide) return static_cast<int>(cudaErrorInvalidValue);
+  // An empty operand's map is never read: it is built over the other
+  // side's storage, so the encoder sees a real address.
+  const void* qs = sq ? q : k;
+  const void* dos = sq ? dout : k;
+  const void* ks = sk ? k : q;
+  const void* vs = sk ? v : q;
+  CUtensorMap q_wide, do_wide, o_wide, k_narrow, v_narrow;  // dq kernel
+  CUtensorMap k_wide, v_wide, q_narrow, do_narrow;          // dkv kernel
+  int err = make_map(&q_wide, qs, sq, n_heads, batch, st, kWide);
+  if (!err) err = make_map(&do_wide, dos, sq, n_heads, batch, st + 12, kWide);
+  if (!err) err = make_map(&o_wide, sq ? o : k, sq, n_heads, batch, st + 9,
+                           kWide);
+  if (!err) err = make_map(&q_narrow, qs, sq, n_heads, batch, st, kNarrow);
+  if (!err)
+    err = make_map(&do_narrow, dos, sq, n_heads, batch, st + 12, kNarrow);
+  if (!err) err = make_map(&k_wide, ks, sk, n_kv_heads, batch, st + 3, kWide);
+  if (!err) err = make_map(&v_wide, vs, sk, n_kv_heads, batch, st + 6, kWide);
+  if (!err)
+    err = make_map(&k_narrow, ks, sk, n_kv_heads, batch, st + 3, kNarrow);
+  if (!err)
+    err = make_map(&v_narrow, vs, sk, n_kv_heads, batch, st + 6, kNarrow);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      dq_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dkv_tc_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Args a{static_cast<__nv_bfloat16*>(dq), static_cast<float*>(stats),
+               static_cast<float*>(part), st[15], st[16], st[17],
+               batch * n_heads, n_heads, n_heads / n_kv_heads, sq, sk,
+               stats_rows, causal, scale, scale * kLog2e};
+  const auto s = static_cast<cudaStream_t>(stream);
+  // No keys: dQ is 0 (no key tile); no queries: dK and dV are 0 (no query
+  // tile reaches a key tile).
+  if (sq) {
+    dq_tc_kernel<<<dim3(batch * n_heads, n_qt), kThreads, kSmemBytes, s>>>(
+        q_wide, do_wide, o_wide, k_narrow, v_narrow, a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (!sk) return 0;
+  dkv_tc_kernel<<<dim3(batch * n_heads, n_kt), kThreads, kSmemBytes, s>>>(
+      k_wide, v_wide, q_narrow, do_narrow, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long groups =
+      static_cast<long long>(batch) * n_kv_heads * sk * 32 / kMobyThreads + 1;
+  const int blocks = static_cast<int>(
+      groups < 132 * kMobyBlocksPerSm ? groups : 132 * kMobyBlocksPerSm);
+  reduce_tc_kernel<<<blocks, kMobyThreads, 0, s>>>(
+      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), st[18], st[19], st[20], st[21],
+      st[22], st[23], batch, n_heads, n_kv_heads, sk);
+  return static_cast<int>(cudaGetLastError());
+}

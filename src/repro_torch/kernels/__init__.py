@@ -14,6 +14,9 @@ kernel                  source                           replaces (TPU, Pallas)
 ``flash_attention_tc``  ``csrc/flash_attention_tc.cu``   ``repro/kernels/flash_attention``
                                                          (bf16 at hd 128, tensor cores)
 ``flash_attention_bwd`` ``csrc/flash_attention_bwd.cu``  its VJP, ``repro/ops/api.py``
+                                                         (f32; bf16 at hd 16, 32, 64)
+``flash_attention_bwd_tc`` ``csrc/flash_attention_bwd_tc.cu`` its VJP, ``repro/ops/api.py``
+                                                         (bf16 at hd 128, tensor cores)
 ``decode_attention``    ``csrc/decode_attention.cu``     ``repro/kernels/decode_attention``
 ``decode_attention_bwd`` ``csrc/decode_attention_bwd.cu`` its VJP, ``repro/ops/api.py``
 ``pillar_scatter``      ``csrc/pillar_scatter.cu``       ``repro/kernels/pillar_scatter``
@@ -29,7 +32,8 @@ raised by one per kernel launch and nowhere else, so a run can show that
 its main path went through the kernels. ``point_proj`` has two
 instances of one kernel, one counter each (``point_proj.ops.point_proj``
 and ``project_and_label``). ``flash_attention`` has two kernels, one
-counter each; ``flash_attention.ops.route`` picks one. So has the auction
+counter each; ``flash_attention.ops.route`` picks one, for the forward
+and for the gradient alike. So has the auction
 (``auction.ops.plan`` picks by n).
 """
 from __future__ import annotations
@@ -54,6 +58,7 @@ _COUNTERS: Dict[str, Tuple[ModuleType, str]] = {
     "flash_attention": (_flash_attention, "launches"),
     "flash_attention_tc": (_flash_attention, "tc_launches"),
     "flash_attention_bwd": (_flash_attention, "bwd_launches"),
+    "flash_attention_bwd_tc": (_flash_attention, "bwd_tc_launches"),
     "decode_attention": (_decode_attention, "launches"),
     "decode_attention_bwd": (_decode_attention, "bwd_launches"),
     "pillar_scatter": (_pillar_scatter, "launches"),

@@ -33,10 +33,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("errors.cu", "point_proj.cu", "iou2d.cu", "ransac_score.cu",
            "flash_attention.cu", "flash_attention_tc.cu",
-           "flash_attention_bwd.cu", "decode_attention.cu",
+           "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu",
+           "decode_attention.cu",
            "decode_attention_bwd.cu",
            "pillar_scatter.cu", "auction.cu")
-HEADERS = ("moby_kernels.cuh",)
+HEADERS = ("moby_kernels.cuh", "hopper.cuh")
 # Where the CUDA toolkit installs nvcc when it is not on PATH.
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -65,6 +66,9 @@ SIGNATURES = {
     "moby_flash_attention_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _P), _I),
+    "moby_flash_attention_bwd_tc": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _I, _I, _I, _I, _I, _I, _I,
+                                     ctypes.c_float, _P), _I),
     "moby_decode_attention_chunk": ((), _I),
     "moby_decode_attention": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, ctypes.c_float, _P), _I),

@@ -20,11 +20,13 @@ kernels copy their operands by 16-byte units (TMA, cp.async), which need
 16-byte aligned base addresses and strides: the wrapper checks both and
 raises, it never copies.
 
-The gradient (``flash_attention_bwd``) is a third kernel,
-``csrc/flash_attention_bwd.cu`` (SIMT f32, both dtypes and every head
-dim the forward takes; ``bwd_launches`` counts its launches); a CPU tensor
-goes to ``ref.flash_attention_bwd_ref``. :class:`FlashAttention` ties the
-two directions into one differentiable op.
+The gradient (``flash_attention_bwd``) has two kernels too, picked by
+the same ``route``: ``"tc"`` runs ``csrc/flash_attention_bwd_tc.cu``
+(bf16 products on the tensor cores, wgmma fed by TMA, P and dS rounded to
+bf16 as operands of their products; ``bwd_tc_launches``), ``"tf32x3"``
+runs ``csrc/flash_attention_bwd.cu`` (SIMT f32; ``bwd_launches``). A CPU
+tensor goes to ``ref.flash_attention_bwd_ref``. :class:`FlashAttention`
+ties the two directions into one differentiable op.
 """
 from __future__ import annotations
 
@@ -35,13 +37,17 @@ import torch
 from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.flash_attention import ref as _ref
 
-launches = 0      # the 3xTF32 kernel
-tc_launches = 0   # the tensor-core kernel
-bwd_launches = 0  # the gradient kernel
+launches = 0         # the 3xTF32 kernel
+tc_launches = 0      # the tensor-core kernel
+bwd_launches = 0     # the SIMT gradient kernel (the "tf32x3" route's)
+bwd_tc_launches = 0  # the tensor-core gradient kernel (the "tc" route's)
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 TC_HEAD_DIMS = (128,)
+# The tensor-core gradient keeps its rows' statistics for SQ rounded up to
+# a multiple of this (its query tile).
+TC_BWD_ROWS = 128
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -122,21 +128,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _check_tma(name: str, t: torch.Tensor) -> None:
+    """TMA's own limits on a tensor map over ``t`` (the tensor-core
+    gradient's operands): byte strides below 2^40, sizes below 2^32."""
+    if any(s * t.element_size() >= 2 ** 40 for s in t.stride()[:3]) or \
+            any(n >= 2 ** 32 for n in t.shape):
+        raise ValueError(f"flash_attention_bwd: {name} (shape "
+                         f"{tuple(t.shape)}, strides {t.stride()}) is beyond "
+                         f"what a TMA tensor map describes (byte strides "
+                         f"< 2^40, sizes < 2^32)")
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
                         causal: bool = True):
     """The gradient of :func:`flash_attention`: (dq, dk, dv) for the output
     cotangent ``do`` (B, H, SQ, hd), given the forward's output ``o``.
 
-    On the card one launch of ``csrc/flash_attention_bwd.cu`` for every
-    dtype and head dim the forward takes (its rows' statistics are
-    recomputed, not saved by the forward). All five inputs are read
-    through their strides (the head dim contiguous, 16-byte aligned);
-    dq is a (B, H, SQ, hd) view of (B, SQ, H, hd) storage and dk, dv
-    (B, KV, SK, hd) views of (B, SK, KV, hd) storage, the layouts the
-    model's projections continue in.
+    On the card one call of the kernel that ``route`` picks (each
+    recomputes its rows' statistics, which the forward does not save):
+    ``csrc/flash_attention_bwd_tc.cu`` for bf16 at hd 128,
+    ``csrc/flash_attention_bwd.cu`` for every other dtype and head dim the
+    forward takes. All five inputs are read through their strides (the
+    head dim contiguous, 16-byte aligned); dq is a (B, H, SQ, hd) view of
+    (B, SQ, H, hd) storage and dk, dv (B, KV, SK, hd) views of (B, SK, KV,
+    hd) storage, the layouts the model's projections continue in.
     """
-    global bwd_launches
+    global bwd_launches, bwd_tc_launches
     if _launch.dispatch_device("flash_attention_bwd", q) == "cpu":
         return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
     b, h, sq, hd = q.shape
@@ -146,27 +164,42 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            ("do", do, (b, h, sq, hd))):
         _launch.check_cuda("flash_attention_bwd", name, t, q.dtype, shape,
                            q.device, strided=True)
-    route(q.dtype, hd)    # the forward's dtypes and head dims, or raise
+    path = route(q.dtype, hd)
     _check_heads(b, h, kv)
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        _check_aligned(name, t, "backward")
+        _check_aligned(name, t, f"{path} backward")
+        if path == "tc":
+            _check_tma(name, t)
     dev, dt = q.device, q.dtype
     dq = torch.empty((b, sq, h, hd), dtype=dt, device=dev).transpose(1, 2)
     dk = torch.empty((b, sk, kv, hd), dtype=dt, device=dev).transpose(1, 2)
     dv = torch.empty((b, sk, kv, hd), dtype=dt, device=dev).transpose(1, 2)
-    stats = torch.empty((3, b * h, sq), dtype=torch.float32, device=dev)
     part = torch.empty((2, b * h, sk, hd), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv))
+    lib = _build.load()
     with torch.cuda.device(dev):
-        code = _build.load().moby_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats.data_ptr(), part.data_ptr(), strides, b, h, kv, sq, sk, hd,
-            int(causal), int(dt == torch.bfloat16), hd ** -0.5,
-            _launch.stream_handle(dev))
-    _build.check(code, "flash_attention_bwd")
-    bwd_launches += 1
+        if path == "tc":
+            rows = -(-sq // TC_BWD_ROWS) * TC_BWD_ROWS
+            stats = torch.empty((2, b * h, rows), dtype=torch.float32,
+                                device=dev)
+            code = lib.moby_flash_attention_bwd_tc(
+                *ptrs, stats.data_ptr(), part.data_ptr(), strides, b, h, kv,
+                sq, sk, rows, int(causal), hd ** -0.5,
+                _launch.stream_handle(dev))
+        else:
+            stats = torch.empty((3, b * h, sq), dtype=torch.float32,
+                                device=dev)
+            code = lib.moby_flash_attention_bwd(
+                *ptrs, stats.data_ptr(), part.data_ptr(), strides, b, h, kv,
+                sq, sk, hd, int(causal), int(dt == torch.bfloat16),
+                hd ** -0.5, _launch.stream_handle(dev))
+    _build.check(code, f"flash_attention_bwd ({path})")
+    if path == "tc":
+        bwd_tc_launches += 1
+    else:
+        bwd_launches += 1
     return dq, dk, dv
 
 

@@ -244,6 +244,7 @@ def test_cpu_tensors_never_launch_a_kernel():
                                        "flash_attention": 0,
                                        "flash_attention_tc": 0,
                                        "flash_attention_bwd": 0,
+                                       "flash_attention_bwd_tc": 0,
                                        "decode_attention": 0,
                                        "decode_attention_bwd": 0,
                                        "pillar_scatter": 0,

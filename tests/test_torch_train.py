@@ -94,11 +94,13 @@ def _pair(a: np.ndarray, dtype: str):
 
 # (B, H, KV, SQ, SK, hd), causal: GQA, MQA and MHA; SQ past one 512-row
 # query chunk of the JAX reference and not a multiple of it; keys longer
-# than queries (non-causal).
+# than queries (non-causal); head dim 128 (in bf16 the tensor-core route's
+# inputs on the card), ragged past a 128-row tile.
 FLASH_BWD_CASES = [((1, 4, 2, 600, 600, 32), True),
                    ((2, 8, 2, 77, 77, 16), False),
                    ((1, 4, 1, 130, 130, 64), True),
-                   ((1, 2, 2, 96, 700, 32), False)]
+                   ((1, 2, 2, 96, 700, 32), False),
+                   ((1, 4, 2, 130, 130, 128), True)]
 
 
 def _jax_flash_vjp(q, k, v, do, causal):
@@ -229,27 +231,89 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("fault", ["flash_key_tile", "flash_kv_head",
-                                   "decode_chunk"])
-def test_bwd_card_check_rejects_planted_faults(fault):
-    """``chip_smoke.py``'s bf16 check of the backward kernels (each value
-    within half a bf16 ulp + 2e-5 rel + 1e-6 of the plain gradient's f32
-    result; the kernels sum in f32 and round once) passes the plain result
-    rounded to bf16 and fails one with a 64-key tile of dK and dV left
-    unwritten (zero), dK of one kv head swapped with its neighbour's, or
-    decode's last live 256-position chunk of the cache cotangents left
-    out."""
-    cs = _chip_smoke()
-    g = torch.Generator().manual_seed(1)
+def _bwd_f64(q, k, v, o, do, live, rounded=False):
+    """The plain gradient written out in float64 with an explicit (SQ, SK)
+    mask of live (query, key) pairs; with ``rounded``, P and dS rounded to
+    bf16 (from f32, to nearest even) as the operands of dV = P^T dO,
+    dK = scale dS^T Q and dQ = scale dS K, as the tensor-core kernel
+    (``csrc/flash_attention_bwd_tc.cu``) rounds them. Outputs in bf16."""
+    b, h, sq, hd = q.shape
+    kv = k.shape[1]
+    g = h // kv
+    qg, og, dog = (t.double().reshape(b, kv, g, sq, hd) for t in (q, o, do))
+    k64, v64 = k.double(), v.double()
+    s = torch.einsum("bkgqh,bksh->bkgqs", qg, k64) * hd ** -0.5
+    s = torch.where(live, s, fa_ref.NEG)
+    p = torch.where(live, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    a = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    dp = torch.einsum("bkgqh,bksh->bkgqs", dog, v64)
+    ds = a * (dp - (dog * og).sum(-1, keepdim=True))
+    if rounded:
+        a, ds = (x.float().bfloat16().double() for x in (a, ds))
+    dv = torch.einsum("bkgqs,bkgqh->bksh", a, dog)
+    dq = torch.einsum("bkgqs,bksh->bkgqh", ds, k64) * hd ** -0.5
+    dk = torch.einsum("bkgqs,bkgqh->bksh", ds, qg) * hd ** -0.5
+    return (dq.reshape(b, h, sq, hd).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
+
+
+def _bf16_inputs(b, h, kv, sq, sk, hd, seed):
+    """Normal q, k, v, do rounded to bf16 (held in f32) and the plain
+    forward's output rounded to bf16, causal."""
+    g = torch.Generator().manual_seed(seed)
 
     def randn(*shape):
         return torch.randn(*shape, generator=g).bfloat16().float()
+    q, k, v, do = randn(b, h, sq, hd), randn(b, kv, sk, hd), \
+        randn(b, kv, sk, hd), randn(b, h, sq, hd)
+    o = fa_ref.flash_attention_ref(q, k, v, True).bfloat16().float()
+    return q, k, v, o, do
+
+
+def test_tc_bwd_rounding_model_holds_to_the_allowance():
+    """A CPU model of the tensor-core gradient's rounding (the plain
+    gradient with P and dS rounded to bf16 before their three products, at
+    LM T's head dim and GQA, S 1024, causal) passes ``chip_smoke.py``'s
+    bf16 check with the tensor-core route's allowance (``P_ROUNDING`` x
+    ``bwd_rounding_terms``), and fails the SIMT route's check without it:
+    the allowance is what the rounding needs."""
+    cs = _chip_smoke()
+    ins = _bf16_inputs(1, 4, 2, 1024, 1024, 128, 2)
+    live = torch.ones(1024, 1024, dtype=torch.bool).tril()
+    want = fa_ref.flash_attention_bwd_ref(*(t.double() for t in ins), True)
+    got = _bwd_f64(*ins, live, rounded=True)
+    terms = cs.bwd_rounding_terms(torch, *ins, True)
+    _, _, worst = cs.grads_close(torch, got, want, "P/dS rounded", terms)
+    assert worst <= 0.75
+    with pytest.raises(SystemExit):
+        cs.grads_close(torch, got, want, "P/dS rounded, no allowance")
+
+
+@pytest.mark.parametrize("fault", ["flash_key_tile", "flash_kv_head",
+                                   "flash_diagonal_mask", "decode_chunk"])
+def test_bwd_card_check_rejects_planted_faults(fault):
+    """``chip_smoke.py``'s bf16 check of the backward kernels (each value
+    within half a bf16 ulp + 2e-5 rel + 1e-6 of the plain gradient, here
+    computed in float64 for flash attention and in f32 for decode; the
+    SIMT kernels sum in f32 and round once) passes the plain result
+    rounded to bf16 and fails one with a 64-key tile of dK
+    and dV left unwritten (zero), dK of one kv head swapped with its
+    neighbour's, the causal mask dropped on the 64x64 diagonal tiles, or
+    decode's last live 256-position chunk of the cache cotangents left
+    out. The flash faults fail the tensor-core route's check too, which
+    adds its allowance for P and dS rounded to bf16."""
+    cs = _chip_smoke()
+    terms = None
     if fault.startswith("flash"):
-        q, k, v, do = randn(1, 4, 256, 128), randn(1, 2, 256, 128), \
-            randn(1, 2, 256, 128), randn(1, 4, 256, 128)
-        o = fa_ref.flash_attention_ref(q, k, v, True).bfloat16().float()
-        want = fa_ref.flash_attention_bwd_ref(q, k, v, o, do, True)
+        ins = _bf16_inputs(1, 4, 2, 256, 256, 128, 1)
+        want = fa_ref.flash_attention_bwd_ref(*(t.double() for t in ins),
+                                              True)
+        terms = cs.bwd_rounding_terms(torch, *ins, True)
     else:
+        g = torch.Generator().manual_seed(1)
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=g).bfloat16().float()
         q, ck, cv, do = randn(4, 8, 64), randn(4, 2, 2048, 64), \
             randn(4, 2, 2048, 64), randn(4, 8, 64)
         pos = torch.tensor([700, 1500, 2048, 300], dtype=torch.int32)
@@ -263,6 +327,11 @@ def test_bwd_card_check_rejects_planted_faults(fault):
         bad[2][:, :, 64:128] = 0
     elif fault == "flash_kv_head":
         bad[1] = bad[1].flip(1)
+    elif fault == "flash_diagonal_mask":
+        idx = torch.arange(256)
+        live = (idx[:, None] >= idx[None, :]) | \
+            (idx[:, None] // 64 == idx[None, :] // 64)
+        bad = list(_bwd_f64(*ins, live))
     else:
         for i, p in enumerate(pos.tolist()):
             c0 = (p - 1) // 256 * 256
@@ -270,14 +339,82 @@ def test_bwd_card_check_rejects_planted_faults(fault):
             bad[2][i, :, c0:p] = 0
     with pytest.raises(SystemExit):
         cs.grads_close(torch, bad, want, f"planted {fault}")
+    if terms is not None:
+        with pytest.raises(SystemExit):
+            cs.grads_close(torch, bad, want, f"planted {fault}, tc", terms)
+
+
+def test_flash_bwd_routes_like_the_forward(monkeypatch):
+    """On the card ``flash_attention_bwd`` launches the kernel of
+    ``route``: bf16 at hd 128 the tensor-core one
+    (``moby_flash_attention_bwd_tc``, counter ``flash_attention_bwd_tc``),
+    every other dtype and head dim the SIMT one (``flash_attention_bwd``);
+    unsupported dtypes and head dims, and operands beyond a TMA tensor map
+    on the tensor-core route, raise before any launch. Here the library is
+    a stand-in that records the entry point called (the CPU has no card);
+    each call advances exactly its route's counter."""
+    import contextlib
+    from repro_torch.kernels import _build, _launch
+    called = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                called.append(name)
+                return 0
+            return entry
+    monkeypatch.setattr(_launch, "dispatch_device", lambda kernel, t: "cuda")
+    monkeypatch.setattr(_launch, "check_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(_launch, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+
+    def call(dtype, hd, sq=77, k=None):
+        q = torch.zeros(1, 4, sq, hd, dtype=dtype)
+        if k is None:
+            k = torch.zeros(1, 2, sq, hd, dtype=dtype)
+        return fa_ops.flash_attention_bwd(q, k, k, q, q, True)
+    cases = [(torch.bfloat16, 128, "tc")] + [
+        (dt, hd, "tf32x3") for dt, hd in
+        ((torch.float32, 128), (torch.bfloat16, 64), (torch.bfloat16, 16),
+         (torch.float32, 32))]
+    for dtype, hd, path in cases:
+        kernels.reset_launch_counts()
+        dq, dk, dv = call(dtype, hd)
+        counts = kernels.launch_counts()
+        tc = path == "tc"
+        assert called[-1] == ("moby_flash_attention_bwd_tc" if tc
+                              else "moby_flash_attention_bwd")
+        assert counts["flash_attention_bwd_tc"] == int(tc)
+        assert counts["flash_attention_bwd"] == int(not tc)
+        assert sum(counts.values()) == 1
+        assert dq.shape == (1, 4, 77, hd) and dk.shape == (1, 2, 77, hd)
+        assert dq.transpose(1, 2).is_contiguous()
+        assert dk.transpose(1, 2).is_contiguous()
+    n = len(called)
+    kernels.reset_launch_counts()
+    with pytest.raises(TypeError, match="dtype"):
+        call(torch.float16, 128)
+    with pytest.raises(ValueError, match="head dim"):
+        call(torch.bfloat16, 96)
+    # Batch and kv-head strides of 2^41 bytes (both dimensions have size 1,
+    # so the storage is small): a TMA tensor map cannot describe them.
+    far = torch.zeros(128, dtype=torch.bfloat16).as_strided(
+        (1, 1, 1, 128), (2 ** 40, 2 ** 40, 128, 1))
+    with pytest.raises(ValueError, match="TMA"):
+        call(torch.bfloat16, 128, sq=1, k=far)
+    assert len(called) == n and sum(kernels.launch_counts().values()) == 0
 
 
 @pytest.mark.cuda
 def test_backward_kernels_match_plain_on_card():
     """F3 on the card: both differentiable ops launch their backward
-    kernels (counters advance), give q, k and v their gradients, and the
-    kernels agree with the plain gradients (f32 at 2e-5 of the scale, bf16
-    within chip_smoke's half-ulp check)."""
+    kernels (the route's counter advances), give q, k and v their
+    gradients, and the kernels agree with the plain gradients (f32 at 2e-5
+    of the scale, bf16 within chip_smoke's half-ulp check of the float64
+    gradient, plus its P/dS rounding allowance on the tensor-core
+    route)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run python3 chip_smoke.py there)")
     dev = torch.device("cuda")
@@ -286,15 +423,19 @@ def test_backward_kernels_match_plain_on_card():
         for shape, causal in FLASH_BWD_CASES:
             ins = [t.to(dev) for _, t in _flash_bwd_inputs(shape, dtype)]
             q, k, v = (t.requires_grad_() for t in ins[:3])
-            before = fa_ops.bwd_launches
+            tc = fa_ops.route(TDT[dtype], shape[-1]) == "tc"
+            counter = "bwd_tc_launches" if tc else "bwd_launches"
+            before = getattr(fa_ops, counter)
             out = ops.flash_attention(q, k, v, causal)
             out.backward(ins[3])
-            assert fa_ops.bwd_launches == before + 1
-            want = fa_ref.flash_attention_bwd_ref(
-                *(t.detach().float() for t in (q, k, v, out, ins[3])),
-                causal)
+            assert getattr(fa_ops, counter) == before + 1
+            wide = torch.float32 if dtype == "float32" else torch.float64
+            args = [t.detach().to(wide) for t in (q, k, v, out, ins[3])]
+            want = fa_ref.flash_attention_bwd_ref(*args, causal)
+            terms = cs.bwd_rounding_terms(torch, *args, causal) if tc \
+                else None
             cs.grads_close(torch, (q.grad, k.grad, v.grad), want,
-                           f"flash {shape} {dtype}")
+                           f"flash {shape} {dtype}", terms)
         for b, h, kv, s, hd in DECODE_BWD_CASES:
             rng = np.random.default_rng(s)
             q, ck, cv, do = (torch.from_numpy(rng.normal(size=sh).astype(
