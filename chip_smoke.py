@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) serves
-Moby (one stream and a fleet), serves and trains the dense LMs, and serves
-and trains the PointPillars detector on an NVIDIA H100.
+Moby (one stream and a fleet), serves and trains the dense LMs, serves the
+moe family (moonshot-v1-16b-a3b), and serves and trains the PointPillars
+detector on an NVIDIA H100.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels flash_attention,pillar_scatter
@@ -50,8 +51,10 @@ fatal on failure:
    once per route (``flash_attention``: the 3xTF32 kernel, f32 and bf16
    at hd 16-64, timed at LM B's shape and, in f32, at LM C's prefill
    shape; ``flash_attention_tc``: the bf16 tensor-core kernel, hd 128,
-   timed at LM C's prefill shape), then timed with CUDA events after a
-   warm-up:
+   timed at LM C's prefill shape and at MoE C's, where moonshot's 16 query
+   heads have a kv head each; decode attention timed at LM C's decode
+   shape and at MoE C's, G = 1 too; both also at G = 1 on small ragged
+   cases), then timed with CUDA events after a warm-up:
    device time per call from replays of a CUDA graph of up to 50 calls
    (median of 20), and the eager per-call time; the attention kernels'
    plain versions eagerly (a few calls: the flash one holds a 4.3 GB score
@@ -174,6 +177,25 @@ fatal on failure:
    3xTF32 route none, decode 36 per step); ms per prefill and
    per step, decode tokens/s, peak device memory, and a torch.profiler
    window over 4 decode steps;
+10b. MoE A, the card against JAX: moonshot-v1-16b-a3b SMOKE in f32 with
+   the weights of ``tests/goldens/lm_moonshot_v1_16b_a3b_smoke.npz``,
+   prefill and four decode steps within 1e-5 of the golden's logits;
+10c. MoE B, the card against the port's CPU run at full width: moonshot
+   with 2 of its 48 layers (the dense first layer and one MoE layer) in
+   f32, attention weights rescaled as LM B's, prefill at B=2, S=256 and
+   four decode steps, logits within 1e-4, every token routed to the same
+   experts on both (the smallest gap between a token's k-th and (k+1)-th
+   router probability printed); launches of A and B checked (the 3xTF32
+   flash route and decode attention, one a layer);
+10d. MoE C, serving moonshot at full width in bf16 (seeded random weights)
+   at 12 of its 48 layers (1 dense + 11 MoE, what one card holds beside
+   LM C's KV cache) with LM C's traffic: prefill at B=1, S=8192 (median
+   of 3 after a warm-up; its routing's expert loads and drops printed)
+   and 32 greedy decode steps at B=16 over a 32,768-position cache,
+   launches checked (the tensor-core flash route 12 a prefill, decode 12
+   a step, the rest 0), one step under sync debug mode "error" (no
+   synchronising call), ms per prefill and per step, tokens/s, peak
+   memory, and torch.profiler windows over a prefill and 4 steps;
 11. LM T, training qwen2.5-3B on the card: gradients reach q, k, v and
    the caches through the backward kernels (bf16 flash on the tensor-core
    route, f32 on the SIMT one, decode; each counter up by one, the same
@@ -280,6 +302,17 @@ T_BATCH, T_SEQ, T_STEPS = 1, 4096, 4
 # forward (tensor-core route) and the three launches of its gradient.
 T_PROFILED = ("flash_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel",
               "reduce_tc_kernel")
+
+# The moe family: moonshot-v1-16b-a3b at full width (64 routed experts,
+# top-6, 2 shared, a dense first layer; MHA at hd 128, so K5 `tc` and K6 run
+# at one query head a kv head). MoE A holds SMOKE to its JAX golden, MoE B
+# full width x 2 layers (the dense one and one MoE layer) in f32 to the CPU,
+# MoE C serves 12 layers (1 dense + 11 MoE: 7.22B parameters, 14.4 GB in
+# bf16 beside a 51.5 GB KV cache at LM C's decode shape; all 48 layers are
+# 56.8 GB in bf16 and do not fit beside it) with LM C's traffic.
+MOE_ARCH = "moonshot_v1_16b_a3b"
+MOE_GOLDEN = ROOT / "tests" / "goldens" / "lm_moonshot_v1_16b_a3b_smoke.npz"
+MOE_B_LAYERS, MOE_C_LAYERS = 2, 12
 
 # The PointPillars detector (models/detector3d.py). Det A holds the card to
 # the JAX golden at a small config; Det B runs the default config (128x128
@@ -1399,6 +1432,42 @@ def lm_compare(torch, got, want, tol: float, what: str) -> float:
     return err
 
 
+def golden_lm(torch, np, dev, cfg, golden, convert, lm, decode, params
+              ) -> float:
+    """The f32 SMOKE config on the card with a JAX golden's weights
+    (``tests/goldens/lm_*_smoke.npz``): prefill and four decode steps
+    within 1e-5 of its logits; returns the largest difference."""
+    with np.load(golden) as f:
+        gold = {k: f[k] for k in f.files}
+    tree = params.from_leaves((tuple(k.split("/")[1:]), v)
+                              for k, v in gold.items()
+                              if k.startswith("params/"))
+    logits, steps = lm_run(torch, lm, decode, cfg,
+                           convert.params_from_jax(tree, cfg, dev),
+                           torch.from_numpy(gold["tokens"]),
+                           torch.from_numpy(gold["decode_tokens"]), 32, dev)
+    return lm_compare(torch, (logits, steps),
+                      (torch.from_numpy(gold["logits"]),
+                       torch.from_numpy(gold["decode_logits"])), 1e-5,
+                      f"{cfg.name} on the card vs {golden.name}")
+
+
+def rescale_attention(stack, cfg) -> None:
+    """Scale a stack's attention weights in place as if JAX's fanin init
+    took fan_in = d_model (and H*hd for wo).
+
+    The JAX package's fanin init takes fan_in = shape[-2] of the 3-d
+    attention weights (the head count, or hd for wo): at full width the
+    attention scores then have a std of ~360 and the softmax is nearly
+    one-hot, so a 1-ulp change of the weights moves the logits by ~1e-2
+    and no two summation orders agree to 1e-4. Rescaled, the scores have
+    a std of ~1 and a 1-ulp change moves the logits by ~1e-5."""
+    attn = stack["attn"]
+    for name in ("wq", "wk", "wv"):
+        attn[name].mul_((attn[name].shape[-2] / cfg.d_model) ** 0.5)
+    attn["wo"].mul_((attn["wo"].shape[-2] / cfg.d_head_total) ** 0.5)
+
+
 def check_lm(torch, np, dev, kernels, lm_configs, convert, lm, decode,
              params):
     """LM phases A (qwen2.5-3B SMOKE in f32 with the JAX golden's weights,
@@ -1411,19 +1480,8 @@ def check_lm(torch, np, dev, kernels, lm_configs, convert, lm, decode,
     # -- 8. LM A: qwen2.5-3B SMOKE on the card vs the JAX golden -------------
     cfg = dataclasses.replace(lm_configs.get_smoke(LM_ARCH), dtype=f32)
     smoke_layers = cfg.n_layers
-    with np.load(LM_GOLDEN) as f:
-        gold = {k: f[k] for k in f.files}
-    tree = params.from_leaves((tuple(k.split("/")[1:]), v)
-                              for k, v in gold.items()
-                              if k.startswith("params/"))
-    logits, steps = lm_run(torch, lm, decode, cfg,
-                           convert.params_from_jax(tree, cfg, dev),
-                           torch.from_numpy(gold["tokens"]),
-                           torch.from_numpy(gold["decode_tokens"]), 32, dev)
-    err = lm_compare(torch, (logits, steps),
-                     (torch.from_numpy(gold["logits"]),
-                      torch.from_numpy(gold["decode_logits"])), 1e-5,
-                     f"{cfg.name} on the card vs {LM_GOLDEN.name}")
+    err = golden_lm(torch, np, dev, cfg, LM_GOLDEN, convert, lm, decode,
+                    params)
     print(f"LM A: {cfg.name} f32 prefill + 4 decode steps on the card match "
           f"{LM_GOLDEN.name} (max abs err {err:.3g}, tolerance 1e-5)",
           flush=True)
@@ -1434,17 +1492,7 @@ def check_lm(torch, np, dev, kernels, lm_configs, convert, lm, decode,
     p_card = params.init_params(lm.model_defs(cfg),
                                 torch.Generator(device=dev).manual_seed(1),
                                 dev)
-    # The JAX package's fanin init takes fan_in = shape[-2] of the 3-d
-    # attention weights (the head count, or hd for wo): at full width the
-    # attention scores then have a std of ~360 and the softmax is nearly
-    # one-hot, so a 1-ulp change of the weights moves the logits by ~1e-2
-    # and no two summation orders agree to 1e-4. Rescaled to fan_in =
-    # d_model (and H*hd for wo) the scores have a std of ~1 and a 1-ulp
-    # change moves the logits by ~1e-5.
-    attn = p_card["blocks"]["attn"]
-    for name in ("wq", "wk", "wv"):
-        attn[name].mul_((attn[name].shape[-2] / cfg.d_model) ** 0.5)
-    attn["wo"].mul_((attn["wo"].shape[-2] / cfg.d_head_total) ** 0.5)
+    rescale_attention(p_card["blocks"], cfg)
     p_cpu = params.tree_map(lambda t: t.cpu(), p_card)
     gen = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, cfg.vocab, (LM_B_BATCH, LM_B_S), generator=gen,
@@ -1555,6 +1603,222 @@ def serve_lm(torch, dev, kernels, lm_configs, lm, decode, params):
                                      "decode_attention")}
 
 
+def recorded_routes(layers, run):
+    """``run()`` with every ``layers.moe_route`` call recorded: returns
+    (run's result, [(probs (T, E) f32, experts (T, k))] in call order)."""
+    calls, route = [], layers.moe_route
+
+    def recording(p, xt, cfg):
+        probs, topw, topi = route(p, xt, cfg)
+        calls.append((probs, topi))
+        return probs, topw, topi
+    layers.moe_route = recording
+    try:
+        return run(), calls
+    finally:
+        layers.moe_route = route
+
+
+def route_gap(torch, calls, k: int) -> float:
+    """The smallest gap between a token's k-th and (k+1)-th router
+    probability over the recorded calls: how near the routing came to a
+    tie."""
+    return min(float((w[:, k - 1] - w[:, k]).min()) for w in (
+        torch.sort(probs.float(), dim=-1, descending=True)[0]
+        for probs, _ in calls))
+
+
+def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
+              params, layers):
+    """MoE phases A (moonshot SMOKE in f32 with the JAX golden's weights,
+    against its logits) and B (full width, the dense first layer and one
+    MoE layer, f32, attention rescaled as LM B's: the card against the CPU
+    within 1e-4, every token routed to the same experts). Both take the
+    3xTF32 flash route and decode attention, one launch a layer a prefill
+    or step; returns those launch counts, checked."""
+    f32 = torch.float32
+    kernels.reset_launch_counts()
+    # -- 10b. MoE A: moonshot SMOKE on the card vs the JAX golden ----------
+    cfg = dataclasses.replace(lm_configs.get_smoke(MOE_ARCH), dtype=f32)
+    smoke_layers = cfg.n_layers
+    err = golden_lm(torch, np, dev, cfg, MOE_GOLDEN, convert, lm, decode,
+                    params)
+    print(f"MoE A: {cfg.name} f32 prefill + 4 decode steps on the card match"
+          f" {MOE_GOLDEN.name} (max abs err {err:.3g}, tolerance 1e-5)",
+          flush=True)
+
+    # -- 10c. MoE B: full width, 2 layers, f32: the card vs the CPU --------
+    cfg = dataclasses.replace(lm_configs.get(MOE_ARCH),
+                              n_layers=MOE_B_LAYERS, dtype=f32)
+    p_card = params.init_params(lm.model_defs(cfg),
+                                torch.Generator(device=dev).manual_seed(6),
+                                dev)
+    for key, _ in lm.stacks(cfg):
+        rescale_attention(p_card[key], cfg)
+    p_cpu = params.tree_map(lambda t: t.cpu(), p_card)
+    gen = torch.Generator().manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, (LM_B_BATCH, LM_B_S), generator=gen,
+                           dtype=torch.int32)
+    dec_tokens = torch.randint(0, cfg.vocab, (4, LM_B_BATCH), generator=gen,
+                               dtype=torch.int32)
+    t0 = time.perf_counter()
+    card, card_routes = recorded_routes(layers, lambda: lm_run(
+        torch, lm, decode, cfg, p_card, tokens, dec_tokens, 512, dev))
+    cpu, cpu_routes = recorded_routes(layers, lambda: lm_run(
+        torch, lm, decode, cfg, p_cpu, tokens, dec_tokens, 512,
+        torch.device("cpu")))
+    gaps = (route_gap(torch, card_routes, cfg.top_k),
+            route_gap(torch, cpu_routes, cfg.top_k))
+    if len(card_routes) != len(cpu_routes):
+        fail(f"MoE B: {len(card_routes)} MoE calls on the card, "
+             f"{len(cpu_routes)} on the CPU")
+    n_tokens = 0
+    for i, ((_, got), (probs, want)) in enumerate(zip(card_routes,
+                                                      cpu_routes)):
+        differ = (got.cpu() != want).any(-1)
+        if bool(differ.any()):
+            w = torch.sort(probs, dim=-1, descending=True)[0]
+            gap = (w[:, cfg.top_k - 1] - w[:, cfg.top_k])[differ]
+            fail(f"MoE B: MoE call {i}: {int(differ.sum())} tokens routed to "
+                 f"other experts on the card than on the CPU (their k-th to "
+                 f"(k+1)-th probability gaps on the CPU: {gap.tolist()[:8]})")
+        n_tokens += want.shape[0]
+    err = lm_compare(torch, card, cpu, 1e-4,
+                     f"{cfg.name} x{MOE_B_LAYERS} layers on the card vs the "
+                     f"CPU")
+    print(f"MoE B: {cfg.name} at full width ({MOE_B_LAYERS} layers: "
+          f"{cfg.first_dense} dense + {MOE_B_LAYERS - cfg.first_dense} MoE, "
+          f"f32) B={LM_B_BATCH} S={LM_B_S} prefill + 4 decode steps: the card"
+          f" matches the CPU (max abs err {err:.3g}, tolerance 1e-4); the "
+          f"routing of {n_tokens} tokens over {len(cpu_routes)} MoE calls is "
+          f"equal; smallest gap between the k-th and (k+1)-th router "
+          f"probability {gaps[0]:.3g} (card), {gaps[1]:.3g} (CPU); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = kernels.launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attention=smoke_layers + MOE_B_LAYERS,
+                  decode_attention=4 * (smoke_layers + MOE_B_LAYERS))
+    if launches != expect:
+        fail(f"MoE A and B launch counts {launches} != {expect}")
+    print(f"MoE A and B: launches {launches}", flush=True)
+    return {"flash_attention": launches["flash_attention"]}
+
+
+def serve_moe(torch, dev, kernels, lm_configs, lm, decode, params, layers):
+    """MoE C: moonshot at full width in bf16 on the card, MOE_C_LAYERS
+    layers, LM C's traffic (prefill B=PREFILL_B, S=PREFILL_S, median of 3
+    after a warm-up; DECODE_STEPS greedy decode steps at B=DECODE_B over a
+    DECODE_MAX-position cache with ragged positions from DECODE_POS_LO).
+    Launches checked (K5 `tc` one a layer a prefill, K6 one a layer a
+    step, nothing else), one step under sync debug mode "error", a
+    profile of a prefill and of 4 steps. Returns the two counts."""
+    cfg = dataclasses.replace(lm_configs.get(MOE_ARCH),
+                              n_layers=MOE_C_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    t0 = time.perf_counter()
+    p32 = params.init_params(lm.model_defs(cfg), gen, dev)
+    p = lm.cast_params(p32, cfg)      # matrices bf16 once; norms stay f32
+    del p32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_params = params.param_count(lm.model_defs(cfg))
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                           generator=gen, device=dev, dtype=torch.int32)
+    state = decode.init_decode(cfg, DECODE_B, DECODE_MAX, dev)
+    for cache in (c for pair in state.caches.values() for c in pair.values()):
+        cache.normal_(generator=gen)
+    state = state._replace(cache_pos=torch.randint(
+        DECODE_POS_LO, DECODE_MAX - DECODE_STEPS - 8, (DECODE_B,),
+        generator=gen, device=dev, dtype=torch.int32))
+    live = int(state.cache_pos.sum())
+    step_tokens = torch.randint(0, cfg.vocab, (DECODE_B,), generator=gen,
+                                device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    print(f"MoE C: {cfg.name} ({cfg.n_layers} layers: {cfg.first_dense} "
+          f"dense + {cfg.n_layers - cfg.first_dense} MoE, bf16, "
+          f"{n_params / 1e9:.3f}B parameters) weights and a "
+          f"{DECODE_B}x{DECODE_MAX} KV cache on the card in "
+          f"{time.perf_counter() - t0:.1f} s; cache positions "
+          f"{int(state.cache_pos.min())}..{int(state.cache_pos.max())} "
+          f"(mean {live / DECODE_B:.0f}); device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    def step():
+        nonlocal state, step_tokens
+        logits, state = decode.decode_step(p, cfg, state, step_tokens)
+        step_tokens = logits.argmax(-1).to(torch.int32)
+        return logits
+
+    # Warm-ups, outside the counted run; the prefill's routing recorded.
+    _, routes = recorded_routes(layers, lambda: lm.forward(p, cfg, tokens))
+    step()
+    torch.cuda.synchronize()
+    cap = layers.moe_capacity(cfg, PREFILL_B * PREFILL_S)
+    loads = torch.stack([torch.bincount(topi.flatten(),
+                                        minlength=cfg.n_experts)
+                         for _, topi in routes])
+    dropped = int((loads - cap).clamp_min(0).sum())
+    print(f"MoE C: prefill routing over {len(routes)} MoE layers: the "
+          f"busiest expert takes {int(loads.max())} of "
+          f"{PREFILL_B * PREFILL_S} tokens (capacity {cap}), the idlest "
+          f"{int(loads.min())}; {dropped} of {int(loads.sum())} assignments "
+          f"dropped", flush=True)
+    del routes, loads
+    kernels.reset_launch_counts()
+    prefill_ms, step_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits = lm.forward(p, cfg, tokens)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    del logits
+    for _ in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        step_logits = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = kernels.launch_counts()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attention_tc=3 * cfg.n_layers,
+                  decode_attention=DECODE_STEPS * cfg.n_layers)
+    if launches != expect:
+        fail(f"MoE C launch counts {launches} != {expect}")
+    if tuple(step_logits.shape) != (DECODE_B, cfg.vocab) or \
+            not bool(torch.isfinite(step_logits).all()):
+        fail(f"MoE C decode logits {tuple(step_logits.shape)} or not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # One step with every synchronising CUDA call an error.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    total_s = sum(step_ms) / 1e3
+    print(f"MoE C: prefill B={PREFILL_B} S={PREFILL_S}: median "
+          f"{statistics.median(prefill_ms):.2f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in prefill_ms)}), "
+          f"{PREFILL_B * PREFILL_S / statistics.median(prefill_ms) * 1e3:.1f}"
+          f" tokens/s; decode B={DECODE_B} max_len {DECODE_MAX}: median "
+          f"{statistics.median(step_ms):.3f} ms/step (min {min(step_ms):.3f},"
+          f" max {max(step_ms):.3f}), {DECODE_B * DECODE_STEPS / total_s:.1f} "
+          f"tokens/s over {DECODE_STEPS} steps; launches {launches}; a step "
+          f"under sync debug mode \"error\" made no synchronising call; peak "
+          f"device memory {peak:.2f} GiB", flush=True)
+    print(profile_window(torch, f"{cfg.name} x{cfg.n_layers} prefill "
+                         f"B={PREFILL_B} S={PREFILL_S}",
+                         lambda: lm.forward(p, cfg, tokens), 1, "prefill",
+                         names=("flash_tc_kernel",)), flush=True)
+    print(profile_window(torch, f"{cfg.name} x{cfg.n_layers} decode "
+                         f"B={DECODE_B}",
+                         lambda: [step() for _ in range(4)], 4, "step",
+                         names=("decode_partial_kernel",
+                                "decode_combine_kernel")), flush=True)
+    return {k: launches[k] for k in ("flash_attention_tc",
+                                     "decode_attention")}
+
+
 def check_gradients_reach(torch, dev, ops, fa_ops, dec_ops) -> None:
     """F3 on the card: autograd through ``ops.flash_attention`` and
     ``ops.decode_attention`` gives q, k and v (and the caches) their
@@ -1641,10 +1905,7 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
     p_card = params.init_params(lm.model_defs(cfg),
                                 torch.Generator(device=dev).manual_seed(4),
                                 dev)
-    attn = p_card["blocks"]["attn"]         # as LM B rescales them
-    for name in ("wq", "wk", "wv"):
-        attn[name].mul_((attn[name].shape[-2] / cfg.d_model) ** 0.5)
-    attn["wo"].mul_((attn["wo"].shape[-2] / cfg.d_head_total) ** 0.5)
+    rescale_attention(p_card["blocks"], cfg)   # as LM B
     p_cpu = params.tree_map(lambda t: t.to(cpu, copy=True), p_card)
     gen = torch.Generator().manual_seed(5)
 
@@ -2492,8 +2753,8 @@ def kernel_entry(name: str, r, launches) -> dict:
     source, replaces = KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches, **timing(r)}
-    for key in ("kitti", "f32_prefill", "sorted", "fleet_kitti", "fleet_16",
-                "fleet_64"):
+    for key in ("kitti", "f32_prefill", "moonshot", "sorted", "fleet_kitti",
+                "fleet_16", "fleet_64"):
         if key in r:
             entry[key] = timing(r[key])
     return entry
@@ -2534,7 +2795,7 @@ def main() -> None:
         ref as ps_ref
     from repro_torch.kernels.point_proj import ops as pp_ops, ref as pp_ref
     from repro_torch.kernels.ransac_score import ops as rs_ops, ref as rs_ref
-    from repro_torch.models import decode, detector3d, lm, params
+    from repro_torch.models import decode, detector3d, layers, lm, params
     from repro_torch import ops, testing
     from repro_torch.train import loop, optimizer, trainstep
     if any(m == "jax" or m.startswith(("jax.", "repro."))
@@ -2707,7 +2968,11 @@ def main() -> None:
             flash(PREFILL_B, 16, 2, PREFILL_S, PREFILL_S, 128, bf16, True),
             flash(1, 4, 1, 300, 300, 128, bf16, True),
             flash(2, 2, 2, 128, 640, 128, bf16, False),
-            flash(2, 8, 2, 512, 512, 128, bf16, True)],
+            flash(2, 8, 2, 512, 512, 128, bf16, True),
+            # MoE C's prefill shape (moonshot: one query head a kv head,
+            # also timed), then G = 1 on a ragged causal tile.
+            flash(PREFILL_B, 16, 16, PREFILL_S, PREFILL_S, 128, bf16, True),
+            flash(2, 4, 4, 77, 77, 128, bf16, True)],
         # The decode shape of LM phase C first (ragged positions), then
         # f32 GQA, MQA with positions 1 and S, SMOKE's head dim with an
         # empty request, and bf16 at hd 16 (2-byte rows of V a lane).
@@ -2717,7 +2982,12 @@ def main() -> None:
             dec(4, 8, 2, 1024, 128, f32, (1, 1025)),
             dec(2, 8, 1, 700, 64, f32, [1, 700]),
             dec(2, 4, 2, 32, 16, f32, [0, 17]),
-            dec(2, 4, 2, 100, 16, bf16, [0, 97])],
+            dec(2, 4, 2, 100, 16, bf16, [0, 97]),
+            # MoE C's decode shape (moonshot: G = 1, also timed), then G = 1
+            # with ragged positions and an empty request.
+            dec(DECODE_B, 16, 16, DECODE_MAX, 128, bf16,
+                (DECODE_POS_LO, DECODE_MAX)),
+            dec(3, 4, 4, 300, 128, bf16, [0, 77, 300])],
         # K5's gradient, the SIMT route (f32; bf16 at hd 16-64): LM T's
         # shape in f32 first (timed), then LM T's f32 correctness shape,
         # G = 1, 4 and 8, Sq = Sk = 1, 77, 256 and 4096, causal and not,
@@ -2806,6 +3076,8 @@ def main() -> None:
                   ("ransac_score", 7): "fleet_16",
                   ("ransac_score", 8): "fleet_64",
                   ("flash_attention", 1): "f32_prefill",
+                  ("flash_attention_tc", 4): "moonshot",
+                  ("decode_attention", 5): "moonshot",
                   ("auction", 1): "fleet_kitti",
                   ("pillar_scatter", PILLAR_CASES.index("sorted")): "sorted"}
     # The launch floor: a one-element zero_() timed as the kernels are.
@@ -2949,7 +3221,23 @@ def main() -> None:
 
     # -- 10. LM C: serving qwen2.5-3B at full width on the card -------------
     serving = serve_lm(torch, dev, kernels, lm_configs, lm, decode, params)
-    main_launches.update(serving)
+    lm_paths = {"flash_attention": {"LM A and B": main_launches[
+        "flash_attention"]}}
+    for k, n in serving.items():
+        main_launches[k] = n
+        lm_paths[k] = {"LM C serving": n}
+
+    # -- 10b-10d. MoE A, B and C: moonshot-v1-16b-a3b -----------------------
+    torch.cuda.empty_cache()
+    for path, counts in (
+            ("MoE A and B", check_moe(torch, np, dev, kernels, lm_configs,
+                                      convert, lm, decode, params, layers)),
+            ("MoE C serving", serve_moe(torch, dev, kernels, lm_configs, lm,
+                                        decode, params, layers))):
+        torch.cuda.empty_cache()
+        for k, n in counts.items():
+            main_launches[k] += n
+            lm_paths[k][path] = n
 
     # -- 11. LM T: training qwen2.5-3B on the card -------------------------
     torch.cuda.empty_cache()
@@ -2958,8 +3246,8 @@ def main() -> None:
                         optimizer, trainstep, loop)
     for k, n in training.items():
         main_launches[k] = main_launches.get(k, 0) + n
-        by_path[k] = {"LM C serving": serving.get(k, 0),
-                      "LM T training": n}
+        lm_paths.setdefault(k, {})["LM T training"] = n
+    by_path.update(lm_paths)
 
     # -- 12-13. Det A and B: the PointPillars detector ----------------------
     torch.cuda.empty_cache()

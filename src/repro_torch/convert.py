@@ -120,9 +120,12 @@ def detector2d_params_from_jax(tree: Any, cfg: Any,
 def decode_state_from_jax(state: Any,
                           device: Union[str, torch.device] = "cpu"):
     """A JAX ``DecodeState`` (caches as numpy arrays) -> the port's
-    ``DecodeState``: caches in their dtype, ``cache_pos`` int32."""
-    caches = params_mod.tree_map(lambda a: _float_tensor(a, device),
-                                 dict(state.caches))
+    ``DecodeState``: caches in their dtype, ``cache_pos`` int32. The moe
+    family's nested caches keep their layout, ``"dense": None`` included
+    where the model has no leading dense layers."""
+    caches = params_mod.tree_map(
+        lambda a: None if a is None else _float_tensor(a, device),
+        dict(state.caches))
     pos = torch.tensor(np.asarray(state.cache_pos, np.int32), device=device)
     if state.enc_out is not None:
         raise NotImplementedError("encoder-decoder decode state is not "

@@ -1,5 +1,6 @@
-"""Shared layer library for the dense family: norms, RoPE, attention
-(GQA/MQA), MLPs and the embedding (``repro/models/layers.py``).
+"""Shared layer library for the dense and moe families: norms, RoPE,
+attention (GQA/MQA), MLPs, the mixture of experts and the embedding
+(``repro/models/layers.py``).
 
 Conventions, as in the JAX package:
 
@@ -18,7 +19,11 @@ Conventions, as in the JAX package:
   flash and decode attention kernels, the CPU their plain versions. So the
   JAX package's dense and chunked reference paths have no counterpart
   here; value head dims unequal to the qk head dim (MLA), causal attention
-  with Sq != Sk, M-RoPE and MoE are later slices and raise.
+  with Sq != Sk and M-RoPE are later slices and raise.
+* The mixture of experts (:func:`moe_apply`) has no Pallas kernel in the
+  JAX package: its router, dispatch and expert products are XLA ops
+  there, and here PyTorch ops (the products cuBLAS GEMMs), with the same
+  fixed shapes and no synchronising call.
 """
 from __future__ import annotations
 
@@ -79,6 +84,17 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.is_cuda and x.dtype != torch.float32:
         return _MatmulF32Out.apply(x, w)
     return x.float() @ w.float()
+
+
+def _bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The batched counterpart of :func:`_dot_f32`: x (E, C, K) @ w
+    (E, K, N) -> (E, C, N) f32 (JAX's ``einsum('ecd,edf->ecf',
+    preferred_element_type=float32)``). On the card a 16-bit batched GEMM
+    writes f32 (``torch.bmm``'s ``out_dtype``; serving only, it has no
+    autograd formula); elsewhere the operands are widened."""
+    if x.is_cuda and x.dtype != torch.float32:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.bmm(x.float(), w.float())
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +293,123 @@ def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         else:                        # relu2 (nemotron/minitron)
             h = F.relu(h).square().to(cfg.dtype)
     return (h @ cast(p["wo"], cfg)).to(cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k, capacity-dropped)
+# ---------------------------------------------------------------------------
+
+
+def moe_defs(cfg: ArchConfig):
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    defs = {
+        "router": ParamDef((d, e), ("embed", None), init=normal_init(0.006)),
+        "w_gate": ParamDef((e, d, f), ("expert", "embed", "expert_mlp"),
+                           init=fanin_init()),
+        "w_up": ParamDef((e, d, f), ("expert", "embed", "expert_mlp"),
+                         init=fanin_init()),
+        "w_down": ParamDef((e, f, d), ("expert", "expert_mlp", "embed"),
+                           init=fanin_init()),
+    }
+    if cfg.n_shared_experts:
+        fs = cfg.moe_d_ff * cfg.n_shared_experts
+        defs["shared"] = {
+            "wi_gate": ParamDef((d, fs), ("embed", "mlp"), init=fanin_init()),
+            "wi_up": ParamDef((d, fs), ("embed", "mlp"), init=fanin_init()),
+            "wo": ParamDef((fs, d), ("mlp", "embed"), init=fanin_init()),
+        }
+    return defs
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    """Rows an expert takes: T k cf / E, truncated, rounded up to 128, at
+    least 128 (JAX's arithmetic: a Python float, then ``int``)."""
+    raw = n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts
+    return max(_round_up(int(raw), 128), 128)
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``lax.top_k``'s order: descending, the lower expert index first
+    among equal probabilities (a stable descending sort; ``torch.topk``
+    does not promise an order among ties)."""
+    w, i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return w[:, :k], i[:, :k]
+
+
+def moe_route(p, xt: torch.Tensor, cfg: ArchConfig):
+    """The router of :func:`moe_apply` for tokens xt (T, D) in
+    ``cfg.dtype``: f32 logits of the 16-bit operands, f32 softmax, top-k.
+    Returns (probs (T, E) f32, weights (T, k) in ``cfg.dtype``, experts
+    (T, k) int64)."""
+    logits = _dot_f32(xt, cast(p["router"], cfg))
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = _top_k(probs, cfg.top_k)
+    if cfg.router_scale:
+        topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+    return probs, topw.to(cfg.dtype), topi
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Token-choice top-k MoE with per-slot sequential dispatch
+    (``repro/models/layers.py::moe_apply``). x: (B, S, D) -> (B, S, D).
+
+    Slot j = 0..k-1 in turn: each token's j-th expert ranks it after the
+    tokens that chose that expert in earlier slots and earlier in this
+    one (an int32 cumulative sum); a token of rank >= capacity is
+    dropped, its row written to a discard row past the buffer (JAX's
+    ``.at[slot].set(..., mode="drop")``). Every shape is fixed by the
+    capacity, so nothing waits on the card's values: no ``nonzero``, no
+    boolean-mask indexing, no ``.item()``. The expert products are
+    batched GEMMs (``torch.bmm``: JAX computes them with ``einsum``
+    outside any Pallas kernel, and no kernel of the port replaces one)
+    with f32 results; SwiGLU in f32 and the down product are each
+    rounded once to ``cfg.dtype``. The combine runs in ``cfg.dtype`` in
+    slot order, one rounding a step, then adds the shared experts.
+    """
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    cap = moe_capacity(cfg, t)
+    xt = x.reshape(t, d)
+    _, topw, topi = moe_route(p, xt, cfg)
+
+    experts = torch.arange(e, device=x.device)[:, None]
+    counts = torch.zeros((e, 1), dtype=torch.int32, device=x.device)
+    buf = torch.zeros((e * cap + 1, d), dtype=cfg.dtype, device=x.device)
+    slots = []
+    for j in range(k):
+        ej = topi[:, j]                                        # (T,)
+        # The one-hot is JAX's (T, E) transposed, so the ranks are a scan
+        # along the inner dim: along the outer dim of (T, E) the scan took
+        # 1.4 ms a call at T = 8192 on an H100 (chip_smoke's MoE C
+        # profile), half the prefill.
+        onehot = (ej[None, :] == experts).to(torch.int32)      # (E, T)
+        rank = torch.cumsum(onehot, 1, dtype=torch.int32) - onehot + counts
+        my_rank = torch.gather(rank, 0, ej[None, :])[0]
+        counts = counts + onehot.sum(1, keepdim=True, dtype=torch.int32)
+        keep = my_rank < cap
+        slot = torch.where(keep, ej * cap + my_rank, e * cap)  # drop: last
+        buf.index_copy_(0, slot, xt)
+        slots.append((slot, keep))
+
+    xe = buf[:e * cap].view(e, cap, d)
+    g = _bmm_f32(xe, cast(p["w_gate"], cfg))
+    u = _bmm_f32(xe, cast(p["w_up"], cfg))
+    h = (F.silu(g) * u).to(cfg.dtype)
+    out_flat = _bmm_f32(h, cast(p["w_down"], cfg)).to(cfg.dtype).reshape(
+        e * cap, d)
+
+    y = torch.zeros((t, d), dtype=cfg.dtype, device=x.device)
+    for j, (slot, keep) in enumerate(slots):
+        gathered = out_flat.index_select(0, torch.where(keep, slot, 0))
+        y = y + torch.where(keep[:, None], gathered, 0.0) * topw[:, j:j + 1]
+    if cfg.n_shared_experts:
+        y = y + mlp_apply(p["shared"], xt[None], cfg)[0]
+    return y.reshape(b, s, d)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,20 @@
-"""Model assembly for the dense family (``repro/models/lm.py``).
+"""Model assembly for the dense and moe families (``repro/models/lm.py``).
 
 The parameter tree is the JAX package's: ``{"embed", "final_norm",
-"blocks"}`` with every leaf of ``blocks`` stacked on a leading layer axis.
-``forward`` walks the layers in a Python loop over views of that axis
-(JAX's ``lax.scan``). It is the prefill entry point and, under
-``loss_fn``, the training forward; the serving step is
-``repro_torch.models.decode.decode_step``. The moe, ssm, hybrid, encdec and
-vlm families are later slices and raise.
+"blocks"}`` for the dense family, ``{"embed", "final_norm",
+"dense_blocks", "moe_blocks"}`` for the moe family (``dense_blocks`` the
+``first_dense`` leading layers with a dense MLP, absent when there are
+none), with every leaf of a stack on a leading layer axis. ``forward``
+walks the stacks in that order, a Python loop over views of the layer
+axis (JAX's ``lax.scan``). It is the prefill entry point and, under
+``loss_fn``, the dense family's training forward; the serving step is
+``repro_torch.models.decode.decode_step``. MLA (deepseek-v2), the training
+of the moe family, and the ssm, hybrid, encdec and vlm families are later
+slices and raise.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -23,12 +27,22 @@ from repro_torch.models.params import ParamDef, leaves, tree_map
 _NORMS = ("ln1", "ln2", "final_norm")
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.attn_kind != "full":
+def require_ported(cfg: ArchConfig) -> None:
+    """The families the port runs: dense, and moe with full attention."""
+    if cfg.family not in ("dense", "moe") or cfg.attn_kind != "full":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (attention {cfg.attn_kind!r})"
-            f" is not ported yet; the port runs the dense family "
-            f"(see ROADMAP.md)")
+            f" is not ported yet; the port runs the dense family and the "
+            f"moe family with full attention (see ROADMAP.md)")
+
+
+def stacks(cfg: ArchConfig) -> List[Tuple[str, bool]]:
+    """The layer stacks in the order the model runs them: (key of the
+    parameter tree, whether its layers are MoE layers)."""
+    if cfg.family == "dense":
+        return [("blocks", False)]
+    return [("dense_blocks", False)] * bool(cfg.first_dense) + \
+        [("moe_blocks", True)]
 
 
 def stack_defs(defs, n: int):
@@ -38,27 +52,42 @@ def stack_defs(defs, n: int):
                                        d.dtype, d.init), defs)
 
 
-def _attn_block_defs(cfg: ArchConfig):
-    return {"ln1": layers.norm_defs(cfg.d_model, cfg.norm),
-            "ln2": layers.norm_defs(cfg.d_model, cfg.norm),
-            "attn": layers.attn_defs(cfg),
-            "mlp": layers.mlp_defs(cfg)}
+def _attn_block_defs(cfg: ArchConfig, moe: bool = False):
+    d = {"ln1": layers.norm_defs(cfg.d_model, cfg.norm),
+         "ln2": layers.norm_defs(cfg.d_model, cfg.norm),
+         "attn": layers.attn_defs(cfg)}
+    if moe:
+        d["moe"] = layers.moe_defs(cfg)
+    else:
+        d["mlp"] = layers.mlp_defs(cfg)
+    return d
+
+
+def ffn_apply(p, x: torch.Tensor, cfg: ArchConfig, moe: bool
+              ) -> torch.Tensor:
+    """A block's feed-forward part: the MoE layer or the dense MLP."""
+    return layers.moe_apply(p["moe"], x, cfg) if moe else \
+        layers.mlp_apply(p["mlp"], x, cfg)
 
 
 def _attn_block_apply(p, h: torch.Tensor, cfg: ArchConfig,
-                      positions: torch.Tensor, causal: bool = True
-                      ) -> torch.Tensor:
+                      positions: torch.Tensor, moe: bool = False,
+                      causal: bool = True) -> torch.Tensor:
     x = layers.norm_apply(p["ln1"], h, cfg.norm)
     h = h + layers.attn_apply(p["attn"], x, cfg, positions, causal)
     x = layers.norm_apply(p["ln2"], h, cfg.norm)
-    return h + layers.mlp_apply(p["mlp"], x, cfg)
+    return h + ffn_apply(p, x, cfg, moe)
 
 
 def model_defs(cfg: ArchConfig):
-    require_dense(cfg)
-    return {"embed": layers.embed_defs(cfg),
-            "final_norm": layers.norm_defs(cfg.d_model, cfg.norm),
-            "blocks": stack_defs(_attn_block_defs(cfg), cfg.n_layers)}
+    require_ported(cfg)
+    d = {"embed": layers.embed_defs(cfg),
+         "final_norm": layers.norm_defs(cfg.d_model, cfg.norm)}
+    n = {"blocks": cfg.n_layers, "dense_blocks": cfg.first_dense,
+         "moe_blocks": cfg.n_layers - cfg.first_dense}
+    for key, moe in stacks(cfg):
+        d[key] = stack_defs(_attn_block_defs(cfg, moe), n[key])
+    return d
 
 
 def cast_params(params, cfg: ArchConfig):
@@ -74,17 +103,17 @@ def cast_params(params, cfg: ArchConfig):
     return walk(params, False)
 
 
-def layer(params, i: int):
-    """Layer ``i``'s slice of the stacked ``blocks`` tree (views)."""
-    return tree_map(lambda t: t[i], params["blocks"])
+def layer(params, i: int, key: str = "blocks"):
+    """Layer ``i``'s slice of the stack ``key`` (views)."""
+    return tree_map(lambda t: t[i], params[key])
 
 
-def unstack(params) -> List[dict]:
-    """The stacked ``blocks`` tree as one tree of views a layer, by one
-    ``unbind`` a leaf: in a backward pass the layers' gradients are
-    stacked once, where slicing a layer at a time would give each layer's
-    gradient a zero tensor of the whole stack."""
-    parts = tree_map(lambda t: t.unbind(0), params["blocks"])
+def unstack(params, key: str = "blocks") -> List[dict]:
+    """The stack ``key`` as one tree of views a layer, by one ``unbind``
+    a leaf: in a backward pass the layers' gradients are stacked once,
+    where slicing a layer at a time would give each layer's gradient a
+    zero tensor of the whole stack."""
+    parts = tree_map(lambda t: t.unbind(0), params[key])
     n = len(next(iter(leaves(parts)))[1])
     return [tree_map(lambda ts, i=i: ts[i], parts) for i in range(n)]
 
@@ -108,7 +137,7 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None,
     recomputed in the backward pass, attention kernel included, as JAX's
     ``scan_stack`` runs the layer under ``jax.checkpoint``. Serving (no
     gradient wanted) runs the layers as they are."""
-    require_dense(cfg)
+    require_ported(cfg)
     if cfg.remat not in ("full", "none"):
         raise ValueError(f"remat {cfg.remat!r}: 'full' or 'none'")
     h = layers.embed_apply(params["embed"], tokens, cfg) if embeds is None \
@@ -118,12 +147,13 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor] = None,
         positions = default_positions(b, s, device=h.device)
     remat = cfg.remat == "full" and torch.is_grad_enabled() and (
         h.requires_grad or any(t.requires_grad for _, t in leaves(params)))
-    for p in unstack(params):
-        if remat:
-            h = checkpoint(_attn_block_apply, p, h, cfg, positions,
-                           use_reentrant=False)
-        else:
-            h = _attn_block_apply(p, h, cfg, positions)
+    for key, moe in stacks(cfg):
+        for p in unstack(params, key):
+            if remat:
+                h = checkpoint(_attn_block_apply, p, h, cfg, positions,
+                               moe, use_reentrant=False)
+            else:
+                h = _attn_block_apply(p, h, cfg, positions, moe)
     h = layers.norm_apply(params["final_norm"], h, cfg.norm)
     return layers.unembed_apply(params["embed"], h, cfg)
 
@@ -136,9 +166,15 @@ def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
     default; divided by max(sum, 1)) of logsumexp(logits) - the label's
     logit, in f32. The weights are cast to ``cfg.dtype`` at each use
     (``layers.cast``), so gradients reach the f32 parameters; pass them
-    as they are stored, not through :func:`cast_params`.
+    as they are stored, not through :func:`cast_params`. The moe family
+    serves but does not train yet (a later slice): it raises.
     """
-    require_dense(cfg)
+    require_ported(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family is not ported "
+            f"yet (a later slice; it serves through forward and "
+            f"decode_step; see ROADMAP.md)")
     if batch.get("enc_embeds") is not None:
         raise NotImplementedError(f"{cfg.name}: encoder inputs belong to "
                                   f"the encdec family, not ported yet")

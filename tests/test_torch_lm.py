@@ -41,6 +41,9 @@ from repro_torch.models import decode, layers, lm, params  # noqa: E402
 jax.config.update("jax_platform_name", "cpu")
 
 DENSE = ["qwen2_5_3b", "glm4_9b", "minitron_4b", "granite_20b"]
+# Every architecture the port runs: the dense ones and the moe family's
+# moonshot (its own tests are tests/test_torch_moe.py).
+PORTED = DENSE + ["moonshot_v1_16b_a3b"]
 GOLDEN = (pathlib.Path(__file__).parent / "goldens"
           / "lm_qwen2_5_3b_smoke.npz")
 B, S, MAX_LEN, STEPS = 2, 16, 32, 4
@@ -144,14 +147,14 @@ def _jax_fields(cfg):
     return {k: v for k, v in out.items() if k not in JAX_ONLY}
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_configs_equal_jax_field_by_field(arch):
     assert _fields(configs.get(arch)) == _jax_fields(jconfigs.get(arch))
     assert _fields(configs.get_smoke(arch)) == \
         _jax_fields(jconfigs.get_smoke(arch))
 
 
-@pytest.mark.parametrize("arch", sorted(set(jconfigs.ARCH_IDS) - set(DENSE)))
+@pytest.mark.parametrize("arch", sorted(set(jconfigs.ARCH_IDS) - set(PORTED)))
 def test_unported_families_raise(arch):
     assert arch in configs.ARCH_IDS
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -160,7 +163,7 @@ def test_unported_families_raise(arch):
         configs.get_smoke(arch)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_model_defs_equal_jax(arch):
     from repro.models.params import ParamDef as JDef
     jdefs = jax.tree_util.tree_leaves_with_path(
