@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) serves
 Moby (one stream and a fleet), serves and trains the dense LMs, serves the
-moe family (moonshot-v1-16b-a3b), and serves and trains the PointPillars
-detector on an NVIDIA H100.
+moe family (moonshot-v1-16b-a3b; deepseek-v2-236b with MLA), and serves
+and trains the PointPillars detector on an NVIDIA H100.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels flash_attention,pillar_scatter
@@ -54,7 +54,21 @@ fatal on failure:
    timed at LM C's prefill shape and at MoE C's, where moonshot's 16 query
    heads have a kv head each; decode attention timed at LM C's decode
    shape and at MoE C's, G = 1 too; both also at G = 1 on small ragged
-   cases), then timed with CUDA events after a warm-up:
+   cases; flash attention at MLA's head dims, qk 192 / value 128: the
+   tensor-core route at MLA C's prefill shape (128 heads, S 8192, timed,
+   its plain version 8 heads at a time), a ragged tile and full
+   attention, the 3xTF32 route in f32 at MLA B's shape (timed), full
+   attention, and at SMOKE's 24 / 16 (timed, and a ragged tile); the MLA
+   decode kernel (``mla_decode_attention``, no Pallas counterpart: the
+   einsums of JAX's absorbed decode) at MLA C's decode shape (B 16, 128
+   heads, (R, P) = (512, 64), a 32k compressed cache, ragged lengths;
+   timed), with lengths 1, S_max and off the tile and split boundaries,
+   100 heads with an empty request, its SIMT instance in f32 at MLA B's
+   decode shape and at SMOKE's (16, 8) (both timed), in bf16 at (16, 8),
+   in f32 with ragged lengths; each bf16 case with the P-rounding
+   allowance, its library yardstick SDPA on [q_lat | q_rope],
+   [ckv | krope] and ckv as one head of H queries), then timed with CUDA
+   events after a warm-up:
    device time per call from replays of a CUDA graph of up to 50 calls
    (median of 20), and the eager per-call time; the attention kernels'
    plain versions eagerly (a few calls: the flash one holds a 4.3 GB score
@@ -196,6 +210,25 @@ fatal on failure:
    a step, the rest 0), one step under sync debug mode "error" (no
    synchronising call), ms per prefill and per step, tokens/s, peak
    memory, and torch.profiler windows over a prefill and 4 steps;
+10e. MLA A, the card against JAX: deepseek-v2-236b SMOKE in f32 with
+   the weights of ``tests/goldens/lm_deepseek_v2_236b_smoke.npz``,
+   prefill and four decode steps within 1e-5 of the golden's logits;
+10f. MLA B, the card against the port's CPU run at full width:
+   deepseek-v2 with 2 of its 60 layers (the dense first layer and one MoE
+   layer of 160 experts) in f32, MLA weights rescaled (``rescale_mla``),
+   prefill at B=2, S=256 and four decode steps, logits within 1e-4, the
+   routing equal (the smallest top-k gap printed); launches of A and B
+   checked (the 3xTF32 flash route at MLA's head dims and the MLA decode
+   kernel's SIMT instance, one a layer);
+10g. MLA C, serving deepseek-v2 at full width in bf16 (seeded weights,
+   drawn a layer at a time) at 8 of its 60 layers (1 dense + 7 MoE,
+   29.19B parameters) with LM C's traffic: prefill at B=1, S=8192 (median
+   of 3 after a warm-up; expert loads and drops printed) and 32 greedy
+   decode steps at B=16 over a 32,768-position compressed cache, launches
+   checked (the tensor-core flash route at qk 192 / value 128, 8 a
+   prefill, the MLA decode kernel 8 a step, the rest 0), one step under
+   sync debug mode "error", ms per prefill and per step, tokens/s, peak
+   memory, and torch.profiler windows over a prefill and 4 steps;
 11. LM T, training qwen2.5-3B on the card: gradients reach q, k, v and
    the caches through the backward kernels (bf16 flash on the tensor-core
    route, f32 on the SIMT one, decode; each counter up by one, the same
@@ -224,8 +257,9 @@ fatal on failure:
    AdamW) after a warm-up, K4's launches checked (one forward a forward
    pass, one backward a step), peak device memory, a torch.profiler window
    over 4 detect calls; then 2 frames on the CPU against the card;
-14. one ``{"kernels": [...]}`` JSON line, the card line again, and last the
-   ``{"ok": true, "device": ...}`` line.
+14. one ``{"kernels": [...]}`` JSON line (an entry a kernel, and one for
+   each of this slice's instances at MLA's dims: ``INSTANCES``), the card
+   line again, and last the ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
 
@@ -313,6 +347,17 @@ T_PROFILED = ("flash_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel",
 MOE_ARCH = "moonshot_v1_16b_a3b"
 MOE_GOLDEN = ROOT / "tests" / "goldens" / "lm_moonshot_v1_16b_a3b_smoke.npz"
 MOE_B_LAYERS, MOE_C_LAYERS = 2, 12
+# MLA: deepseek-v2-236b at full width (MLA with q_lora 1536 and a 512 + 64
+# latent cache, 128 heads of qk dim 192 / value dim 128; 160 routed
+# experts, top-6, 2 shared, a dense first layer). MLA A holds SMOKE to its
+# JAX golden, MLA B full width x 2 layers (the dense one and one MoE layer)
+# in f32 to the CPU, MLA C serves 8 layers (1 dense + 7 MoE: 29.19B
+# parameters, 58.4 GB in bf16, beside a 4.83 GB compressed cache at LM C's
+# decode shape; 9 layers would leave no room for the prefill) with LM C's
+# traffic.
+MLA_ARCH = "deepseek_v2_236b"
+MLA_GOLDEN = ROOT / "tests" / "goldens" / "lm_deepseek_v2_236b_smoke.npz"
+MLA_B_LAYERS, MLA_C_LAYERS = 2, 8
 
 # The PointPillars detector (models/detector3d.py). Det A holds the card to
 # the JAX golden at a small config; Det B runs the default config (128x128
@@ -352,6 +397,9 @@ KERNELS = {
         "src/repro/ops/api.py:54"),
     "decode_attention_bwd": ("src/repro_torch/csrc/decode_attention_bwd.cu",
                              "src/repro/ops/api.py:87"),
+    # No Pallas counterpart: the einsums of MLA's absorbed decode.
+    "mla_decode_attention": ("src/repro_torch/csrc/mla_decode_attention.cu",
+                             "src/repro/models/mla.py:96"),
     "pillar_scatter": (
         "src/repro_torch/csrc/pillar_scatter.cu",
         "src/repro/kernels/pillar_scatter/pillar_scatter.py:50"),
@@ -364,6 +412,23 @@ KERNELS = {
                 "src/repro/core/association.py:121"),
     "auction_wide": ("src/repro_torch/csrc/auction.cu",
                      "src/repro/core/association.py:121"),
+}
+
+
+# The instances of this slice (MLA's head dims) that the kernel JSON line
+# lists as entries of their own: (kernel, phase-3 case) -> (key of its
+# timed record, label, the path whose launches are its own).
+INSTANCES = {
+    ("flash_attention_tc", 6): ("deepseek", "qk 192 / value 128, bf16",
+                                "MLA C serving"),
+    ("flash_attention", 7): ("deepseek_f32", "qk 192 / value 128, f32",
+                             "MLA B"),
+    ("flash_attention", 9): ("deepseek_smoke", "qk 24 / value 16, f32",
+                             "MLA A"),
+    ("mla_decode_attention", 3): ("simt_f32", "SIMT, f32, (512, 64)",
+                                  "MLA B"),
+    ("mla_decode_attention", 4): ("simt_smoke", "SIMT, f32, (16, 8)",
+                                  "MLA A"),
 }
 
 
@@ -826,7 +891,8 @@ def p_rounding_term(torch, q, k, v, causal: bool):
     (SQ, SK) score matrix."""
     b, h, sq, hd = q.shape
     kv, sk = k.shape[1], k.shape[2]
-    out = torch.empty((b, h, sq, hd), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, h, sq, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
     live = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
     if causal:
         live = live.tril()
@@ -879,51 +945,70 @@ def attention_close(torch, got, plain, f32_args, args, what: str,
         bool(torch.equal(got, want.to(got.dtype))), worst
 
 
-def check_flash(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
-                causal, seed):
-    """Kernel vs plain version on (B, S, heads, hd) activations passed as
-    (B, heads, S, hd) views, as the model passes them. The wrapper's route
-    (``fa_ops.route``) picks the kernel; the tensor-core route's check
-    allows for its p rounded to bf16 (``attention_close``)."""
-    g = torch.Generator(device=dev).manual_seed(seed)
+def heads_at_a_time(torch, plain, n: int):
+    """``plain`` (an attention reference over (B, H, S, dim) operands with
+    KV = H heads) computed ``n`` heads at a time: MLA's 128 heads at S 8192
+    would hold 34 GB of scores at once."""
+    def run(q, k, v, causal):
+        return torch.cat([plain(q[:, i:i + n], k[:, i:i + n], v[:, i:i + n],
+                                causal)
+                          for i in range(0, q.shape[1], n)], dim=1)
+    return run
 
-    def act(heads, s):
-        return torch.randn(b, s, heads, hd, generator=g, device=dev,
+
+def check_flash(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
+                causal, seed, vd=None):
+    """Kernel vs plain version on (B, S, heads, hd) activations passed as
+    (B, heads, S, hd) views, as the model passes them; v's head dim is
+    ``vd`` (``hd`` when None: MLA's differ). The wrapper's route
+    (``fa_ops.route``) picks the kernel; the tensor-core route's check
+    allows for its p rounded to bf16 (``attention_close``). With KV = H
+    past 16 heads the plain version runs 8 heads at a time."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vd = hd if vd is None else vd
+
+    def act(heads, s, dim=hd):
+        return torch.randn(b, s, heads, dim, generator=g, device=dev,
                            dtype=dtype).transpose(1, 2)
-    q, k, v = act(h, sq), act(kv, sk), act(kv, sk)
-    route = fa_ops.route(dtype, hd)
+    q, k, v = act(h, sq), act(kv, sk), act(kv, sk, vd)
+    route = fa_ops.route(dtype, hd, vd)
     counter = "tc_launches" if route == "tc" else "launches"
     before = getattr(fa_ops, counter)
     got = fa_ops.flash_attention(q, k, v, causal)
     if getattr(fa_ops, counter) != before + 1:
         fail(f"flash_attention: the {route} route's kernel did not launch")
-    shape = f"({b},{h},{kv},{sq},{sk},{hd}) {str(dtype)[6:]} " + \
+    dims = f"{hd}" if vd == hd else f"{hd}/{vd}"
+    shape = f"({b},{h},{kv},{sq},{sk},{dims}) {str(dtype)[6:]} " + \
         ("causal" if causal else "full")
+    plain = fa_ref.flash_attention_ref
+    if kv == h and h > 16:
+        plain = heads_at_a_time(torch, plain, 8)
     p_rounding = p_rounding_term(torch, q, k, v, causal) \
         if route == "tc" else None
     err, tol, exact, worst = attention_close(
-        torch, got, fa_ref.flash_attention_ref,
+        torch, got, plain,
         (q.float(), k.float(), v.float(), causal), (q, k, v, causal),
         f"flash_attention ({route}) {shape}", p_rounding)
     del p_rounding
     # Live (query, key) pairs: query i sees keys [0, i] when causal.
     pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
     elt = q.element_size()
-    ops = 4 * hd * b * h * pairs
+    ops = 2 * (hd + vd) * b * h * pairs
     # The bf16 route's products are single bf16 products; the 3xTF32
     # route's are three TF32 products each in f32 (Q.K^T one and P.V two
     # for bf16 inputs, which TF32 holds exactly).
     tf32_terms = 3 if dtype == torch.float32 else 1.5
     rec = dict(shape=shape, exact=exact, max_abs_err=err, tol=tol,
                worst=worst,
-               bytes=(2 * b * h * sq * hd + 2 * b * kv * sk * hd) * elt,
+               bytes=(b * h * sq * (hd + vd) + b * kv * sk * (hd + vd))
+               * elt,
                ops=ops if route == "tc" else tf32_terms * ops,
                peak=PEAK_BF16_PER_S if route == "tc" else PEAK_TF32_PER_S,
                f32_simt_ms=ops / PEAK_F32_PER_S * 1e3,
                library=lambda: torch.nn.functional.scaled_dot_product_attention(
                    q, k, v, is_causal=causal, enable_gqa=True))
     return rec, (lambda: fa_ops.flash_attention(q, k, v, causal)), \
-        (lambda: fa_ref.flash_attention_ref(q, k, v, causal))
+        (lambda: plain(q, k, v, causal))
 
 
 def check_decode(torch, dev, dec_ops, dec_ref, b, h, kv, s, hd, dtype,
@@ -961,6 +1046,85 @@ def check_decode(torch, dev, dec_ops, dec_ref, b, h, kv, s, hd, dtype,
                    q[:, :, None], ck, cv, attn_mask=mask, enable_gqa=True))
     return rec, (lambda: dec_ops.decode_attention(q, ck, cv, pos)), \
         (lambda: dec_ref.decode_attention_ref(q, ck, cv, pos))
+
+
+def mla_p_rounding_term(torch, q_lat, q_rope, ckv, krope, lengths, scale):
+    """sqrt(sum_j a_hj^2 ckv_jr^2) in f32 for the MLA decode kernel's
+    inputs, a = the plain version's softmax weights over positions
+    [0, lengths): its allowance for p rounded to bf16."""
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv.float())
+         + torch.einsum("bhk,bsk->bhs", q_rope.float(), krope.float())) \
+        * scale
+    live = (torch.arange(ckv.shape[1], device=s.device)[None, :]
+            < lengths[:, None])[:, None]
+    s = torch.where(live, s, -1e30)
+    p = torch.where(live, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    a = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    del s, p
+    return torch.sqrt(torch.einsum("bhs,bsr->bhr", a * a,
+                                   ckv.float().square()))
+
+
+def check_mla_decode(torch, dev, mla_ops, mla_ref, b, h, s, r, p, dtype,
+                     lengths, seed):
+    """The MLA decode kernel vs its plain version: q_lat (B, H, R), q_rope
+    (B, H, P), caches ckv (B, S, R), krope (B, S, P); ``lengths`` a list,
+    or (lo, hi) for ragged lengths drawn in [lo, hi). The scale is
+    deepseek-v2's (nope + rope)^-0.5 = 192^-0.5 at R 512, SMOKE's 24^-0.5
+    at R 16. bf16 within half an ulp of the plain f32 result plus
+    P_ROUNDING x ``mla_p_rounding_term`` (the tensor-core instance rounds
+    p to bf16 for its P.V product, and the op's semantics, JAX's, round
+    the weights to bf16: the SIMT instance, which keeps them f32, is held
+    to the same allowance); f32 within 2e-5. The library
+    yardstick is SDPA on the same values laid out as one query head of
+    H queries: q = [q_lat | q_rope] (B, 1, H, R + P), K = [ckv | krope]
+    (B, 1, S, R + P), V = ckv, a length mask and the same scale (the K
+    copy made before the timed call). SDPA with enable_gqa (B, H, 1, .)
+    over one kv head computes the same, but its math backend would copy
+    K and V to every head (77 GB at B 16, S 32k)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+    q_lat, q_rope, ckv, krope = rnd(b, h, r), rnd(b, h, p), rnd(b, s, r), \
+        rnd(b, s, p)
+    if isinstance(lengths, tuple):
+        lengths = torch.randint(*lengths, (b,), generator=g, device=dev,
+                                dtype=torch.int32)
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    scale = (128 + 64) ** -0.5 if r == 512 else (16 + 8) ** -0.5
+    path = mla_ops.route(dtype, r, p)
+    before = mla_ops.launches
+    got = mla_ops.mla_decode_attention(q_lat, q_rope, ckv, krope, lengths,
+                                       scale)
+    if mla_ops.launches != before + 1:
+        fail("mla_decode_attention: the kernel did not launch")
+    shape = (f"B={b} H={h} S={s} R={r} P={p} {str(dtype)[6:]} ({path}) "
+             f"lengths {int(lengths.min())}..{int(lengths.max())}")
+    args = (q_lat, q_rope, ckv, krope, lengths, scale)
+    p_rounding = mla_p_rounding_term(torch, *args) \
+        if dtype == torch.bfloat16 else None
+    err, tol, exact, worst = attention_close(
+        torch, got, mla_ref.mla_decode_attention_ref,
+        tuple(t.float() for t in args[:4]) + args[4:], args,
+        f"mla_decode_attention {shape}", p_rounding)
+    del p_rounding
+    live = int(lengths.clamp(0, s).sum())
+    elt = q_lat.element_size()
+    qf = torch.cat([q_lat, q_rope], -1)[:, None]
+    kf = torch.cat([ckv, krope], -1)[:, None]
+    mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[
+        :, None, None]
+    rec = dict(shape=shape, exact=exact, max_abs_err=err, tol=tol,
+               worst=worst,
+               bytes=(b * h * (2 * r + p) + live * (r + p)) * elt + 4 * b,
+               ops=2 * h * live * (2 * r + p),
+               peak=PEAK_BF16_PER_S if path == "tc" else PEAK_F32_PER_S,
+               library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qf, kf, ckv[:, None], attn_mask=mask, scale=scale))
+    return rec, (lambda: mla_ops.mla_decode_attention(*args)), \
+        (lambda: mla_ref.mla_decode_attention_ref(*args))
 
 
 def bwd_rounding_terms(torch, q, k, v, o, do, causal: bool):
@@ -1628,35 +1792,67 @@ def route_gap(torch, calls, k: int) -> float:
         for probs, _ in calls))
 
 
-def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
-              params, layers):
-    """MoE phases A (moonshot SMOKE in f32 with the JAX golden's weights,
-    against its logits) and B (full width, the dense first layer and one
-    MoE layer, f32, attention rescaled as LM B's: the card against the CPU
-    within 1e-4, every token routed to the same experts). Both take the
-    3xTF32 flash route and decode attention, one launch a layer a prefill
-    or step; returns those launch counts, checked."""
-    f32 = torch.float32
-    kernels.reset_launch_counts()
-    # -- 10b. MoE A: moonshot SMOKE on the card vs the JAX golden ----------
-    cfg = dataclasses.replace(lm_configs.get_smoke(MOE_ARCH), dtype=f32)
-    smoke_layers = cfg.n_layers
-    err = golden_lm(torch, np, dev, cfg, MOE_GOLDEN, convert, lm, decode,
-                    params)
-    print(f"MoE A: {cfg.name} f32 prefill + 4 decode steps on the card match"
-          f" {MOE_GOLDEN.name} (max abs err {err:.3g}, tolerance 1e-5)",
-          flush=True)
+def rescale_mla(stack) -> None:
+    """Scale a stack's MLA weights in place as if JAX's fanin init took
+    the contracted dims as fan_in (``rescale_attention``'s reason): its
+    3-d weights take fan_in = shape[-2], the head count (wq_b, wk_b, wv_b)
+    or the value dim (wo), where the products contract q_lora, kv_lora or
+    heads x value dim. Rescaled, the scores have a std of ~1."""
+    attn = stack["attn"]
+    for name in ("wq_b", "wk_b", "wv_b"):     # (L, in, H, dim)
+        attn[name].mul_((attn[name].shape[-2] / attn[name].shape[1]) ** 0.5)
+    wo = attn["wo"]                            # (L, H, v, D)
+    wo.mul_((wo.shape[-2] / (wo.shape[1] * wo.shape[2])) ** 0.5)
 
-    # -- 10c. MoE B: full width, 2 layers, f32: the card vs the CPU --------
-    cfg = dataclasses.replace(lm_configs.get(MOE_ARCH),
-                              n_layers=MOE_B_LAYERS, dtype=f32)
+
+def decode_kernel(cfg):
+    """The decode attention kernel of a config's serving step: (its launch
+    counter, the names of its passes in a profile)."""
+    if cfg.attn_kind == "mla":
+        return "mla_decode_attention", ("mla_decode_tc_kernel",
+                                        "mla_decode_combine_kernel")
+    return "decode_attention", ("decode_partial_kernel",
+                                "decode_combine_kernel")
+
+
+def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
+              params, layers, label: str, arch: str, golden: Path,
+              b_layers: int, seed: int):
+    """Phases A (the SMOKE config in f32 with the JAX golden's weights,
+    against its logits) and B (full width, the dense first layer and one
+    MoE layer, f32, attention weights rescaled (``rescale_attention``, or
+    ``rescale_mla`` for MLA): the card against the CPU within 1e-4, every
+    token routed to the same experts) of a moe architecture (MoE:
+    moonshot, MLA: deepseek-v2). Both are the f32 serving path: prefill
+    through the 3xTF32 flash route, decode through ``decode_kernel``'s
+    kernel (MLA's SIMT instance), one launch a layer a prefill or step;
+    returns those counts by phase, {counter: {"<label> A": n, ...}},
+    checked."""
+    f32 = torch.float32
+    counts = {}
+    # -- A: SMOKE on the card vs the JAX golden ------------------------------
+    kernels.reset_launch_counts()
+    cfg = dataclasses.replace(lm_configs.get_smoke(arch), dtype=f32)
+    err = golden_lm(torch, np, dev, cfg, golden, convert, lm, decode, params)
+    print(f"{label} A: {cfg.name} f32 prefill + 4 decode steps on the card "
+          f"match {golden.name} (max abs err {err:.3g}, tolerance 1e-5)",
+          flush=True)
+    counts[f"{label} A"] = (kernels.launch_counts(), cfg.n_layers)
+
+    # -- B: full width, 2 layers, f32: the card vs the CPU -----------------
+    kernels.reset_launch_counts()
+    cfg = dataclasses.replace(lm_configs.get(arch), n_layers=b_layers,
+                              dtype=f32)
     p_card = params.init_params(lm.model_defs(cfg),
-                                torch.Generator(device=dev).manual_seed(6),
+                                torch.Generator(device=dev).manual_seed(seed),
                                 dev)
     for key, _ in lm.stacks(cfg):
-        rescale_attention(p_card[key], cfg)
+        if cfg.attn_kind == "mla":
+            rescale_mla(p_card[key])
+        else:
+            rescale_attention(p_card[key], cfg)
     p_cpu = params.tree_map(lambda t: t.cpu(), p_card)
-    gen = torch.Generator().manual_seed(7)
+    gen = torch.Generator().manual_seed(seed + 1)
     tokens = torch.randint(0, cfg.vocab, (LM_B_BATCH, LM_B_S), generator=gen,
                            dtype=torch.int32)
     dec_tokens = torch.randint(0, cfg.vocab, (4, LM_B_BATCH), generator=gen,
@@ -1664,13 +1860,15 @@ def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
     t0 = time.perf_counter()
     card, card_routes = recorded_routes(layers, lambda: lm_run(
         torch, lm, decode, cfg, p_card, tokens, dec_tokens, 512, dev))
+    t_card = time.perf_counter() - t0
     cpu, cpu_routes = recorded_routes(layers, lambda: lm_run(
         torch, lm, decode, cfg, p_cpu, tokens, dec_tokens, 512,
         torch.device("cpu")))
+    counts[f"{label} B"] = (kernels.launch_counts(), b_layers)
     gaps = (route_gap(torch, card_routes, cfg.top_k),
             route_gap(torch, cpu_routes, cfg.top_k))
     if len(card_routes) != len(cpu_routes):
-        fail(f"MoE B: {len(card_routes)} MoE calls on the card, "
+        fail(f"{label} B: {len(card_routes)} MoE calls on the card, "
              f"{len(cpu_routes)} on the CPU")
     n_tokens = 0
     for i, ((_, got), (probs, want)) in enumerate(zip(card_routes,
@@ -1679,65 +1877,75 @@ def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
         if bool(differ.any()):
             w = torch.sort(probs, dim=-1, descending=True)[0]
             gap = (w[:, cfg.top_k - 1] - w[:, cfg.top_k])[differ]
-            fail(f"MoE B: MoE call {i}: {int(differ.sum())} tokens routed to "
-                 f"other experts on the card than on the CPU (their k-th to "
-                 f"(k+1)-th probability gaps on the CPU: {gap.tolist()[:8]})")
+            fail(f"{label} B: MoE call {i}: {int(differ.sum())} tokens "
+                 f"routed to other experts on the card than on the CPU "
+                 f"(their k-th to (k+1)-th probability gaps on the CPU: "
+                 f"{gap.tolist()[:8]})")
         n_tokens += want.shape[0]
     err = lm_compare(torch, card, cpu, 1e-4,
-                     f"{cfg.name} x{MOE_B_LAYERS} layers on the card vs the "
-                     f"CPU")
-    print(f"MoE B: {cfg.name} at full width ({MOE_B_LAYERS} layers: "
-          f"{cfg.first_dense} dense + {MOE_B_LAYERS - cfg.first_dense} MoE, "
+                     f"{cfg.name} x{b_layers} layers on the card vs the CPU")
+    print(f"{label} B: {cfg.name} at full width ({b_layers} layers: "
+          f"{cfg.first_dense} dense + {b_layers - cfg.first_dense} MoE, "
           f"f32) B={LM_B_BATCH} S={LM_B_S} prefill + 4 decode steps: the card"
           f" matches the CPU (max abs err {err:.3g}, tolerance 1e-4); the "
           f"routing of {n_tokens} tokens over {len(cpu_routes)} MoE calls is "
           f"equal; smallest gap between the k-th and (k+1)-th router "
-          f"probability {gaps[0]:.3g} (card), {gaps[1]:.3g} (CPU); "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    launches = kernels.launch_counts()
-    expect = dict.fromkeys(launches, 0)
-    expect.update(flash_attention=smoke_layers + MOE_B_LAYERS,
-                  decode_attention=4 * (smoke_layers + MOE_B_LAYERS))
-    if launches != expect:
-        fail(f"MoE A and B launch counts {launches} != {expect}")
-    print(f"MoE A and B: launches {launches}", flush=True)
-    return {"flash_attention": launches["flash_attention"]}
+          f"probability {gaps[0]:.3g} (card), {gaps[1]:.3g} (CPU); card "
+          f"{t_card:.1f} s, CPU {time.perf_counter() - t0 - t_card:.1f} s",
+          flush=True)
+    del p_card, p_cpu, card, cpu, card_routes, cpu_routes
+    counter = decode_kernel(cfg)[0]
+    out = {"flash_attention": {}, counter: {}}
+    for phase, (launches, n_layers) in counts.items():
+        expect = dict.fromkeys(launches, 0)
+        expect.update({"flash_attention": n_layers, counter: 4 * n_layers})
+        if launches != expect:
+            fail(f"{phase} launch counts {launches} != {expect}")
+        print(f"{phase}: launches {launches}", flush=True)
+        for k in out:
+            out[k][phase] = launches[k]
+    return out
 
 
-def serve_moe(torch, dev, kernels, lm_configs, lm, decode, params, layers):
-    """MoE C: moonshot at full width in bf16 on the card, MOE_C_LAYERS
-    layers, LM C's traffic (prefill B=PREFILL_B, S=PREFILL_S, median of 3
-    after a warm-up; DECODE_STEPS greedy decode steps at B=DECODE_B over a
+def serve_moe(torch, dev, kernels, lm_configs, lm, decode, params, layers,
+              label: str, arch: str, n_layers: int, seed: int):
+    """Phase C of a moe architecture: at full width in bf16 on the card,
+    ``n_layers`` layers (seeded weights drawn a layer at a time by
+    ``lm.init_cast_params``), LM C's traffic (prefill B=PREFILL_B,
+    S=PREFILL_S, median of 3 after a warm-up, its expert loads and drops
+    printed; DECODE_STEPS greedy decode steps at B=DECODE_B over a
     DECODE_MAX-position cache with ragged positions from DECODE_POS_LO).
-    Launches checked (K5 `tc` one a layer a prefill, K6 one a layer a
-    step, nothing else), one step under sync debug mode "error", a
-    profile of a prefill and of 4 steps. Returns the two counts."""
-    cfg = dataclasses.replace(lm_configs.get(MOE_ARCH),
-                              n_layers=MOE_C_LAYERS)
-    gen = torch.Generator(device=dev).manual_seed(8)
-    t0 = time.perf_counter()
-    p32 = params.init_params(lm.model_defs(cfg), gen, dev)
-    p = lm.cast_params(p32, cfg)      # matrices bf16 once; norms stay f32
-    del p32
+    Launches checked (K5 `tc` one a layer a prefill, ``decode_kernel``'s
+    kernel one a layer a step, nothing else), one step under sync debug
+    mode "error", a profile of a prefill and of 4 steps. Returns the two
+    counts."""
+    cfg = dataclasses.replace(lm_configs.get(arch), n_layers=n_layers)
+    counter, decode_names = decode_kernel(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p = lm.init_cast_params(cfg, gen)   # matrices bf16; norms stay f32
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     n_params = params.param_count(lm.model_defs(cfg))
     tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
                            generator=gen, device=dev, dtype=torch.int32)
     state = decode.init_decode(cfg, DECODE_B, DECODE_MAX, dev)
-    for cache in (c for pair in state.caches.values() for c in pair.values()):
+    caches = [c for pair in state.caches.values() for c in pair.values()]
+    for cache in caches:
         cache.normal_(generator=gen)
     state = state._replace(cache_pos=torch.randint(
         DECODE_POS_LO, DECODE_MAX - DECODE_STEPS - 8, (DECODE_B,),
         generator=gen, device=dev, dtype=torch.int32))
     live = int(state.cache_pos.sum())
+    cache_gb = sum(c.numel() * c.element_size() for c in caches) / 1e9
     step_tokens = torch.randint(0, cfg.vocab, (DECODE_B,), generator=gen,
                                 device=dev, dtype=torch.int32)
     torch.cuda.synchronize()
-    print(f"MoE C: {cfg.name} ({cfg.n_layers} layers: {cfg.first_dense} "
+    print(f"{label} C: {cfg.name} ({cfg.n_layers} layers: {cfg.first_dense} "
           f"dense + {cfg.n_layers - cfg.first_dense} MoE, bf16, "
           f"{n_params / 1e9:.3f}B parameters) weights and a "
-          f"{DECODE_B}x{DECODE_MAX} KV cache on the card in "
+          f"{DECODE_B}x{DECODE_MAX} cache ({cache_gb:.2f} GB) on the card in "
           f"{time.perf_counter() - t0:.1f} s; cache positions "
           f"{int(state.cache_pos.min())}..{int(state.cache_pos.max())} "
           f"(mean {live / DECODE_B:.0f}); device memory "
@@ -1758,7 +1966,7 @@ def serve_moe(torch, dev, kernels, lm_configs, lm, decode, params, layers):
                                         minlength=cfg.n_experts)
                          for _, topi in routes])
     dropped = int((loads - cap).clamp_min(0).sum())
-    print(f"MoE C: prefill routing over {len(routes)} MoE layers: the "
+    print(f"{label} C: prefill routing over {len(routes)} MoE layers: the "
           f"busiest expert takes {int(loads.max())} of "
           f"{PREFILL_B * PREFILL_S} tokens (capacity {cap}), the idlest "
           f"{int(loads.min())}; {dropped} of {int(loads.sum())} assignments "
@@ -1771,6 +1979,9 @@ def serve_moe(torch, dev, kernels, lm_configs, lm, decode, params, layers):
         logits = lm.forward(p, cfg, tokens)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    if tuple(logits.shape) != (PREFILL_B, PREFILL_S, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{label} C prefill logits {tuple(logits.shape)} or not finite")
     del logits
     for _ in range(DECODE_STEPS):
         t0 = time.perf_counter()
@@ -1779,13 +1990,14 @@ def serve_moe(torch, dev, kernels, lm_configs, lm, decode, params, layers):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = kernels.launch_counts()
     expect = dict.fromkeys(launches, 0)
-    expect.update(flash_attention_tc=3 * cfg.n_layers,
-                  decode_attention=DECODE_STEPS * cfg.n_layers)
+    expect.update({"flash_attention_tc": 3 * cfg.n_layers,
+                   counter: DECODE_STEPS * cfg.n_layers})
     if launches != expect:
-        fail(f"MoE C launch counts {launches} != {expect}")
+        fail(f"{label} C launch counts {launches} != {expect}")
     if tuple(step_logits.shape) != (DECODE_B, cfg.vocab) or \
             not bool(torch.isfinite(step_logits).all()):
-        fail(f"MoE C decode logits {tuple(step_logits.shape)} or not finite")
+        fail(f"{label} C decode logits {tuple(step_logits.shape)} or not "
+             f"finite")
     peak = torch.cuda.max_memory_allocated() / 2**30
     # One step with every synchronising CUDA call an error.
     torch.cuda.synchronize()
@@ -1796,7 +2008,7 @@ def serve_moe(torch, dev, kernels, lm_configs, lm, decode, params, layers):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     total_s = sum(step_ms) / 1e3
-    print(f"MoE C: prefill B={PREFILL_B} S={PREFILL_S}: median "
+    print(f"{label} C: prefill B={PREFILL_B} S={PREFILL_S}: median "
           f"{statistics.median(prefill_ms):.2f} ms (runs "
           f"{', '.join(f'{t:.2f}' for t in prefill_ms)}), "
           f"{PREFILL_B * PREFILL_S / statistics.median(prefill_ms) * 1e3:.1f}"
@@ -1813,10 +2025,8 @@ def serve_moe(torch, dev, kernels, lm_configs, lm, decode, params, layers):
     print(profile_window(torch, f"{cfg.name} x{cfg.n_layers} decode "
                          f"B={DECODE_B}",
                          lambda: [step() for _ in range(4)], 4, "step",
-                         names=("decode_partial_kernel",
-                                "decode_combine_kernel")), flush=True)
-    return {k: launches[k] for k in ("flash_attention_tc",
-                                     "decode_attention")}
+                         names=decode_names), flush=True)
+    return {k: launches[k] for k in ("flash_attention_tc", counter)}
 
 
 def check_gradients_reach(torch, dev, ops, fa_ops, dec_ops) -> None:
@@ -2753,11 +2963,23 @@ def kernel_entry(name: str, r, launches) -> dict:
     source, replaces = KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches, **timing(r)}
-    for key in ("kitti", "f32_prefill", "moonshot", "sorted", "fleet_kitti",
-                "fleet_16", "fleet_64"):
+    for key in ("kitti", "f32_prefill", "moonshot", "deepseek", "sorted",
+                "fleet_kitti", "fleet_16", "fleet_64"):
         if key in r:
             entry[key] = timing(r[key])
     return entry
+
+
+def instance_entries(records, by_path) -> list:
+    """The JSON entries of ``INSTANCES``: each its timed record, its label
+    and the launches of its own path (None with ``--kernels``)."""
+    out = []
+    for (name, _), (key, label, path) in INSTANCES.items():
+        if key in records.get(name, {}):
+            launches = None if by_path is None else by_path[name][path]
+            out.append(dict(kernel_entry(name, records[name][key], launches),
+                            instance=label, path=path))
+    return out
 
 
 def main() -> None:
@@ -2791,6 +3013,8 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ops as fa_ops, \
         ref as fa_ref
     from repro_torch.kernels.iou2d import ops as iou_ops, ref as iou_ref
+    from repro_torch.kernels.mla_decode_attention import ops as mla_ops, \
+        ref as mla_ref
     from repro_torch.kernels.pillar_scatter import ops as ps_ops, \
         ref as ps_ref
     from repro_torch.kernels.point_proj import ops as pp_ops, ref as pp_ref
@@ -2824,6 +3048,14 @@ def main() -> None:
 
     def dec(*shape):
         return lambda s: check_decode(torch, dev, dec_ops, dec_ref, *shape, s)
+
+    def flash_mla(b, h, s, hd, vd, dtype, causal):
+        return lambda sd: check_flash(torch, dev, fa_ops, fa_ref, b, h, h, s,
+                                      s, hd, dtype, causal, sd, vd=vd)
+
+    def mla_dec(*shape):
+        return lambda s: check_mla_decode(torch, dev, mla_ops, mla_ref,
+                                          *shape, s)
 
     def flash_bwd(*shape, views=True):
         return lambda s: check_flash_bwd(torch, dev, fa_ops, fa_ref, *shape,
@@ -2960,7 +3192,14 @@ def main() -> None:
             flash(1, 4, 1, 300, 300, 64, f32, True),
             flash(2, 2, 2, 128, 640, 64, f32, False),
             flash(2, 4, 2, 16, 16, 16, f32, True),
-            flash(2, 8, 2, 512, 512, 64, bf16, True)],
+            flash(2, 8, 2, 512, 512, 64, bf16, True),
+            # MLA's head dims (qk 192 / value 128; SMOKE's 24 / 16): MLA B's
+            # prefill shape (B 2, 128 heads, S 256, also timed), full
+            # attention, MLA A's SMOKE shape (also timed), a ragged tile.
+            flash_mla(LM_B_BATCH, 128, LM_B_S, 192, 128, f32, True),
+            flash_mla(1, 8, 300, 192, 128, f32, False),
+            flash_mla(2, 4, 16, 24, 16, f32, True),
+            flash_mla(2, 4, 77, 24, 16, f32, False)],
         # The tensor-core route (bf16 at hd 128): the prefill shape of LM
         # phase C first, then a ragged causal tile, keys longer than
         # queries, GQA.
@@ -2972,7 +3211,13 @@ def main() -> None:
             # MoE C's prefill shape (moonshot: one query head a kv head,
             # also timed), then G = 1 on a ragged causal tile.
             flash(PREFILL_B, 16, 16, PREFILL_S, PREFILL_S, 128, bf16, True),
-            flash(2, 4, 4, 77, 77, 128, bf16, True)],
+            flash(2, 4, 4, 77, 77, 128, bf16, True),
+            # MLA C's prefill shape (deepseek-v2: 128 heads of qk dim 192 /
+            # value dim 128, one query head a kv head, also timed), then a
+            # ragged causal tile and full attention.
+            flash_mla(PREFILL_B, 128, PREFILL_S, 192, 128, bf16, True),
+            flash_mla(1, 4, 300, 192, 128, bf16, True),
+            flash_mla(2, 8, 77, 192, 128, bf16, False)],
         # The decode shape of LM phase C first (ragged positions), then
         # f32 GQA, MQA with positions 1 and S, SMOKE's head dim with an
         # empty request, and bf16 at hd 16 (2-byte rows of V a lane).
@@ -2988,6 +3233,24 @@ def main() -> None:
             dec(DECODE_B, 16, 16, DECODE_MAX, 128, bf16,
                 (DECODE_POS_LO, DECODE_MAX)),
             dec(3, 4, 4, 300, 128, bf16, [0, 77, 300])],
+        # MLA's absorbed decode over the compressed cache: MLA C's decode
+        # shape first (B 16, 128 heads, (R, P) = (512, 64), ragged lengths
+        # over a 32k cache), then lengths 1 and S_max and lengths off the
+        # tile and split boundaries, 100 heads (a partial head block) with
+        # an empty request; the SIMT instance in f32 at MLA B's decode
+        # shape and at SMOKE's (16, 8) (both also timed), in bf16 at
+        # (16, 8), and in f32 with ragged lengths.
+        "mla_decode_attention": [
+            mla_dec(DECODE_B, 128, DECODE_MAX, 512, 64, bf16,
+                    (DECODE_POS_LO, DECODE_MAX)),
+            mla_dec(DECODE_B, 128, DECODE_MAX, 512, 64, bf16,
+                    [1, DECODE_MAX, 31, 33, 4097, 8191, 8193, 12345, 20000,
+                     32767, 2, 100, 1000, 5000, 30001, 16385]),
+            mla_dec(3, 100, 700, 512, 64, bf16, [0, 77, 700]),
+            mla_dec(LM_B_BATCH, 128, 512, 512, 64, f32, [LM_B_S + 4] * 2),
+            mla_dec(2, 4, 32, 16, 8, f32, [1, 32]),
+            mla_dec(3, 4, 100, 16, 8, bf16, [0, 1, 100]),
+            mla_dec(4, 128, 2048, 512, 64, f32, (1, 2049))],
         # K5's gradient, the SIMT route (f32; bf16 at hd 16-64): LM T's
         # shape in f32 first (timed), then LM T's f32 correctness shape,
         # G = 1, 4 and 8, Sq = Sk = 1, 77, 256 and 4096, causal and not,
@@ -3078,6 +3341,7 @@ def main() -> None:
                   ("flash_attention", 1): "f32_prefill",
                   ("flash_attention_tc", 4): "moonshot",
                   ("decode_attention", 5): "moonshot",
+                  **{case: key for case, (key, _, _) in INSTANCES.items()},
                   ("auction", 1): "fleet_kitti",
                   ("pillar_scatter", PILLAR_CASES.index("sorted")): "sorted"}
     # The launch floor: a one-element zero_() timed as the kernels are.
@@ -3113,7 +3377,8 @@ def main() -> None:
             torch.cuda.empty_cache()
     if only:
         print(json.dumps({"kernels": [kernel_entry(name, records[name], None)
-                                      for name in records]}))
+                                      for name in records]
+                          + instance_entries(records, None)}))
         return
     main_launches = {}
 
@@ -3227,17 +3492,23 @@ def main() -> None:
         main_launches[k] = n
         lm_paths[k] = {"LM C serving": n}
 
-    # -- 10b-10d. MoE A, B and C: moonshot-v1-16b-a3b -----------------------
-    torch.cuda.empty_cache()
-    for path, counts in (
-            ("MoE A and B", check_moe(torch, np, dev, kernels, lm_configs,
-                                      convert, lm, decode, params, layers)),
-            ("MoE C serving", serve_moe(torch, dev, kernels, lm_configs, lm,
-                                        decode, params, layers))):
+    # -- 10b-10g. MoE A-C (moonshot-v1-16b-a3b), MLA A-C (deepseek-v2) -----
+    for label, arch, golden, b_layers, b_seed, c_layers, c_seed in (
+            ("MoE", MOE_ARCH, MOE_GOLDEN, MOE_B_LAYERS, 6, MOE_C_LAYERS, 8),
+            ("MLA", MLA_ARCH, MLA_GOLDEN, MLA_B_LAYERS, 9, MLA_C_LAYERS, 11)):
         torch.cuda.empty_cache()
-        for k, n in counts.items():
-            main_launches[k] += n
-            lm_paths[k][path] = n
+        for k, paths in check_moe(torch, np, dev, kernels, lm_configs,
+                                  convert, lm, decode, params, layers, label,
+                                  arch, golden, b_layers, b_seed).items():
+            for path, n in paths.items():
+                main_launches[k] = main_launches.get(k, 0) + n
+                lm_paths.setdefault(k, {})[path] = n
+        torch.cuda.empty_cache()
+        for k, n in serve_moe(torch, dev, kernels, lm_configs, lm, decode,
+                              params, layers, label, arch, c_layers,
+                              c_seed).items():
+            main_launches[k] = main_launches.get(k, 0) + n
+            lm_paths.setdefault(k, {})[f"{label} C serving"] = n
 
     # -- 11. LM T: training qwen2.5-3B on the card -------------------------
     torch.cuda.empty_cache()
@@ -3261,6 +3532,7 @@ def main() -> None:
     for e in entries:
         if e["name"] in by_path:
             e["launches_by_path"] = by_path[e["name"]]
+    entries += instance_entries(records, by_path)
     print(json.dumps({"kernels": entries}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

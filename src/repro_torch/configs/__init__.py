@@ -2,7 +2,7 @@
 
 ``get(name)`` returns the full ArchConfig, ``get_smoke(name)`` the reduced
 same-family config of the CPU tests. The port has the dense family and
-the moe family with full attention so far: the other architectures of
+the moe family (full attention and MLA) so far: the other architectures of
 ``ARCH_IDS`` raise ``NotImplementedError`` until their families are ported
 (ROADMAP.md).
 """
@@ -26,22 +26,14 @@ ARCH_IDS = [
 ]
 
 # The architectures whose family the port runs (dense; moe with full
-# attention).
+# attention or MLA).
 PORTED = ("glm4_9b", "qwen2_5_3b", "minitron_4b", "granite_20b",
-          "moonshot_v1_16b_a3b")
-# Unported architectures whose family runs, with what they still need.
-NEEDS = {"deepseek_v2_236b": "MLA (multi-head latent attention, "
-                             "models/mla.py) and K5 for a value head dim "
-                             "unequal to the qk head dim"}
+          "moonshot_v1_16b_a3b", "deepseek_v2_236b")
 
 
 def _module(name: str):
     if name not in ARCH_IDS:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCH_IDS}")
-    if name in NEEDS:
-        raise NotImplementedError(
-            f"{name}: not ported yet: it needs {NEEDS[name]} (see "
-            f"ROADMAP.md)")
     if name not in PORTED:
         raise NotImplementedError(
             f"{name}: its model family is not ported yet (the port runs "

@@ -122,7 +122,8 @@ def decode_state_from_jax(state: Any,
     """A JAX ``DecodeState`` (caches as numpy arrays) -> the port's
     ``DecodeState``: caches in their dtype, ``cache_pos`` int32. The moe
     family's nested caches keep their layout, ``"dense": None`` included
-    where the model has no leading dense layers."""
+    where the model has no leading dense layers, and MLA's compressed
+    caches (``{"ckv", "krope"}`` a stack) theirs."""
     caches = params_mod.tree_map(
         lambda a: None if a is None else _float_tensor(a, device),
         dict(state.caches))

@@ -6,7 +6,12 @@
 // This is the "tf32x3" route: f32 inputs, and bf16 at head dims 16, 32
 // and 64. bf16 at head dim 128 (the full-width dense configs) runs on the
 // tensor cores in bf16 in flash_attention_tc.cu;
-// kernels/flash_attention/ops.py::route chooses.
+// kernels/flash_attention/ops.py::route chooses. The value head dim VD
+// equals the qk head dim HD, except at MLA's (HD, VD) = (192, 128)
+// (deepseek-v2) and (24, 16) (its SMOKE config), in f32: the JAX
+// package's plain attention at those dims
+// (repro/models/layers.py::multihead_attention), which the Pallas kernel
+// does not take.
 //
 // What bounds it on an H100: operations. At the serving shape of prefill
 // (B=1, H=16, KV=2, S=8192, hd=128, causal) a call does 2.75e11 flops on
@@ -54,7 +59,10 @@
 //   K/V tile once for the block into shared memory was slower on the card
 //   (twice the fragment loads), as were 32-key tiles; 4-warp blocks are
 //   faster where 8-warp ones would leave SMs idle (LM B's shape) and
-//   slower elsewhere (the prefill shape);
+//   slower elsewhere (the prefill shape). At MLA's f32 (192, 128) an 8-warp
+//   block would need 260 KB (96 KB of Q, a 164 KB ring), so it runs 4
+//   warps (48 KB + 164 KB); K and V rows have their own widths in a
+//   stage;
 // * the online softmax runs in f32 on the accumulator fragments (a row
 //   lives on the 4 threads of a quad: two shuffles for its max; the sum l
 //   stays per thread until the end), as p = 2^(s c - m c) with c = scale *
@@ -122,13 +130,17 @@ __device__ __forceinline__ float exp2_fast(float x) {
 }
 
 // Shared memory of a block: each warp's Q fragments ([warp][hd/8][lane]
-// of 4 f32 words), then a ring of K/V stages ([K, V][kBk][hd + pad] each).
-template <int HD, typename T, int NW>
+// of 4 f32 words), then a ring of K/V stages (K [kBk][HD + pad], then V
+// [kBk][VD + pad], each).
+template <int HD, int VD, typename T, int NW>
 struct Smem {
+  static constexpr int kRowK = HD + kPad<T>;     // elements
+  static constexpr int kRowV = VD + kPad<T>;
+  static constexpr int kTile = kBk * (kRowK + kRowV);   // elements a stage
   static constexpr int kQ = NW * (HD / 8) * 32 * 16;
   static constexpr int kBytes =
-      kQ + kStages * 2 * kBk * (HD + kPad<T>) * static_cast<int>(sizeof(T));
-  static_assert(kBytes <= kMaxSmem, "shared memory");
+      kQ + kStages * kTile * static_cast<int>(sizeof(T));
+  static constexpr bool kFits = kBytes <= kMaxSmem;
 };
 
 // d += a (16x8, row) . b (8x8, col), TF32 in, f32 accumulators.
@@ -157,20 +169,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Keys [k0, k0 + kBk) of K and V into one stage: [K | V][kBk][HD + pad].
-template <int HD, typename T, int NW>
+// Keys [k0, k0 + kBk) of K and V into one stage: K [kBk][HD + pad], then
+// V [kBk][VD + pad].
+template <int HD, int VD, typename T, int NW>
 __device__ __forceinline__ void load_tile(T* stage, const T* kb,
                                           long long kss, const T* vb,
                                           long long vss, int k0, int sk) {
+  using S = Smem<HD, VD, T, NW>;
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = HD / kVec;        // 16-byte chunks a row
-  constexpr int kRow = HD + kPad<T>;
+  constexpr int kChunksK = HD / kVec;       // 16-byte chunks a row
+  constexpr int kChunksV = VD / kVec;
+  constexpr int kChunks = kChunksK + kChunksV;
+  T* vstage = stage + kBk * S::kRowK;
   for (int c = threadIdx.x; c < kBk * kChunks; c += NW * 32) {
-    const int r = c / kChunks, col = c % kChunks * kVec;
+    const int r = c / kChunks, piece = c % kChunks;
     const bool ok = k0 + r < sk;
     const long long kj = ok ? k0 + r : 0;
-    cp_async16(stage + r * kRow + col, kb + kj * kss + col, ok);
-    cp_async16(stage + (kBk + r) * kRow + col, vb + kj * vss + col, ok);
+    if (piece < kChunksK) {
+      const int col = piece * kVec;
+      cp_async16(stage + r * S::kRowK + col, kb + kj * kss + col, ok);
+    } else {
+      const int col = (piece - kChunksK) * kVec;
+      cp_async16(vstage + r * S::kRowV + col, vb + kj * vss + col, ok);
+    }
   }
 }
 
@@ -284,23 +305,25 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
-template <int HD, typename T, int NW>
+template <int HD, int VD, typename T, int NW>
 __global__ void __launch_bounds__(NW * 32, 1)
 flash_tf32x3_kernel(const T* __restrict__ q, Strides qs,
                     const T* __restrict__ k, Strides ks,
                     const T* __restrict__ v, Strides vs,
                     T* __restrict__ o, Strides os, int n_kv, int group,
                     int hb, int sq, int sk, int causal, float scale) {
-  using S = Smem<HD, T, NW>;
+  using S = Smem<HD, VD, T, NW>;
+  static_assert(S::kFits, "shared memory");
   constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int kRow = HD + kPad<T>;
-  constexpr int kD = HD / 8;       // Q.K^T k-steps; P.V n-tiles
+  constexpr int kRowV = S::kRowV;
+  constexpr int kD = HD / 8;       // Q.K^T k-steps
+  constexpr int kDv = VD / 8;      // P.V n-tiles
   constexpr int kN = kBk / 8;      // Q.K^T n-tiles; P.V k-steps
-  constexpr int kTile = 2 * kBk * kRow;   // elements of a stage
+  constexpr int kTile = S::kTile;  // elements of a stage
   extern __shared__ uint4 smem4[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   uint4* qf = smem4 + warp * kD * 32 + lane;   // [d * 32]: this lane's
-  // [kStages][K, V][kBk][kRow]
+  // [kStages][K [kBk][kRowK], V [kBk][kRowV]]
   T* ring = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) + S::kQ);
 
   const int gq = lane / 4, tq = lane % 4;  // the mma's groupID, thread
@@ -333,9 +356,9 @@ flash_tf32x3_kernel(const T* __restrict__ q, Strides qs,
   }
   // O: c0, c1 at (g, 2t), (g, 2t+1) and c2, c3 at (g+8, ...) of each
   // 8-dim n-tile.
-  float acc[kD][4];
+  float acc[kDv][4];
 #pragma unroll
-  for (int d = 0; d < kD; ++d)
+  for (int d = 0; d < kDv; ++d)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[d][i] = 0.0f;
   // A row's running max of the raw scores, the same times c, its sum.
@@ -353,8 +376,8 @@ flash_tf32x3_kernel(const T* __restrict__ q, Strides qs,
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles)
-      load_tile<HD, T, NW>(ring + t * kTile, kb, ks.s, vb, vs.s, t * kBk,
-                           sk);
+      load_tile<HD, VD, T, NW>(ring + t * kTile, kb, ks.s, vb, vs.s,
+                               t * kBk, sk);
     cp_async_commit();
   }
   for (int it = 0; it < n_tiles; ++it) {
@@ -362,11 +385,11 @@ flash_tf32x3_kernel(const T* __restrict__ q, Strides qs,
     __syncthreads();                // ... everyone's; tile it - 1 is consumed
     const int next = it + kStages - 1;
     if (next < n_tiles)
-      load_tile<HD, T, NW>(ring + next % kStages * kTile, kb, ks.s, vb, vs.s,
-                           next * kBk, sk);
+      load_tile<HD, VD, T, NW>(ring + next % kStages * kTile, kb, ks.s, vb,
+                               vs.s, next * kBk, sk);
     cp_async_commit();
     const T* kt = ring + it % kStages * kTile;
-    const T* vt = kt + kBk * kRow;
+    const T* vt = kt + kBk * S::kRowK;
     float sc[kN][4];
     scores<HD, T>(kt, qf, gq, tq, sc);
     // Only the tiles that cross sk or a row's diagonal are masked.
@@ -386,11 +409,11 @@ flash_tf32x3_kernel(const T* __restrict__ q, Strides qs,
 #pragma unroll
       for (int i = 0; i < 4; ++i) split(pa[i], ph[i], pl[i]);
 #pragma unroll
-      for (int d = 0; d < kD; ++d) {
-        const T* at = vt + (n * 8 + 2 * tq) * kRow + d * 8 + gq;
+      for (int d = 0; d < kDv; ++d) {
+        const T* at = vt + (n * 8 + 2 * tq) * kRowV + d * 8 + gq;
         uint32_t bh[2], bl[2];
         fragment(at, bh[0], bl[0]);
-        fragment(at + kRow, bh[1], bl[1]);
+        fragment(at + kRowV, bh[1], bl[1]);
         mma(acc[d], pl, bh);
         if (kF32) mma(acc[d], ph, bl);
         mma(acc[d], ph, bh);
@@ -409,7 +432,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, Strides qs,
     const float denom = fmaxf(sum, 1e-30f);
     T* orow = op + rq[r] * os.s + 2 * tq;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) {
+    for (int d = 0; d < kDv; ++d) {
       narrow(orow + d * 8, acc[d][2 * r] / denom);
       narrow(orow + d * 8 + 1, acc[d][2 * r + 1] / denom);
     }
@@ -418,12 +441,12 @@ flash_tf32x3_kernel(const T* __restrict__ q, Strides qs,
 
 int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
 
-template <int HD, typename T, int NW>
+template <int HD, int VD, typename T, int NW>
 int launch_nw(const void* q, const void* k, const void* v, void* o,
               const long long* st, int batch, int n_heads, int n_kv_heads,
               int sq, int sk, int causal, float scale, cudaStream_t stream) {
-  constexpr int kSmem = Smem<HD, T, NW>::kBytes;
-  auto kernel = flash_tf32x3_kernel<HD, T, NW>;
+  constexpr int kSmem = Smem<HD, VD, T, NW>::kBytes;
+  auto kernel = flash_tf32x3_kernel<HD, VD, T, NW>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -440,60 +463,79 @@ int launch_nw(const void* q, const void* k, const void* v, void* o,
 }
 
 // 8 warps a block, or 4 where a grid of 8-warp blocks would not give
-// every SM one.
-template <int HD, typename T>
+// every SM one, or where 8 warps' shared memory does not fit.
+template <int HD, int VD, typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
            const long long* st, int batch, int n_heads, int n_kv_heads,
            int sq, int sk, int causal, float scale, cudaStream_t stream) {
-  int sms = 132, dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int group = n_heads / n_kv_heads, hb = gcd(group, 8);
-  const long long blocks8 = static_cast<long long>((sq + 128 / hb - 1) /
-                                                   (128 / hb)) *
-                            batch * n_kv_heads * (group / hb);
-  return blocks8 >= sms
-      ? launch_nw<HD, T, 8>(q, k, v, o, st, batch, n_heads, n_kv_heads, sq,
-                            sk, causal, scale, stream)
-      : launch_nw<HD, T, 4>(q, k, v, o, st, batch, n_heads, n_kv_heads, sq,
-                            sk, causal, scale, stream);
+  if constexpr (!Smem<HD, VD, T, 8>::kFits) {
+    return launch_nw<HD, VD, T, 4>(q, k, v, o, st, batch, n_heads,
+                                   n_kv_heads, sq, sk, causal, scale, stream);
+  } else {
+    int sms = 132, dev = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int group = n_heads / n_kv_heads, hb = gcd(group, 8);
+    const long long blocks8 = static_cast<long long>((sq + 128 / hb - 1) /
+                                                     (128 / hb)) *
+                              batch * n_kv_heads * (group / hb);
+    return blocks8 >= sms
+        ? launch_nw<HD, VD, T, 8>(q, k, v, o, st, batch, n_heads, n_kv_heads,
+                                  sq, sk, causal, scale, stream)
+        : launch_nw<HD, VD, T, 4>(q, k, v, o, st, batch, n_heads, n_kv_heads,
+                                  sq, sk, causal, scale, stream);
+  }
 }
 
 }  // namespace
 
-// q (B,H,SQ,hd), k/v (B,KV,SK,hd), o (B,H,SQ,hd), each through element
-// strides st = {q: b,h,s, k: b,h,s, v: b,h,s, o: b,h,s} with the head dim
-// contiguous and every base and stride 16-byte aligned. is_bf16 selects
-// bf16 for all four, else f32. hd is 16, 32, 64 or 128 (f32), 16, 32 or 64
-// (bf16); H is a multiple of KV.
+// q (B,H,SQ,hd), k (B,KV,SK,hd), v (B,KV,SK,vd), o (B,H,SQ,vd), each
+// through element strides st = {q: b,h,s, k: b,h,s, v: b,h,s, o: b,h,s}
+// with the head dim contiguous and every base and stride 16-byte aligned.
+// is_bf16 selects bf16 for all four, else f32. vd = hd at hd 16, 32, 64 or
+// 128 (f32), 16, 32 or 64 (bf16); f32 also at (hd, vd) = (192, 128) and
+// (24, 16) (MLA). H is a multiple of KV.
 MOBY_API int moby_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, const long long* st, int batch,
                                   int n_heads, int n_kv_heads, int sq, int sk,
-                                  int head_dim, int causal, int is_bf16,
-                                  float scale, void* stream) {
+                                  int head_dim, int value_dim, int causal,
+                                  int is_bf16, float scale, void* stream) {
   if (batch * n_heads == 0 || sq == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
+  if (value_dim != head_dim) {
+    if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    if (head_dim == 192 && value_dim == 128)
+      return launch<192, 128, float>(q, k, v, o, st, batch, n_heads,
+                                     n_kv_heads, sq, sk, causal, scale, s);
+    if (head_dim == 24 && value_dim == 16)
+      return launch<24, 16, float>(q, k, v, o, st, batch, n_heads,
+                                   n_kv_heads, sq, sk, causal, scale, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (is_bf16) {
     switch (head_dim) {
-      case 16: return launch<16, __nv_bfloat16>(q, k, v, o, st, batch,
+      case 16: return launch<16, 16, __nv_bfloat16>(q, k, v, o, st, batch,
                    n_heads, n_kv_heads, sq, sk, causal, scale, s);
-      case 32: return launch<32, __nv_bfloat16>(q, k, v, o, st, batch,
+      case 32: return launch<32, 32, __nv_bfloat16>(q, k, v, o, st, batch,
                    n_heads, n_kv_heads, sq, sk, causal, scale, s);
-      case 64: return launch<64, __nv_bfloat16>(q, k, v, o, st, batch,
+      case 64: return launch<64, 64, __nv_bfloat16>(q, k, v, o, st, batch,
                    n_heads, n_kv_heads, sq, sk, causal, scale, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (head_dim) {
-    case 16: return launch<16, float>(q, k, v, o, st, batch, n_heads,
-                                      n_kv_heads, sq, sk, causal, scale, s);
-    case 32: return launch<32, float>(q, k, v, o, st, batch, n_heads,
-                                      n_kv_heads, sq, sk, causal, scale, s);
-    case 64: return launch<64, float>(q, k, v, o, st, batch, n_heads,
-                                      n_kv_heads, sq, sk, causal, scale, s);
-    case 128: return launch<128, float>(q, k, v, o, st, batch, n_heads,
-                                        n_kv_heads, sq, sk, causal, scale,
-                                        s);
+    case 16: return launch<16, 16, float>(q, k, v, o, st, batch, n_heads,
+                                          n_kv_heads, sq, sk, causal, scale,
+                                          s);
+    case 32: return launch<32, 32, float>(q, k, v, o, st, batch, n_heads,
+                                          n_kv_heads, sq, sk, causal, scale,
+                                          s);
+    case 64: return launch<64, 64, float>(q, k, v, o, st, batch, n_heads,
+                                          n_kv_heads, sq, sk, causal, scale,
+                                          s);
+    case 128: return launch<128, 128, float>(q, k, v, o, st, batch, n_heads,
+                                             n_kv_heads, sq, sk, causal,
+                                             scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,18 +1,23 @@
 // Flash attention (prefill) on Hopper's tensor cores: bf16 operands, f32
-// accumulation, wgmma fed by TMA. Head dim 128.
+// accumulation, wgmma fed by TMA. Value head dim 128; qk head dim 128, or
+// 192 (MLA: deepseek-v2's nope 128 + rope 64).
 //
 // Replaces the TPU kernel
 // repro/kernels/flash_attention/flash_attention.py (flash_attention_pallas)
-// for bf16 at head dim 128, the width of every full-size dense config.
-// flash_attention.cu (3xTF32 on the tensor cores) keeps f32 and the other
-// head dims; kernels/flash_attention/ops.py::route chooses before any
-// launch.
+// for bf16 at head dim 128, the width of every full-size dense config, and
+// the JAX package's plain attention at MLA's (192, 128)
+// (repro/models/layers.py::multihead_attention, which the Pallas kernel
+// does not take). flash_attention.cu (3xTF32 on the tensor cores) keeps f32
+// and the other head dims; kernels/flash_attention/ops.py::route chooses
+// before any launch.
 //
 // What bounds it on an H100: operations. At the prefill shape (B=1, H=16,
 // KV=2, S=8192, hd=128, causal) a call does 2.75e11 flops of bf16 products
 // on ~75 MB: 0.278 ms at the 989 TFLOP/s dense bf16 tensor rate, 0.02 ms of
 // memory. f32 arithmetic outside the tensor cores would take 4.1 ms (67
-// TFLOP/s), so only the tensor cores can come near the bound.
+// TFLOP/s), so only the tensor cores can come near the bound. At MLA's
+// prefill (B=1, H=KV=128, S=8192, qk 192, value 128, causal): 2.75e12
+// flops, 2.78 ms.
 //
 // Design (the shape of FlashAttention-3, without its persistent
 // scheduler):
@@ -24,8 +29,9 @@
 //   Q.K^T starts before V lands and a K tile is refilled as soon as its
 //   product is done;
 // * warpgroups 1 and 2 consume 64 query rows each, at 240 registers:
-//   S = Q.K^T as 8 `wgmma.m64n128k16` over the head dim (A = Q and B = K
-//   from shared memory, both K-major), the online softmax in registers
+//   S = Q.K^T as kQk / 16 `wgmma.m64n128k16` over the qk head dim (8 at
+//   128, 12 at 192; A = Q and B = K from shared memory, both K-major), the
+//   online softmax in registers
 //   (a row lives on 4 threads of the accumulator layout: its max and sum
 //   take two quad shuffles; scale*log2(e) is folded into one fma before
 //   exp2f), then O += P.V as 8 `wgmma.m64n128k16` over the keys, with P
@@ -37,12 +43,15 @@
 //   that P.V is in flight; and the two warpgroups take turns issuing
 //   (named barriers 1 and 2, "ping-pong"), so one's softmax runs under the
 //   other's products;
-// * shared memory: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB. Each
-//   128-wide tile is two TMA boxes of 64 columns (128 bytes, the widest a
-//   128-byte swizzle allows), stored one after the other; the wgmma
-//   descriptors use the same 128-byte swizzle (8-row atoms of 1024 bytes:
-//   stride byte offset 1024; for V the leading byte offset is the 16 KB
-//   between the two 64-column boxes);
+// * shared memory: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB at qk 128;
+//   Q 48 KB + 2 x (K 48 KB + V 32 KB) = 208 KB at qk 192, so two stages
+//   still fit the 227 KB. Each tile is kQk / 64 (Q, K) or two (V) TMA
+//   boxes of 64 columns (128 bytes, the widest a 128-byte swizzle allows)
+//   by 128 rows, stored one after the other; the wgmma descriptors use the
+//   same 128-byte swizzle (8-row atoms of 1024 bytes: stride byte offset
+//   1024; for V the leading byte offset is the 16 KB between the two
+//   64-column boxes). The S and O accumulators are 64 x 128 a consumer
+//   warpgroup at either qk dim, so the registers do not change;
 // * tensor maps are built on the host per call over the strided
 //   (B, S, heads, hd) storage and passed as __grid_constant__ parameters,
 //   so a CUDA graph can capture the launch; TMA fills rows and keys past
@@ -59,7 +68,8 @@
 //
 // ptxas (-Xptxas -v, sm_90a): 168 registers a thread at launch (the
 // consumers raise theirs to 240 with setmaxnreg, the producer drops to 24),
-// no spills; chip_smoke.py prints the build log.
+// no spills, at qk 128; chip_smoke.py prints the build log, the qk 192
+// instance's line included.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,21 +81,31 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kHd = 128;               // head dim
+constexpr int kVd = 128;               // value head dim
 constexpr int kBm = 128;               // query rows per CTA (2 x 64)
 constexpr int kBn = 128;               // keys per tile
 constexpr int kStages = 2;
 constexpr int kThreads = 384;          // producer + 2 consumer warpgroups
 constexpr int kBox = 64;               // TMA box width: 64 bf16 = 128 bytes
-constexpr int kTileBytes = kBn * kHd * 2;          // 32 KB (K, V or Q)
-constexpr int kHalfBytes = kTileBytes / 2;         // one 64-column box
-constexpr int kSmemQ = 0;
-constexpr int kSmemK = kSmemQ + kTileBytes;
-constexpr int kSmemV = kSmemK + kStages * kTileBytes;
-constexpr int kSmemBar = kSmemV + kStages * kTileBytes;   // 160 KB
+constexpr int kHalfBytes = kBn * kBox * 2;         // one box: 16 KB
 constexpr int kNumBars = 1 + 4 * kStages;   // q; full and empty, K and V
-constexpr int kSmemBytes = kSmemBar + 8 * kNumBars + 1024;  // + alignment
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory at qk head dim QK: Q, then the K and V rings, then the
+// barriers.
+template <int QK>
+struct Layout {
+  static constexpr int kQkBoxes = QK / kBox;
+  static constexpr int kQkBytes = kQkBoxes * kHalfBytes;  // a Q or K tile
+  static constexpr int kVBytes = kVd / kBox * kHalfBytes; // a V tile: 32 KB
+  static constexpr int kSmemQ = 0;
+  static constexpr int kSmemK = kSmemQ + kQkBytes;
+  static constexpr int kSmemV = kSmemK + kStages * kQkBytes;
+  static constexpr int kSmemBar = kSmemV + kStages * kVBytes;
+  static constexpr int kSmemBytes = kSmemBar + 8 * kNumBars + 1024;  // align
+  static_assert(QK % kBox == 0, "qk head dim");
+  static_assert(kSmemBytes <= 232448, "shared memory");
+};
 
 // Named barriers 1 and 2 over the 256 consumer threads: the two consumer
 // warpgroups take turns issuing their products (ping-pong), so one's
@@ -99,10 +119,11 @@ __device__ __forceinline__ void bar_arrive(int id) {
 
 // S = Q.K^T for one warpgroup's 64 rows and a 128-key tile: 4 steps of 16
 // over the head dim in each 64-wide box (not committed).
+template <int QK>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr,
                                          uint32_t k_addr) {
 #pragma unroll
-  for (int kk = 0; kk < kHd / 16; ++kk) {
+  for (int kk = 0; kk < QK / 16; ++kk) {
     const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
     wgmma_ss(s, smem_desc(q_addr + off, 16, 1024),
              smem_desc(k_addr + off, 16, 1024), kk > 0);
@@ -192,11 +213,15 @@ struct Shape {
   float scale_log2;          // hd^-0.5 * log2(e)
 };
 
+template <int QK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
                 __nv_bfloat16* __restrict__ o, const Shape a) {
+  using L = Layout<QK>;
+  constexpr int kSmemQ = L::kSmemQ, kSmemK = L::kSmemK, kSmemV = L::kSmemV;
+  constexpr int kSmemBar = L::kSmemBar;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -231,24 +256,27 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     // ---- producer: one thread keeps the TMA loads in flight ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q, kTileBytes);
-      tma_load(base + kSmemQ, &qmap, bar_q, 0, q0, h, b);
-      tma_load(base + kSmemQ + kHalfBytes, &qmap, bar_q, kBox, q0, h, b);
+      mbar_expect_tx(bar_q, L::kQkBytes);
+#pragma unroll
+      for (int x = 0; x < L::kQkBoxes; ++x)
+        tma_load(base + kSmemQ + x * kHalfBytes, &qmap, bar_q, x * kBox, q0,
+                 h, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         const uint32_t round = i / kStages;
         // The first round finds the ring empty (parity 1 passes at once).
         // K and V are released apart: K once S = Q.K^T is done, V once
         // P.V is, one tile later.
-        const uint32_t kdst = base + kSmemK + s * kTileBytes;
-        const uint32_t vdst = base + kSmemV + s * kTileBytes;
+        const uint32_t kdst = base + kSmemK + s * L::kQkBytes;
+        const uint32_t vdst = base + kSmemV + s * L::kVBytes;
         mbar_wait(bar_emptyk + 8 * s, (round & 1) ^ 1);
-        mbar_expect_tx(bar_fullk + 8 * s, kTileBytes);
-        tma_load(kdst, &kmap, bar_fullk + 8 * s, 0, i * kBn, kvh, b);
-        tma_load(kdst + kHalfBytes, &kmap, bar_fullk + 8 * s, kBox, i * kBn,
-                 kvh, b);
+        mbar_expect_tx(bar_fullk + 8 * s, L::kQkBytes);
+#pragma unroll
+        for (int x = 0; x < L::kQkBoxes; ++x)
+          tma_load(kdst + x * kHalfBytes, &kmap, bar_fullk + 8 * s, x * kBox,
+                   i * kBn, kvh, b);
         mbar_wait(bar_emptyv + 8 * s, (round & 1) ^ 1);
-        mbar_expect_tx(bar_fullv + 8 * s, kTileBytes);
+        mbar_expect_tx(bar_fullv + 8 * s, L::kVBytes);
         tma_load(vdst, &vmap, bar_fullv + 8 * s, 0, i * kBn, kvh, b);
         tma_load(vdst + kHalfBytes, &vmap, bar_fullv + 8 * s, kBox, i * kBn,
                  kvh, b);
@@ -273,10 +301,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     RowState r{kNeg, kNeg, 0.0f, 0.0f};
     const int me = wg - 1;   // this consumer; its turn is barrier 1 + me
     auto k_addr = [&](int i) {
-      return base + kSmemK + (i % kStages) * kTileBytes;
+      return base + kSmemK + (i % kStages) * L::kQkBytes;
     };
     auto v_addr = [&](int i) {
-      return base + kSmemV + (i % kStages) * kTileBytes;
+      return base + kSmemV + (i % kStages) * L::kVBytes;
     };
     auto parity = [](int i) {
       return static_cast<uint32_t>(i / kStages) & 1;
@@ -295,7 +323,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_wait(bar_fullk, 0);
       bar_sync(1 + me);
       wgmma_fence();
-      issue_qk(s, q_addr, k_addr(0));
+      issue_qk<QK>(s, q_addr, k_addr(0));
       wgmma_commit();
       bar_arrive(2 - me);
       wgmma_wait<0>();
@@ -309,7 +337,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         mbar_wait(bar_fullv + 8 * ((i - 1) % kStages), parity(i - 1));
         bar_sync(1 + me);
         wgmma_fence();
-        issue_qk(s, q_addr, k_addr(i));
+        issue_qk<QK>(s, q_addr, k_addr(i));
         wgmma_commit();
         issue_pv(acc, p, v_addr(i - 1));
         wgmma_commit();
@@ -362,35 +390,50 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-}  // namespace
-
-// bf16 q (B,H,SQ,128), k/v (B,KV,SK,128), o (B,H,SQ,128), each through
-// element strides st = {q: b,h,s, k: b,h,s, v: b,h,s, o: b,h,s} with the
-// head dim contiguous; base addresses 16-byte aligned and the strides of
-// q, k and v multiples of 8 elements (TMA's 16 bytes). H is a multiple of
-// KV. Returns a CUDA error code (cudaErrorInvalidValue when a tensor map
-// cannot describe an operand).
-MOBY_API int moby_flash_attention_tc(const void* q, const void* k,
-                                     const void* v, void* o,
-                                     const long long* st, int batch,
-                                     int n_heads, int n_kv_heads, int sq,
-                                     int sk, int causal, float scale,
-                                     void* stream) {
-  if (batch * n_heads == 0 || sq == 0) return 0;
+template <int QK>
+int launch(const void* q, const void* k, const void* v, void* o,
+           const long long* st, int batch, int n_heads, int n_kv_heads,
+           int sq, int sk, int causal, float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
-  int err = make_map(&qmap, q, sq, n_heads, batch, st, kBn);
-  if (!err) err = make_map(&kmap, k, sk, n_kv_heads, batch, st + 3, kBn);
-  if (!err) err = make_map(&vmap, v, sk, n_kv_heads, batch, st + 6, kBn);
+  int err = make_map(&qmap, q, sq, n_heads, batch, st, kBn, QK);
+  if (!err) err = make_map(&kmap, k, sk, n_kv_heads, batch, st + 3, kBn, QK);
+  if (!err) err = make_map(&vmap, v, sk, n_kv_heads, batch, st + 6, kBn, kVd);
   if (err) return err;
+  constexpr int kSmemBytes = Layout<QK>::kSmemBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_tc_kernel<QK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const Shape a{st[9], st[10], st[11], n_heads, n_heads / n_kv_heads, sq, sk,
                 causal, scale * kLog2e};
   const dim3 grid((sq + kBm - 1) / kBm, batch * n_heads);
-  flash_tc_kernel<<<grid, kThreads, kSmemBytes,
-                    static_cast<cudaStream_t>(stream)>>>(
+  flash_tc_kernel<QK><<<grid, kThreads, kSmemBytes, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// bf16 q (B,H,SQ,hd), k (B,KV,SK,hd), v (B,KV,SK,128), o (B,H,SQ,128),
+// hd = 128 or 192, each through element strides st = {q: b,h,s, k: b,h,s,
+// v: b,h,s, o: b,h,s} with the head dim contiguous; base addresses 16-byte
+// aligned and the strides of q, k and v multiples of 8 elements (TMA's 16
+// bytes). H is a multiple of KV. Returns a CUDA error code
+// (cudaErrorInvalidValue for another head dim or when a tensor map cannot
+// describe an operand).
+MOBY_API int moby_flash_attention_tc(const void* q, const void* k,
+                                     const void* v, void* o,
+                                     const long long* st, int batch,
+                                     int n_heads, int n_kv_heads, int sq,
+                                     int sk, int head_dim, int causal,
+                                     float scale, void* stream) {
+  if (batch * n_heads == 0 || sq == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 128: return launch<128>(q, k, v, o, st, batch, n_heads, n_kv_heads,
+                                 sq, sk, causal, scale, s);
+    case 192: return launch<192>(q, k, v, o, st, batch, n_heads, n_kv_heads,
+                                 sq, sk, causal, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

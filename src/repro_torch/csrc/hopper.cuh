@@ -222,14 +222,17 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map over bf16 (128, S, heads, B) storage (head dim 128, contiguous)
-// with element strides st = {b, h, s}: boxes of 64 head dims x `box_rows`
-// rows, 128-byte swizzle, rows past the end read as zeros.
+// A 4-D map over bf16 (head_dim, S, heads, B) storage (the head dim, 128 by
+// default, contiguous) with element strides st = {b, h, s}: boxes of 64
+// head dims x `box_rows` rows, 128-byte swizzle, rows past the end read as
+// zeros.
 int make_map(CUtensorMap* map, const void* ptr, int rows, int heads,
-             int batch, const long long* st, int box_rows) {
+             int batch, const long long* st, int box_rows,
+             int head_dim = 128) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {128, static_cast<cuuint64_t>(rows > 0 ? rows : 1),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim),
+                              static_cast<cuuint64_t>(rows > 0 ? rows : 1),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,

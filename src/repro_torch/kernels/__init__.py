@@ -12,13 +12,17 @@ kernel                  source                           replaces (TPU, Pallas)
 ``flash_attention``     ``csrc/flash_attention.cu``      ``repro/kernels/flash_attention``
                                                          (f32; bf16 at hd 16, 32, 64)
 ``flash_attention_tc``  ``csrc/flash_attention_tc.cu``   ``repro/kernels/flash_attention``
-                                                         (bf16 at hd 128, tensor cores)
+                                                         (bf16 at hd 128, and MLA's
+                                                         qk 192 / value 128; tensor cores)
 ``flash_attention_bwd`` ``csrc/flash_attention_bwd.cu``  its VJP, ``repro/ops/api.py``
                                                          (f32; bf16 at hd 16, 32, 64)
 ``flash_attention_bwd_tc`` ``csrc/flash_attention_bwd_tc.cu`` its VJP, ``repro/ops/api.py``
                                                          (bf16 at hd 128, tensor cores)
 ``decode_attention``    ``csrc/decode_attention.cu``     ``repro/kernels/decode_attention``
 ``decode_attention_bwd`` ``csrc/decode_attention_bwd.cu`` its VJP, ``repro/ops/api.py``
+``mla_decode_attention`` ``csrc/mla_decode_attention.cu`` no Pallas kernel: the einsums
+                                                         of ``repro/models/mla.py``
+                                                         (``mla_decode_apply``)
 ``pillar_scatter``      ``csrc/pillar_scatter.cu``       ``repro/kernels/pillar_scatter``
 ``pillar_scatter_bwd``  ``csrc/pillar_scatter.cu``       its VJP, ``repro/ops/api.py``
 ``auction``             ``csrc/auction.cu``              no Pallas kernel: the
@@ -34,7 +38,9 @@ instances of one kernel, one counter each (``point_proj.ops.point_proj``
 and ``project_and_label``). ``flash_attention`` has two kernels, one
 counter each; ``flash_attention.ops.route`` picks one, for the forward
 and for the gradient alike. So has the auction
-(``auction.ops.plan`` picks by n).
+(``auction.ops.plan`` picks by n). ``mla_decode_attention`` has two
+instances, a tensor-core one and a SIMT one, under one counter
+(``mla_decode_attention.ops.route`` picks).
 """
 from __future__ import annotations
 
@@ -45,6 +51,8 @@ from repro_torch.kernels.auction import ops as _auction
 from repro_torch.kernels.decode_attention import ops as _decode_attention
 from repro_torch.kernels.flash_attention import ops as _flash_attention
 from repro_torch.kernels.iou2d import ops as _iou2d
+from repro_torch.kernels.mla_decode_attention import ops as \
+    _mla_decode_attention
 from repro_torch.kernels.pillar_scatter import ops as _pillar_scatter
 from repro_torch.kernels.point_proj import ops as _point_proj
 from repro_torch.kernels.ransac_score import ops as _ransac_score
@@ -61,6 +69,7 @@ _COUNTERS: Dict[str, Tuple[ModuleType, str]] = {
     "flash_attention_bwd_tc": (_flash_attention, "bwd_tc_launches"),
     "decode_attention": (_decode_attention, "launches"),
     "decode_attention_bwd": (_decode_attention, "bwd_launches"),
+    "mla_decode_attention": (_mla_decode_attention, "launches"),
     "pillar_scatter": (_pillar_scatter, "launches"),
     "pillar_scatter_bwd": (_pillar_scatter, "bwd_launches"),
     "auction": (_auction, "launches"),

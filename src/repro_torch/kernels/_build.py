@@ -35,7 +35,7 @@ SOURCES = ("errors.cu", "point_proj.cu", "iou2d.cu", "ransac_score.cu",
            "flash_attention.cu", "flash_attention_tc.cu",
            "flash_attention_bwd.cu", "flash_attention_bwd_tc.cu",
            "decode_attention.cu",
-           "decode_attention_bwd.cu",
+           "decode_attention_bwd.cu", "mla_decode_attention.cu",
            "pillar_scatter.cu", "auction.cu")
 HEADERS = ("moby_kernels.cuh", "hopper.cuh")
 # Where the CUDA toolkit installs nvcc when it is not on PATH.
@@ -60,9 +60,9 @@ SIGNATURES = {
     "moby_ransac_score": ((_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P, _P),
                           _I),
     "moby_flash_attention": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, ctypes.c_float, _P), _I),
+                              _I, _I, ctypes.c_float, _P), _I),
     "moby_flash_attention_tc": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 ctypes.c_float, _P), _I),
+                                 _I, ctypes.c_float, _P), _I),
     "moby_flash_attention_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _P), _I),
@@ -76,6 +76,9 @@ SIGNATURES = {
     "moby_decode_attention_bwd_smem": ((_I, _I), _I),
     "moby_decode_attention_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _I, _I, _I, _I, _I, _I,
+                                   ctypes.c_float, _P), _I),
+    "moby_mla_decode_attention": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I,
                                    ctypes.c_float, _P), _I),
     "moby_pillar_scatter": ((_P, _P, _P, _LL, _I, _I, _P, _P), _I),
     "moby_pillar_scatter_bwd": ((_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P,

@@ -4,18 +4,21 @@ A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
 launches one of two kernels, chosen by ``route`` before any launch, or the
 call raises:
 
-* ``"tc"``: bf16 at head dim 128 (every full-width dense config) runs
+* ``"tc"``: bf16 at head dim 128 (every full-width dense config) and at
+  qk dim 192 / value dim 128 (deepseek-v2's MLA prefill) runs
   ``csrc/flash_attention_tc.cu`` on the tensor cores in bf16 (wgmma fed by
   TMA); ``tc_launches`` counts its launches;
-* ``"tf32x3"``: f32, and bf16 at the other head dims, runs
-  ``csrc/flash_attention.cu`` on the tensor cores too, f32-accurate by the
-  3xTF32 split (mma.sync fed by cp.async); ``launches`` counts its
-  launches.
+* ``"tf32x3"``: f32 (head dims 16-128, and MLA's (192, 128) and SMOKE's
+  (24, 16)), and bf16 at head dims 16-64, runs ``csrc/flash_attention.cu``
+  on the tensor cores too, f32-accurate by the 3xTF32 split (mma.sync fed
+  by cp.async); ``launches`` counts its launches.
 
-The kernels read q, k and v through their strides (only the head dim must
+The value head dim vd may differ from the qk head dim hd only at MLA's
+pairs (``MLA_DIMS``); the scores are scaled by hd^-0.5 either way. The
+kernels read q, k and v through their strides (only the head dim must
 be contiguous), so callers pass ``transpose`` views of their
-(B, S, heads, hd) activations. On the card the output is a (B, H, SQ, hd)
-view of (B, SQ, H, hd) storage, the layout the model continues in. Both
+(B, S, heads, dim) activations. On the card the output is a (B, H, SQ, vd)
+view of (B, SQ, H, vd) storage, the layout the model continues in. Both
 kernels copy their operands by 16-byte units (TMA, cp.async), which need
 16-byte aligned base addresses and strides: the wrapper checks both and
 raises, it never copies.
@@ -26,7 +29,9 @@ the same ``route``: ``"tc"`` runs ``csrc/flash_attention_bwd_tc.cu``
 bf16 as operands of their products; ``bwd_tc_launches``), ``"tf32x3"``
 runs ``csrc/flash_attention_bwd.cu`` (SIMT f32; ``bwd_launches``). A CPU
 tensor goes to ``ref.flash_attention_bwd_ref``. :class:`FlashAttention`
-ties the two directions into one differentiable op.
+ties the two directions into one differentiable op. The gradient takes
+vd == hd only: at MLA's head dims it raises on every device (training MLA
+is a later slice).
 """
 from __future__ import annotations
 
@@ -42,27 +47,40 @@ tc_launches = 0      # the tensor-core kernel
 bwd_launches = 0     # the SIMT gradient kernel (the "tf32x3" route's)
 bwd_tc_launches = 0  # the tensor-core gradient kernel (the "tc" route's)
 
+# Head dims with the value head dim equal to the qk one.
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
-TC_HEAD_DIMS = (128,)
+# (qk, value) head dims of MLA: deepseek-v2 at full width and at SMOKE.
+MLA_DIMS = ((192, 128), (24, 16))
+# (qk, value) head dims of the bf16 tensor-core route.
+TC_DIMS = ((128, 128), (192, 128))
 # The tensor-core gradient keeps its rows' statistics for SQ rounded up to
 # a multiple of this (its query tile).
 TC_BWD_ROWS = 128
 
 
-def route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernel takes a CUDA call: ``"tc"`` (bf16 at a head dim of
-    ``TC_HEAD_DIMS``), ``"tf32x3"`` (any other of ``DTYPES`` x
-    ``HEAD_DIMS``); anything else raises."""
+def route(dtype: torch.dtype, head_dim: int, value_dim=None) -> str:
+    """Which kernel takes a CUDA call at qk head dim ``head_dim`` and value
+    head dim ``value_dim`` (``head_dim`` when None): ``"tc"`` (bf16 at a
+    pair of ``TC_DIMS``), ``"tf32x3"`` (f32 at ``HEAD_DIMS`` with equal
+    dims or at ``MLA_DIMS``; bf16 at ``HEAD_DIMS`` below 128 with equal
+    dims); anything else raises, naming what the kernels take."""
+    vd = head_dim if value_dim is None else value_dim
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {dtype}, the kernels take "
                         f"{DTYPES}")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {head_dim}, the kernels "
-                         f"take {HEAD_DIMS}")
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+    dims = (head_dim, vd)
+    if dtype == torch.bfloat16 and dims in TC_DIMS:
         return "tc"
-    return "tf32x3"
+    equal = vd == head_dim and head_dim in HEAD_DIMS
+    if (dtype == torch.float32 and (equal or dims in MLA_DIMS)) or \
+            (dtype == torch.bfloat16 and equal and head_dim < 128):
+        return "tf32x3"
+    raise ValueError(
+        f"flash_attention: head dims (qk {head_dim}, value {vd}) in "
+        f"{dtype}; the kernels take equal head dims {HEAD_DIMS} (bf16 "
+        f"at 128 on the tensor-core route), (qk, value) {MLA_DIMS[0]} in "
+        f"f32 and bf16, and {MLA_DIMS[1]} in f32")
 
 
 def _check_aligned(name: str, t: torch.Tensor, path: str) -> None:
@@ -86,7 +104,8 @@ def _check_heads(b: int, h: int, kv: int) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B, H, SQ, hd); k/v: (B, KV, SK, hd) -> (B, H, SQ, hd).
+    """q: (B, H, SQ, hd); k: (B, KV, SK, hd); v: (B, KV, SK, vd) ->
+    (B, H, SQ, vd).
 
     Keys above the diagonal are masked when ``causal`` (query i sees keys
     [0, i]); H must be a multiple of KV.
@@ -95,16 +114,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _launch.dispatch_device("flash_attention", q) == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal)
     b, h, sq, hd = q.shape
-    kv, sk = k.shape[1], k.shape[2]
+    kv, sk, vd = k.shape[1], k.shape[2], v.shape[-1]
     for name, t, shape in (("q", q, (b, h, sq, hd)), ("k", k, (b, kv, sk, hd)),
-                           ("v", v, (b, kv, sk, hd))):
+                           ("v", v, (b, kv, sk, vd))):
         _launch.check_cuda("flash_attention", name, t, q.dtype, shape,
                            q.device, strided=True)
-    path = route(q.dtype, hd)
+    path = route(q.dtype, hd, vd)
     _check_heads(b, h, kv)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_aligned(name, t, path)
-    out = torch.empty((b, sq, h, hd), dtype=q.dtype,
+    out = torch.empty((b, sq, h, vd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
@@ -114,11 +133,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         if path == "tc":
             code = lib.moby_flash_attention_tc(
-                *ptrs, strides, b, h, kv, sq, sk, int(causal), hd ** -0.5,
-                stream)
+                *ptrs, strides, b, h, kv, sq, sk, hd, int(causal),
+                hd ** -0.5, stream)
         else:
             code = lib.moby_flash_attention(
-                *ptrs, strides, b, h, kv, sq, sk, hd, int(causal),
+                *ptrs, strides, b, h, kv, sq, sk, hd, vd, int(causal),
                 int(q.dtype == torch.bfloat16), hd ** -0.5, stream)
     _build.check(code, f"flash_attention ({path})")
     if path == "tc":
@@ -152,9 +171,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward takes. All five inputs are read through their strides (the
     head dim contiguous, 16-byte aligned); dq is a (B, H, SQ, hd) view of
     (B, SQ, H, hd) storage and dk, dv (B, KV, SK, hd) views of (B, SK, KV,
-    hd) storage, the layouts the model's projections continue in.
+    hd) storage, the layouts the model's projections continue in. A value
+    head dim unequal to the qk head dim (MLA) raises on every device.
     """
     global bwd_launches, bwd_tc_launches
+    if v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(
+            f"flash_attention_bwd: value head dim {v.shape[-1]} != qk head "
+            f"dim {q.shape[-1]} (MLA): its gradient is not ported yet "
+            f"(training MLA is a later slice; see ROADMAP.md)")
     if _launch.dispatch_device("flash_attention_bwd", q) == "cpu":
         return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
     b, h, sq, hd = q.shape

@@ -32,14 +32,15 @@ def _exp_scores(qg: torch.Tensor, k: torch.Tensor, causal: bool
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
-    """q: (B, H, SQ, hd); k/v: (B, KV, SK, hd). Returns (B, H, SQ, hd) in
-    q's dtype, computed in float32."""
+    """q: (B, H, SQ, hd); k: (B, KV, SK, hd); v: (B, KV, SK, vd). Returns
+    (B, H, SQ, vd) in q's dtype, computed in float32; the scores are
+    scaled by hd^-0.5 (the value head dim may differ: MLA)."""
     b, h, sq, hd = q.shape
-    kv = k.shape[1]
+    kv, vd = k.shape[1], v.shape[-1]
     p = _exp_scores(q.reshape(b, kv, h // kv, sq, hd).float(), k, causal)
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgqs,bksh->bkgqh", p, v.float()) / l.clamp_min(1e-30)
-    return o.reshape(b, h, sq, hd).to(q.dtype)
+    return o.reshape(b, h, sq, vd).to(q.dtype)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,

@@ -18,8 +18,10 @@ Conventions, as in the JAX package:
 * Attention always goes through :mod:`repro_torch.ops`: the card runs the
   flash and decode attention kernels, the CPU their plain versions. So the
   JAX package's dense and chunked reference paths have no counterpart
-  here; value head dims unequal to the qk head dim (MLA), causal attention
-  with Sq != Sk and M-RoPE are later slices and raise.
+  here. A value head dim unequal to the qk head dim (MLA's prefill,
+  ``models/mla.py``) goes to the same flash attention op. Causal attention
+  with Sq != Sk raises (no caller of the JAX package reaches it), and
+  M-RoPE (the vlm family) is a later slice and raises.
 * The mixture of experts (:func:`moe_apply`) has no Pallas kernel in the
   JAX package: its router, dispatch and expert products are XLA ops
   there, and here PyTorch ops (the products cuBLAS GEMMs), with the same
@@ -195,13 +197,11 @@ def attn_defs(cfg: ArchConfig):
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) -> (B, Sq, H, hd), through
-    ``ops.flash_attention`` on (B, heads, S, hd) views (no copies)."""
-    sq, hd = q.shape[1], q.shape[-1]
-    if v.shape[-1] != hd:
-        raise NotImplementedError(
-            f"value head dim {v.shape[-1]} != qk head dim {hd} (MLA) is not "
-            f"ported yet")
+    """q: (B, Sq, H, hd); k: (B, Sk, KV, hd); v: (B, Sk, KV, vd) ->
+    (B, Sq, H, vd), through ``ops.flash_attention`` on (B, heads, S, dim)
+    views (no copies). The value head dim may differ from the qk head dim
+    (MLA)."""
+    sq = q.shape[1]
     if causal and sq != k.shape[1]:
         raise NotImplementedError(
             f"causal attention with Sq={sq} != Sk={k.shape[1]} is not "

@@ -8,9 +8,10 @@ none), with every leaf of a stack on a leading layer axis. ``forward``
 walks the stacks in that order, a Python loop over views of the layer
 axis (JAX's ``lax.scan``). It is the prefill entry point and, under
 ``loss_fn``, the dense family's training forward; the serving step is
-``repro_torch.models.decode.decode_step``. MLA (deepseek-v2), the training
-of the moe family, and the ssm, hybrid, encdec and vlm families are later
-slices and raise.
+``repro_torch.models.decode.decode_step``. The moe family's attention is
+full attention (``layers.attn_apply``) or MLA (``models/mla.py``,
+deepseek-v2), as ``cfg.attn_kind`` says. The training of the moe family,
+and the ssm, hybrid, encdec and vlm families are later slices and raise.
 """
 from __future__ import annotations
 
@@ -19,21 +20,25 @@ from typing import List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import layers
+from repro_torch.models import layers, mla
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import ParamDef, leaves, tree_map
 
-# Parameter groups kept f32 by cast_params: norm_apply multiplies in f32.
-_NORMS = ("ln1", "ln2", "final_norm")
+# Parameter groups kept f32 by cast_params: norm_apply multiplies in f32
+# (MLA's q_norm and kv_norm too).
+_NORMS = ("ln1", "ln2", "final_norm", "q_norm", "kv_norm")
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """The families the port runs: dense, and moe with full attention."""
-    if cfg.family not in ("dense", "moe") or cfg.attn_kind != "full":
+    """The families the port runs: dense with full attention, and moe with
+    full attention or MLA."""
+    kinds = ("full", "mla") if cfg.family == "moe" else ("full",)
+    if cfg.family not in ("dense", "moe") or cfg.attn_kind not in kinds:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (attention {cfg.attn_kind!r})"
-            f" is not ported yet; the port runs the dense family and the "
-            f"moe family with full attention (see ROADMAP.md)")
+            f" is not ported yet; the port runs the dense family with full "
+            f"attention and the moe family with full attention or MLA (see "
+            f"ROADMAP.md)")
 
 
 def stacks(cfg: ArchConfig) -> List[Tuple[str, bool]]:
@@ -55,7 +60,8 @@ def stack_defs(defs, n: int):
 def _attn_block_defs(cfg: ArchConfig, moe: bool = False):
     d = {"ln1": layers.norm_defs(cfg.d_model, cfg.norm),
          "ln2": layers.norm_defs(cfg.d_model, cfg.norm),
-         "attn": layers.attn_defs(cfg)}
+         "attn": mla.mla_defs(cfg) if cfg.attn_kind == "mla"
+         else layers.attn_defs(cfg)}
     if moe:
         d["moe"] = layers.moe_defs(cfg)
     else:
@@ -74,7 +80,8 @@ def _attn_block_apply(p, h: torch.Tensor, cfg: ArchConfig,
                       positions: torch.Tensor, moe: bool = False,
                       causal: bool = True) -> torch.Tensor:
     x = layers.norm_apply(p["ln1"], h, cfg.norm)
-    h = h + layers.attn_apply(p["attn"], x, cfg, positions, causal)
+    attn = mla.mla_apply if cfg.attn_kind == "mla" else layers.attn_apply
+    h = h + attn(p["attn"], x, cfg, positions, causal)
     x = layers.norm_apply(p["ln2"], h, cfg.norm)
     return h + ffn_apply(p, x, cfg, moe)
 
@@ -101,6 +108,35 @@ def cast_params(params, cfg: ArchConfig):
                     for k, v in tree.items()}
         return tree if keep_f32 else tree.to(cfg.dtype)
     return walk(params, False)
+
+
+def init_cast_params(cfg: ArchConfig, generator: torch.Generator,
+                     torch_device=None):
+    """Seeded random weights already in :func:`cast_params`'s dtypes
+    (matrices ``cfg.dtype``, norms f32), drawn a layer of a stack at a
+    time: the f32 tree of :func:`repro_torch.models.params.init_params`
+    would hold a full-width moe stack in f32 at once (deepseek-v2's 7 MoE
+    layers: 110 GB), past one card. Each leaf's distribution is
+    ``init_params``'s (its initialiser, on its own shape without the layer
+    axis, which keeps the fan-in); the values differ from it, since the
+    draws come in another order. ``torch_device`` defaults to the
+    generator's device."""
+    from repro_torch.models import params as params_mod
+    dev = generator.device if torch_device is None else \
+        torch.device(torch_device)
+
+    def make(path, d: ParamDef) -> torch.Tensor:
+        dtype = torch.float32 if any(k in _NORMS for k in path) \
+            else cfg.dtype
+        if len(d.shape) < 3:
+            return d.init(generator, tuple(d.shape), torch.float32,
+                          dev).to(dtype)
+        out = torch.empty(d.shape, dtype=dtype, device=dev)
+        for i in range(d.shape[0]):
+            out[i] = d.init(generator, tuple(d.shape[1:]), torch.float32, dev)
+        return out
+    return params_mod.from_leaves((path, make(path, d))
+                                  for path, d in leaves(model_defs(cfg)))
 
 
 def layer(params, i: int, key: str = "blocks"):

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels.decode_attention import ops as _dec_ops
 from repro_torch.kernels.flash_attention import ops as _fa_ops
 from repro_torch.kernels.iou2d import ops as _iou_ops
+from repro_torch.kernels.mla_decode_attention import ops as _mla_ops
 from repro_torch.kernels.pillar_scatter import ops as _ps_ops
 from repro_torch.kernels.point_proj import ops as _pp_ops
 from repro_torch.kernels.ransac_score import ops as _rs_ops
@@ -72,12 +73,14 @@ def pillar_scatter(feats: torch.Tensor, pillar_idx: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B,H,SQ,hd); k/v: (B,KV,SK,hd) -> (B,H,SQ,hd). Requires the
-    value head dim to equal the qk head dim. q, k and v may be transposed
-    views (the head dim contiguous): the kernel reads them in place.
-    Differentiable for q, k and v: the gradient is a kernel on the card
-    (``flash_attention_bwd``), the plain gradient on the CPU, as the JAX
-    package's VJP recomputes the scores."""
+    """q: (B,H,SQ,hd); k: (B,KV,SK,hd); v: (B,KV,SK,vd) -> (B,H,SQ,vd).
+    The value head dim equals the qk head dim, or not at MLA's head dims
+    (``kernels/flash_attention/ops.py::route``). q, k and v may be
+    transposed views (the head dim contiguous): the kernel reads them in
+    place. Differentiable for q, k and v at vd == hd: the gradient is a
+    kernel on the card (``flash_attention_bwd``), the plain gradient on
+    the CPU, as the JAX package's VJP recomputes the scores; at vd != hd
+    the backward raises (training MLA is a later slice)."""
     return _fa_ops.FlashAttention.apply(q, k, v, causal)
 
 
@@ -90,3 +93,17 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     caches (``decode_attention_bwd`` on the card); the positions get no
     gradient."""
     return _dec_ops.DecodeAttention.apply(q, cache_k, cache_v, cache_pos)
+
+
+def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                         ckv: torch.Tensor, krope: torch.Tensor,
+                         lengths: torch.Tensor, scale: float
+                         ) -> torch.Tensor:
+    """MLA's absorbed decode attention over the compressed cache: q_lat
+    (B,H,R), q_rope (B,H,P), ckv (B,S,R), krope (B,S,P), lengths (B,)
+    int32 -> o_lat (B,H,R), the softmax of (q_lat.ckv + q_rope.krope) *
+    scale over positions [0, lengths) times ckv. A port-only op: the JAX
+    package computes it with einsums (``repro/models/mla.py``). Not
+    differentiable (serving only)."""
+    return _mla_ops.mla_decode_attention(q_lat, q_rope, ckv, krope, lengths,
+                                         scale)

@@ -247,6 +247,7 @@ def test_cpu_tensors_never_launch_a_kernel():
                                        "flash_attention_bwd_tc": 0,
                                        "decode_attention": 0,
                                        "decode_attention_bwd": 0,
+                                       "mla_decode_attention": 0,
                                        "pillar_scatter": 0,
                                        "pillar_scatter_bwd": 0,
                                        "auction": 0, "auction_wide": 0}

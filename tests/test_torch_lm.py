@@ -42,8 +42,9 @@ jax.config.update("jax_platform_name", "cpu")
 
 DENSE = ["qwen2_5_3b", "glm4_9b", "minitron_4b", "granite_20b"]
 # Every architecture the port runs: the dense ones and the moe family's
-# moonshot (its own tests are tests/test_torch_moe.py).
-PORTED = DENSE + ["moonshot_v1_16b_a3b"]
+# moonshot and deepseek-v2 (their own tests are tests/test_torch_moe.py and
+# tests/test_torch_mla.py).
+PORTED = DENSE + ["moonshot_v1_16b_a3b", "deepseek_v2_236b"]
 GOLDEN = (pathlib.Path(__file__).parent / "goldens"
           / "lm_qwen2_5_3b_smoke.npz")
 B, S, MAX_LEN, STEPS = 2, 16, 32, 4

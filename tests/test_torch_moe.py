@@ -371,15 +371,25 @@ def test_loss_fn_raises_for_moe():
 
 
 def test_mla_raises():
-    with pytest.raises(NotImplementedError, match="MLA"):
-        configs.get("deepseek_v2_236b")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        configs.get_smoke("deepseek_v2_236b")
-    mla = dataclasses.replace(configs.get_smoke(ARCH), attn_kind="mla")
+    """MLA runs now (tests/test_torch_mla.py); the next unported
+    architecture, qwen2-vl-2b (the vlm family, M-RoPE), raises, and so do
+    MLA outside the moe family and M-RoPE positions."""
+    with pytest.raises(NotImplementedError, match="qwen2_vl_2b"):
+        configs.get("qwen2_vl_2b")
+    with pytest.raises(NotImplementedError, match="qwen2_vl_2b"):
+        configs.get_smoke("qwen2_vl_2b")
+    assert configs.get("deepseek_v2_236b").attn_kind == "mla"
+    dense_mla = dataclasses.replace(configs.get_smoke("qwen2_5_3b"),
+                                    attn_kind="mla")
     with pytest.raises(NotImplementedError, match="'mla'"):
-        lm.model_defs(mla)
+        lm.model_defs(dense_mla)
     with pytest.raises(NotImplementedError, match="'mla'"):
-        decode.init_decode(mla, 2, 8, "cpu")
+        decode.init_decode(dense_mla, 2, 8, "cpu")
+    mrope = dataclasses.replace(configs.get_smoke(ARCH),
+                                pos_embedding="mrope")
+    _, p = _weights(configs.get_smoke(ARCH))
+    with pytest.raises(NotImplementedError, match="M-RoPE"):
+        lm.forward(p, mrope, torch.zeros((1, 4), dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
