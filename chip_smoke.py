@@ -62,10 +62,12 @@ fatal on failure:
    decode kernel (``mla_decode_attention``, no Pallas counterpart: the
    einsums of JAX's absorbed decode) at MLA C's decode shape (B 16, 128
    heads, (R, P) = (512, 64), a 32k compressed cache, ragged lengths;
-   timed), with lengths 1, S_max and off the tile and split boundaries,
+   timed), with lengths 1, S_max and off the tile and run boundaries,
    100 heads with an empty request, its SIMT instance in f32 at MLA B's
    decode shape and at SMOKE's (16, 8) (both timed), in bf16 at (16, 8),
-   in f32 with ragged lengths; each bf16 case with the P-rounding
+   in f32 with ragged lengths, then 64 heads (a cluster of one CTA), 65,
+   one request of 32,768 positions, 64 short ragged requests and an empty
+   request between live ones; each bf16 case with the P-rounding
    allowance, its library yardstick SDPA on [q_lat | q_rope],
    [ckv | krope] and ckv as one head of H queries), then timed with CUDA
    events after a warm-up:
@@ -228,11 +230,14 @@ fatal on failure:
    checked (the tensor-core flash route at qk 192 / value 128, 8 a
    prefill, the MLA decode kernel 8 a step, the rest 0), one step under
    sync debug mode "error", ms per prefill and per step, tokens/s, peak
-   memory, and torch.profiler windows over a prefill and 4 steps;
+   memory, and torch.profiler windows over a prefill and 4 steps (the
+   MLA decode kernel's share of a step's device time);
 11. LM T, training qwen2.5-3B on the card: gradients reach q, k, v and
    the caches through the backward kernels (bf16 flash on the tensor-core
    route, f32 on the SIMT one, decode; each counter up by one, the same
-   values as the kernels called directly; fatal: F3); full width with
+   values as the kernels called directly; fatal: F3); the bf16 GEMM's
+   gradient at LM T's MLP shape held to JAX's arithmetic (F4:
+   ``check_matmul_grad``); full width with
    2 layers in f32 (LM B's rescaled weights) at B=2, S=256: the loss and
    every gradient, three ``make_train_step`` steps and one with
    ``grad_accum=2`` against the same on the CPU in this process, within
@@ -519,10 +524,11 @@ def profile_window(torch, label: str, run, n: int, unit: str,
     top_k = ", ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms"
                       f" x{e.count}" for e in kern)
     named = "".join(
-        f"; {name} {sum(e.self_device_time_total for e in hit) / 1e3 / n:.3f}"
-        f" ms x{sum(e.count for e in hit) / n:g} a {unit}"
+        f"; {name} {t / 1e3 / n:.3f} ms x{sum(e.count for e in hit) / n:g} "
+        f"a {unit} ({100 * t / busy_us:.1f}% of the device time)"
         for name in names
-        for hit in [[e for e in dev if name in e.key]])
+        for hit in [[e for e in dev if name in e.key]]
+        for t in [sum(e.self_device_time_total for e in hit)])
     return (f"profile {label} x{n} {unit}s: wall "
             f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
             f"({100 * busy_us / wall_us:.1f}% of wall), "
@@ -1810,7 +1816,7 @@ def decode_kernel(cfg):
     counter, the names of its passes in a profile)."""
     if cfg.attn_kind == "mla":
         return "mla_decode_attention", ("mla_decode_tc_kernel",
-                                        "mla_decode_combine_kernel")
+                                        "mla_decode_tc_combine_kernel")
     return "decode_attention", ("decode_partial_kernel",
                                 "decode_combine_kernel")
 
@@ -2027,6 +2033,69 @@ def serve_moe(torch, dev, kernels, lm_configs, lm, decode, params, layers,
                          lambda: [step() for _ in range(4)], 4, "step",
                          names=decode_names), flush=True)
     return {k: launches[k] for k in ("flash_attention_tc", counter)}
+
+
+# F4: the bf16 GEMM's gradient (layers.matmul_f32_out_grads) is held to
+# JAX's arithmetic, the f32 cotangent times the bf16 operand summed in f32
+# and rounded once: each entry within one bf16 ulp of it plus F4_SLACK x
+# (|dy| @ |w|), the sum's magnitude (f32 summation order and the
+# cotangent's two-part split show only where a sum cancels; rounding the
+# cotangent to bf16 first is ~2^-9 of it).
+F4_SLACK = 2.0 ** -16
+
+
+def bf16_departure(torch, got, want, scale):
+    """A bf16 gradient ``got`` against ``want`` (JAX's arithmetic): the
+    share of entries more than one bf16 ulp of ``want`` away, and the
+    largest excess over that ulp in units of ``scale`` (the entries' |dy|
+    @ |w|)."""
+    want, got = want.float(), got.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                     - 7)
+    diff = (got - want).abs()
+    return float((diff > ulp).double().mean()), \
+        float(((diff - ulp).clamp_min(0) / scale.clamp_min(1e-30)).max())
+
+
+def check_matmul_grad(torch, dev, layers) -> None:
+    """F4 on the card: the gradient of LM T's bf16 MLP GEMM (tokens x
+    d_model 2048 @ 2048 x ffn 11008, f32 out) through
+    ``layers._dot_f32``'s autograd, against JAX's arithmetic emulated in
+    float64 and rounded once to bf16 (``bf16_departure``, F4_SLACK)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    m, k, n = T_SEQ, 2048, 11008
+    x = torch.randn(m, k, generator=g, device=dev).bfloat16() \
+        .requires_grad_()
+    w = (torch.randn(k, n, generator=g, device=dev) * k ** -0.5).bfloat16() \
+        .requires_grad_()
+    dy = torch.randn(m, n, generator=g, device=dev)
+    layers._dot_f32(x, w).backward(dy)
+    d64 = dy.double()
+    wants = ((d64 @ w.detach().double().t()).bfloat16(),
+             (x.detach().double().t() @ d64).bfloat16())
+    scales = (dy.abs() @ w.detach().float().abs().t(),
+              x.detach().float().abs().t() @ dy.abs())
+    # The arithmetic before F4 was settled, for the record: the cotangent
+    # rounded to bf16, then bf16 GEMMs.
+    g16 = dy.bfloat16()
+    before = (g16 @ w.detach().t(), x.detach().t() @ g16)
+    out = []
+    for name, got, old, want, scale in zip(("dx", "dw"), (x.grad, w.grad),
+                                           before, wants, scales):
+        share, excess = bf16_departure(torch, got, want, scale)
+        if excess > F4_SLACK:
+            fail(f"F4: the bf16 GEMM's {name} departs from JAX's arithmetic "
+                 f"by {excess:.3g} of |dy|.|w| past one bf16 ulp (allowed "
+                 f"{F4_SLACK:.3g})")
+        share_old, excess_old = bf16_departure(torch, old, want, scale)
+        out.append(f"{name} {100 * share:.4f}% of entries past one ulp, "
+                   f"excess at most 2^{math.log2(max(excess, 2 ** -149)):.1f}"
+                   f" of |dy|.|w| (the cotangent rounded first: "
+                   f"{100 * share_old:.2f}%, 2^"
+                   f"{math.log2(max(excess_old, 2 ** -149)):.1f})")
+    print(f"F4: the bf16 GEMM's gradient at {m}x{k} @ {k}x{n} against JAX's "
+          f"arithmetic (float64, rounded once): {'; '.join(out)} (allowed "
+          f"one ulp + 2^-16)", flush=True)
 
 
 def check_gradients_reach(torch, dev, ops, fa_ops, dec_ops) -> None:
@@ -3236,10 +3305,11 @@ def main() -> None:
         # MLA's absorbed decode over the compressed cache: MLA C's decode
         # shape first (B 16, 128 heads, (R, P) = (512, 64), ragged lengths
         # over a 32k cache), then lengths 1 and S_max and lengths off the
-        # tile and split boundaries, 100 heads (a partial head block) with
+        # tile and run boundaries, 100 heads (a partial head block) with
         # an empty request; the SIMT instance in f32 at MLA B's decode
         # shape and at SMOKE's (16, 8) (both also timed), in bf16 at
-        # (16, 8), and in f32 with ragged lengths.
+        # (16, 8), and in f32 with ragged lengths; then the tensor-core
+        # instance's cluster shapes and schedule edges.
         "mla_decode_attention": [
             mla_dec(DECODE_B, 128, DECODE_MAX, 512, 64, bf16,
                     (DECODE_POS_LO, DECODE_MAX)),
@@ -3250,7 +3320,17 @@ def main() -> None:
             mla_dec(LM_B_BATCH, 128, 512, 512, 64, f32, [LM_B_S + 4] * 2),
             mla_dec(2, 4, 32, 16, 8, f32, [1, 32]),
             mla_dec(3, 4, 100, 16, 8, bf16, [0, 1, 100]),
-            mla_dec(4, 128, 2048, 512, 64, f32, (1, 2049))],
+            mla_dec(4, 128, 2048, 512, 64, f32, (1, 2049)),
+            # The tensor-core instance's schedule and clusters: 64 heads (a
+            # cluster of one CTA), 65 (a second CTA of one head), one
+            # request of 32,768 positions spread over every cluster, 64
+            # short ragged requests (more requests than clusters), an
+            # empty request between live ones.
+            mla_dec(2, 64, 700, 512, 64, bf16, [700, 333]),
+            mla_dec(2, 65, 700, 512, 64, bf16, [1, 700]),
+            mla_dec(1, 128, DECODE_MAX, 512, 64, bf16, [DECODE_MAX]),
+            mla_dec(64, 128, 2048, 512, 64, bf16, (1, 300)),
+            mla_dec(5, 128, 1000, 512, 64, bf16, [500, 64, 0, 129, 1000])],
         # K5's gradient, the SIMT route (f32; bf16 at hd 16-64): LM T's
         # shape in f32 first (timed), then LM T's f32 correctness shape,
         # G = 1, 4 and 8, Sq = Sk = 1, 77, 256 and 4096, causal and not,
@@ -3513,6 +3593,7 @@ def main() -> None:
     # -- 11. LM T: training qwen2.5-3B on the card -------------------------
     torch.cuda.empty_cache()
     check_gradients_reach(torch, dev, ops, fa_ops, dec_ops)
+    check_matmul_grad(torch, dev, layers)
     training = train_lm(torch, dev, kernels, lm_configs, lm, params,
                         optimizer, trainstep, loop)
     for k, n in training.items():

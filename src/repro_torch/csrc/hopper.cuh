@@ -1,8 +1,9 @@
 // Hopper building blocks of the tensor-core attention kernels
-// (flash_attention_tc.cu, flash_attention_bwd_tc.cu): shared-memory
-// barriers (mbarrier), TMA loads and the tensor maps that describe them,
-// wgmma's shared-memory descriptors and its bf16 products with f32
-// accumulators. Everything sits in an anonymous namespace, so each source
+// (flash_attention_tc.cu, flash_attention_bwd_tc.cu,
+// mla_decode_attention.cu): shared-memory barriers (mbarrier), TMA loads
+// (multicast into a cluster too) and the tensor maps that describe them,
+// cluster barriers, wgmma's shared-memory descriptors and its bf16
+// products with f32 accumulators. Everything sits in an anonymous namespace, so each source
 // that includes this header gets its own copy.
 #pragma once
 
@@ -74,6 +75,74 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One TMA box (64 columns x the map's box rows of one b) of a 3-D map
+// (make_map_3d) into shared memory.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int col, int row,
+                                            int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(b)
+      : "memory");
+}
+
+// The same box into the shared memory of every CTA of the cluster named in
+// `ctas` (a bit a CTA rank), at the same offset in each; the bytes complete
+// on the barrier at `bar`'s offset in each of them.
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      uint32_t bar, int col,
+                                                      int row, int b,
+                                                      uint16_t ctas) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global"
+      ".mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(b), "h"(ctas)
+      : "memory");
+}
+
+// Generic-proxy writes to shared memory (st.shared) made visible to the
+// async proxy (wgmma, TMA) that reads or overwrites them next.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- clusters ------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every non-exited thread of every CTA of the cluster meets here: its
+// writes before (barrier initialisations, shared memory) are seen after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+// Arrive on the barrier at `bar`'s offset in the shared memory of CTA
+// `cta` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(cta)
       : "memory");
 }
 
@@ -242,6 +311,29 @@ int make_map(CUtensorMap* map, const void* ptr, int rows, int heads,
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 3-D map over bf16 (B, rows, cols) storage (the cols contiguous) with
+// element strides `row_stride` and `batch_stride`: boxes of 64 columns x
+// `box_rows` rows, 128-byte swizzle, rows past the end read as zeros.
+int make_map_3d(CUtensorMap* map, const void* ptr, int cols, int rows,
+                int batch, long long row_stride, long long batch_stride,
+                int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows > 0 ? rows : 1),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_stride) * 2,
+                                 static_cast<cuuint64_t>(batch_stride) * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -24,52 +24,69 @@
 // cores and not the memory would bound it; on the SIMT cores (67 TFLOP/s
 // f32) it would be 14x over the memory time.
 //
-// Design of the bf16 instance at (R, P) = (512, 64): the tensor cores by
-// `mma.sync.m16n8k16` (bf16 in, f32 accumulators), heads as the M
-// dimension.
-// * A block of 256 threads takes 64 heads of one request over one split of
-//   its live positions: the wrapper picks n_split so that B x ceil(H / 64)
-//   x n_split blocks come to about four an SM, and each block cuts its
-//   request's length (read on the device) into n_split runs of whole
-//   32-position tiles. A request's two head blocks of a split launch one
-//   after the other, so the second mostly reads the cache from L2.
-// * Shared memory (206 KB, one block an SM): the 64 heads' queries
-//   [q_lat | q_rope] (72 KB), a ring of 3 stages of 32 positions
-//   [ckv | krope] (36 KB each: two tiles in flight by 16-byte cp.async,
-//   zero-filled past the run's end), the tile's scores (f32) and P (bf16).
-//   Rows are padded by 16 bytes, so the 8 rows an ldmatrix reads fall in 8
-//   distinct bank groups.
-// * S = Q.K^T (64 heads x 32 positions, depth 576): warp w takes heads
-//   16 (w % 4) .. +16, all 32 positions, over depth half w / 4 (18
-//   k-steps of four mma), fragments by ldmatrix a k-step ahead, even and
-//   odd k-steps into accumulators of their own; the two halves' scores go
-//   to shared memory and the softmax adds them. A tile's fragment reads
-//   (Q once, K 4 times: 221 KB) are what its scores cost.
-// * The online softmax: a quad of threads a head, 8 positions a thread;
-//   the running max and sum live in the quad's registers; p (f32) is summed
-//   into l and rounded to bf16 (nearest even) into P, as every tensor-core
-//   flash attention rounds it.
-// * O += P.V (64 heads x 512 columns, depth 32): warp w owns columns
-//   64w .. 64w + 63 of all 64 heads, 4 x 8 accumulator tiles (128 f32
-//   registers a thread; O is 128 KB, past one warpgroup's registers), V
-//   fragments by ldmatrix.trans straight from the ckv rows of the stage.
-// * Three __syncthreads a tile. The block writes its unnormalised partial
-//   (m, l, acc) to scratch the wrapper allocates; a second small kernel
-//   combines a row's splits and divides by max(l, 1e-30).
+// Design of the bf16 instance at (R, P) = (512, 64): wgmma fed by TMA,
+// warp-specialised, in the shape of flash_attention_tc.cu, with heads as
+// wgmma's M (64 a CTA).
+// * The schedule: every request's live tiles of 64 positions, in request
+//   order, are cut into C equal runs (to a tile), one a cluster, C the
+//   clusters that fit on the card at once (one CTA an SM): the work is
+//   balanced by live tiles, whatever the lengths. The kernel reads
+//   `lengths` on the device and finds its run by a warp's prefix sum. A
+//   run's stretch of one request is a segment; each writes an
+//   unnormalised partial (m, l, acc) to slot cluster + request, and a
+//   second kernel merges a (request, head) row's slots.
+// * At H > 64 a cluster is two CTAs, heads 0-63 and 64-127 of the same
+//   requests. Each CTA's producer issues half of a tile's nine TMA boxes
+//   (eight of ckv, one of krope: 64 positions x 64 columns, 128-byte
+//   swizzle) multicast into both CTAs, so each byte of the cache leaves
+//   L2 once; each CTA's full barrier expects the whole tile, and a stage is
+//   refilled only once the consumer warps of both CTAs have released it
+//   (an arrive on the peer's empty barrier through mapa). At H <= 64 a
+//   cluster is one CTA.
+// * A CTA is 384 threads. Warpgroup 0 is the producer (setmaxnreg down to
+//   40; one thread keeps a ring of 2 stages full). Warpgroup 1 computes
+//   S = Q.K^T (64 heads x 64 positions over depth 576: 36
+//   wgmma.m64n64k16, A = Q and B = the tile, both K-major from shared
+//   memory), the online softmax in registers (log2 domain, a row on a quad
+//   of threads), rounds P to bf16 (nearest even), hands P and the rescale
+//   factors to warpgroup 2 through shared memory (thread to thread: the
+//   same fragment layout; mbarriers P full / P empty), then O += P.V for
+//   value columns 0-255 with P from registers. Warpgroup 2 does P.V for
+//   columns 256-511. V is the ckv part of the same stage, MN-major (the
+//   transpose bit), so a tile is read once for K and V. 64 x 256 f32
+//   accumulators are 128 registers a consumer thread (setmaxnreg up to
+//   232). No block-wide barrier runs in the tile loop.
+// * Shared memory (226 KB): Q [q_lat | q_rope] of the CTA's 64 heads as
+//   nine swizzled boxes (72 KB, loaded by the consumers at each segment's
+//   start), 2 stages of 72 KB, the P exchange (8 KB). 64-position stages
+//   allow only 2 (32-position ones would allow 4, but halve wgmma's N and
+//   double each tile's fixed costs).
+// * Rows of a tile at or past the request's length are masked in the
+//   softmax (p = 0), and their values zeroed in the CTA's copy of the
+//   stage before P.V, so what the cache holds there cannot reach the
+//   result; TMA reads rows past S as zeros.
 // The f32 instances (both sizes) and bf16 at SMOKE's (16, 8) are a plain
 // SIMT kernel (8 heads a block, the tile widened to f32 in shared memory,
-// a warp a head's softmax); only correctness runs reach them.
+// a warp a head's softmax, each request's positions in equal splits);
+// only correctness runs reach them.
 //
 // The library builds with -fmad=false: each intended fused multiply-add is
-// an explicit fmaf.
+// an explicit fmaf. The barrier, TMA, cluster and wgmma helpers are
+// hopper.cuh's.
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "moby_kernels.cuh"
 
 // Probe builds (tools/mla_decode_probe.py) leave phases of the tensor-core
-// instance out, to time the rest: bit 1 the scores, 2 the softmax, 4 the
-// P.V product, 8 the copies of the cache. 0 here: nothing is left out.
+// instance out, or undo a step of its design, to time the rest: bit 1 the
+// scores, 2 the softmax, 4 the P.V product, 8 the copies of the cache; 16
+// each CTA copies the whole tile itself (no multicast), 32 each request's
+// tiles are cut into C / B equal runs (not balanced by live tiles; the
+// merge then reads the wrong slots). 0 here: the kernel as it is.
 #ifndef MOBY_MLA_PROBE_SKIP
 #define MOBY_MLA_PROBE_SKIP 0
 #endif
@@ -78,9 +95,8 @@ namespace {
 
 constexpr int kProbeSkip = MOBY_MLA_PROBE_SKIP;
 constexpr float kNeg = -1e30f;
-constexpr int kTile = 32;       // positions a stage
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 32;       // the SIMT instance: positions a tile
+constexpr int kThreads = 256;   // ... and threads a block
 
 struct Args {
   long long ql_b, ql_h;         // q_lat (B, H, R)
@@ -127,306 +143,612 @@ __device__ __forceinline__ void split_range(int len, int split, int n_split,
 
 namespace tc {
 
-constexpr int kR = 512, kP = 64, kK = kR + kP;  // depth of Q.K^T: 576
-constexpr int kHeads = 64;                     // heads a block (M)
-constexpr int kPieces = kK / 8;                // 16-byte pieces a row: 72
-constexpr int kRowBytes = (kK + 8) * 2;        // a padded row: 1,168 bytes
-constexpr int kStageBytes = kTile * kRowBytes;
-constexpr int kStages = 3;                     // kStages - 1 tiles in flight
-constexpr int kSRow = kTile + 4;               // f32 scores a row
-constexpr int kPRow = kTile + 8;               // bf16 P a row (80 bytes)
-constexpr int kSmemRing = kHeads * kRowBytes;                  // Q first
-constexpr int kSmemS = kSmemRing + kStages * kStageBytes;
-constexpr int kSmemP = kSmemS + 2 * kHeads * kSRow * 4;   // 2 depth halves
-constexpr int kSmemCorr = kSmemP + kHeads * kPRow * 2;
-constexpr int kSmemBytes = kSmemCorr + kHeads * 4;
+constexpr int kR = 512, kP = 64;
+constexpr int kHeads = 64;                      // heads a CTA: wgmma's M
+constexpr int kTile = 64;                       // positions a stage
+constexpr int kStages = 2;
+constexpr int kThreads = 384;                   // producer + 2 consumers
+constexpr int kConsumerWarps = 8;
+constexpr int kBoxBytes = 64 * 128;             // 64 rows x 64 bf16
+constexpr int kBoxes = (kR + kP) / 64;          // 8 of ckv, 1 of krope
+constexpr int kTileBytes = kBoxes * kBoxBytes;  // a stage, and Q: 72 KB
+constexpr int kSmemQ = 0;
+constexpr int kSmemStage = kSmemQ + kTileBytes;
+constexpr int kSmemP = kSmemStage + kStages * kTileBytes;  // 128 x 64 B
+constexpr int kSmemCorr = kSmemP + 128 * 64;               // 128 x float2
+constexpr int kSmemBar = kSmemCorr + 128 * 8;
+constexpr int kNumBars = 2 * kStages + 2;   // full, empty; P full, P empty
+constexpr int kSmemPlan = kSmemBar + 8 * kNumBars;
+constexpr int kSmemBytes = kSmemPlan + 16 + 1024;   // + 1024: alignment
 static_assert(kSmemBytes <= 232448, "shared memory");
-static_assert(kHeads == 2 * 2 * 16 && kWarps == 8, "warp split");
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+struct TcArgs {
+  long long ql_b, ql_h;         // q_lat (B, H, R)
+  long long qr_b, qr_h;         // q_rope (B, H, P)
+  int batch, n_heads, s_len, n_clusters;
+  float scale_log2;             // scale * log2(e)
+};
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// -- the schedule: every request's live tiles of 64 positions, requests in
+// order, cut into n_clusters runs of equal length (to a tile). Cluster c
+// takes global tiles [c N / C, (c + 1) N / C) of the N; its run of request
+// b is a segment, and its unnormalised partial goes to slot c + b (unique:
+// along the tiles c and b never fall and one of them rises at each new
+// segment, so there are at most C + B - 1). kernels/mla_decode_attention/
+// ops.py::plan is the same in Python.
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ int live_tiles(const int* lengths, int b,
+                                          int s_len) {
+  return (min(max(lengths[b], 0), s_len) + kTile - 1) / kTile;
 }
 
-// d += a (16x16 bf16, row) . b (16x8 bf16, col), f32 accumulators.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Warp-collective: the live tiles of requests [0, batch).
+__device__ __forceinline__ int count_tiles(const int* lengths, int batch, int s_len) {
+  const int lane = threadIdx.x % 32;
+  int n = 0;
+  for (int b = lane; b < batch; b += 32) n += live_tiles(lengths, b, s_len);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+  return n;
 }
 
+// Warp-collective: the request that holds global tile `tile` (below the
+// total) and its first global tile.
+__device__ __forceinline__ void find_request(const int* lengths, int batch, int s_len,
+                             int tile, int& b_out, int& first) {
+  const int lane = threadIdx.x % 32;
+  int done = 0;   // tiles of the requests before this chunk of 32
+  for (int base = 0; base < batch; base += 32) {
+    const int b = base + lane;
+    const int n = b < batch ? live_tiles(lengths, b, s_len) : 0;
+    int incl = n;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const unsigned hit = __ballot_sync(0xffffffffu, done + incl > tile);
+    if (hit) {
+      const int f = __ffs(hit) - 1;
+      b_out = base + f;
+      first = done + __shfl_sync(0xffffffffu, incl - n, f);
+      return;
+    }
+    done += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  b_out = batch;
+  first = done;
+}
+
+__device__ __forceinline__ int run_start(int c, int n_clusters, int total) {
+  return static_cast<int>(static_cast<long long>(c) * total / n_clusters);
+}
+
+// The cluster whose run holds global tile i: the last c with
+// run_start(c) <= i.
+__device__ __forceinline__ int cluster_of(int i, int n_clusters, int total) {
+  return static_cast<int>(((i + 1LL) * n_clusters + total - 1) / total) - 1;
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A consumer warpgroup's walk over its cluster's run: warpgroup 1
+// (kScores) the scores, the softmax and value columns 0-255, warpgroup 2
+// columns 256-511. Each is a code path of its own, so that no wgmma sits
+// in a branch that ptxas sees as divergent (it would serialise them).
+struct Cta {
+  uint8_t* smem;
+  uint32_t base, bar_full, bar_empty, bar_pfull, bar_pempty, rank;
+  int c, h0, hg, b_first, first_tile, lo, hi;
+};
+
+template <int kCluster, bool kScores>
+__device__ __forceinline__ void consume(const Cta& cta,
+                                        const __nv_bfloat16* __restrict__ q_lat,
+                                        const __nv_bfloat16* __restrict__ q_rope,
+                                        const int* __restrict__ lengths,
+                                        const TcArgs& a,
+                                        float* __restrict__ part_m,
+                                        float* __restrict__ part_l,
+                                        float* __restrict__ part_acc) {
+  uint8_t* const smem = cta.smem;
+  const uint32_t base = cta.base, bar_full = cta.bar_full,
+                 bar_empty = cta.bar_empty, bar_pfull = cta.bar_pfull,
+                 bar_pempty = cta.bar_pempty, rank = cta.rank;
+  const int c = cta.c, h0 = cta.h0, hg = cta.hg, b_first = cta.b_first,
+            first_tile = cta.first_tile, lo = cta.lo, hi = cta.hi;
+  constexpr int cw = kScores ? 0 : 1;
+  const int t = threadIdx.x % 128, ct = threadIdx.x - 128;
+  const int lane = threadIdx.x % 32;
+  // Accumulator layout of wgmma m64nN (f32): register j of a thread holds
+  // row r_lo (+8 when (j/2) is odd), column (j/4)*8 + col0 + (j%2).
+  const int r_lo = 16 * (t / 32) + lane / 4, r_hi = r_lo + 8;
+  const int col0 = 2 * (lane % 4);
+  uint4* const p_x = reinterpret_cast<uint4*>(smem + kSmemP);
+  float2* const corr_x = reinterpret_cast<float2*>(smem + kSmemCorr);
+  float acc0[64], acc1[64];
+  int k = 0;
+  for (int b = b_first, first = first_tile, g = lo; g < hi; ++b) {
+    const int n = live_tiles(lengths, b, a.s_len);
+    const int j0 = g - first, j1 = min(n, hi - first);
+    if (j1 <= j0) {
+      first += n;
+      continue;
+    }
+    // Request b's queries [q_lat | q_rope] for the CTA's heads, swizzled
+    // as a TMA box would be (chunk q of row r at q ^ (r % 8)); zero rows
+    // past the last head. The previous segment's scores are done: the
+    // other warpgroup got its last P after them.
+    {
+      const __nv_bfloat16* ql = q_lat + b * a.ql_b + h0 * a.ql_h;
+      const __nv_bfloat16* qr = q_rope + b * a.qr_b + h0 * a.qr_h;
+#pragma unroll
+      for (int i = 0; i < kHeads * 72 / 256; i += 6) {
+        uint4 v[6];
+#pragma unroll
+        for (int u = 0; u < 6; ++u) {
+          const int e = (i + u) * 256 + ct, r = e / 72, q = e % 72;
+          v[u] = make_uint4(0u, 0u, 0u, 0u);
+          if (r < hg)
+            v[u] = *reinterpret_cast<const uint4*>(
+                q < 64 ? ql + r * a.ql_h + q * 8
+                       : qr + r * a.qr_h + (q - 64) * 8);
+        }
+#pragma unroll
+        for (int u = 0; u < 6; ++u) {
+          const int e = (i + u) * 256 + ct, r = e / 72, q = e % 72;
+          *reinterpret_cast<uint4*>(smem + kSmemQ + (q / 8) * kBoxBytes +
+                                    r * 128 + ((q % 8) ^ (r % 8)) * 16) =
+              v[u];
+        }
+      }
+      fence_proxy_async();
+      named_sync(1, 256);
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.0f;
+    float m_lo = kNeg, m_hi = kNeg, l_lo = 0.0f, l_hi = 0.0f;
+    const int len = min(max(lengths[b], 0), a.s_len);
+
+    for (int j = j0; j < j1; ++j, ++k) {
+      const int s = k % kStages;
+      const uint32_t stage = base + kSmemStage + s * kTileBytes;
+      mbar_wait(bar_full + 8 * s, (k / kStages) & 1);
+      uint32_t p[kTile / 16][4];
+      float2 corr;
+      if constexpr (kScores) {
+        // S = Q.K^T: 64 heads x 64 positions over depth 576, A = Q and
+        // B = the tile, both K-major in 64-column boxes.
+        float sc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+        if constexpr ((kProbeSkip & 1) == 0) {
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kBoxes * 4; ++kk) {
+            const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+            wgmma_ss_n64(sc, smem_desc(base + kSmemQ + off, 16, 1024),
+                         smem_desc(stage + off, 16, 1024), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sc);
+        }
+        const int live = len - j * kTile;   // at least 1
+        corr = make_float2(1.0f, 1.0f);
+        if constexpr ((kProbeSkip & 2) == 0) {
+          // The online softmax in the log2 domain; positions at or past
+          // the length score -inf and add p = 0.
+          if (live < kTile) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i)
+              if ((i / 4) * 8 + col0 + (i % 2) >= live) sc[i] = -INFINITY;
+          }
+          float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            if ((i / 2) % 2) mx_hi = fmaxf(mx_hi, sc[i]);
+            else mx_lo = fmaxf(mx_lo, sc[i]);
+          }
+#pragma unroll
+          for (int x = 1; x <= 2; x <<= 1) {
+            mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, x));
+            mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, x));
+          }
+          const float mn_lo = fmaxf(m_lo, mx_lo * a.scale_log2);
+          const float mn_hi = fmaxf(m_hi, mx_hi * a.scale_log2);
+          corr = make_float2(exp2f(m_lo - mn_lo), exp2f(m_hi - mn_hi));
+          m_lo = mn_lo;
+          m_hi = mn_hi;
+          float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const bool hi = (i / 2) % 2;
+            sc[i] = exp2f(__fmaf_rn(sc[i], a.scale_log2,
+                                    hi ? -mn_hi : -mn_lo));
+            if (hi) sum_hi += sc[i];
+            else sum_lo += sc[i];
+          }
+          l_lo = __fmaf_rn(l_lo, corr.x, sum_lo);
+          l_hi = __fmaf_rn(l_hi, corr.y, sum_hi);
+        }
+        // P rounded to bf16 (nearest even): register pairs of the
+        // accumulator are the A fragment of a 16-position step.
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            p[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+        if (live < kTile) {
+          // The tile's rows at or past the length hold other positions
+          // of the cache (or TMA's zeros past S): zero their values, so
+          // that p = 0 times them is 0 whatever they hold.
+          uint8_t* st = smem + (stage - base);
+          for (int e = t; e < (kTile - live) * 64; e += 128) {
+            const int row = live + e / 64, q = e % 64;
+            *reinterpret_cast<uint4*>(st + (q / 8) * kBoxBytes + row * 128 +
+                                      (q % 8) * 16) =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
+          fence_proxy_async();
+          named_sync(2, 128);
+        }
+        // Hand P and the rescale factors to warpgroup 2, thread to
+        // thread (the same fragment layout), once it took the last ones.
+        mbar_wait(bar_pempty, (k & 1) ^ 1);
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk)
+          p_x[kk * 128 + t] = make_uint4(p[kk][0], p[kk][1], p[kk][2],
+                                         p[kk][3]);
+        corr_x[t] = corr;
+        mbar_arrive(bar_pfull);
+      } else {
+        mbar_wait(bar_pfull, k & 1);
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk) {
+          const uint4 v = p_x[kk * 128 + t];
+          p[kk][0] = v.x;
+          p[kk][1] = v.y;
+          p[kk][2] = v.z;
+          p[kk][3] = v.w;
+        }
+        corr = corr_x[t];
+        mbar_arrive(bar_pempty);
+      }
+      // O += P.V over the tile's 64 positions: B = this warpgroup's 256
+      // value columns of the same stage's ckv, MN-major (the transpose
+      // bit), as two 128-column products; boxes 8 KB apart (the leading
+      // byte offset), a 16-position step 2 KB further.
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const float f = (i / 2) % 2 ? corr.y : corr.x;
+        acc0[i] *= f;
+        acc1[i] *= f;
+      }
+      if constexpr ((kProbeSkip & 4) == 0) {
+        const uint32_t v0 = stage + 4 * cw * kBoxBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk) {
+          wgmma_rs(acc0, p[kk], smem_desc(v0 + kk * 2048, kBoxBytes, 1024));
+          wgmma_rs(acc1, p[kk], smem_desc(v0 + 2 * kBoxBytes + kk * 2048,
+                                          kBoxBytes, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc0);
+        fence_regs(acc1);
+        fence_regs(p);
+      }
+      // Release the stage in every CTA of the cluster: a warp's reads
+      // are done once each of its threads has waited.
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+      if (kCluster > 1 && lane == 1)
+        mbar_arrive_cluster(bar_empty + 8 * s, rank ^ 1u);
+    }
+
+    // The segment's unnormalised partial: slot c + b, rows h0 + r.
+    const long long row0 = static_cast<long long>(c + b) * a.n_heads + h0;
+    float* pa = part_acc + row0 * kR + 256 * cw;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = (i / 2) % 2 ? r_hi : r_lo;
+      if (r < hg) {
+        const int col = (i / 4) * 8 + col0;
+        *reinterpret_cast<float2*>(pa + r * kR + col) =
+            make_float2(acc0[i], acc0[i + 1]);
+        *reinterpret_cast<float2*>(pa + r * kR + 128 + col) =
+            make_float2(acc1[i], acc1[i + 1]);
+      }
+    }
+    if constexpr (kScores) {
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        l_lo += __shfl_xor_sync(0xffffffffu, l_lo, x);
+        l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
+      }
+      if (lane % 4 == 0) {
+        if (r_lo < hg) {
+          part_m[row0 + r_lo] = m_lo;
+          part_l[row0 + r_lo] = l_lo;
+        }
+        if (r_hi < hg) {
+          part_m[row0 + r_hi] = m_hi;
+          part_l[row0 + r_hi] = l_hi;
+        }
+      }
+    }
+    g = first + j1;
+    first += n;
+  }
+}
+
+// One CTA of 384 threads takes 64 heads of the requests of its cluster's
+// run; at H > 64 a cluster of two CTAs (heads 0-63 and 64-127) shares each
+// tile, half of its TMA boxes issued by each CTA into both.
+template <int kCluster>
 __global__ void __launch_bounds__(kThreads, 1)
-mla_decode_tc_kernel(const __nv_bfloat16* __restrict__ q_lat,
+mla_decode_tc_kernel(const __grid_constant__ CUtensorMap ckv_map,
+                     const __grid_constant__ CUtensorMap krope_map,
+                     const __nv_bfloat16* __restrict__ q_lat,
                      const __nv_bfloat16* __restrict__ q_rope,
-                     const __nv_bfloat16* __restrict__ ckv,
-                     const __nv_bfloat16* __restrict__ krope,
-                     const int* __restrict__ lengths, Args a,
+                     const int* __restrict__ lengths, const TcArgs a,
                      float* __restrict__ part_m, float* __restrict__ part_l,
                      float* __restrict__ part_acc) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int n_grp = (a.n_heads + kHeads - 1) / kHeads;
-  const int split = blockIdx.x / n_grp, b = blockIdx.y;
-  const int h0 = blockIdx.x % n_grp * kHeads;
+  // Probe bit 16: each CTA copies every box itself (no multicast).
+  constexpr bool kMulticast = kCluster > 1 && (kProbeSkip & 16) == 0;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - raw);
+  const uint32_t bar_full = base + kSmemBar;            // [kStages]
+  const uint32_t bar_empty = bar_full + 8 * kStages;    // [kStages]
+  const uint32_t bar_pfull = bar_empty + 8 * kStages;
+  const uint32_t bar_pempty = bar_pfull + 8;
+  int* const plan = reinterpret_cast<int*>(smem + kSmemPlan);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const uint32_t rank = kCluster > 1 ? cluster_ctarank() : 0u;
+  const int c = blockIdx.x / kCluster;
+  const int h0 = static_cast<int>(rank) * kHeads;
   const int hg = min(kHeads, a.n_heads - h0);
-  const int len = min(max(lengths[b], 0), a.s_len);
-  int start, end;
-  split_range(len, split, a.n_split, start, end);
-  const int n_tiles = (end - start + kTile - 1) / kTile;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, tq = lane % 4;   // the mma's groupID, thread
 
-  // The 64 heads' queries [q_lat | q_rope], zero rows past the last head.
-  for (int c = tid; c < kHeads * kPieces; c += kThreads) {
-    const int r = c / kPieces, piece = c % kPieces;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < hg) {
-      const __nv_bfloat16* src =
-          piece < kR / 8
-              ? q_lat + b * a.ql_b + (h0 + r) * a.ql_h + piece * 8
-              : q_rope + b * a.qr_b + (h0 + r) * a.qr_h + (piece - kR / 8) * 8;
-      val = *reinterpret_cast<const uint4*>(src);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      // Every consumer warp of every CTA of the cluster releases a stage.
+      mbar_init(bar_empty + 8 * s, kConsumerWarps * kCluster);
     }
-    *reinterpret_cast<uint4*>(smem + r * kRowBytes + piece * 16) = val;
+    mbar_init(bar_pfull, 128);
+    mbar_init(bar_pempty, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  const __nv_bfloat16* cb = ckv + b * a.c_b;
-  const __nv_bfloat16* kb = krope + b * a.k_b;
-  const uint32_t ring = smem_u32(smem + kSmemRing);
-  // Tile t of the run into its stage: row j = [ckv | krope] of position
-  // start + 32 t + j, zero-filled past the run's end.
-  auto issue = [&](int t) {
-    if constexpr ((kProbeSkip & 8) != 0) return;
-    const uint32_t stage = ring + (t % kStages) * kStageBytes;
-    const int t0 = start + t * kTile;
-    for (int c = tid; c < kTile * kPieces; c += kThreads) {
-      const int j = c / kPieces, piece = c % kPieces;
-      const bool ok = t0 + j < end;
-      const long long sj = ok ? t0 + j : start;   // a valid address
-      const __nv_bfloat16* src = piece < kR / 8
-                                     ? cb + sj * a.c_s + piece * 8
-                                     : kb + sj * a.k_s + (piece - kR / 8) * 8;
-      cp_async16(stage + j * kRowBytes + piece * 16, src, ok);
+  if (warp == 1) {
+    // This cluster's run [lo, hi) of the global tiles, from `lengths` on
+    // the device; its first request and that request's first tile.
+    const int total = count_tiles(lengths, a.batch, a.s_len);
+    int lo, hi, b0 = 0, first = 0;
+    if constexpr ((kProbeSkip & 32) != 0) {
+      // Probe bit 32: each request's tiles cut into C / B equal runs.
+      const int per = max(1, a.n_clusters / a.batch);
+      b0 = c / per;
+      lo = hi = 0;
+      if (b0 < a.batch) {
+        first = count_tiles(lengths, b0, a.s_len);
+        const int n = live_tiles(lengths, b0, a.s_len);
+        lo = first + c % per * n / per;
+        hi = first + (c % per + 1) * n / per;
+      }
+    } else {
+      lo = run_start(c, a.n_clusters, total);
+      hi = run_start(c + 1, a.n_clusters, total);
+      if (lo < hi) find_request(lengths, a.batch, a.s_len, lo, b0, first);
     }
-  };
-#pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_tiles) issue(t);
-    cp_async_commit();
+    if (lane == 0) {
+      plan[0] = b0;
+      plan[1] = first;
+      plan[2] = lo;
+      plan[3] = hi;
+    }
   }
+  // The barriers are initialised and the plan is written, in both CTAs,
+  // before either CTA copies into or arrives on the other's.
+  cluster_sync();
+  const int b_first = plan[0], first_tile = plan[1], lo = plan[2],
+            hi = plan[3];
 
-  float* s_s = reinterpret_cast<float*>(smem + kSmemS);  // [2][64][kSRow]
-  float* corr_s = reinterpret_cast<float*>(smem + kSmemCorr);
-  const uint32_t q_base = smem_u32(smem);
-  const uint32_t p_base = smem_u32(smem + kSmemP);          // [64][kPRow]
-  // ldmatrix rows: for an A operand (16 rows x 16 of depth) lane l gives
-  // row (l % 8) + 8 ((l / 8) % 2) at column 8 (l / 16); for a pair of B
-  // operands of Q.K^T (16 positions x 16 of depth) position (l % 8) +
-  // 8 (l / 16) at column 8 ((l / 8) % 2); for a pair of V operands
-  // (16 positions x 16 columns, transposed) position (l % 8) + 8 ((l / 8)
-  // % 2) at column 8 (l / 16).
-  const int a_row = (lane % 8) + 8 * ((lane / 8) % 2), a_col = 8 * (lane / 16);
-  const int b_row = (lane % 8) + 8 * (lane / 16), b_col = 8 * ((lane / 8) % 2);
-  // Q.K^T: this warp's 16 heads and half of the depth.
-  constexpr int kHalfSteps = kK / 32;       // 18 k-steps of 16
-  const int mt = warp % 4, dh = warp / 4;
-  const uint32_t qk_a = q_base + (mt * 16 + a_row) * kRowBytes + a_col * 2 +
-                        dh * kHalfSteps * 32;
-
-  float acc[4][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mi][ni][i] = 0.0f;
-  // Head tid / 4: running max and sum (the same in the quad's 4 threads).
-  float m_run = kNeg, l_run = 0.0f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<kStages - 2>();   // tile t has landed (this thread's part)
-    __syncthreads();                // ... every thread's; tile t-1 consumed
-    if (t + kStages - 1 < n_tiles) issue(t + kStages - 1);
-    cp_async_commit();
-    const uint32_t stage = ring + (t % kStages) * kStageBytes;
-
-    // S = Q.K^T: heads 16 mt .. +16 x the tile's 32 positions over depth
-    // half dh (18 k-steps), into scores buffer dh; the softmax adds the
-    // halves. Each Q value is read once a tile and each K value 4 times
-    // (16 x 16 tiles over the whole depth would read both twice as often).
-    // The fragments of k-step kk + 1 are loaded before kk's products issue,
-    // and even and odd k-steps sum into accumulators of their own.
-    if constexpr ((kProbeSkip & 1) == 0) {
-      float sc[2][4][4];
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) sc[e][n][i] = 0.0f;
-      const uint32_t qk_b = stage + b_row * kRowBytes + b_col * 2 +
-                            dh * kHalfSteps * 32;
-      uint32_t af[2][4], bf[2][2][4];
-      ldmatrix_x4(af[0], qk_a);
-      ldmatrix_x4(bf[0][0], qk_b);
-      ldmatrix_x4(bf[0][1], qk_b + 16 * kRowBytes);
-#pragma unroll
-      for (int kk = 0; kk < kHalfSteps; ++kk) {
-        const int cur = kk % 2;
-        if (kk + 1 < kHalfSteps) {
-          ldmatrix_x4(af[cur ^ 1], qk_a + (kk + 1) * 32);
-          ldmatrix_x4(bf[cur ^ 1][0], qk_b + (kk + 1) * 32);
-          ldmatrix_x4(bf[cur ^ 1][1], qk_b + 16 * kRowBytes + (kk + 1) * 32);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring of 2 stages full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int k = 0;   // the run's tile count: stage k % 2, round k / 2
+      for (int b = b_first, first = first_tile, g = lo; g < hi; ++b) {
+        const int n = live_tiles(lengths, b, a.s_len);
+        const int j0 = g - first, j1 = min(n, hi - first);
+        for (int j = j0; j < j1; ++j, ++k) {
+          const int s = k % kStages;
+          const uint32_t stage = base + kSmemStage + s * kTileBytes;
+          const uint32_t full = bar_full + 8 * s;
+          // The first round finds the ring empty (parity 1 passes).
+          mbar_wait(bar_empty + 8 * s, ((k / kStages) & 1) ^ 1);
+          if constexpr ((kProbeSkip & 8) != 0) {
+            mbar_arrive(full);
+            continue;
+          }
+          // The whole tile lands in this CTA: this producer's boxes and,
+          // in a cluster, the peer's.
+          mbar_expect_tx(full, kTileBytes);
+          for (int x = kMulticast ? static_cast<int>(rank) : 0; x < kBoxes;
+               x += kMulticast ? kCluster : 1) {
+            const CUtensorMap* map = x < kBoxes - 1 ? &ckv_map : &krope_map;
+            const int col = x < kBoxes - 1 ? x * 64 : 0;
+            if constexpr (kMulticast)
+              tma_load_3d_multicast(stage + x * kBoxBytes, map, full, col,
+                                    j * kTile, b, (1u << kCluster) - 1);
+            else
+              tma_load_3d(stage + x * kBoxBytes, map, full, col, j * kTile,
+                          b);
+          }
         }
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-          mma(sc[cur][n], af[cur], bf[cur][n / 2][2 * (n % 2)],
-              bf[cur][n / 2][2 * (n % 2) + 1]);
-      }
-      float* sd = s_s + dh * kHeads * kSRow;
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        float* lo = sd + (mt * 16 + g) * kSRow + n * 8 + 2 * tq;
-        *reinterpret_cast<float2*>(lo) =
-            make_float2(sc[0][n][0] + sc[1][n][0], sc[0][n][1] + sc[1][n][1]);
-        *reinterpret_cast<float2*>(lo + 8 * kSRow) =
-            make_float2(sc[0][n][2] + sc[1][n][2], sc[0][n][3] + sc[1][n][3]);
+        if (j1 > j0) g = first + j1;
+        first += n;
       }
     }
-    __syncthreads();
+    // No CTA leaves while its peer may still copy into it or arrive on
+    // its barriers.
+    cluster_sync();
+  } else {
+    // ---- consumers: 64 x 256 f32 accumulators a thread (setmaxnreg up to
+    // 232), warpgroup 1 with the scores and the softmax ----
+    const Cta cta{smem, base, bar_full, bar_empty, bar_pfull, bar_pempty,
+                  rank, c, h0, hg, b_first, first_tile, lo, hi};
+    if (wg == 1) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+      consume<kCluster, true>(cta, q_lat, q_rope, lengths, a, part_m,
+                              part_l, part_acc);
+    } else {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+      consume<kCluster, false>(cta, q_lat, q_rope, lengths, a, part_m,
+                               part_l, part_acc);
+    }
+    cluster_sync();
+  }
+}
 
-    // Online softmax: a quad of threads a head (head tid / 4), each thread
-    // 8 positions (8 (tid % 4) .. +8); the head's max and sum by two quad
-    // shuffles each.
-    if constexpr ((kProbeSkip & 2) == 0) {
-      const int hh = tid / 4, q8 = (tid % 4) * 8;
-      const int live = end - (start + t * kTile) - q8;   // live of the 8
-      const float* s_lo = s_s + hh * kSRow + q8;          // depth half 0
-      const float* s_hi = s_lo + kHeads * kSRow;          // depth half 1
-      const float4 s0 = *reinterpret_cast<const float4*>(s_lo);
-      const float4 s1 = *reinterpret_cast<const float4*>(s_lo + 4);
-      const float4 t0 = *reinterpret_cast<const float4*>(s_hi);
-      const float4 t1 = *reinterpret_cast<const float4*>(s_hi + 4);
-      float sv[8] = {s0.x + t0.x, s0.y + t0.y, s0.z + t0.z, s0.w + t0.w,
-                     s1.x + t1.x, s1.y + t1.y, s1.z + t1.z, s1.w + t1.w};
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sv[j] = j < live ? sv[j] * a.scale : kNeg;
-        mx = fmaxf(mx, sv[j]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
-      float sum = 0.0f;
-      uint32_t pk[4];
-#pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        const float p0 = j < live ? expf(sv[j] - m_new) : 0.0f;
-        const float p1 = j + 1 < live ? expf(sv[j + 1] - m_new) : 0.0f;
-        sum += p0 + p1;
-        const __nv_bfloat162 pb = __floats2bfloat162_rn(p0, p1);
-        pk[j / 2] = *reinterpret_cast<const uint32_t*>(&pb);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      const float corr = expf(m_run - m_new);
-      l_run = fmaf(l_run, corr, sum);
-      m_run = m_new;
-      *reinterpret_cast<uint4*>(smem + kSmemP + (hh * kPRow + q8) * 2) =
-          make_uint4(pk[0], pk[1], pk[2], pk[3]);
-      if (tid % 4 == 0) corr_s[hh] = corr;
-    }
-    __syncthreads();
+// One block per (b, head) row: the partials of request b's segments
+// (slots c + b for the clusters c whose runs hold its tiles: from the
+// cluster of its first tile to that of its last, those whose runs are not
+// empty) rescaled to their common max and normalised; a request with no
+// live position gives 0. A weight that underflows to 0 skips its slot.
+constexpr int kCombineThreads = 128;
 
-    // O += P.V: this warp's columns 64 warp .. +64 of all 64 heads.
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const float c_lo = corr_s[mi * 16 + g], c_hi = corr_s[mi * 16 + g + 8];
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        acc[mi][ni][0] *= c_lo;
-        acc[mi][ni][1] *= c_lo;
-        acc[mi][ni][2] *= c_hi;
-        acc[mi][ni][3] *= c_hi;
-      }
+__global__ void __launch_bounds__(kCombineThreads)
+mla_decode_tc_combine_kernel(const int* __restrict__ lengths, TcArgs a,
+                             const float* __restrict__ part_m,
+                             const float* __restrict__ part_l,
+                             const float* __restrict__ part_acc,
+                             __nv_bfloat16* __restrict__ out) {
+  extern __shared__ float w_s[];   // [n_clusters]
+  __shared__ float denom_s;
+  __shared__ int c_lo_s, c_hi_s;
+  const int row = blockIdx.x, b = row / a.n_heads, h = row % a.n_heads;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int total = count_tiles(lengths, a.batch, a.s_len);
+    const int first = count_tiles(lengths, b, a.s_len);
+    const int n = live_tiles(lengths, b, a.s_len);
+    int c_lo = 0, c_hi = -1;
+    if (n > 0) {
+      c_lo = cluster_of(first, a.n_clusters, total);
+      c_hi = cluster_of(first + n - 1, a.n_clusters, total);
     }
-#pragma unroll
-    for (int ks = 0; ks < ((kProbeSkip & 4) ? 0 : kTile / 16); ++ks) {
-      uint32_t pa[4][4], vb[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(pa[mi], p_base + (mi * 16 + a_row) * kPRow * 2 +
-                                (ks * 16 + a_col) * 2);
-#pragma unroll
-      for (int np = 0; np < 4; ++np)
-        ldmatrix_x4_trans(vb[np], stage + (ks * 16 + a_row) * kRowBytes +
-                                      (warp * 64 + np * 16 + a_col) * 2);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma(acc[mi][2 * np], pa[mi], vb[np][0], vb[np][1]);
-          mma(acc[mi][2 * np + 1], pa[mi], vb[np][2], vb[np][3]);
-        }
-      }
+    // Clusters of empty runs (more clusters than tiles) wrote nothing.
+    auto live = [&](int c) {
+      return run_start(c, a.n_clusters, total) <
+             run_start(c + 1, a.n_clusters, total);
+    };
+    float m = kNeg;
+    for (int c = c_lo + lane; c <= c_hi; c += 32)
+      if (live(c))
+        m = fmaxf(m, part_m[static_cast<long long>(c + b) * a.n_heads + h]);
+    m = warp_max(m);
+    float l = 0.0f;
+    for (int c = c_lo + lane; c <= c_hi; c += 32) {
+      const long long at = static_cast<long long>(c + b) * a.n_heads + h;
+      const float w = live(c) ? exp2f(part_m[at] - m) : 0.0f;
+      w_s[c - c_lo] = w;
+      if (w != 0.0f) l = fmaf(part_l[at], w, l);
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      denom_s = fmaxf(l, 1e-30f);
+      c_lo_s = c_lo;
+      c_hi_s = c_hi;
     }
   }
-  cp_async_wait<0>();
+  __syncthreads();
+  const float denom = denom_s;
+  const int c_lo = c_lo_s, c_hi = c_hi_s;
+  for (int d = threadIdx.x; d < kR; d += kCombineThreads) {
+    float acc = 0.0f;
+    for (int c = c_lo; c <= c_hi; ++c)
+      if (w_s[c - c_lo] != 0.0f)
+        acc = fmaf(part_acc[(static_cast<long long>(c + b) * a.n_heads + h) *
+                                kR + d],
+                   w_s[c - c_lo], acc);
+    out[static_cast<long long>(row) * kR + d] =
+        __float2bfloat16_rn(acc / denom);
+  }
+}
 
-  // The unnormalised partial of this split.
-  const long long rows = static_cast<long long>(gridDim.y) * a.n_heads;
-  const long long row0 = split * rows + static_cast<long long>(b) *
-                         a.n_heads + h0;
-  float* pacc = part_acc + row0 * kR;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const int lo = mi * 16 + g, hi = lo + 8;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const int col = warp * 64 + ni * 8 + 2 * tq;
-      if (lo < hg)
-        *reinterpret_cast<float2*>(pacc + lo * kR + col) =
-            make_float2(acc[mi][ni][0], acc[mi][ni][1]);
-      if (hi < hg)
-        *reinterpret_cast<float2*>(pacc + hi * kR + col) =
-            make_float2(acc[mi][ni][2], acc[mi][ni][3]);
-    }
-  }
-  if (tid % 4 == 0 && tid / 4 < hg) {
-    part_m[row0 + tid / 4] = m_run;
-    part_l[row0 + tid / 4] = l_run;
-  }
+template <int kCluster>
+cudaLaunchConfig_t launch_config(cudaLaunchAttribute* attr, int n_clusters,
+                                 cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_clusters * kCluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of kCluster CTAs that fit on the card at once (one CTA an SM).
+template <int kCluster>
+int max_clusters(int* n) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mla_decode_tc_kernel<kCluster>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config<kCluster>(&attr, 1, nullptr);
+  err = cudaOccupancyMaxActiveClusters(n, mla_decode_tc_kernel<kCluster>,
+                                       &cfg);
+  return static_cast<int>(err);
+}
+
+template <int kCluster>
+int launch(const void* q_lat, const void* q_rope, const void* ckv,
+           const void* krope, const void* lengths, void* out, float* pm,
+           float* pl, float* pa, const long long* st, int batch, int n_heads,
+           int s_len, int n_clusters, float scale, cudaStream_t stream) {
+  if (n_clusters < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ckv_map, krope_map;
+  int err = make_map_3d(&ckv_map, ckv, kR, s_len, batch, st[5], st[4],
+                        kTile);
+  if (!err)
+    err = make_map_3d(&krope_map, krope, kP, s_len, batch, st[7], st[6],
+                      kTile);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      mla_decode_tc_kernel<kCluster>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const TcArgs a{st[0], st[1], st[2], st[3], batch, n_heads, s_len,
+                 n_clusters, scale * kLog2e};
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config<kCluster>(&attr, n_clusters, stream);
+  e = cudaLaunchKernelEx(&cfg, mla_decode_tc_kernel<kCluster>, ckv_map,
+                         krope_map, static_cast<const __nv_bfloat16*>(q_lat),
+                         static_cast<const __nv_bfloat16*>(q_rope),
+                         static_cast<const int*>(lengths), a, pm, pl, pa);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  mla_decode_tc_combine_kernel<<<batch * n_heads, kCombineThreads,
+                                 n_clusters * sizeof(float), stream>>>(
+      static_cast<const int*>(lengths), a, pm, pl, pa,
+      static_cast<__nv_bfloat16*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
@@ -621,20 +943,21 @@ int launch(Kernel partial, int smem, int heads_per_block, int r_dim,
 // q_lat (B,H,R) and q_rope (B,H,P) through strides st[0..1], st[2..3] =
 // {b, h}; ckv (B,S,R) and krope (B,S,P) through st[4..5], st[6..7] =
 // {b, s}; the last dim contiguous, and for bf16 at (512, 64) every base and
-// stride 16-byte aligned. lengths (B,) int32: positions attended per
-// request ([0, lengths)). out (B,H,R) contiguous, of the inputs' type (bf16
-// if is_bf16, else f32). Scratch: part_m, part_l (n_split, B*H) and
-// part_acc (n_split, B*H, R) f32. (R, P) is (512, 64) or (16, 8); H at
-// most 128 (the wrapper's limit).
+// stride 16-byte aligned (TMA's and the 16-byte query loads'). lengths (B,)
+// int32: positions attended per request ([0, lengths)). out (B,H,R)
+// contiguous, of the inputs' type (bf16 if is_bf16, else f32). (R, P) is
+// (512, 64) or (16, 8); H at most 128 (the wrapper's limit). n_part: for
+// bf16 at (512, 64) the clusters (moby_mla_decode_clusters), with scratch
+// part_m, part_l (n_part + B, H) and part_acc (n_part + B, H, R) f32;
+// otherwise the SIMT instance's splits a request, with scratch part_m,
+// part_l (n_part, B*H) and part_acc (n_part, B*H, R).
 MOBY_API int moby_mla_decode_attention(
     const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
     const void* lengths, void* out, void* part_m, void* part_l,
     void* part_acc, const long long* st, int batch, int n_heads, int s_len,
-    int r_dim, int p_dim, int n_split, int is_bf16, float scale,
+    int r_dim, int p_dim, int n_part, int is_bf16, float scale,
     void* stream) {
   if (batch * n_heads == 0) return 0;
-  const Args a{st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-               n_heads, s_len, n_split, scale};
   const auto s = static_cast<cudaStream_t>(stream);
   auto* pm = static_cast<float*>(part_m);
   auto* pl = static_cast<float*>(part_l);
@@ -643,9 +966,15 @@ MOBY_API int moby_mla_decode_attention(
   if (!wide && !(r_dim == 16 && p_dim == 8))
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16 && wide)
-    return launch<__nv_bfloat16>(tc::mla_decode_tc_kernel, tc::kSmemBytes,
-                                 tc::kHeads, r_dim, q_lat, q_rope, ckv, krope,
-                                 lengths, out, pm, pl, pa, batch, a, s);
+    return n_heads > tc::kHeads
+               ? tc::launch<2>(q_lat, q_rope, ckv, krope, lengths, out, pm,
+                               pl, pa, st, batch, n_heads, s_len, n_part,
+                               scale, s)
+               : tc::launch<1>(q_lat, q_rope, ckv, krope, lengths, out, pm,
+                               pl, pa, st, batch, n_heads, s_len, n_part,
+                               scale, s);
+  const Args a{st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+               n_heads, s_len, n_part, scale};
   if (is_bf16)
     return launch<__nv_bfloat16>(
         simt::mla_decode_simt_kernel<16, 8, __nv_bfloat16>,
@@ -660,4 +989,14 @@ MOBY_API int moby_mla_decode_attention(
                        simt::Smem<16, 8>::kBytes, simt::kHeads, r_dim, q_lat,
                        q_rope, ckv, krope, lengths, out, pm, pl, pa, batch, a,
                        s);
+}
+
+// The clusters the tensor-core instance runs at n_heads query heads: as
+// many as fit on the card at once (a CTA an SM; a cluster of 2 at more
+// than 64 heads), or minus a CUDA error code.
+MOBY_API int moby_mla_decode_clusters(int n_heads) {
+  int n = 0;
+  const int err = n_heads > tc::kHeads ? tc::max_clusters<2>(&n)
+                                       : tc::max_clusters<1>(&n);
+  return err ? -err : n;
 }

@@ -80,6 +80,7 @@ SIGNATURES = {
     "moby_mla_decode_attention": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I,
                                    ctypes.c_float, _P), _I),
+    "moby_mla_decode_clusters": ((_I,), _I),
     "moby_pillar_scatter": ((_P, _P, _P, _LL, _I, _I, _P, _P), _I),
     "moby_pillar_scatter_bwd": ((_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P,
                                  _P), _I),

@@ -3,25 +3,33 @@
 of ``repro/models/mla.py::mla_decode_apply`` over the compressed cache.
 
 A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
-launches the kernel (a split pass over the cache and its combine, one
-launch of the C entry point), or the call raises. ``launches`` counts
+launches the kernel (a pass over the cache and a merge of its partials,
+one launch of the C entry point), or the call raises. ``launches`` counts
 those launches. ``route`` names the instance: ``"tc"`` (bf16 at (R, P) =
-(512, 64): 64 heads a block on the tensor cores) or ``"simt"`` (f32 at
-both sizes, bf16 at SMOKE's (16, 8): 8 heads a block).
+(512, 64): wgmma fed by TMA, 64 heads a CTA, a cluster of two CTAs above
+64 heads) or ``"simt"`` (f32 at both sizes, bf16 at SMOKE's (16, 8): 8
+heads a block).
 
 The kernel reads its operands through their strides (the last dim
 contiguous) and ``lengths`` on the card, with no host sync. The
-tensor-core instance copies by 16-byte units, so there every base address
-and byte stride must be a multiple of 16: the wrapper checks and raises,
-it never copies. The scratch of the split pass (its partial maxima, sums
-and accumulators, f32) is allocated here, for ``n_split`` splits a
-request: as many as make B x head blocks x n_split about four blocks an
-SM.
+tensor-core instance copies by TMA and 16-byte loads, so there every base
+address and byte stride must be a multiple of 16: the wrapper checks and
+raises, it never copies. The scratch of the partials (maxima, sums and
+accumulators, f32) is allocated here: for the tensor-core instance
+``clusters + B`` slots of (H, R), ``clusters`` the clusters that fit on
+the card at once; for the SIMT instance ``n_split`` splits a request.
+
+``plan`` is the tensor-core instance's schedule in Python (the kernel
+computes the same on the device from ``lengths``): every request's live
+tiles of 64 positions, in request order, cut into equal runs, a run a
+cluster; ``merge_clusters`` is which clusters' partials the merge reads
+for a request.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -35,12 +43,15 @@ DTYPES = (torch.float32, torch.bfloat16)
 # and at SMOKE.
 DIMS = ((512, 64), (16, 8))
 MAX_HEADS = 128
-# Query heads a block serves (kHeads in the two instances of the source).
-HEADS_PER_BLOCK = {"tc": 64, "simt": 8}
-# Positions a tile: a split takes whole tiles.
-TILE = 32
-# Blocks an SM that n_splits aims at (one runs at a time: the tensor-core
-# instance's shared memory allows one).
+# Query heads a CTA of the tensor-core instance serves (kHeads in its
+# source); above it a cluster of two CTAs shares each tile.
+TC_HEADS = 64
+# Positions a tile of the tensor-core instance: the schedule's unit.
+TC_TILE = 64
+# The SIMT instance: heads a block, positions a tile (a split takes whole
+# tiles), blocks an SM that n_splits aims at.
+SIMT_HEADS = 8
+SIMT_TILE = 32
 WAVES = 4
 
 
@@ -57,18 +68,87 @@ def route(dtype: torch.dtype, r: int, p: int) -> str:
     return "tc" if dtype == torch.bfloat16 and (r, p) == DIMS[0] else "simt"
 
 
+def cluster_size(h: int) -> int:
+    """CTAs a cluster of the tensor-core instance: 2 above 64 heads."""
+    return 1 if h <= TC_HEADS else 2
+
+
+def live_tiles(length: int, s: int) -> int:
+    """Tiles of 64 positions that hold a request's live positions
+    [0, min(length, S))."""
+    return -(-min(max(length, 0), s) // TC_TILE)
+
+
+def run_start(c: int, n_clusters: int, total: int) -> int:
+    """First global tile of cluster c's run: runs differ by at most a
+    tile."""
+    return c * total // n_clusters
+
+
+def plan(lengths: Sequence[int], s: int, n_clusters: int
+         ) -> List[Tuple[int, int, int, int]]:
+    """The tensor-core instance's schedule: segments (cluster, request,
+    first tile, end tile) in order, tiles counted within the request.
+    Cluster c takes global tiles [run_start(c), run_start(c + 1)) of all
+    requests' live tiles laid end to end; its stretch of request b is a
+    segment, whose partial goes to slot c + b."""
+    n = [live_tiles(x, s) for x in lengths]
+    total, segs = sum(n), []
+    for c in range(n_clusters):
+        lo, hi = run_start(c, n_clusters, total), \
+            run_start(c + 1, n_clusters, total)
+        first = 0
+        for b, nb in enumerate(n):
+            j0, j1 = max(lo - first, 0), min(nb, hi - first)
+            if j1 > j0:
+                segs.append((c, b, j0, j1))
+            first += nb
+    return segs
+
+
+def merge_clusters(lengths: Sequence[int], s: int, n_clusters: int
+                   ) -> List[List[int]]:
+    """For each request, the clusters whose runs hold its tiles, as the
+    merge finds them (none for a request with no live position): those
+    from the cluster of its first global tile to that of its last (the
+    cluster of tile i being the last c with run_start(c) <= i) whose runs
+    are not empty (with more clusters than tiles, some are)."""
+    n = [live_tiles(x, s) for x in lengths]
+    total, out, first = sum(n), [], 0
+    for nb in n:
+        out.append([])
+        if nb:
+            lo, hi = (-(-(i + 1) * n_clusters // total) - 1
+                      for i in (first, first + nb - 1))
+            out[-1] = [c for c in range(lo, hi + 1)
+                       if run_start(c, n_clusters, total)
+                       < run_start(c + 1, n_clusters, total)]
+        first += nb
+    return out
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def n_splits(path: str, b: int, h: int, s: int, sms: int) -> int:
-    """Splits of each request's positions: about four blocks an SM over
-    the B x ceil(H / heads a block) (request, head group) pairs (the
-    blocks of long requests then share the SMs with short ones' blocks),
-    at least 1 and at most a split a tile of S."""
-    pairs = b * -(-h // HEADS_PER_BLOCK[path])
-    return max(1, min(WAVES * sms // max(pairs, 1), -(-s // TILE)))
+@functools.cache
+def _clusters(index: int, size: int) -> int:
+    """Clusters of ``size`` CTAs of the tensor-core instance that fit on
+    card ``index`` at once (asked of the CUDA runtime)."""
+    with torch.cuda.device(index):
+        n = _build.load().moby_mla_decode_clusters(TC_HEADS * size)
+    if n <= 0:
+        _build.check(-n or 1, "mla_decode_attention (clusters)")
+    return n
+
+
+def n_splits(b: int, h: int, s: int, sms: int) -> int:
+    """The SIMT instance's splits of each request's positions: about four
+    blocks an SM over the B x ceil(H / 8) (request, head group) pairs, at
+    least 1 and at most a split a tile of S."""
+    pairs = b * -(-h // SIMT_HEADS)
+    return max(1, min(WAVES * sms // max(pairs, 1), -(-s // SIMT_TILE)))
 
 
 def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
@@ -98,21 +178,25 @@ def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
             raise ValueError(f"mla_decode_attention: {name} (address "
                              f"{t.data_ptr():#x}, strides {t.stride()}) is "
                              f"not 16-byte aligned, as the tensor-core "
-                             f"instance's 16-byte copies need")
+                             f"instance's TMA and 16-byte loads need")
     _launch.check_cuda("mla_decode_attention", "lengths", lengths,
                        torch.int32, (b,), dev)
     if h > MAX_HEADS:
         raise ValueError(f"mla_decode_attention: {h} heads, the kernel "
                          f"takes at most {MAX_HEADS}")
-    n_split = n_splits(path, b, h, s, _sm_count(dev.index))
     if b > 65535:
         raise ValueError(f"mla_decode_attention: {b} requests exceed the "
                          f"kernel's grid (65,535)")
+    if path == "tc":
+        n_part = _clusters(dev.index, cluster_size(h))
+        rows = (n_part + b, h)
+    else:
+        n_part = n_splits(b, h, s, _sm_count(dev.index))
+        rows = (n_part, b * h)
     out = torch.empty((b, h, r), dtype=dt, device=dev)
-    part_m = torch.empty((n_split, b * h), dtype=torch.float32, device=dev)
+    part_m = torch.empty(rows, dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((n_split, b * h, r), dtype=torch.float32,
-                           device=dev)
+    part_acc = torch.empty((*rows, r), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 8)(*q_lat.stride()[:2],
                                       *q_rope.stride()[:2],
                                       *ckv.stride()[:2], *krope.stride()[:2])
@@ -122,7 +206,7 @@ def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
             q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
             krope.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-            strides, b, h, s, r, p, n_split, int(dt == torch.bfloat16),
+            strides, b, h, s, r, p, n_part, int(dt == torch.bfloat16),
             float(scale), _launch.stream_handle(dev))
     _build.check(code, f"mla_decode_attention ({path})")
     launches += 1

@@ -8,12 +8,17 @@ divided by max(l, 1e-30), so a request of length 0 gives 0 (JAX's mask
 always holds the new position, so its softmax never meets that case).
 Otherwise the weights are JAX's softmax, rounded to the inputs' dtype
 before the product with ``ckv`` as JAX rounds them.
+
+``mla_decode_partial_ref`` and ``mla_decode_merge_ref`` are the
+tensor-core instance's split of the same softmax: a segment's
+unnormalised partial and the merge of a row's partials.
 """
 from __future__ import annotations
 
 import torch
 
 NEG = -1e30
+LOG2E = 1.4426950408889634
 
 
 def mla_decode_attention_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
@@ -35,3 +40,31 @@ def mla_decode_attention_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
     w = (p / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(q_lat.dtype)
     return torch.einsum("bhs,bsr->bhr", w.float(),
                         ckv.float()).to(q_lat.dtype)
+
+
+def mla_decode_partial_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                           ckv: torch.Tensor, krope: torch.Tensor,
+                           lo: int, hi: int, scale: float):
+    """The unnormalised partial of positions [lo, hi) (all live), as the
+    tensor-core instance writes a segment's: m (B, H), the scores' max in
+    the log2 domain (scale x log2(e) folded in), l (B, H) = sum of
+    p = 2^(s - m), and acc (B, H, R) = p . ckv, in f32 (p not rounded)."""
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv[:, lo:hi].float())
+         + torch.einsum("bhk,bsk->bhs", q_rope.float(),
+                        krope[:, lo:hi].float())) * (scale * LOG2E)
+    m = s.amax(-1)
+    p = torch.exp2(s - m[..., None])
+    return m, p.sum(-1), torch.einsum("bhs,bsr->bhr", p,
+                                      ckv[:, lo:hi].float())
+
+
+def mla_decode_merge_ref(parts) -> torch.Tensor:
+    """The merge of a row's partials (m, l, acc) (at least one), as the
+    kernel's second pass: each rescaled by 2^(m - max m), summed, divided
+    by max(l, 1e-30). A request with no live position has no partial and
+    gets 0."""
+    m = torch.stack([x[0] for x in parts]).amax(0)
+    w = [torch.exp2(x[0] - m) for x in parts]
+    l = sum(x[1] * wi for x, wi in zip(parts, w))
+    acc = sum(x[2] * wi[..., None] for x, wi in zip(parts, w))
+    return acc / l.clamp_min(1e-30)[..., None]

@@ -50,14 +50,44 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
     return y.reshape(*lead, *k)
 
 
+def matmul_f32_out_grads(dy: torch.Tensor, x: torch.Tensor,
+                         w: torch.Tensor, mm, need_x: bool = True,
+                         need_w: bool = True):
+    """The gradients of ``x @ w`` (x (..., K), w (K, N), both of one 16-bit
+    dtype, an f32 result) for its f32 cotangent ``dy``, as ``jax.vjp`` of
+    JAX's ``einsum(..., preferred_element_type=float32)`` computes them:
+    the f32 cotangent times the 16-bit operand, summed in f32 and rounded
+    once to the operand's dtype. ``mm(a, b)`` multiplies two 16-bit
+    matrices with f32 sums and an f32 result. The cotangent enters it as
+    two 16-bit parts, ``hi`` (dy rounded) and ``lo`` (the rest, rounded),
+    which hold dy to 2^-16 of it, so the two products' sum is the f32
+    product up to f32 summation. (Rounding dy once to 16 bits instead puts
+    13% of a bf16 gradient's entries more than a bf16 ulp from JAX's.)"""
+    d = dy.reshape(-1, dy.shape[-1])
+    parts = torch.empty((2, *d.shape), dtype=x.dtype, device=d.device)
+    parts[0] = d
+    parts[1] = d - parts[0]
+    dx = dw = None
+    if need_x:
+        wt = w.t()
+        dx = mm(parts[0], wt).add_(mm(parts[1], wt)).to(x.dtype) \
+            .reshape(x.shape)
+    if need_w:
+        # One product over the two parts stacked along the tokens.
+        x2 = x.reshape(-1, x.shape[-1]).repeat(2, 1)
+        dw = mm(x2.t(), parts.reshape(-1, d.shape[-1])).to(x.dtype)
+    return dx, dw
+
+
+def _mm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
 class _MatmulF32Out(torch.autograd.Function):
     """``x @ w`` (x (..., K), w (K, N), both of one 16-bit dtype) as one
     GEMM that writes f32 (``torch.mm``'s ``out_dtype``, which has no
-    autograd formula). Backward: the f32 cotangent rounded once to the
-    inputs' dtype, then the two products in that dtype with f32
-    accumulation (JAX multiplies the f32 cotangent by the 16-bit operand
-    and rounds the product instead; the bf16 training path is held to its
-    own f32 run, not to JAX, see chip_smoke's LM T)."""
+    autograd formula). Backward: :func:`matmul_f32_out_grads`, JAX's
+    arithmetic, by two such GEMMs a gradient."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -68,12 +98,8 @@ class _MatmulF32Out(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        g = dy.reshape(-1, dy.shape[-1]).to(x.dtype)
-        dx = (g @ w.t()).reshape(x.shape) if ctx.needs_input_grad[0] \
-            else None
-        dw = x.reshape(-1, x.shape[-1]).t() @ g if ctx.needs_input_grad[1] \
-            else None
-        return dx, dw
+        return matmul_f32_out_grads(dy, x, w, _mm_f32_out,
+                                    *ctx.needs_input_grad)
 
 
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -384,15 +384,94 @@ def test_routes_at_mla_dims():
         mla_ops.route(torch.float16, 512, 64)
 
 
-def test_decode_splits_fill_the_card():
-    """MLA C's decode (B 16, 128 heads, 32k cache) takes 16 splits a
-    request on 132 SMs: 512 blocks of 64 heads, about four an SM; a short
-    cache never splits finer than a tile of 32 positions."""
-    assert mla_ops.n_splits("tc", 16, 128, 32768, 132) == 16
-    assert mla_ops.n_splits("tc", 1, 128, 32768, 132) == 264
-    assert mla_ops.n_splits("simt", 2, 4, 32, 132) == 1
-    assert mla_ops.n_splits("simt", 2, 128, 512, 132) == 16
-    assert mla_ops.n_splits("simt", 64, 128, 4096, 132) == 1
+# The tensor-core instance's schedule at the shapes chip_smoke runs it:
+# (lengths, S, heads); the clusters are an H100's (132 SMs: 66 clusters of
+# two CTAs above 64 heads, 132 of one at 64 or fewer).
+_MLA_C_LENGTHS = [31145, 10511, 20000, 28000, 12345, 16385, 30001, 8193,
+                  24576, 19999, 11000, 29000, 15000, 27000, 13000, 22222]
+PLAN_CASES = {
+    "mla_c": (_MLA_C_LENGTHS, 32768, 128),
+    "one_request_32k": ([32768], 32768, 128),
+    "64_short": ([int(x) for x in np.random.default_rng(3).integers(
+        1, 300, 64)], 2048, 128),
+    "zero_length_inside": ([500, 64, 0, 129, 1000], 1000, 128),
+    "h64": ([700, 333], 700, 64),
+    "h65": ([1, 700], 700, 65),
+    "h100": ([0, 77, 700], 700, 100),
+    "h128_past_s": ([70000, 5, 64, 65], 4096, 128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_decode_splits_fill_the_card(case):
+    """The tensor-core instance's plan (``ops.plan``, the schedule the
+    kernel computes on the device from the lengths): every live tile of
+    every request is covered exactly once, the clusters' runs differ by
+    at most one tile, a request's partials are the slots cluster +
+    request the merge reads (``merge_clusters``), and there are at most
+    clusters + B of them."""
+    lengths, s, h = PLAN_CASES[case]
+    n_clusters = 132 // mla_ops.cluster_size(h)
+    assert mla_ops.cluster_size(h) == (1 if h <= 64 else 2)
+    segs = mla_ops.plan(lengths, s, n_clusters)
+    covered = {}
+    per_cluster = [0] * n_clusters
+    for c, b, j0, j1 in segs:
+        assert 0 <= j0 < j1 <= mla_ops.live_tiles(lengths[b], s)
+        for j in range(j0, j1):
+            assert (b, j) not in covered
+            covered[b, j] = c
+        per_cluster[c] += j1 - j0
+    assert set(covered) == {(b, j) for b, x in enumerate(lengths)
+                            for j in range(mla_ops.live_tiles(x, s))}
+    assert max(per_cluster) - min(per_cluster) <= 1
+    slots = [c + b for c, b, _, _ in segs]
+    assert len(set(slots)) == len(slots)
+    assert max(slots, default=0) < n_clusters + len(lengths)
+    merge = mla_ops.merge_clusters(lengths, s, n_clusters)
+    for b in range(len(lengths)):
+        assert sorted(merge[b]) == sorted(c for c, bb, _, _ in segs
+                                          if bb == b)
+
+
+def test_simt_splits_fill_the_card():
+    """The SIMT instance keeps equal splits of each request: about four
+    8-head blocks an SM, never finer than a tile of 32 positions."""
+    assert mla_ops.n_splits(2, 4, 32, 132) == 1
+    assert mla_ops.n_splits(2, 128, 512, 132) == 16
+    assert mla_ops.n_splits(64, 128, 4096, 132) == 1
+
+
+@pytest.mark.parametrize("size", ["smoke", "full_width"])
+def test_plan_segments_merge_to_the_unsplit_softmax(size):
+    """``ref.py`` run segment by segment along the plan (each segment's
+    unnormalised partial, ``mla_decode_partial_ref``), merged with the
+    merge's formula (``mla_decode_merge_ref``), equals
+    ``mla_decode_attention_ref`` unsplit within 1e-6 in f32; a request of
+    length 0 gives 0. SMOKE's dims and deepseek-v2's (512, 64) at small
+    S, 7 clusters, so runs cross request boundaries."""
+    r, p, h, s = (16, 8, 4, 200) if size == "smoke" else (512, 64, 8, 300)
+    lengths = [130, 0, 64, 1, 300 if s == 300 else 200, 77]
+    rng = np.random.default_rng(5)
+    q_lat, q_rope, ckv, krope = (
+        torch.from_numpy(rng.normal(size=sh)).float()
+        for sh in ((6, h, r), (6, h, p), (6, s, r), (6, s, p)))
+    scale = (r // 4 + p) ** -0.5
+    want = mla_ref.mla_decode_attention_ref(
+        q_lat, q_rope, ckv, krope, torch.tensor(lengths), scale)
+    tile = mla_ops.TC_TILE
+    for b, n in enumerate(lengths):
+        parts = []
+        for c, bb, j0, j1 in mla_ops.plan(lengths, s, 7):
+            if bb == b:
+                sl = slice(b, b + 1)
+                parts.append(mla_ref.mla_decode_partial_ref(
+                    q_lat[sl], q_rope[sl], ckv[sl], krope[sl], j0 * tile,
+                    min(j1 * tile, n), scale))
+        got = mla_ref.mla_decode_merge_ref(parts)[0] if parts \
+            else torch.zeros(h, r)
+        assert len(parts) == len(mla_ops.merge_clusters(lengths, s, 7)[b])
+        torch.testing.assert_close(got, want[b], rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -570,11 +649,16 @@ def test_mla_kernels_match_plain_on_card():
         pytest.skip("needs a CUDA card (run python3 chip_smoke.py there)")
     dev = torch.device("cuda")
     rng = np.random.default_rng(4)
-    for dtype, r, p in ((torch.bfloat16, 512, 64), (torch.float32, 16, 8)):
+    for dtype, r, p, h, lens in (
+            (torch.bfloat16, 512, 64, 128, [1, 77, 300]),
+            (torch.float32, 16, 8, 128, [1, 77, 300]),
+            # Clusters of one CTA (64 heads), a nearly empty second CTA
+            # (65), an empty request between live ones.
+            (torch.bfloat16, 512, 64, 64, [300, 0, 77]),
+            (torch.bfloat16, 512, 64, 65, [129, 0, 300])):
         ins = [torch.from_numpy(rng.normal(size=sh)).to(dev, dtype)
-               for sh in ((3, 128, r), (3, 128, p), (3, 300, r),
-                          (3, 300, p))]
-        lengths = torch.tensor([1, 77, 300], dtype=torch.int32, device=dev)
+               for sh in ((3, h, r), (3, h, p), (3, 300, r), (3, 300, p))]
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         got = mla_ops.mla_decode_attention(*ins, lengths, 0.07)
         want = mla_ref.mla_decode_attention_ref(*(t.float() for t in ins),
                                                 lengths, 0.07)

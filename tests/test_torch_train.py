@@ -231,6 +231,63 @@ def _chip_smoke():
     return mod
 
 
+def _matmul_grad_case(seed):
+    """SMOKE's MLP GEMM (B x S tokens, d_model @ d_model x ffn) in bf16:
+    x, w as bf16 tensors, the f32 cotangent, JAX's vjp of its einsum with
+    preferred_element_type=float32 (dx, dw), and the sums' magnitudes."""
+    cfg = jconfigs.get_smoke(ARCH)
+    rng = np.random.default_rng(seed)
+    x = jnp.asarray(rng.normal(size=(2 * 16, cfg.d_model)), jnp.bfloat16)
+    w = jnp.asarray(rng.normal(size=(cfg.d_model, cfg.d_ff))
+                    * cfg.d_model ** -0.5, jnp.bfloat16)
+    dy = rng.normal(size=(2 * 16, cfg.d_ff)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: jnp.einsum(
+        "md,df->mf", a, b, preferred_element_type=jnp.float32), x, w)
+    want = [torch.from_numpy(np.array(t.astype(jnp.float32)))
+            for t in vjp(jnp.asarray(dy))]
+    xt, wt = (torch.from_numpy(np.array(t.astype(jnp.float32))).bfloat16()
+              for t in (x, w))
+    dyt = torch.from_numpy(dy)
+    scales = (dyt.abs() @ wt.float().abs().t(), xt.float().abs().t()
+              @ dyt.abs())
+    return xt, wt, dyt, want, scales
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_matmul_f32_out_grads_match_jax_vjp(seed):
+    """F4: the bf16 GEMM's gradient arithmetic (``matmul_f32_out_grads``,
+    which the card's ``_MatmulF32Out.backward`` runs; its products here
+    bf16 values multiplied exactly and summed in f32, as the card's GEMM
+    with f32 out) against ``jax.vjp`` of JAX's bf16 einsum with
+    preferred_element_type=float32 at SMOKE's MLP shape: every entry
+    within one bf16 ulp of JAX's plus 2^-16 of |dy| @ |w|
+    (chip_smoke.F4_SLACK)."""
+    from repro_torch.models import layers
+    cs = _chip_smoke()
+    xt, wt, dyt, want, scales = _matmul_grad_case(seed)
+    got = layers.matmul_f32_out_grads(dyt, xt, wt,
+                                      lambda a, b: a.float() @ b.float())
+    for g, wnt, sc in zip(got, want, scales):
+        assert g.dtype == torch.bfloat16
+        _, excess = cs.bf16_departure(torch, g, wnt, sc)
+        assert excess <= cs.F4_SLACK
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_matmul_grad_check_rejects_one_rounding(seed):
+    """The F4 check tells the arithmetic apart: rounding the f32
+    cotangent to bf16 before the products (the backward before F4 was
+    settled) puts more than 1% of the entries past one ulp and exceeds
+    the allowance."""
+    cs = _chip_smoke()
+    xt, wt, dyt, want, scales = _matmul_grad_case(seed)
+    g = dyt.bfloat16().float()
+    got = ((g @ wt.float().t()).bfloat16(), (xt.float().t() @ g).bfloat16())
+    for g, wnt, sc in zip(got, want, scales):
+        share, excess = cs.bf16_departure(torch, g, wnt, sc)
+        assert share > 0.01 and excess > cs.F4_SLACK
+
+
 def _bwd_f64(q, k, v, o, do, live, rounded=False):
     """The plain gradient written out in float64 with an explicit (SQ, SK)
     mask of live (query, key) pairs; with ``rounded``, P and dS rounded to
