@@ -78,18 +78,20 @@ fatal on failure:
    ``scaled_dot_product_attention`` on the same inputs as their library
    yardstick (timed here, used nowhere in the port; the kernels it ran
    are named from a profile); the two attention gradients, K5's on both
-   routes of ``fa_ops.route`` (``flash_attention_bwd``, the SIMT kernel:
-   LM T's shape in f32, LM T's f32 correctness shape, G = 1, 4 and 8, Sq
-   = Sk = 1, 77, 256 and 4096, causal and not, every head dim in f32, hd
-   64 in bf16, keys longer than queries; ``flash_attention_bwd_tc``, the
+   routes of ``fa_ops.route`` (``flash_attention_bwd``, the 3xTF32
+   tensor-core kernel: LM T's shape in f32 and at hd 64 in bf16, LM T's
+   f32 correctness shape, G = 1, 2, 3, 4, 8 and 16, Sq = Sk = 1, 77, 256
+   and 4096, causal and not, every head dim in f32 and in bf16,
+   keys longer than queries; ``flash_attention_bwd_tc``, the bf16
    tensor-core kernel: LM T's bf16 shape, Sq = Sk = 1, a ragged 77 with
    contiguous operands, keys longer than queries, full attention at S
-   256, S 1024 causal, each called twice and the two results equal bit
-   for bit; ``decode_attention_bwd``: the decode shape with ragged
-   positions and an empty request, f32 GQA and MQA, SMOKE's head dim, 48
-   query heads a kv head), f32 within 2e-5 of the gradient's scale, bf16
-   within half a bf16 ulp + 2e-5 rel + 1e-6 of the plain gradient
-   computed in float64 on the same bf16 inputs, plus, for the tensor-core
+   256, S 1024 causal; every case of both called twice and the two
+   results equal bit for bit; ``decode_attention_bwd``: the decode shape
+   with ragged positions and an empty request, f32 GQA and MQA, SMOKE's
+   head dim, 48 query heads a kv head), f32 within 2e-5 of the gradient's
+   scale (flash attention's computed in float64), bf16 within half a bf16
+   ulp + 2e-5 rel + 1e-6 of the plain gradient computed in float64 on the
+   same bf16 inputs, plus, for the tensor-core
    route, which rounds P and dS to bf16 as operands of its products,
    ``P_ROUNDING`` times each value's rounding term (``grads_close``,
    ``bwd_rounding_terms``), timed beside SDPA's autograd backward; K4
@@ -234,7 +236,7 @@ fatal on failure:
    MLA decode kernel's share of a step's device time);
 11. LM T, training qwen2.5-3B on the card: gradients reach q, k, v and
    the caches through the backward kernels (bf16 flash on the tensor-core
-   route, f32 on the SIMT one, decode; each counter up by one, the same
+   route, f32 on the 3xTF32 one, decode; each counter up by one, the same
    values as the kernels called directly; fatal: F3); the bf16 GEMM's
    gradient at LM T's MLP shape held to JAX's arithmetic (F4:
    ``check_matmul_grad``); full width with
@@ -243,13 +245,16 @@ fatal on failure:
    ``grad_accum=2`` against the same on the CPU in this process, within
    1e-4 of the values' scale (the parameters also within the sum of the
    steps' learning rates, AdamW's move of an entry whose gradient is near
-   eps); 36 layers in bf16 over f32 master weights, ``remat="full"``, at
-   B=1, S=4096 (cut from the 32k context so the f32 AdamW state fits beside
-   the logits): a warm-up step, then 4 steps timed by CUDA events, ms a
-   step, tokens/s, peak memory, launches a step checked (the tensor-core
-   flash route 72: forward and remat's recompute, its tensor-core
-   gradient 36, the rest 0), a profile over 2 steps naming the attention
-   kernels' device time a step; ``fit`` at the SMOKE config in f32,
+   eps), the ``tf32x3`` gradient launched once a layer a backward pass
+   (counted: the kernel JSON line's ``flash_attention_bwd`` launches are
+   these and ``fit``'s); 36 layers in bf16 over f32 master weights,
+   ``remat="full"``, at B=1, S=4096 (cut from the 32k context so the f32
+   AdamW state fits beside the logits): a warm-up step, then 4 steps
+   timed by CUDA events, ms a step, tokens/s, peak memory, launches a step
+   checked (the tensor-core flash route 72: forward and remat's
+   recompute, its tensor-core gradient 36, the rest 0), a profile over 2
+   steps naming the attention kernels' device time a step; ``fit`` at the
+   SMOKE config in f32,
    checkpoints every 2 steps, cut after 4 and resumed: losses equal to the
    uncut run's bit for bit;
 12. Det A, the card against JAX: the PointPillars detector at a small
@@ -1174,14 +1179,15 @@ def bwd_rounding_terms(torch, q, k, v, o, do, causal: bool):
 def grads_close(torch, got, want, what: str, p_rounding=None):
     """Hold a backward kernel's (dq, dk, dv) against its plain version's:
     in f32 each within 2e-5 of the gradient's scale (the largest magnitude
-    of the three) on the same inputs (with one key, dq and dk are exactly
-    0 and both versions give the rounding of dP - D, terms of dV's size);
-    in bf16 each value within ``bf16_limit`` of the plain
-    version's result on the same bf16 inputs computed in float64 (the
-    exact gradient, since the plain version's own f32 result strays from
-    it by up to 0.6 of that limit at S = 2048, long sums of cancelling
-    terms). The SIMT kernel sums in f32 and rounds once, so that is all;
-    the tensor-core kernel rounds P and dS to bf16 as operands of its
+    of the three) on the same inputs (flash attention's computed in
+    float64; with one key, dq and dk are exactly 0 and the kernel gives
+    the rounding of dP - D, terms of dV's size); in bf16 each value within
+    ``bf16_limit`` of the plain version's result on the same bf16 inputs
+    computed in float64 (the exact gradient, since the plain version's own
+    f32 result strays from it by up to 0.6 of that limit at S = 2048, long
+    sums of cancelling terms). The 3xTF32 kernel's products keep f32
+    accuracy and it rounds each output once, so that is all; the bf16
+    tensor-core kernel rounds P and dS to bf16 as operands of its
     products, so its check adds ``P_ROUNDING`` times each value's
     rounding term (``p_rounding``: ``bwd_rounding_terms`` of the inputs,
     the root-sum-square of those roundings' contributions). Returns (max
@@ -1226,11 +1232,14 @@ def check_flash_bwd(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
     output and a random cotangent: q, k, v, o and do are (B, heads, S, hd)
     views of (B, S, heads, hd) storage, as the model passes them, or
     contiguous (``views`` False). The wrapper's route (``fa_ops.route``)
-    picks the kernel: the tensor-core route's result must equal a second
-    call's bit for bit, and its check allows for its P and dS rounded to
-    bf16 (``bwd_rounding_terms``). bf16 against the plain gradient on the
-    same bf16 inputs computed in float64 (``grads_close``). Timed beside
-    PyTorch's SDPA backward (its autograd gradient on the same inputs)."""
+    picks the kernel. Either route's result must equal a second call's bit
+    for bit; both are held to the plain gradient on the same inputs
+    computed in float64 (``grads_close``), the tensor-core route with its
+    allowance for P and dS rounded to bf16 (``bwd_rounding_terms``). Timed
+    beside PyTorch's SDPA backward (its autograd gradient on the same
+    inputs); the bound is the inputs' (bf16 tensor products for bf16, on
+    either route; three TF32 products a product for f32), with the f32
+    SIMT bound beside it."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def act(heads, s):
@@ -1252,15 +1261,13 @@ def check_flash_bwd(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
     shape = (f"({b},{h},{kv},{sq},{sk},{hd}) {str(dtype)[6:]} "
              + ("causal" if causal else "full")
              + ("" if views else ", contiguous"))
-    if route == "tc":
-        again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal)
-        if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            fail(f"flash_attention_bwd (tc) {shape}: two calls on the same "
-                 f"inputs differ")
-        del again
-    wide = torch.float32 if dtype == torch.float32 else torch.float64
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"flash_attention_bwd ({route}) {shape}: two calls on the same "
+             f"inputs differ")
+    del again
     want = fa_ref.flash_attention_bwd_ref(
-        *(t.to(wide) for t in (q, k, v, o, do)), causal)
+        *(t.double() for t in (q, k, v, o, do)), causal)
     p_rounding = bwd_rounding_terms(torch, q, k, v, o, do, causal) \
         if route == "tc" else None
     err, tol, worst = grads_close(torch, got, want,
@@ -1272,17 +1279,18 @@ def check_flash_bwd(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
     del got, want
     pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
     # The five products of the gradient (S recomputed, dP, dV, dQ, dK),
-    # 2 hd flops a live (query head, key) pair each.
+    # 2 hd flops a live (query head, key) pair each; in f32 three TF32
+    # products each (the 3xTF32 split), in bf16 one bf16 product each.
     ops = 10 * hd * b * h * pairs
+    f32 = dtype == torch.float32
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
     lib_out = torch.nn.functional.scaled_dot_product_attention(
         qr, kr, vr, is_causal=causal, enable_gqa=True)
     rec = dict(shape=shape, exact=exact, max_abs_err=err, tol=tol,
                worst=worst,
                bytes=(4 * b * h * sq + 4 * b * kv * sk) * hd * q.element_size(),
-               ops=ops,
-               peak=PEAK_BF16_PER_S if dtype == torch.bfloat16
-               else PEAK_F32_PER_S,
+               ops=3 * ops if f32 else ops,
+               peak=PEAK_TF32_PER_S if f32 else PEAK_BF16_PER_S,
                f32_simt_ms=ops / PEAK_F32_PER_S * 1e3, library_eager=True,
                library=lambda: torch.autograd.grad(
                    lib_out, (qr, kr, vr), do, retain_graph=True))
@@ -2142,7 +2150,7 @@ def check_gradients_reach(torch, dev, ops, fa_ops, dec_ops) -> None:
              "backward kernel's")
     print("LM T: gradients reach q, k, v and the caches through the "
           "backward kernels (flash bf16 on the tensor-core route and f32 on "
-          "the SIMT one, decode bf16; F3)", flush=True)
+          "the 3xTF32 one, decode bf16; F3)", flush=True)
 
 
 def tree_close(torch, params, got, want, tol: float, what: str,
@@ -2175,7 +2183,9 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
     masters, remat "full", B=T_BATCH, S=T_SEQ, a warm-up then T_STEPS
     steps, launches checked. Then ``fit`` at the SMOKE config cut and
     resumed. Returns K5's and K6's launch counts (both directions) over
-    the timed steps."""
+    the timed steps, and the ``tf32x3`` gradient's (``flash_attention_bwd``)
+    over the f32 correctness steps (one a layer a backward pass: checked)
+    and ``fit`` (at least one)."""
     f32 = torch.float32
     cpu = torch.device("cpu")
     # -- correctness: 2 layers at full width, f32, card vs CPU ---------------
@@ -2194,6 +2204,7 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
                 for k in ("tokens", "labels")}
         return {k: v.to(dev) for k, v in host.items()}, host
     t0 = time.perf_counter()
+    kernels.reset_launch_counts()
     card_batch, cpu_batch = batch_pair(LM_B_BATCH)
     grads = {}
     for where, p, batch in (("card", p_card, card_batch),
@@ -2243,8 +2254,15 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
               f" (CPU {float(out['cpu']['grad_norm']):.6f}); moments within "
               f"1e-4 of their scale, parameters within {worst:.3g} of theirs",
               flush=True)
+    f32_bwd = kernels.launch_counts()["flash_attention_bwd"]
+    # A backward pass for the gradient, one for each of three steps, two
+    # for the grad_accum 2 step: one launch a layer each.
+    if f32_bwd != LM_B_LAYERS * 6:
+        fail(f"LM T: the f32 steps launched the tf32x3 gradient {f32_bwd} "
+             f"times, not {LM_B_LAYERS * 6}")
     print(f"LM T: correctness on the card vs the CPU in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; flash_attention_bwd (tf32x3) "
+          f"launched {f32_bwd} times", flush=True)
     del steps, p_card, p_cpu
     torch.cuda.empty_cache()
 
@@ -2312,6 +2330,7 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
                   lr=1e-3, warmup_steps=2, total_steps=6))
     t0 = time.perf_counter()
     (ROOT / "build").mkdir(exist_ok=True)
+    kernels.reset_launch_counts()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         uncut = loop.fit(cfg, 6, ckpt_dir=f"{tmp}/a", **kw)
         first = loop.fit(cfg, 4, ckpt_dir=f"{tmp}/b", **kw)
@@ -2320,14 +2339,19 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
             resumed.losses != uncut.losses[4:]:
         fail(f"LM T fit: cut at 4 and resumed from {resumed.restored_from}: "
              f"{first.losses} + {resumed.losses} != {uncut.losses}")
+    fit_bwd = kernels.launch_counts()["flash_attention_bwd"]
+    if not fit_bwd:
+        fail("LM T fit: the f32 steps never launched the tf32x3 gradient")
     print(f"LM T: fit {cfg.name} on the card, 6 steps, checkpoints every 2:"
           f" cut after 4 and resumed from step {resumed.restored_from}, the "
           f"losses equal the uncut run's bit for bit ({', '.join(f'{x:.5f}' for x in uncut.losses)}; "
-          f"{time.perf_counter() - t0:.1f} s)", flush=True)
-    return {k: launches[k] for k in ("flash_attention_tc",
-                                     "flash_attention_bwd",
-                                     "flash_attention_bwd_tc",
-                                     "decode_attention", "decode_attention_bwd")}
+          f"{time.perf_counter() - t0:.1f} s); flash_attention_bwd "
+          f"(tf32x3) launched {fit_bwd} times", flush=True)
+    out = {k: launches[k] for k in ("flash_attention_tc",
+                                    "flash_attention_bwd_tc",
+                                    "decode_attention", "decode_attention_bwd")}
+    out["flash_attention_bwd"] = f32_bwd + fit_bwd
+    return out
 
 
 def checked(what: str, check, *args):
@@ -3032,8 +3056,8 @@ def kernel_entry(name: str, r, launches) -> dict:
     source, replaces = KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches, **timing(r)}
-    for key in ("kitti", "f32_prefill", "moonshot", "deepseek", "sorted",
-                "fleet_kitti", "fleet_16", "fleet_64"):
+    for key in ("kitti", "f32_prefill", "bf16_hd64", "moonshot", "deepseek",
+                "sorted", "fleet_kitti", "fleet_16", "fleet_64"):
         if key in r:
             entry[key] = timing(r[key])
     return entry
@@ -3331,11 +3355,15 @@ def main() -> None:
             mla_dec(1, 128, DECODE_MAX, 512, 64, bf16, [DECODE_MAX]),
             mla_dec(64, 128, 2048, 512, 64, bf16, (1, 300)),
             mla_dec(5, 128, 1000, 512, 64, bf16, [500, 64, 0, 129, 1000])],
-        # K5's gradient, the SIMT route (f32; bf16 at hd 16-64): LM T's
+        # K5's gradient, the 3xTF32 route (f32; bf16 at hd 16-64): LM T's
         # shape in f32 first (timed), then LM T's f32 correctness shape,
         # G = 1, 4 and 8, Sq = Sk = 1, 77, 256 and 4096, causal and not,
         # every head dim in f32 and hd 64 in bf16, keys longer than
-        # queries; all as (B, S, heads, hd) views.
+        # queries; then LM T's shape at hd 64 in bf16 (also timed), the dq
+        # kernel's other head groupings: G = 2 (two heads a block), 3 (one
+        # head, 128 rows) and 16 (two blocks a kv head), and bf16 at hd
+        # 16; each called twice, the two results equal bit for bit; all as
+        # (B, S, heads, hd) views.
         "flash_attention_bwd": [
             flash_bwd(T_BATCH, 16, 2, T_SEQ, T_SEQ, 128, f32, True),
             flash_bwd(LM_B_BATCH, 16, 2, LM_B_S, LM_B_S, 128, f32, True),
@@ -3347,7 +3375,12 @@ def main() -> None:
             flash_bwd(1, 8, 2, 4096, 4096, 64, f32, True),
             flash_bwd(1, 16, 2, 4096, 4096, 128, f32, False),
             flash_bwd(2, 8, 2, 77, 77, 64, bf16, True),
-            flash_bwd(2, 4, 2, 128, 640, 64, f32, False)],
+            flash_bwd(2, 4, 2, 128, 640, 64, f32, False),
+            flash_bwd(T_BATCH, 16, 2, T_SEQ, T_SEQ, 64, bf16, True),
+            flash_bwd(1, 4, 2, 300, 300, 128, f32, True),
+            flash_bwd(1, 6, 2, 150, 150, 64, f32, True),
+            flash_bwd(1, 16, 1, 200, 200, 32, bf16, True),
+            flash_bwd(2, 4, 2, 77, 77, 16, bf16, False)],
         # The tensor-core route (bf16 at hd 128): LM T's timed shape first
         # (S 4096, G 8, causal), then Sq = Sk = 1, a ragged 77 with
         # contiguous operands, keys longer than queries (not causal), full
@@ -3419,6 +3452,7 @@ def main() -> None:
                   ("ransac_score", 7): "fleet_16",
                   ("ransac_score", 8): "fleet_64",
                   ("flash_attention", 1): "f32_prefill",
+                  ("flash_attention_bwd", 11): "bf16_hd64",
                   ("flash_attention_tc", 4): "moonshot",
                   ("decode_attention", 5): "moonshot",
                   **{case: key for case, (key, _, _) in INSTANCES.items()},

@@ -1,5 +1,6 @@
-// Backward pass of blocked softmax attention (prefill), GQA-aware: dQ, dK
-// and dV from Q, K, V, the forward's output O and its cotangent dO.
+// Backward pass of blocked softmax attention (prefill), GQA-aware, f32-
+// accurate on the tensor cores by a 3xTF32 split: dQ, dK and dV from Q, K,
+// V, the forward's output O and its cotangent dO.
 //
 // Replaces the VJP around the TPU kernel: repro/ops/api.py (_flash_bwd),
 // jax.vjp of repro/models/layers.py::_chunked_attention, which recomputes
@@ -10,58 +11,104 @@
 //   dV = A^T dO, dP = dO V^T, dS = A * (dP - rowsum(dO * O)),
 //   dQ = scale dS K, dK = scale dS^T Q,
 // with the G = H / KV query heads of a kv head summed into its dK and dV.
+// This is the "tf32x3" route of kernels/flash_attention/ops.py::route: f32
+// at head dims 16-128, bf16 at head dims 16-64. bf16 at head dim 128
+// (training's route) runs flash_attention_bwd_tc.cu.
 //
 // What bounds it on an H100: operations. At the training shape (B=1,
 // H=16, KV=2, S=4096, hd=128, causal) the five products of the gradient
 // are 1.7e11 flops on ~40 MB of inputs and outputs: 2.6 ms of float32
-// arithmetic outside the tensor cores at 67 TFLOP/s (0.17 ms at the bf16
-// tensor rate), against 0.012 ms of memory. This kernel is SIMT f32
-// (fused multiply-adds on the CUDA cores), accurate to f32 in both input
-// types, and recomputes more than the minimum: eight 64x64xhd products a
-// (query block, key block) pair instead of five. It takes the "tf32x3"
-// route of kernels/flash_attention/ops.py::route: f32 at every head dim,
-// bf16 at head dims 16-64. bf16 at head dim 128 (training's route) runs
-// flash_attention_bwd_tc.cu on the tensor cores; 3xTF32 tensor-core
-// products for f32, as flash_attention.cu, are later work (ROADMAP).
+// arithmetic outside the tensor cores at 67 TFLOP/s, against 0.012 ms of
+// memory. The tensor cores take TF32 at 495 TFLOP/s; three TF32 products
+// a product keep f32 accuracy, so the floor is 3 x 1.7e11 / 495e12 = 1.04
+// ms (mma.sync reaches only part of that rate: tools/mma_sync_rate.py).
+// This kernel executes seven products a (query tile, key tile) pair: S and
+// dP in both of its first two kernels, dQ in the first, dV and dK in the
+// second.
+//
+// The 3xTF32 split, as flash_attention.cu's: hi = x rounded to TF32
+// (nearest, ties away from zero, by two integer operations on the bits)
+// and lo = x - hi, exact in f32, which the tensor core reads truncated to
+// TF32; a product is lo_a*hi_b + hi_a*lo_b + hi_a*hi_b by
+// mma.sync.m16n8k8 (TF32 in, f32 accumulators), the small products in
+// accumulators of their own; lo_a*lo_b is dropped. bf16 values are exact
+// in TF32: for bf16 S and dP take one product, dQ, dK and dV two (P and dS
+// are f32 values the kernel computes). P and dS go from the S and dP
+// accumulators into the next product's A fragments without shuffles (k
+// index t stands for column 2t and t + 4 for 2t + 1, and the B fragment
+// reads its rows in that order), split in registers on the way.
+//
+// Why mma.sync and not wgmma: wgmma transposes only 16-bit operands, and
+// dQ = dS K, dK = dS^T Q and dV = P^T dO each read an operand MN-major (K,
+// Q and dO with the head dim contiguous). With mma.sync every thread loads
+// its own B fragment from shared memory in any layout.
+//
+// Accumulation: a thread holds dQ (or dK and dV) for the whole walk, but
+// no tensor-core accumulation chain reaches it: each group of four
+// 8-column tiles of a product sums one walk tile's k-steps in fresh
+// accumulators (big and small products apart), which are then added to
+// the running sum by f32 adds (round to nearest). So at most 16 mma
+// accumulations (8 k-steps of 2 small products) round into a partial sum,
+// whatever rounding the tensor core's own accumulation uses, and the long
+// sums over S / 64 key or S / 32 query tiles round to nearest, as the
+// plain version's.
 //
 // Design, deterministic and without float atomics (three launches of one
-// entry point, in stream order):
-// * dq_kernel, a block per (query block of 64 rows, b, h), the heaviest
-//   causal blocks first: Q and dO tiles in shared memory (f32), D =
-//   rowsum(dO * O) from global O; pass 1 walks the key tiles for the rows'
-//   max m and sum l (online, as the forward); pass 2 walks them again: S,
-//   P = exp(S - m) / l, dP = dO V^T, dS = P (dP - D) into shared memory,
-//   dQ += dS K in registers (each key tile's product summed on its own,
-//   then added: see add_product). Writes dQ and the rows' (m, l, D);
-// * dkv_kernel, a block per (key block, b, query head), heaviest first:
-//   K and V tiles stay in shared memory while the block walks the query
-//   tiles that see its keys, recomputing S^T and P^T from (m, l), dP^T =
-//   V dO^T, and accumulating dV += P^T dO and dK += dS^T Q in registers.
-//   One block a query head keeps 8 x the blocks of one a kv head busy at
-//   GQA, and the causal imbalance spread; each writes f32 partials;
+// entry point, in stream order), blocks of 8 warps:
+// * dq_kernel, a block per (16 * 8 / hb query rows, b, hb query heads of
+//   one kv head), hb = gcd(H / KV, 8), the heaviest causal blocks first
+//   (grid y, slowest); each warp takes 16 rows of one head, so a K/V tile
+//   serves all of them. Q and dO stay in shared memory as f32 A fragments
+//   (fragment order: one 16-byte load a k-step); D = rowsum(dO * O) is the
+//   diagonal of dO.O^T, taken as dP is (a row whose one live key j has O =
+//   V_j then gets dS = 0 exactly, as in the exact gradient). One walk over
+//   the 64-key tiles, online as the forward:
+//   S = Q.K^T, the rows' running max m and sum l, P~ = 2^(S c - m c) (c =
+//   scale log2 e; the SFU's ex2.approx), dP = dO.V^T, dS~ = P~ (dP - D),
+//   dQ~ += dS~.K, dQ~ rescaled when a row's max moves; dQ = scale dQ~ / l.
+//   K tiles arrive by 16-byte cp.async in two buffers, V in one: tile
+//   it + 1's K is in flight for all of tile it, its V from the moment
+//   every warp has read tile it's (a barrier after dP) while dQ is
+//   computed. At hd 128 in f32: 128 KB of fragments + 3 x 33 KB of tiles =
+//   the 227 KB a block may hold. Writes dQ and the rows' (m, l, D), m the
+//   raw max of q.k;
+// * dkv_kernel, a block per (b, query head, 128 keys), heaviest first (grid
+//   y); each warp takes 16 keys, whose K and V stay in shared memory as f32
+//   A fragments, and walks the 32-row query tiles that see them: a 2-stage
+//   cp.async ring brings each tile's Q, dO and (m, l, D). S^T = K.Q^T,
+//   P^T = 2^(S^T c - m c) / l, dP^T = V.dO^T, dS^T = P^T (dP^T - D), dV +=
+//   P^T.dO, dK += dS^T.Q; a warp whose keys all lie above a causal tile
+//   (or past sk) skips it. One block a query head keeps the card busy at
+//   GQA; each writes f32 partials of its query head: 128 KB of fragments
+//   + 2 x 34 KB of ring at hd 128 in f32;
 // * reduce_kernel sums the G partials of each kv head in head order and
 //   rounds once to the input type.
-// Tiles are 64 x hd f32 in shared memory, rows padded by 4 floats (16-byte
-// aligned rows; the float4 reads of a warp then fall on distinct banks).
-// 256 threads a block: thread (ty, tx) = (tid / 16, tid % 16) owns rows
-// ty + 16 i and columns tx + 16 j of a 64 x 64 tile, so a row's 16 owners
-// are one half-warp (its max and sum by four shuffles). Inputs are read
-// through their strides by 16-byte loads (the wrapper checks 16-byte
-// aligned bases and strides); outputs are written through theirs. The
-// library builds with -fmad=false: every multiply-add here is an explicit
-// __fmaf_rn, and exp and division are the IEEE-accurate expf and '/'.
+// Tile rows in shared memory are padded by 16 bytes, so B fragments, read
+// either way (X[n][k] for S and dP, X[k][n] for the others), fall on
+// distinct banks. Masking is applied only to the tiles that cross sk, sq
+// or a diagonal. Inputs are read through their strides by 16-byte copies
+// (the wrapper checks 16-byte aligned bases and strides). The library
+// builds with -fmad=false: every intended fused multiply-add is an
+// explicit __fmaf_rn, and divisions are IEEE.
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "moby_kernels.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kB = 64;              // rows of a tile (queries or keys)
-constexpr int kThreads = 256;
-constexpr int kLdP = kB + 4;        // row stride of the 64 x 64 P/dS tile
-constexpr int kMaxSmem = 232448;    // dynamic shared memory a block may use
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBk = 64;              // keys a tile of the dq walk
+constexpr int kBq = 32;              // queries a tile of the dkv walk
+constexpr int kKeys = 16 * kWarps;   // keys a dkv block
+constexpr int kNG = 4;               // 8-column output tiles summed at once
+constexpr unsigned kFull = 0xffffffffu;
+// Dynamic shared memory a block may use on an H100 (227 KB).
+constexpr int kMaxSmem = 232448;
 
 struct Strides {                    // in elements; the head dim has stride 1
   long long b, h, s;
@@ -73,10 +120,15 @@ struct Args {
   float* stats;                     // (3, B*H, SQ): m, l, D
   float* part;                      // (2, B*H, SK, hd): dK, dV partials
   Strides sq_, sk_, sv_, so_, sdo_, sdq_, sdk_, sdv_;
-  int h, kv, sq, sk;
+  int batch, h, kv, sq, sk;
   int causal;
   float scale;
+  int hb;                           // query heads a dq block: gcd(H/KV, 8)
 };
+
+// Shared row padding, in elements: 16 bytes either way.
+template <typename T>
+constexpr int kPad = 16 / sizeof(T);
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -87,350 +139,543 @@ __device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// 16 bytes of T widened to f32.
-__device__ __forceinline__ void widen16(const float* src, float* dst) {
-  const float4 x = *reinterpret_cast<const float4*>(src);
-  dst[0] = x.x; dst[1] = x.y; dst[2] = x.z; dst[3] = x.w;
-}
-__device__ __forceinline__ void widen16(const __nv_bfloat16* src,
-                                        float* dst) {
-  const uint4 x = *reinterpret_cast<const uint4*>(src);
-  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    dst[2 * i] = __uint_as_float(w[i] << 16);
-    dst[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
+// dq_kernel's shared memory: every warp's Q fragments, then its dO
+// fragments (f32, [warp][HD / 8][32 lanes] of 16 bytes), two K tiles and
+// one V tile ([kBk][HD + pad] of T).
+template <int HD, typename T>
+struct DqSmem {
+  static constexpr int kRow = HD + kPad<T>;
+  static constexpr int kFrag = kWarps * (HD / 8) * 32 * 16;
+  static constexpr int kTile = kBk * kRow * static_cast<int>(sizeof(T));
+  static constexpr int kBytes = 2 * kFrag + 3 * kTile;
+};
+
+// dkv_kernel's: every warp's K fragments, then its V fragments, then two
+// stages of [Q tile, dO tile ([kBq][HD + pad] of T), m, l, D ([3][kBq] f32)].
+template <int HD, typename T>
+struct DkvSmem {
+  static constexpr int kRow = HD + kPad<T>;
+  static constexpr int kFrag = kWarps * (HD / 8) * 32 * 16;
+  static constexpr int kTile = kBq * kRow * static_cast<int>(sizeof(T));
+  static constexpr int kStage = 2 * kTile + 3 * kBq * 4;
+  static constexpr int kBytes = 2 * kFrag + 2 * kStage;
+};
+
+// hi: x rounded to TF32, nearest with ties away from zero (the rounding
+// of cvt.rna.tf32.f32, by two integer operations), as f32 bits with the 13
+// low mantissa bits clear; lo: the rest, x - hi, exact in f32, which the
+// tensor core reads truncated to TF32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-template <int D>
-__host__ __device__ constexpr int ld() { return D + 4; }
-
-template <int D>
-__host__ __device__ constexpr int smem_bytes() {
-  return (4 * kB * ld<D>() + kB * kLdP + 3 * kB) * 4;
+// 2^x by the SFU's ex2.approx: a relative error below 2^-22; results
+// below 2^-126 flush to 0 (a row's largest p is 1).
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Rows [0, rows) of a 64 x D tile (row r at src + r * rs) into dst (f32,
-// row stride D + 4); rows past `rows` are zero.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long rs, int rows) {
+// d += a (16x8, row) . b (8x8, col), TF32 in, f32 accumulators.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + R) of an operand (row r at src + r * rs, the head dim
+// contiguous) into dst ([R][HD + pad] of T) by 16-byte cp.async, issued by
+// the block's threads (or by the lanes of a warp: tid, threads); rows >= n
+// are zero-filled.
+template <int R, int HD, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long rs,
+                                          int r0, int n,
+                                          int tid = threadIdx.x,
+                                          int threads = kThreads) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  for (int c = threadIdx.x; c < kB * kPerRow; c += kThreads) {
-    const int r = c / kPerRow, col = c % kPerRow * kVec;
-    float vals[kVec];
-    if (r < rows) {
-      widen16(src + r * rs + col, vals);
-    } else {
+  constexpr int kChunks = HD / kVec;
+  for (int c = tid; c < R * kChunks; c += threads) {
+    const int r = c / kChunks, col = c % kChunks * kVec;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + r * (HD + kPad<T>) + col,
+               src + (ok ? r0 + r : 0) * rs + col, ok);
+  }
+}
+
+// A fragments of rows [r0, r0 + 16) of an operand (rows >= n are 0) as
+// f32 in fragment order: at frag[d * 32] (frag at this lane's slot) the
+// lane (g, t) keeps x[g][8d + t], x[g + 8][8d + t], x[g][8d + t + 4],
+// x[g + 8][8d + t + 4]. Each lane reads back only its own slots.
+template <int HD, typename T>
+__device__ __forceinline__ void store_frags(uint4* frag, const T* src,
+                                            long long rs, int r0, int n,
+                                            int gq, int tq) {
+#pragma unroll 4
+  for (int d = 0; d < HD / 8; ++d) {
+    float x[4];
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) vals[e] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + gq + (i & 1) * 8;
+      x[i] = r < n ? widen(src[r * rs + d * 8 + tq + (i & 2) * 2]) : 0.0f;
+    }
+    frag[d * 32] = make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]),
+                              __float_as_uint(x[2]), __float_as_uint(x[3]));
+  }
+}
+
+// A B fragment element of a tile, split (f32); bf16 is exact in TF32 (lo
+// unused).
+template <typename T>
+__device__ __forceinline__ void fragment(const T* at, uint32_t& hi,
+                                         uint32_t& lo) {
+  if constexpr (std::is_same<T, float>::value) {
+    split(*at, hi, lo);
+  } else {
+    hi = __float_as_uint(widen(*at));
+    lo = 0u;
+  }
+}
+
+// sc = A.B^T for one warp's 16 rows and kNt * 8 columns: A from the
+// warp's fragments af (f32; split per k-step), B the rows of tile bt
+// ([kNt * 8][HD + pad] of T): b0 = B[n*8 + g][d*8 + t], b1 at dim t + 4.
+// For f32 the small products (lo.hi + hi.lo) go to accumulators of their
+// own, added to the big ones (hi.hi) at the end.
+template <int HD, int kNt, typename T>
+__device__ __forceinline__ void product_nt(const T* bt, const uint4* af,
+                                           int gq, int tq,
+                                           float (&sc)[kNt][4]) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kRow = HD + kPad<T>;
+  float small[kNt][4];
+#pragma unroll
+  for (int n = 0; n < kNt; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sc[n][i] = small[n][i] = 0.0f;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    const uint4 a4 = af[d * 32];
+    uint32_t ah[4] = {a4.x, a4.y, a4.z, a4.w}, al[4];
+    if (kF32) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(__uint_as_float(ah[i]), ah[i], al[i]);
     }
 #pragma unroll
-    for (int e = 0; e < kVec; e += 4)
-      *reinterpret_cast<float4*>(dst + r * ld<D>() + col + e) =
-          make_float4(vals[e], vals[e + 1], vals[e + 2], vals[e + 3]);
-  }
-}
-
-// c[i][j] += sum_k A[ty + 16 i][k] * B[tx + 16 j][k], k < D (A, B: 64 x D
-// tiles, row stride D + 4), summed in k order.
-template <int D>
-__device__ __forceinline__ void mm_nt(const float* a, const float* b,
-                                      float (&c)[4][4], int ty, int tx) {
-#pragma unroll 2
-  for (int k = 0; k < D; k += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * ld<D>()
-                                               + k);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * ld<D>()
-                                               + k);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        c[i][j] = __fmaf_rn(av[i].x, bv[j].x, c[i][j]);
-        c[i][j] = __fmaf_rn(av[i].y, bv[j].y, c[i][j]);
-        c[i][j] = __fmaf_rn(av[i].z, bv[j].z, c[i][j]);
-        c[i][j] = __fmaf_rn(av[i].w, bv[j].w, c[i][j]);
+    for (int n = 0; n < kNt; ++n) {
+      const T* at = bt + (n * 8 + gq) * kRow + d * 8 + tq;
+      uint32_t bh[2], bl[2];
+      fragment(at, bh[0], bl[0]);
+      fragment(at + 4, bh[1], bl[1]);
+      if (kF32) {
+        mma(small[n], al, bh);
+        mma(small[n], ah, bl);
       }
-  }
-}
-
-// c[i][j] += sum_k A[ty + 16 i][k] * B[k][tx + 16 j], k < 64 (A: the
-// 64 x 64 tile, row stride kLdP; B: a 64 x D tile), summed in k order.
-template <int D>
-__device__ __forceinline__ void mm_nn(const float* a, const float* b,
-                                      float (&c)[4][D / 16], int ty,
-                                      int tx) {
-  constexpr int kN = D / 16;
-#pragma unroll 2
-  for (int k = 0; k < kB; k += 4) {
-    float4 av[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * kLdP + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float bv[kN];
-#pragma unroll
-      for (int j = 0; j < kN; ++j) bv[j] = b[(k + kk) * ld<D>() + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y
-                        : kk == 2 ? av[i].z : av[i].w;
-#pragma unroll
-        for (int j = 0; j < kN; ++j) c[i][j] = __fmaf_rn(x, bv[j], c[i][j]);
-      }
+      mma(sc[n], ah, bh);
     }
   }
+  if (kF32) {
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] += small[n][i];
+  }
 }
 
-// acc += A.B for one 64-row tile of the sum: the tile's product is summed
-// on its own, then added, so a gradient summed over S rows adds S / 64
-// tile sums of 64 terms (f32 rounding grows with the longest chain, 64
-// and S / 64, not S).
-template <int D>
-__device__ __forceinline__ void add_product(const float* a, const float* b,
-                                            float (&acc)[4][D / 16], int ty,
-                                            int tx) {
-  float part[4][D / 16] = {};
-  mm_nn<D>(a, b, part, ty, tx);
+// acc += X.B for one warp's 16 rows: X (16 x kK * 8) from accumulator
+// fragments x[k] of a previous product (rows g: c0, c1 and g + 8: c2, c3,
+// columns k*8 + 2t, 2t + 1), taken as A fragments with k index t for
+// column 2t and t + 4 for 2t + 1; B = bt[k*8 + 2t (+1)][d*8 + g] of tile
+// bt ([kK * 8][HD + pad] of T). X is split once; each group of kG (kNG,
+// or all HD / 8 when fewer) 8-column output tiles sums its kK k-steps in
+// fresh accumulators (small products apart), then adds them to acc in f32.
+template <int HD, int kK, typename T>
+__device__ __forceinline__ void product_nn(const float (&x)[kK][4],
+                                           const T* bt, int gq, int tq,
+                                           float (&acc)[HD / 8][4]) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kRow = HD + kPad<T>;
+  constexpr int kG = kNG < HD / 8 ? kNG : HD / 8;
+  static_assert(HD / 8 % kG == 0, "output tile groups");
+  uint32_t xh[kK][4], xl[kK][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int k = 0; k < kK; ++k) {
+    const float xa[4] = {x[k][0], x[k][2], x[k][1], x[k][3]};
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] += part[i][j];
+    for (int i = 0; i < 4; ++i) split(xa[i], xh[k][i], xl[k][i]);
+  }
+#pragma unroll
+  for (int d0 = 0; d0 < HD / 8; d0 += kG) {
+    float big[kG][4], small[kG][4];
+#pragma unroll
+    for (int j = 0; j < kG; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) big[j][i] = small[j][i] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kK; ++k)
+#pragma unroll
+      for (int j = 0; j < kG; ++j) {
+        const T* at = bt + (k * 8 + 2 * tq) * kRow + (d0 + j) * 8 + gq;
+        uint32_t bh[2], bl[2];
+        fragment(at, bh[0], bl[0]);
+        fragment(at + kRow, bh[1], bl[1]);
+        mma(small[j], xl[k], bh);
+        if (kF32) mma(small[j], xh[k], bl);
+        mma(big[j], xh[k], bh);
+      }
+#pragma unroll
+    for (int j = 0; j < kG; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[d0 + j][i] += big[j][i] + small[j][i];
+  }
 }
 
-// Reductions over the 16 lanes of a half-warp (a tile row's owners).
-__device__ __forceinline__ float half_max(float x) {
+// p = 2^(s c - m c) in place of one 16 x kBk tile of raw scores sc (rows
+// g: c0, c1 and g + 8: c2, c3; key k0 + n*8 + 2t + c), c = scale * log2(e),
+// masked keys 0. Each row's running max m (mc = m c) and its thread's
+// share of the sum l take the tile in first, and corr is the factor by
+// which earlier tiles' sums rescale; returns whether any row of the warp
+// has corr != 1. kMask: the tile holds keys past sk or above a row's
+// diagonal.
+template <bool kMask>
+__device__ __forceinline__ bool softmax_tile(
+    float (&sc)[kBk / 8][4], float (&m)[2], float (&mc)[2], float (&l)[2],
+    float (&corr)[2], const int (&rq)[2], int k0, int tq, int sk,
+    int causal, float c) {
+  bool moved = false;
 #pragma unroll
-  for (int off = 8; off; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float half_sum(float x) {
+  for (int r = 0; r < 2; ++r) {
+    bool live[kBk / 8][2];
+    float tile_max = kNeg;
 #pragma unroll
-  for (int off = 8; off; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+    for (int n = 0; n < kBk / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kj = k0 + n * 8 + 2 * tq + j;
+        live[n][j] = !kMask || (kj < sk && (!causal || kj <= rq[r]));
+        float& s = sc[n][2 * r + j];
+        if (kMask) s = live[n][j] ? s : kNeg;
+        tile_max = fmaxf(tile_max, s);
+      }
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(kFull, tile_max, 1));
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(kFull, tile_max, 2));
+    const float m_new = fmaxf(m[r], tile_max);
+    const float mc_new = m_new * c;
+    corr[r] = exp2_fast(mc[r] - mc_new);
+    m[r] = m_new;
+    mc[r] = mc_new;
+    float psum = 0.0f;
+#pragma unroll
+    for (int n = 0; n < kBk / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float& s = sc[n][2 * r + j];
+        s = live[n][j] ? exp2_fast(__fmaf_rn(s, c, -mc[r])) : 0.0f;
+        psum += s;
+      }
+    l[r] = l[r] * corr[r] + psum;
+    moved = moved || corr[r] != 1.0f;
+  }
+  return __any_sync(kFull, moved);
 }
 
-__device__ __forceinline__ bool live(int qi, int kj, const Args& a) {
-  return qi < a.sq && kj < a.sk && (!a.causal || kj <= qi);
-}
-
-template <int D, typename T>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + kB * ld<D>();
-  float* ks = dos + kB * ld<D>();
-  float* vs = ks + kB * ld<D>();
-  float* ps = vs + kB * ld<D>();
-  constexpr int kN = D / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int n_qb = (a.sq + kB - 1) / kB;
-  const int qb = a.causal ? n_qb - 1 - blockIdx.x : blockIdx.x;
-  const int bh = blockIdx.y, b = bh / a.h, h = bh % a.h;
-  const int kvh = h / (a.h / a.kv);
-  const int q0 = qb * kB, rows = min(kB, a.sq - q0);
-  const T* qp = static_cast<const T*>(a.q) + b * a.sq_.b + h * a.sq_.h +
-                q0 * a.sq_.s;
-  const T* dop = static_cast<const T*>(a.dout) + b * a.sdo_.b +
-                 h * a.sdo_.h + q0 * a.sdo_.s;
-  const T* op = static_cast<const T*>(a.o) + b * a.so_.b + h * a.so_.h +
-                q0 * a.so_.s;
-  const T* kp = static_cast<const T*>(a.k) + b * a.sk_.b + kvh * a.sk_.h;
-  const T* vp = static_cast<const T*>(a.v) + b * a.sv_.b + kvh * a.sv_.h;
-  load_tile<D>(qs, qp, a.sq_.s, rows);
-  load_tile<D>(dos, dop, a.sdo_.s, rows);
-  __syncthreads();
+  using S = DqSmem<HD, T>;
+  static_assert(S::kBytes <= kMaxSmem, "shared memory");
+  constexpr int kD = HD / 8;         // k-steps of S and dP; dQ's n-tiles
+  constexpr int kN = kBk / 8;        // n-tiles of S and dP; dQ's k-steps
+  constexpr int kTile = kBk * S::kRow;   // elements of a K or V tile
+  extern __shared__ uint4 smem4[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;  // the mma's groupID, thread
+  uint4* qf = smem4 + warp * kD * 32 + lane;
+  uint4* df = smem4 + (kWarps + warp) * kD * 32 + lane;
+  // [K buffer 0, K buffer 1, V], each [kBk][HD + pad]
+  T* kbuf = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) +
+                                 2 * S::kFrag);
+  T* vbuf = kbuf + 2 * kTile;
 
-  // D = rowsum(dO * O), O as the forward stored it.
-  float dsum[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    float acc = 0.f;
-    if (r < rows)
-      for (int d = tx; d < D; d += 16)
-        acc = __fmaf_rn(dos[r * ld<D>() + d], widen(op[r * a.so_.s + d]),
-                        acc);
-    dsum[i] = half_sum(acc);
-  }
+  const int group = a.h / a.kv, chunks = group / a.hb;
+  const int slabs = kWarps / a.hb;         // 16-row slabs a head
+  const int rows = 16 * slabs;             // query rows a block
+  const int chunk = blockIdx.x % chunks;
+  const int kvh = blockIdx.x / chunks % a.kv;
+  const int b = blockIdx.x / chunks / a.kv;
+  const int h = kvh * group + chunk * a.hb + warp / slabs;
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * rows;
+  const int row0 = q0 + warp % slabs * 16;   // the warp's first row
+  const int rq[2] = {row0 + gq, row0 + gq + 8};
 
-  const int n_kb_all = (a.sk + kB - 1) / kB;
-  const int n_kb = a.causal ? min(n_kb_all, (q0 + rows - 1) / kB + 1)
-                            : n_kb_all;
-  // Pass 1: each row's max and sum over its live keys.
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) { m[i] = kNeg; l[i] = 0.f; }
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * kB;
-    load_tile<D>(ks, kp + k0 * a.sk_.s, a.sk_.s, min(kB, a.sk - k0));
-    __syncthreads();
-    float s[4][4] = {};
-    mm_nt<D>(qs, ks, s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = live(qi, k0 + tx + 16 * j, a) ? s[i][j] * a.scale : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (live(qi, k0 + tx + 16 * j, a)) sum += expf(s[i][j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + half_sum(sum);
-      m[i] = m_new;
-    }
-    __syncthreads();
-  }
-
-  // Pass 2: dQ = sum over key tiles of dS K.
-  float dq[4][kN] = {};
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * kB, krows = min(kB, a.sk - k0);
-    load_tile<D>(ks, kp + k0 * a.sk_.s, a.sk_.s, krows);
-    load_tile<D>(vs, vp + k0 * a.sv_.s, a.sv_.s, krows);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    mm_nt<D>(qs, ks, s, ty, tx);
-    mm_nt<D>(dos, vs, dp, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = live(qi, k0 + tx + 16 * j, a)
-                            ? expf(s[i][j] * a.scale - m[i]) / l[i] : 0.f;
-        ps[(ty + 16 * i) * kLdP + tx + 16 * j] = p * (dp[i][j] - dsum[i]);
-      }
-    }
-    __syncthreads();
-    add_product<D>(ps, ks, dq, ty, tx);
-    __syncthreads();
-  }
-
-  T* dqp = static_cast<T*>(a.dq) + b * a.sdq_.b + h * a.sdq_.h +
-           q0 * a.sdq_.s;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < kN; ++j)
-      narrow(dqp + r * a.sdq_.s + tx + 16 * j, dq[i][j] * a.scale);
-    if (tx == 0) {
-      const long long row = static_cast<long long>(bh) * a.sq + q0 + r;
-      const long long plane = static_cast<long long>(gridDim.y) * a.sq;
-      a.stats[row] = m[i];
-      a.stats[plane + row] = l[i];
-      a.stats[2 * plane + row] = dsum[i];
-    }
-  }
-}
-
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + kB * ld<D>();
-  float* qs = vs + kB * ld<D>();
-  float* dos = qs + kB * ld<D>();
-  float* ps = dos + kB * ld<D>();
-  float* rm = ps + kB * kLdP;
-  float* rl = rm + kB;
-  float* rd = rl + kB;
-  constexpr int kN = D / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int kb = blockIdx.x, k0 = kb * kB, krows = min(kB, a.sk - k0);
-  const int b = blockIdx.y;
-  const int h = blockIdx.z, kvh = h / (a.h / a.kv);
-  const int bh = b * a.h + h;
-  load_tile<D>(ks, static_cast<const T*>(a.k) + b * a.sk_.b +
-               kvh * a.sk_.h + k0 * a.sk_.s, a.sk_.s, krows);
-  load_tile<D>(vs, static_cast<const T*>(a.v) + b * a.sv_.b +
-               kvh * a.sv_.h + k0 * a.sv_.s, a.sv_.s, krows);
   const T* qp = static_cast<const T*>(a.q) + b * a.sq_.b + h * a.sq_.h;
   const T* dop = static_cast<const T*>(a.dout) + b * a.sdo_.b +
                  h * a.sdo_.h;
-  const long long plane = static_cast<long long>(gridDim.y) * a.h * a.sq;
-
-  float dk[4][kN] = {}, dv[4][kN] = {};
-  const int n_qb = (a.sq + kB - 1) / kB;
-  // Causal: query rows below k0 see none of these keys.
-  for (int qb = a.causal ? kb : 0; qb < n_qb; ++qb) {
-    const int q0 = qb * kB, rows = min(kB, a.sq - q0);
-    __syncthreads();    // the previous tile's readers are done
-    load_tile<D>(qs, qp + q0 * a.sq_.s, a.sq_.s, rows);
-    load_tile<D>(dos, dop + q0 * a.sdo_.s, a.sdo_.s, rows);
-    if (threadIdx.x < kB) {
-      const int r = threadIdx.x;
-      const long long row = static_cast<long long>(bh) * a.sq + q0 + r;
-      rm[r] = r < rows ? a.stats[row] : 0.f;
-      rl[r] = r < rows ? a.stats[plane + row] : 1.f;
-      rd[r] = r < rows ? a.stats[2 * plane + row] : 0.f;
-    }
-    __syncthreads();
-    // Thread (ty, tx): keys k0 + ty + 16 i, queries q0 + tx + 16 j.
-    float s[4][4] = {}, dp[4][4] = {};
-    mm_nt<D>(ks, qs, s, ty, tx);
-    mm_nt<D>(vs, dos, dp, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j;
-        const float p = live(q0 + r, k0 + ty + 16 * i, a)
-                            ? expf(s[i][j] * a.scale - rm[r]) / rl[r] : 0.f;
-        ps[(ty + 16 * i) * kLdP + r] = p;
-        dp[i][j] = p * (dp[i][j] - rd[r]);     // dS^T
-      }
-    __syncthreads();
-    add_product<D>(ps, dos, dv, ty, tx);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ps[(ty + 16 * i) * kLdP + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-    add_product<D>(ps, qs, dk, ty, tx);
+  const T* op = static_cast<const T*>(a.o) + b * a.so_.b + h * a.so_.h;
+  store_frags<HD>(qf, qp, a.sq_.s, row0, a.sq, gq, tq);
+  store_frags<HD>(df, dop, a.sdo_.s, row0, a.sq, gq, tq);
+  // D = rowsum(dO * O), O as the forward stored it, as the diagonal of
+  // dO.O^T over the warp's 16 rows: the products and sums of dP = dO.V^T,
+  // so a row whose one live key j has O = V_j (every such row in bf16)
+  // gets dP - D = 0 exactly, as in the exact gradient, here and in the dkv
+  // kernel (whose dP^T takes the same products). The warp's O rows are
+  // staged where K buffer 1 and V will be: 8 x 16 rows.
+  float dsum[2];
+  {
+    T* orows = kbuf + kTile + warp * 16 * S::kRow;
+    load_rows<16, HD>(orows, op, a.so_.s, row0, a.sq, lane, 32);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncwarp();
+    float od[2][4];
+    product_nt<HD, 2>(orows, df, gq, tq, od);
+    // (g, g) is c0 or c1 of n-tile 0 at lane (g, g / 2); (g + 8, g + 8)
+    // c2 or c3 of n-tile 1.
+    const int src = gq * 4 + gq / 2;
+    dsum[0] = __shfl_sync(kFull, gq % 2 ? od[0][1] : od[0][0], src);
+    dsum[1] = __shfl_sync(kFull, gq % 2 ? od[1][3] : od[1][2], src);
+    __syncthreads();   // every warp's O is read before V arrives there
   }
 
-  // Partials of this query head: (2, B*H, SK, D) f32.
-  const long long half = static_cast<long long>(gridDim.y) * a.h * a.sk * D;
-  float* out = a.part + (static_cast<long long>(bh) * a.sk + k0) * D;
+  const T* kb = static_cast<const T*>(a.k) + b * a.sk_.b + kvh * a.sk_.h;
+  const T* vb = static_cast<const T*>(a.v) + b * a.sv_.b + kvh * a.sv_.h;
+  // Keys past the block's last query row are masked for every row.
+  const int k_end = a.causal ? min(a.sk, q0 + rows) : a.sk;
+  const int n_tiles = (k_end + kBk - 1) / kBk;
+  const float c = a.scale * 1.4426950408889634f;
+  // A row's running max of the raw scores, the same times c, its sum.
+  float m[2] = {kNeg, kNeg}, mc[2] = {kNeg * c, kNeg * c};
+  float l[2] = {0.0f, 0.0f}, corr[2];
+  // Only the tiles that cross sk or one of the warp's rows' diagonal mask.
+  auto masked = [&](int k0) {
+    return k0 + kBk > a.sk || (a.causal && k0 + kBk - 1 > row0);
+  };
+
+  float dq[kD][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = ty + 16 * i;
-    if (c >= krows) continue;
+  for (int d = 0; d < kD; ++d)
 #pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      out[c * D + tx + 16 * j] = dk[i][j] * a.scale;
-      out[half + c * D + tx + 16 * j] = dv[i][j];
+    for (int i = 0; i < 4; ++i) dq[d][i] = 0.0f;
+  if (n_tiles > 0) {
+    load_rows<kBk, HD>(kbuf, kb, a.sk_.s, 0, a.sk);
+    load_rows<kBk, HD>(vbuf, vb, a.sv_.s, 0, a.sk);
+  }
+  cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kBk;
+    T* kt = kbuf + it % 2 * kTile;
+    cp_async_wait_all();   // K and V of tile it (this thread's part)
+    __syncthreads();       // ... everyone's; tile it - 1 is consumed
+    if (it + 1 < n_tiles)
+      load_rows<kBk, HD>(kbuf + (it + 1) % 2 * kTile, kb, a.sk_.s,
+                         k0 + kBk, a.sk);
+    cp_async_commit();
+
+    float sc[kN][4];
+    product_nt<HD, kN>(kt, qf, gq, tq, sc);           // S = Q.K^T
+    const bool moved = masked(k0)
+        ? softmax_tile<true>(sc, m, mc, l, corr, rq, k0, tq, a.sk, a.causal,
+                             c)
+        : softmax_tile<false>(sc, m, mc, l, corr, rq, k0, tq, a.sk, a.causal,
+                              c);
+    if (moved) {
+#pragma unroll
+      for (int d = 0; d < kD; ++d)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dq[d][i] *= corr[i / 2];
+    }
+    float ds[kN][4];
+    product_nt<HD, kN>(vbuf, df, gq, tq, ds);         // dP = dO.V^T
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ds[n][i] = sc[n][i] * (ds[n][i] - dsum[i / 2]);   // dS~
+    __syncthreads();       // every warp has read V
+    if (it + 1 < n_tiles)
+      load_rows<kBk, HD>(vbuf, vb, a.sv_.s, k0 + kBk, a.sk);
+    cp_async_commit();
+    product_nn<HD, kN>(ds, kt, gq, tq, dq);           // dQ~ += dS~.K
+  }
+  cp_async_wait_all();
+
+  T* dqp = static_cast<T*>(a.dq) + b * a.sdq_.b + h * a.sdq_.h;
+  const long long plane = static_cast<long long>(a.batch) * a.h * a.sq;
+  const long long bh = static_cast<long long>(b) * a.h + h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(kFull, sum, 1);
+    sum += __shfl_xor_sync(kFull, sum, 2);
+    if (rq[r] >= a.sq) continue;
+    const float f = a.scale / fmaxf(sum, 1e-30f);
+    T* row = dqp + rq[r] * a.sdq_.s + 2 * tq;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) {
+      narrow(row + d * 8, dq[d][2 * r] * f);
+      narrow(row + d * 8 + 1, dq[d][2 * r + 1] * f);
+    }
+    if (tq == 0) {
+      const long long at = bh * a.sq + rq[r];
+      a.stats[at] = m[r];
+      a.stats[plane + at] = sum;
+      a.stats[2 * plane + at] = dsum[r];
+    }
+  }
+}
+
+template <int HD, typename T>
+__global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Args a) {
+  using S = DkvSmem<HD, T>;
+  static_assert(S::kBytes <= kMaxSmem, "shared memory");
+  constexpr int kD = HD / 8;         // k-steps of S^T and dP^T
+  constexpr int kN = kBq / 8;        // their n-tiles; dV's and dK's k-steps
+  extern __shared__ uint4 smem4[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  uint4* kf = smem4 + warp * kD * 32 + lane;
+  uint4* vf = smem4 + (kWarps + warp) * kD * 32 + lane;
+  char* ring = reinterpret_cast<char*>(smem4) + 2 * S::kFrag;
+
+  const int bh = blockIdx.x, b = bh / a.h, h = bh % a.h;
+  const int kvh = h / (a.h / a.kv);
+  const int k0 = blockIdx.y * kKeys;
+  const int kw = k0 + 16 * warp;        // the warp's first key
+  store_frags<HD>(kf, static_cast<const T*>(a.k) + b * a.sk_.b +
+                  kvh * a.sk_.h, a.sk_.s, kw, a.sk, gq, tq);
+  store_frags<HD>(vf, static_cast<const T*>(a.v) + b * a.sv_.b +
+                  kvh * a.sv_.h, a.sv_.s, kw, a.sk, gq, tq);
+  const T* qp = static_cast<const T*>(a.q) + b * a.sq_.b + h * a.sq_.h;
+  const T* dop = static_cast<const T*>(a.dout) + b * a.sdo_.b +
+                 h * a.sdo_.h;
+  const long long plane = static_cast<long long>(a.batch) * a.h * a.sq;
+  const float* st = a.stats + static_cast<long long>(bh) * a.sq;
+
+  // Stage: Q rows, dO rows, then m, l and D of the tile's queries.
+  auto load_stage = [&](char* stage, int q0) {
+    load_rows<kBq, HD>(reinterpret_cast<T*>(stage), qp, a.sq_.s, q0, a.sq);
+    load_rows<kBq, HD>(reinterpret_cast<T*>(stage + S::kTile), dop,
+                       a.sdo_.s, q0, a.sq);
+    if (threadIdx.x < 3 * kBq) {
+      const int p = threadIdx.x / kBq, r = threadIdx.x % kBq;
+      const bool ok = q0 + r < a.sq;
+      cp_async4(reinterpret_cast<float*>(stage + 2 * S::kTile) + threadIdx.x,
+                st + p * plane + (ok ? q0 + r : 0), ok);
+    }
+  };
+
+  float dk[kD][4], dv[kD][4];
+#pragma unroll
+  for (int d = 0; d < kD; ++d)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[d][i] = dv[d][i] = 0.0f;
+  const float c = a.scale * 1.4426950408889634f;
+  const int n_qt = (a.sq + kBq - 1) / kBq;
+  // Causal: query rows below k0 see none of these keys.
+  const int qt0 = a.causal ? min(k0 / kBq, n_qt) : 0;
+  const int n = n_qt - qt0;
+  if (n > 0) load_stage(ring, qt0 * kBq);
+  cp_async_commit();
+  for (int it = 0; it < n; ++it) {
+    const int q0 = (qt0 + it) * kBq;
+    char* stage = ring + it % 2 * S::kStage;
+    cp_async_wait_all();   // tile it has landed (this thread's part)
+    __syncthreads();       // ... everyone's; tile it - 1 is consumed
+    if (it + 1 < n)
+      load_stage(ring + (it + 1) % 2 * S::kStage, q0 + kBq);
+    cp_async_commit();
+    // Every key of the warp past sk or above every query of the tile:
+    // nothing to store, or nothing live.
+    if (kw >= a.sk || (a.causal && kw > q0 + kBq - 1)) continue;
+    const T* qs = reinterpret_cast<const T*>(stage);
+    const T* dos = reinterpret_cast<const T*>(stage + S::kTile);
+    const float* sm = reinterpret_cast<const float*>(stage + 2 * S::kTile);
+
+    // Thread (g, t): keys kw + g (c0, c1) and kw + g + 8 (c2, c3), queries
+    // q0 + n*8 + 2t (c0, c2) and + 1 (c1, c3) of each n-tile.
+    float sc[kN][4];
+    product_nt<HD, kN>(qs, kf, gq, tq, sc);            // S^T = K.Q^T
+    const bool masked = (a.causal && kw + 15 > q0) || q0 + kBq > a.sq;
+#pragma unroll
+    for (int nn = 0; nn < kN; ++nn)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = nn * 8 + 2 * tq + j, qi = q0 + col;
+        const float mcq = sm[col] * c;
+        const float il = 1.0f / fmaxf(sm[kBq + col], 1e-30f);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int kj = kw + gq + 8 * r;
+          const bool live = !masked ||
+                            (qi < a.sq && (!a.causal || kj <= qi));
+          float& s = sc[nn][2 * r + j];
+          s = live ? exp2_fast(__fmaf_rn(s, c, -mcq)) * il : 0.0f;   // P^T
+        }
+      }
+    float ds[kN][4];
+    product_nt<HD, kN>(dos, vf, gq, tq, ds);           // dP^T = V.dO^T
+#pragma unroll
+    for (int nn = 0; nn < kN; ++nn)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ds[nn][i] = sc[nn][i] *      // dS^T = P^T (dP^T - D)
+                    (ds[nn][i] - sm[2 * kBq + nn * 8 + 2 * tq + i % 2]);
+    product_nn<HD, kN>(sc, dos, gq, tq, dv);           // dV += P^T.dO
+    product_nn<HD, kN>(ds, qs, gq, tq, dk);            // dK += dS^T.Q
+  }
+  cp_async_wait_all();
+
+  // Partials of this query head: (2, B*H, SK, HD) f32.
+  const long long half = static_cast<long long>(a.batch) * a.h * a.sk * HD;
+  float* out = a.part + static_cast<long long>(bh) * a.sk * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw + gq + 8 * r;
+    if (key >= a.sk) continue;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) {
+      const long long at = static_cast<long long>(key) * HD + d * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(out + at) =
+          make_float2(dk[d][2 * r] * a.scale, dk[d][2 * r + 1] * a.scale);
+      *reinterpret_cast<float2*>(out + half + at) =
+          make_float2(dv[d][2 * r], dv[d][2 * r + 1]);
     }
   }
 }
 
 // dK, dV of each kv head: its G query heads' partials summed in head order.
 template <int D, typename T>
-__global__ void reduce_kernel(Args a, int batch) {
+__global__ void reduce_kernel(Args a) {
   const int g = a.h / a.kv;
-  const long long n = static_cast<long long>(batch) * a.kv * a.sk * D;
-  const long long half = static_cast<long long>(batch) * a.h * a.sk * D;
+  const long long n = static_cast<long long>(a.batch) * a.kv * a.sk * D;
+  const long long half = static_cast<long long>(a.batch) * a.h * a.sk * D;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -453,47 +698,45 @@ __global__ void reduce_kernel(Args a, int batch) {
   }
 }
 
+int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
+
 template <int D, typename T>
-int launch(const Args& a, int batch, cudaStream_t s) {
-  constexpr int kBytes = smem_bytes<D>();
-  static_assert(kBytes <= kMaxSmem, "shared memory");
+int launch(Args a, cudaStream_t s) {
+  constexpr int kDq = DqSmem<D, T>::kBytes, kDkv = DkvSmem<D, T>::kBytes;
   auto dq_fn = dq_kernel<D, T>;
   auto dkv_fn = dkv_kernel<D, T>;
   cudaError_t err = cudaFuncSetAttribute(
-      dq_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+      dq_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kDq);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
-        dkv_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+        dkv_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // No keys: dQ is 0 (pass 2 runs no tile); no queries: dK and dV are 0
+  const int group = a.h / a.kv;
+  a.hb = gcd(group, kWarps);
+  // No keys: dQ is 0 (the walk runs no tile); no queries: dK and dV are 0
   // (no query tile reaches a key block).
-  const int n_qb = (a.sq + kB - 1) / kB, n_kb = (a.sk + kB - 1) / kB;
-  if (n_qb) {
-    dq_fn<<<dim3(n_qb, batch * a.h), kThreads, kBytes, s>>>(a);
+  const int rows = 16 * kWarps / a.hb;
+  const int n_qt = (a.sq + rows - 1) / rows;
+  const int n_kt = (a.sk + kKeys - 1) / kKeys;
+  if (n_qt > 65535 || n_kt > 65535) return static_cast<int>(
+      cudaErrorInvalidConfiguration);
+  if (n_qt) {
+    dq_fn<<<dim3(a.batch * a.kv * (group / a.hb), n_qt), kThreads, kDq,
+            s>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (!n_kb) return 0;
-  dkv_fn<<<dim3(n_kb, batch, a.h), kThreads, kBytes, s>>>(a);
+  if (!n_kt) return 0;
+  dkv_fn<<<dim3(a.batch * a.h, n_kt), kThreads, kDkv, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long rows = static_cast<long long>(batch) * a.kv * a.sk * D /
-                         kMobyThreads + 1;
-  const int blocks = static_cast<int>(rows < 132 * kMobyBlocksPerSm
-                                          ? rows : 132 * kMobyBlocksPerSm);
-  reduce_kernel<D, T><<<blocks, kMobyThreads, 0, s>>>(a, batch);
+  const long long rows_out = static_cast<long long>(a.batch) * a.kv * a.sk *
+                             D / kMobyThreads + 1;
+  const int blocks = static_cast<int>(rows_out < 132 * kMobyBlocksPerSm
+                                          ? rows_out
+                                          : 132 * kMobyBlocksPerSm);
+  reduce_kernel<D, T><<<blocks, kMobyThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(int head_dim, const Args& a, int batch, cudaStream_t s) {
-  switch (head_dim) {
-    case 16: return launch<16, T>(a, batch, s);
-    case 32: return launch<32, T>(a, batch, s);
-    case 64: return launch<64, T>(a, batch, s);
-    case 128: return launch<128, T>(a, batch, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
@@ -502,7 +745,7 @@ int dispatch(int head_dim, const Args& a, int batch, cudaStream_t s) {
 // strides st[3 t .. 3 t + 2] = {b, head, s} for t = q, k, v, o, dout, dq,
 // dk, dv; the head dim contiguous; the inputs 16-byte aligned. Scratch:
 // stats (3, B*H, SQ) and part (2, B*H, SK, hd), f32. Inputs and outputs
-// bf16 if is_bf16, else f32.
+// bf16 if is_bf16 (head dims 16, 32, 64), else f32 (16, 32, 64, 128).
 MOBY_API int moby_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* stats, void* part,
@@ -516,8 +759,21 @@ MOBY_API int moby_flash_attention_bwd(
          {st[6], st[7], st[8]}, {st[9], st[10], st[11]},
          {st[12], st[13], st[14]}, {st[15], st[16], st[17]},
          {st[18], st[19], st[20]}, {st[21], st[22], st[23]},
-         n_heads, n_kv_heads, sq, sk, causal, scale};
+         batch, n_heads, n_kv_heads, sq, sk, causal, scale, 1};
   const auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(head_dim, a, batch, s)
-                 : dispatch<float>(head_dim, a, batch, s);
+  if (is_bf16) {
+    switch (head_dim) {
+      case 16: return launch<16, __nv_bfloat16>(a, s);
+      case 32: return launch<32, __nv_bfloat16>(a, s);
+      case 64: return launch<64, __nv_bfloat16>(a, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (head_dim) {
+    case 16: return launch<16, float>(a, s);
+    case 32: return launch<32, float>(a, s);
+    case 64: return launch<64, float>(a, s);
+    case 128: return launch<128, float>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

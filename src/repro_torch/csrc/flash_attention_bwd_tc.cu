@@ -6,8 +6,8 @@
 // Replaces the VJP around the TPU kernel: repro/ops/api.py (_flash_bwd),
 // jax.vjp of repro/models/layers.py::_chunked_attention, for bf16 at head
 // dim 128, the width of every full-size dense config (the route that
-// training takes). flash_attention_bwd.cu (SIMT f32) keeps f32 and bf16 at
-// head dims 16-64; kernels/flash_attention/ops.py::route chooses before any
+// training takes). flash_attention_bwd.cu (3xTF32 on the tensor cores)
+// keeps f32 and bf16 at head dims 16-64; kernels/flash_attention/ops.py::route chooses before any
 // launch. Its plain version is
 // kernels/flash_attention/ref.py::flash_attention_bwd_ref:
 //   A = softmax(scale Q.K^T) with the forward's masking (masked keys give

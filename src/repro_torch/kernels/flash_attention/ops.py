@@ -27,11 +27,12 @@ The gradient (``flash_attention_bwd``) has two kernels too, picked by
 the same ``route``: ``"tc"`` runs ``csrc/flash_attention_bwd_tc.cu``
 (bf16 products on the tensor cores, wgmma fed by TMA, P and dS rounded to
 bf16 as operands of their products; ``bwd_tc_launches``), ``"tf32x3"``
-runs ``csrc/flash_attention_bwd.cu`` (SIMT f32; ``bwd_launches``). A CPU
-tensor goes to ``ref.flash_attention_bwd_ref``. :class:`FlashAttention`
-ties the two directions into one differentiable op. The gradient takes
-vd == hd only: at MLA's head dims it raises on every device (training MLA
-is a later slice).
+runs ``csrc/flash_attention_bwd.cu`` (f32-accurate on the tensor cores by
+the 3xTF32 split, mma.sync fed by cp.async, as the forward;
+``bwd_launches``). A CPU tensor goes to ``ref.flash_attention_bwd_ref``.
+:class:`FlashAttention` ties the two directions into one differentiable
+op. The gradient takes vd == hd only: at MLA's head dims it raises on
+every device (training MLA is a later slice).
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ from repro_torch.kernels.flash_attention import ref as _ref
 
 launches = 0         # the 3xTF32 kernel
 tc_launches = 0      # the tensor-core kernel
-bwd_launches = 0     # the SIMT gradient kernel (the "tf32x3" route's)
+bwd_launches = 0     # the 3xTF32 gradient kernel (the "tf32x3" route's)
 bwd_tc_launches = 0  # the tensor-core gradient kernel (the "tc" route's)
 
 # Head dims with the value head dim equal to the qk one.

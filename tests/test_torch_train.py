@@ -288,12 +288,13 @@ def test_matmul_grad_check_rejects_one_rounding(seed):
         assert share > 0.01 and excess > cs.F4_SLACK
 
 
-def _bwd_f64(q, k, v, o, do, live, rounded=False):
+def _bwd_f64(q, k, v, o, do, live, rounded=False, dtype=torch.bfloat16):
     """The plain gradient written out in float64 with an explicit (SQ, SK)
     mask of live (query, key) pairs; with ``rounded``, P and dS rounded to
     bf16 (from f32, to nearest even) as the operands of dV = P^T dO,
     dK = scale dS^T Q and dQ = scale dS K, as the tensor-core kernel
-    (``csrc/flash_attention_bwd_tc.cu``) rounds them. Outputs in bf16."""
+    (``csrc/flash_attention_bwd_tc.cu``) rounds them. Outputs in
+    ``dtype``."""
     b, h, sq, hd = q.shape
     kv = k.shape[1]
     g = h // kv
@@ -310,8 +311,8 @@ def _bwd_f64(q, k, v, o, do, live, rounded=False):
     dv = torch.einsum("bkgqs,bkgqh->bksh", a, dog)
     dq = torch.einsum("bkgqs,bksh->bkgqh", ds, k64) * hd ** -0.5
     dk = torch.einsum("bkgqs,bkgqh->bksh", ds, qg) * hd ** -0.5
-    return (dq.reshape(b, h, sq, hd).bfloat16(), dk.bfloat16(),
-            dv.bfloat16())
+    return (dq.reshape(b, h, sq, hd).to(dtype), dk.to(dtype),
+            dv.to(dtype))
 
 
 def _bf16_inputs(b, h, kv, sq, sk, hd, seed):
@@ -346,26 +347,118 @@ def test_tc_bwd_rounding_model_holds_to_the_allowance():
         cs.grads_close(torch, got, want, "P/dS rounded, no allowance")
 
 
-@pytest.mark.parametrize("fault", ["flash_key_tile", "flash_kv_head",
-                                   "flash_diagonal_mask", "decode_chunk"])
-def test_bwd_card_check_rejects_planted_faults(fault):
-    """``chip_smoke.py``'s bf16 check of the backward kernels (each value
+def _tf32_hi(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 as the kernels' split rounds it: two
+    operations on the bits (+0x1000, the 13 low bits cleared), to nearest
+    with ties away from zero."""
+    bits = x.float().contiguous().numpy().view(np.uint32)
+    return torch.from_numpy(((bits + np.uint32(0x1000))
+                             & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def _tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` as the tensor core reads a TF32 operand: its 13 low
+    mantissa bits ignored (truncated)."""
+    bits = x.float().contiguous().numpy().view(np.uint32)
+    return torch.from_numpy((bits & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor,
+                  terms: int = 3) -> torch.Tensor:
+    """An einsum of f32 operands as the kernel's TF32 products take it:
+    each operand split into hi (``_tf32_hi``) and lo = x - hi (exact in
+    f32, read truncated to TF32); each partial product exact and rounded
+    to f32, then summed in f32: lo.hi + hi.lo + hi.hi (lo.lo dropped), or
+    hi.hi alone when ``terms`` is 1."""
+    ah, bh = _tf32_hi(a), _tf32_hi(b)
+
+    def part(x, y):
+        return torch.einsum(eq, x.double(), y.double()).float()
+    if terms == 1:
+        return part(ah, bh)
+    al, bl = _tf32_read(a.float() - ah), _tf32_read(b.float() - bh)
+    return (part(al, bh) + part(ah, bl)) + part(ah, bh)
+
+
+def _bwd_tf32_model(q, k, v, o, do, causal, terms=3):
+    """The ``tf32x3`` route's gradient (``csrc/flash_attention_bwd.cu``)
+    as a CPU model, in f32: S = Q.K^T, dP = dO.V^T, D = rowsum(dO * O)
+    (the diagonal of dO.O^T, as dP is taken), dV = P^T.dO, dQ = scale dS.K
+    and dK = scale dS^T.Q each taken by ``_tf32_product`` (P and dS split
+    as the kernel splits them on their way to the next product), the
+    softmax and dS = P (dP - D) in f32. Inputs (B, H, S, hd) / (B, KV, S,
+    hd) f32; outputs f32."""
+    b, h, sq, hd = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    grouped = (b, kv, h // kv, sq, hd)
+    qg, og, dog = (t.float().reshape(grouped) for t in (q, o, do))
+    scale = hd ** -0.5
+    s = _tf32_product("bkgqh,bksh->bkgqs", qg, k, terms) * scale
+    live = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        live = live.tril()
+    s = torch.where(live, s, fa_ref.NEG)
+    p = torch.where(live, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    a = p / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    dp = _tf32_product("bkgqh,bksh->bkgqs", dog, v, terms)
+    d = _tf32_product("bkgqh,bkgqh->bkgq", dog, og, terms)
+    ds = a * (dp - d[..., None])
+    dv = _tf32_product("bkgqs,bkgqh->bksh", a, dog, terms)
+    dq = _tf32_product("bkgqs,bksh->bkgqh", ds, k, terms) * scale
+    dk = _tf32_product("bkgqs,bkgqh->bksh", ds, qg, terms) * scale
+    return dq.reshape(b, h, sq, hd), dk, dv
+
+
+@pytest.mark.parametrize("s", [256, 512])
+def test_tf32x3_bwd_model_holds_to_the_f32_check(s):
+    """A CPU model of the ``tf32x3`` gradient's arithmetic (every product
+    split 3xTF32, ``_bwd_tf32_model``) at LM T's head dim, G = 8, causal,
+    f32, passes ``chip_smoke.py``'s f32 check (``grads_close``: 2e-5 of the
+    gradient's scale) against the float64 plain gradient, and the same
+    model with hi alone (one TF32 product a product) fails it: the split
+    is needed, and enough."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(s)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                   for shape in ((1, 8, s, 128), (1, 1, s, 128),
+                                 (1, 1, s, 128), (1, 8, s, 128)))
+    o = fa_ref.flash_attention_ref(q, k, v, True)
+    want = fa_ref.flash_attention_bwd_ref(
+        *(t.double() for t in (q, k, v, o, do)), True)
+    got = _bwd_tf32_model(q, k, v, o, do, True)
+    _, _, worst = cs.grads_close(torch, got, want, "3xTF32 model")
+    assert worst <= 0.5
+    one = _bwd_tf32_model(q, k, v, o, do, True, terms=1)
+    with pytest.raises(SystemExit):
+        cs.grads_close(torch, one, want, "1xTF32 model")
+
+
+BWD_FAULTS = ("flash_key_tile", "flash_kv_head", "flash_diagonal_mask",
+              "decode_chunk")
+
+
+@pytest.mark.parametrize(
+    "fault,dtype", [pytest.param(f, "bfloat16", id=f) for f in BWD_FAULTS]
+    + [pytest.param(f, "float32", id=f"{f}-f32") for f in BWD_FAULTS])
+def test_bwd_card_check_rejects_planted_faults(fault, dtype):
+    """``chip_smoke.py``'s checks of the backward kernels, bf16 (each value
     within half a bf16 ulp + 2e-5 rel + 1e-6 of the plain gradient, here
-    computed in float64 for flash attention and in f32 for decode; the
-    SIMT kernels sum in f32 and round once) passes the plain result
-    rounded to bf16 and fails one with a 64-key tile of dK
-    and dV left unwritten (zero), dK of one kv head swapped with its
+    computed in float64 for flash attention and in f32 for decode) and f32
+    (each value within 2e-5 of the gradient's scale), pass the plain
+    result rounded to the dtype and fail one with a 64-key tile of dK and
+    dV left unwritten (zero), dK of one kv head swapped with its
     neighbour's, the causal mask dropped on the 64x64 diagonal tiles, or
     decode's last live 256-position chunk of the cache cotangents left
-    out. The flash faults fail the tensor-core route's check too, which
-    adds its allowance for P and dS rounded to bf16."""
+    out. In bf16 the flash faults fail the tensor-core route's check too,
+    which adds its allowance for P and dS rounded to bf16."""
     cs = _chip_smoke()
     terms = None
     if fault.startswith("flash"):
         ins = _bf16_inputs(1, 4, 2, 256, 256, 128, 1)
         want = fa_ref.flash_attention_bwd_ref(*(t.double() for t in ins),
                                               True)
-        terms = cs.bwd_rounding_terms(torch, *ins, True)
+        if dtype == "bfloat16":
+            terms = cs.bwd_rounding_terms(torch, *ins, True)
     else:
         g = torch.Generator().manual_seed(1)
 
@@ -376,7 +469,7 @@ def test_bwd_card_check_rejects_planted_faults(fault):
         pos = torch.tensor([700, 1500, 2048, 300], dtype=torch.int32)
         o = dec_ref.decode_attention_ref(q, ck, cv, pos).bfloat16().float()
         want = dec_ref.decode_attention_bwd_ref(q, ck, cv, pos, o, do)
-    rounded = [w.bfloat16() for w in want]
+    rounded = [w.to(TDT[dtype]) for w in want]
     cs.grads_close(torch, rounded, want, "rounded plain gradient")
     bad = [w.clone() for w in rounded]
     if fault == "flash_key_tile":
@@ -388,7 +481,7 @@ def test_bwd_card_check_rejects_planted_faults(fault):
         idx = torch.arange(256)
         live = (idx[:, None] >= idx[None, :]) | \
             (idx[:, None] // 64 == idx[None, :] // 64)
-        bad = list(_bwd_f64(*ins, live))
+        bad = list(_bwd_f64(*ins, live, dtype=TDT[dtype]))
     else:
         for i, p in enumerate(pos.tolist()):
             c0 = (p - 1) // 256 * 256
