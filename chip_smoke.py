@@ -48,11 +48,13 @@ fatal on failure:
    tensor-core flash route, which rounds p to bf16 for its P.V product, an
    allowance for that rounding; see ``attention_close``; the worst
    difference over its limit is printed for every case), flash attention
-   once per route (``flash_attention``: the 3xTF32 kernel, f32 and bf16
-   at hd 16-64, timed at LM B's shape and, in f32, at LM C's prefill
+   once per route (``flash_attention``: the 3xTF32 kernel, f32, and bf16
+   at hd 16 and 32, timed at LM B's shape and, in f32, at LM C's prefill
    shape; ``flash_attention_tc``: the bf16 tensor-core kernel, hd 128,
    timed at LM C's prefill shape and at MoE C's, where moonshot's 16 query
-   heads have a kv head each; decode attention timed at LM C's decode
+   heads have a kv head each, and hd 64, timed at zamba2-1.2b's prefill
+   (32 heads, a kv head each) with whisper-small's encoder and cross
+   attention checked; decode attention timed at LM C's decode
    shape and at MoE C's, G = 1 too; both also at G = 1 on small ragged
    cases; flash attention at MLA's head dims, qk 192 / value 128: the
    tensor-core route at MLA C's prefill shape (128 heads, S 8192, timed,
@@ -296,6 +298,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
 PEAK_TF32_PER_S = 495e12
+# exp2 on the special-function units: 16 a clock an SM (the CUDA
+# programming guide's throughput table, compute capability 9.0) on 132 SMs
+# at the 1.83 GHz that the 989 TFLOP/s bf16 rate implies.
+EXP2_PER_S = 16 * 132 * 1.83e9
 
 # The golden CSV tolerance (tests/test_goldens.py).
 RTOL, ATOL = 1e-4, 1e-5
@@ -386,11 +392,12 @@ KERNELS = {
               "src/repro/kernels/iou2d/iou2d.py:36"),
     "ransac_score": ("src/repro_torch/csrc/ransac_score.cu",
                      "src/repro/kernels/ransac_score/ransac_score.py:34"),
-    # The 3xTF32 route (f32; bf16 at head dims 16-64).
+    # The 3xTF32 route (f32; bf16 at head dims 16 and 32).
     "flash_attention": (
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:78"),
-    # The same TPU kernel's bf16 tensor-core route (head dim 128).
+    # The same TPU kernel's bf16 tensor-core route (head dims 64 and 128,
+    # MLA's 192 / 128).
     "flash_attention_tc": (
         "src/repro_torch/csrc/flash_attention_tc.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:78"),
@@ -401,7 +408,7 @@ KERNELS = {
     # (repro/ops/api.py; plain JAX, recomputing the scores).
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/ops/api.py:54"),
-    # K5's gradient on the tensor cores (bf16 at head dim 128: training).
+    # K5's gradient on the tensor cores (bf16 at head dims 64 and 128).
     "flash_attention_bwd_tc": (
         "src/repro_torch/csrc/flash_attention_bwd_tc.cu",
         "src/repro/ops/api.py:54"),
@@ -1018,6 +1025,10 @@ def check_flash(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
                f32_simt_ms=ops / PEAK_F32_PER_S * 1e3,
                library=lambda: torch.nn.functional.scaled_dot_product_attention(
                    q, k, v, is_causal=causal, enable_gqa=True))
+    if route == "tc":
+        # One exp2 a live (query head, key) pair on the special-function
+        # units: at hd 64 as long as the products (not part of the bound).
+        rec["exp2_floor_ms"] = b * h * pairs / EXP2_PER_S * 1e3
     return rec, (lambda: fa_ops.flash_attention(q, k, v, causal)), \
         (lambda: plain(q, k, v, causal))
 
@@ -1226,6 +1237,24 @@ def grads_close(torch, got, want, what: str, p_rounding=None):
     return err, f"{tol} (worst {worst:.3g} of it)", worst
 
 
+def group_sum_path(torch, fa_ops, q, k, v, o, do, causal, got, what):
+    """At G = 1 the tensor-core gradient writes dK and dV directly; hold
+    that to its partials and group-sum pass bit for bit. The same inputs
+    at G = 2: query head 2i is head i (q, o, do), head 2i + 1 has do = 0,
+    so its partials are zeros (dS = P (0 - 0)) and each kv head's sum is
+    +0 + (head 2i's partial) + (a zero), which the direct write's +0
+    reproduces; dq of the even heads is head i's, computed alike."""
+    twice = [torch.repeat_interleave(t, 2, dim=1) for t in (q, o, do)]
+    twice[2][:, 1::2] = 0
+    grads = fa_ops.flash_attention_bwd(twice[0], k, v, twice[1], twice[2],
+                                       causal)
+    if not (torch.equal(grads[0][:, 0::2], got[0])
+            and torch.equal(grads[1], got[1])
+            and torch.equal(grads[2], got[2])):
+        fail(f"{what}: the direct write of dK and dV at G = 1 differs from "
+             f"the partials' group sum")
+
+
 def check_flash_bwd(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
                     causal, seed, views=True):
     """K5's backward kernel vs its plain version, on the forward kernel's
@@ -1266,6 +1295,9 @@ def check_flash_bwd(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
         fail(f"flash_attention_bwd ({route}) {shape}: two calls on the same "
              f"inputs differ")
     del again
+    if route == "tc" and h == kv:
+        group_sum_path(torch, fa_ops, q, k, v, o, do, causal, got,
+                       f"flash_attention_bwd (tc) {shape}")
     want = fa_ref.flash_attention_bwd_ref(
         *(t.double() for t in (q, k, v, o, do)), causal)
     p_rounding = bwd_rounding_terms(torch, q, k, v, o, do, causal) \
@@ -3023,6 +3055,9 @@ def report_timing(name: str, r) -> None:
           f"{n_bytes / 1e6:.2f} MB)"
           + (f", f32 SIMT bound {r['f32_simt_ms']:.5f} ms"
              if "f32_simt_ms" in r else "")
+          + (f", exp2 floor {r['exp2_floor_ms']:.6f} ms (one exp2 a live "
+             f"pair on the special-function units)"
+             if "exp2_floor_ms" in r else "")
           + (f", rounds {r['rounds_sum']} (the longest auction "
              f"{r['rounds_max']}, {r['us_per_round']:.4f} us a round)"
              if "rounds_sum" in r else "")
@@ -3044,7 +3079,8 @@ def timing(r) -> dict:
             "plain_ms": r["plain_ms"], "eager_ms": r["kernel_eager_ms"],
             "plain_eager_ms": r["plain_eager_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "f32_simt_bound_ms": r.get(
-                "f32_simt_ms"), "library_ms": r.get("library_ms"),
+                "f32_simt_ms"), "exp2_floor_ms": r.get("exp2_floor_ms"),
+            "library_ms": r.get("library_ms"),
             "library_kernel": lib[0][0] if lib else None,
             "passes": [[k, ms] for k, ms, _ in r["kernels"]],
             **{k: r[k] for k in ("rounds_max", "rounds_sum",
@@ -3056,8 +3092,8 @@ def kernel_entry(name: str, r, launches) -> dict:
     source, replaces = KERNELS[name]
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches, **timing(r)}
-    for key in ("kitti", "f32_prefill", "bf16_hd64", "moonshot", "deepseek",
-                "sorted", "fleet_kitti", "fleet_16", "fleet_64"):
+    for key in ("kitti", "f32_prefill", "bf16_hd64", "zamba2", "moonshot",
+                "deepseek", "sorted", "fleet_kitti", "fleet_16", "fleet_64"):
         if key in r:
             entry[key] = timing(r[key])
     return entry
@@ -3274,10 +3310,11 @@ def main() -> None:
                          k3(1, 1, 1), k3(5, 33, 33, dead=2), k3(2, 5, 4000),
                          k3(192, 30, 256), k3(128, 30, 256),
                          k3(384, 30, 256)],
-        # The 3xTF32 route (f32; bf16 at hd 16, 32, 64): LM B's prefill
+        # The 3xTF32 route (f32; bf16 at hd 16 and 32): LM B's prefill
         # shape first (full width in f32), LM C's prefill shape in f32 (also
         # timed), then GQA, ragged MQA, keys longer than queries, the SMOKE
-        # configs' head dim, bf16 at hd 64.
+        # configs' head dim, bf16 at hd 32 (bf16 at hd 64 takes the
+        # tensor-core route: its cases are below).
         "flash_attention": [
             flash(LM_B_BATCH, 16, 2, LM_B_S, LM_B_S, 128, f32, True),
             flash(PREFILL_B, 16, 2, PREFILL_S, PREFILL_S, 128, f32, True),
@@ -3285,7 +3322,7 @@ def main() -> None:
             flash(1, 4, 1, 300, 300, 64, f32, True),
             flash(2, 2, 2, 128, 640, 64, f32, False),
             flash(2, 4, 2, 16, 16, 16, f32, True),
-            flash(2, 8, 2, 512, 512, 64, bf16, True),
+            flash(2, 8, 2, 512, 512, 32, bf16, True),
             # MLA's head dims (qk 192 / value 128; SMOKE's 24 / 16): MLA B's
             # prefill shape (B 2, 128 heads, S 256, also timed), full
             # attention, MLA A's SMOKE shape (also timed), a ragged tile.
@@ -3310,7 +3347,19 @@ def main() -> None:
             # ragged causal tile and full attention.
             flash_mla(PREFILL_B, 128, PREFILL_S, 192, 128, bf16, True),
             flash_mla(1, 4, 300, 192, 128, bf16, True),
-            flash_mla(2, 8, 77, 192, 128, bf16, False)],
+            flash_mla(2, 8, 77, 192, 128, bf16, False),
+            # hd 64 (zamba2, whisper): zamba2-1.2b's prefill (32 heads a
+            # kv head each, S 8192, also timed), GQA, whisper-small's
+            # encoder (12 heads, 1,500 frames, full) and cross attention
+            # (448 queries over the 1,500 frames), Sq = Sk = 1, a ragged
+            # causal 77, G = 8 on a ragged tile.
+            flash(PREFILL_B, 32, 32, PREFILL_S, PREFILL_S, 64, bf16, True),
+            flash(2, 8, 2, 512, 512, 64, bf16, True),
+            flash(1, 12, 12, 1500, 1500, 64, bf16, False),
+            flash(1, 12, 12, 448, 1500, 64, bf16, False),
+            flash(2, 4, 4, 1, 1, 64, bf16, True),
+            flash(2, 4, 4, 77, 77, 64, bf16, True),
+            flash(1, 16, 2, 300, 300, 64, bf16, True)],
         # The decode shape of LM phase C first (ragged positions), then
         # f32 GQA, MQA with positions 1 and S, SMOKE's head dim with an
         # empty request, and bf16 at hd 16 (2-byte rows of V a lane).
@@ -3355,15 +3404,15 @@ def main() -> None:
             mla_dec(1, 128, DECODE_MAX, 512, 64, bf16, [DECODE_MAX]),
             mla_dec(64, 128, 2048, 512, 64, bf16, (1, 300)),
             mla_dec(5, 128, 1000, 512, 64, bf16, [500, 64, 0, 129, 1000])],
-        # K5's gradient, the 3xTF32 route (f32; bf16 at hd 16-64): LM T's
-        # shape in f32 first (timed), then LM T's f32 correctness shape,
-        # G = 1, 4 and 8, Sq = Sk = 1, 77, 256 and 4096, causal and not,
-        # every head dim in f32 and hd 64 in bf16, keys longer than
-        # queries; then LM T's shape at hd 64 in bf16 (also timed), the dq
-        # kernel's other head groupings: G = 2 (two heads a block), 3 (one
-        # head, 128 rows) and 16 (two blocks a kv head), and bf16 at hd
-        # 16; each called twice, the two results equal bit for bit; all as
-        # (B, S, heads, hd) views.
+        # K5's gradient, the 3xTF32 route (f32; bf16 at hd 16 and 32): LM
+        # T's shape in f32 first (timed), then LM T's f32 correctness
+        # shape, G = 1, 4 and 8, Sq = Sk = 1, 77, 256 and 4096, causal and
+        # not, every head dim in f32 and hd 32 in bf16, keys longer than
+        # queries; then the dq kernel's other head groupings: G = 2 (two
+        # heads a block), 3 (one head, 128 rows) and 16 (two blocks a kv
+        # head), and bf16 at hd 16; each called twice, the two results
+        # equal bit for bit; all as (B, S, heads, hd) views. (bf16 at hd
+        # 64 takes the tensor-core route: its cases are below.)
         "flash_attention_bwd": [
             flash_bwd(T_BATCH, 16, 2, T_SEQ, T_SEQ, 128, f32, True),
             flash_bwd(LM_B_BATCH, 16, 2, LM_B_S, LM_B_S, 128, f32, True),
@@ -3371,28 +3420,43 @@ def main() -> None:
             flash_bwd(2, 8, 2, 77, 77, 32, f32, False),
             flash_bwd(1, 8, 1, 256, 256, 64, f32, True),
             flash_bwd(2, 4, 1, 1, 1, 128, f32, True),
-            flash_bwd(1, 4, 4, 1, 1, 64, bf16, False),
+            flash_bwd(1, 4, 4, 1, 1, 32, bf16, False),
             flash_bwd(1, 8, 2, 4096, 4096, 64, f32, True),
             flash_bwd(1, 16, 2, 4096, 4096, 128, f32, False),
-            flash_bwd(2, 8, 2, 77, 77, 64, bf16, True),
+            flash_bwd(2, 8, 2, 77, 77, 32, bf16, True),
             flash_bwd(2, 4, 2, 128, 640, 64, f32, False),
-            flash_bwd(T_BATCH, 16, 2, T_SEQ, T_SEQ, 64, bf16, True),
             flash_bwd(1, 4, 2, 300, 300, 128, f32, True),
             flash_bwd(1, 6, 2, 150, 150, 64, f32, True),
             flash_bwd(1, 16, 1, 200, 200, 32, bf16, True),
             flash_bwd(2, 4, 2, 77, 77, 16, bf16, False)],
-        # The tensor-core route (bf16 at hd 128): LM T's timed shape first
-        # (S 4096, G 8, causal), then Sq = Sk = 1, a ragged 77 with
+        # The tensor-core route (bf16 at hd 64 and 128): LM T's timed shape
+        # first (S 4096, G 8, causal), then Sq = Sk = 1, a ragged 77 with
         # contiguous operands, keys longer than queries (not causal), full
-        # attention at S 256, and the CPU model's shape (S 1024, causal);
-        # each also called twice, the two results equal bit for bit.
+        # attention at S 256, the CPU model's shape (S 1024, causal), G = 1
+        # (the direct write of dK and dV); then hd 64: LM T's shape (also
+        # timed, against the 3xTF32 instance it replaced), zamba2-1.2b's
+        # (32 heads, G = 1, S 4096, also timed), whisper-small's encoder
+        # (12 heads, 1,500 frames, full) and cross attention (448 queries
+        # over 1,500 frames), Sq = Sk = 1, a ragged 77 with contiguous
+        # operands, G = 2 and G = 8; each also called twice, the two
+        # results equal bit for bit, and at G = 1 held bit for bit to the
+        # partials' group sum (``group_sum_path``).
         "flash_attention_bwd_tc": [
             flash_bwd(T_BATCH, 16, 2, T_SEQ, T_SEQ, 128, bf16, True),
             flash_bwd(2, 4, 1, 1, 1, 128, bf16, True),
             flash_bwd(2, 8, 2, 77, 77, 128, bf16, True, views=False),
             flash_bwd(2, 8, 2, 128, 640, 128, bf16, False),
             flash_bwd(1, 16, 2, 256, 256, 128, bf16, False),
-            flash_bwd(1, 4, 2, 1024, 1024, 128, bf16, True)],
+            flash_bwd(1, 4, 2, 1024, 1024, 128, bf16, True),
+            flash_bwd(1, 4, 4, 300, 300, 128, bf16, True),
+            flash_bwd(T_BATCH, 16, 2, T_SEQ, T_SEQ, 64, bf16, True),
+            flash_bwd(1, 32, 32, T_SEQ, T_SEQ, 64, bf16, True),
+            flash_bwd(1, 12, 12, 1500, 1500, 64, bf16, False),
+            flash_bwd(1, 12, 12, 448, 1500, 64, bf16, False),
+            flash_bwd(2, 4, 4, 1, 1, 64, bf16, True),
+            flash_bwd(2, 8, 8, 77, 77, 64, bf16, True, views=False),
+            flash_bwd(1, 8, 4, 300, 300, 64, bf16, True),
+            flash_bwd(2, 8, 1, 256, 256, 64, bf16, False)],
         # K6's gradient: LM C's decode shape with ragged positions and one
         # empty request first, then f32 GQA, MQA with positions 1 and S,
         # SMOKE's head dim with an empty request, bf16 at hd 16, and 48
@@ -3452,8 +3516,10 @@ def main() -> None:
                   ("ransac_score", 7): "fleet_16",
                   ("ransac_score", 8): "fleet_64",
                   ("flash_attention", 1): "f32_prefill",
-                  ("flash_attention_bwd", 11): "bf16_hd64",
                   ("flash_attention_tc", 4): "moonshot",
+                  ("flash_attention_tc", 9): "zamba2",
+                  ("flash_attention_bwd_tc", 7): "bf16_hd64",
+                  ("flash_attention_bwd_tc", 8): "zamba2",
                   ("decode_attention", 5): "moonshot",
                   **{case: key for case, (key, _, _) in INSTANCES.items()},
                   ("auction", 1): "fleet_kitti",

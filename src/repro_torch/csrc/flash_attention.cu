@@ -3,10 +3,12 @@
 //
 // Replaces the TPU kernel
 // repro/kernels/flash_attention/flash_attention.py (flash_attention_pallas).
-// This is the "tf32x3" route: f32 inputs, and bf16 at head dims 16, 32
-// and 64. bf16 at head dim 128 (the full-width dense configs) runs on the
-// tensor cores in bf16 in flash_attention_tc.cu;
-// kernels/flash_attention/ops.py::route chooses. The value head dim VD
+// This is the "tf32x3" route: f32 inputs, and bf16 at head dims 16 and
+// 32 (the SMOKE configs). bf16 at head dims 64 and 128 (zamba2, whisper
+// and the full-width dense configs) runs on the tensor cores in bf16 in
+// flash_attention_tc.cu; kernels/flash_attention/ops.py::route chooses.
+// The bf16 hd-64 instance this kernel had until then is gone (its times
+// stay in PERF.md). The value head dim VD
 // equals the qk head dim HD, except at MLA's (HD, VD) = (192, 128)
 // (deepseek-v2) and (24, 16) (its SMOKE config), in f32: the JAX
 // package's plain attention at those dims
@@ -493,7 +495,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // through element strides st = {q: b,h,s, k: b,h,s, v: b,h,s, o: b,h,s}
 // with the head dim contiguous and every base and stride 16-byte aligned.
 // is_bf16 selects bf16 for all four, else f32. vd = hd at hd 16, 32, 64 or
-// 128 (f32), 16, 32 or 64 (bf16); f32 also at (hd, vd) = (192, 128) and
+// 128 (f32), 16 or 32 (bf16); f32 also at (hd, vd) = (192, 128) and
 // (24, 16) (MLA). H is a multiple of KV.
 MOBY_API int moby_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, const long long* st, int batch,
@@ -517,8 +519,6 @@ MOBY_API int moby_flash_attention(const void* q, const void* k, const void* v,
       case 16: return launch<16, 16, __nv_bfloat16>(q, k, v, o, st, batch,
                    n_heads, n_kv_heads, sq, sk, causal, scale, s);
       case 32: return launch<32, 32, __nv_bfloat16>(q, k, v, o, st, batch,
-                   n_heads, n_kv_heads, sq, sk, causal, scale, s);
-      case 64: return launch<64, 64, __nv_bfloat16>(q, k, v, o, st, batch,
                    n_heads, n_kv_heads, sq, sk, causal, scale, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }

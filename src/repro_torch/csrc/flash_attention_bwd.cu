@@ -12,8 +12,10 @@
 //   dQ = scale dS K, dK = scale dS^T Q,
 // with the G = H / KV query heads of a kv head summed into its dK and dV.
 // This is the "tf32x3" route of kernels/flash_attention/ops.py::route: f32
-// at head dims 16-128, bf16 at head dims 16-64. bf16 at head dim 128
-// (training's route) runs flash_attention_bwd_tc.cu.
+// at head dims 16-128, bf16 at head dims 16 and 32 (the SMOKE configs).
+// bf16 at head dims 64 and 128 (zamba2 and whisper; training's route at
+// full width) runs flash_attention_bwd_tc.cu; the bf16 hd-64 instance
+// this kernel had until then is gone (its times stay in PERF.md).
 //
 // What bounds it on an H100: operations. At the training shape (B=1,
 // H=16, KV=2, S=4096, hd=128, causal) the five products of the gradient
@@ -745,7 +747,7 @@ int launch(Args a, cudaStream_t s) {
 // strides st[3 t .. 3 t + 2] = {b, head, s} for t = q, k, v, o, dout, dq,
 // dk, dv; the head dim contiguous; the inputs 16-byte aligned. Scratch:
 // stats (3, B*H, SQ) and part (2, B*H, SK, hd), f32. Inputs and outputs
-// bf16 if is_bf16 (head dims 16, 32, 64), else f32 (16, 32, 64, 128).
+// bf16 if is_bf16 (head dims 16, 32), else f32 (16, 32, 64, 128).
 MOBY_API int moby_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* stats, void* part,
@@ -765,7 +767,6 @@ MOBY_API int moby_flash_attention_bwd(
     switch (head_dim) {
       case 16: return launch<16, __nv_bfloat16>(a, s);
       case 32: return launch<32, __nv_bfloat16>(a, s);
-      case 64: return launch<64, __nv_bfloat16>(a, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

@@ -1,14 +1,15 @@
 // Backward pass of blocked softmax attention (prefill) on Hopper's tensor
-// cores: bf16 operands, f32 accumulation, wgmma fed by TMA. Head dim 128,
-// GQA-aware: dQ, dK and dV from Q, K, V, the forward's output O and its
-// cotangent dO.
+// cores: bf16 operands, f32 accumulation, wgmma fed by TMA. Head dims 64
+// (zamba2, whisper) and 128 (every full-size dense config), GQA-aware: dQ,
+// dK and dV from Q, K, V, the forward's output O and its cotangent dO.
 //
 // Replaces the VJP around the TPU kernel: repro/ops/api.py (_flash_bwd),
 // jax.vjp of repro/models/layers.py::_chunked_attention, for bf16 at head
-// dim 128, the width of every full-size dense config (the route that
-// training takes). flash_attention_bwd.cu (3xTF32 on the tensor cores)
-// keeps f32 and bf16 at head dims 16-64; kernels/flash_attention/ops.py::route chooses before any
-// launch. Its plain version is
+// dims 64 and 128 (the route that training takes at full width).
+// flash_attention_bwd.cu (3xTF32 on the tensor cores) keeps f32 and bf16
+// at head dims 16 and 32 (it also took bf16 at 64 until this instance
+// did); kernels/flash_attention/ops.py::route chooses before any launch.
+// Its plain version is
 // kernels/flash_attention/ref.py::flash_attention_bwd_ref:
 //   A = softmax(scale Q.K^T) with the forward's masking (masked keys give
 //   p = 0, the causal limit kj <= qi, keys past sk masked),
@@ -23,7 +24,10 @@
 // seven products a (query tile, key tile) pair (S and dP twice: once in
 // each of its two kernels), all of them as wgmma on the tensor cores; the
 // f32 work outside them (the softmax and dS, ~10 instructions and one
-// exp2 a score, twice) competes with them for issue slots and the SFU.
+// exp2 a score, twice) competes with them for issue slots and the SFU. At
+// hd 64 (zamba2's gradient: B=1, H=KV=32, S=4096, causal) the products
+// are again 1.7e11 flops, but that f32 work a score is the same for half
+// the products.
 //
 // Precision: every product has bf16 operands and an f32 accumulator. P and
 // dS are rounded to bf16 (round to nearest even) only as the A operands of
@@ -49,7 +53,7 @@
 //   the forward: S = Q.K^T and dP = dO.V^T as `wgmma.m64n64k16` (A and B
 //   from shared memory, K-major), the rows' running max m and sum l,
 //   P~ = exp2(S c - m), dS~ = P~ (dP - D) in the accumulators' registers,
-//   then dQ~ += dS~.K as `wgmma.m64n128k16` with dS~ fed from registers in
+//   then dQ~ += dS~.K as `wgmma.m64nHDk16` with dS~ fed from registers in
 //   the accumulator-to-A-fragment layout and K read MN-major (the
 //   transpose bit), dQ~ rescaled as m grows; dQ = scale dQ~ / l. Writes dQ
 //   (bf16) and the rows' (lse = m + log2 l, D) as f32 statistics, rows
@@ -58,17 +62,27 @@
 //   V resident; the ring brings each 64-row query tile that sees the keys
 //   with its rows' (lse, D) (a bulk copy each, on the same barrier); S^T =
 //   K.Q^T and dP^T = V.dO^T (m64n64k16), P^T = exp2(S^T c - lse) and dS^T
-//   in registers, dV += P^T.dO and dK += dS^T.Q (m64n128k16, A from
-//   registers, B MN-major). The two 64x128 f32 accumulators stay in
+//   in registers, dV += P^T.dO and dK += dS^T.Q (m64nHDk16, A from
+//   registers, B MN-major). The two 64 x HD f32 accumulators stay in
 //   registers over the walk; the CTA writes f32 partials of its query
 //   head. One CTA a query head keeps 512 CTAs at the training shape busy
-//   (one a kv head would give 64 for the 132 SMs);
+//   (one a kv head would give 64 for the 132 SMs). At G = 1 (one query
+//   head a kv head: zamba2, whisper) it writes dK and dV in bf16 instead,
+//   with no partials and no third launch: at zamba2's gradient shape the
+//   partials are 67 MB written and read again (tools/tc_hd64_probe.py:
+//   7.5% of the call). The group sum adds the partials to +0, which turns
+//   a -0 into +0; the direct write adds +0 before rounding, so the two
+//   agree bit for bit (chip_smoke.py's group_sum_path holds them to it);
 // * reduce_tc_kernel sums the G partials of each kv head in head order and
 //   rounds once to bf16.
-// Shared memory: 2 resident tiles of 32 KB, 2 stages of 2 x 16 KB, then O
-// (dq, 32 KB) or 2 x 512 bytes of statistics (dkv): ~161 KB. Each tile is
-// two TMA boxes of 64 columns (128 bytes, the widest a 128-byte swizzle
-// allows), one after the other; the wgmma descriptors use the same swizzle
+// The exponentials are ex2.approx.ftz alone (p below 2^-126 is 0; 2.7% of
+// the call at zamba2's shape, 4.8% at hd 128: exp2f's non-flushing form
+// adds a compare and two multiplies to each).
+// Shared memory at hd 128: 2 resident tiles of 32 KB, 2 stages of 2 x 16
+// KB, then O (dq, 32 KB) or 2 x 512 bytes of statistics (dkv): ~161 KB; at
+// hd 64 tiles of half the size and 3 stages, ~97 KB. Each tile is HD / 64 TMA boxes of 64 columns
+// (128 bytes, the widest a 128-byte swizzle allows), one after the other;
+// the wgmma descriptors use the same swizzle
 // (8-row atoms of 1024 bytes: stride byte offset 1024; MN-major: leading
 // byte offset = the box size). Tensor maps are built on the host per call
 // over the strided (B, S, heads, hd) storage and passed as
@@ -85,8 +99,9 @@
 // warnings C7515, C7512); a 3-stage ring; two tiles' S in one commit group.
 //
 // ptxas (-Xptxas -v, sm_90a): 168 registers a thread at launch for both
-// kernels (the consumers raise theirs to 240 with setmaxnreg, the producer
-// drops to 24), no spills; chip_smoke.py prints the build log.
+// kernels at both head dims (the consumers raise theirs to 240 with
+// setmaxnreg, the producer drops to 24), no spills; chip_smoke.py prints
+// the build log.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,27 +115,38 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 384;          // producer + 2 consumer warpgroups
-constexpr int kStages = 2;
 constexpr int kBox = 64;               // TMA box width: 64 bf16 = 128 bytes
 constexpr int kWide = 128;             // rows of a resident tile (2 x 64)
 constexpr int kNarrow = 64;            // rows of a streamed tile
-constexpr int kWideBytes = kWide * 128 * 2;        // 32 KB
-constexpr int kWideBox = kWideBytes / 2;           // one 64-column box
-constexpr int kNarrowBytes = kNarrow * 128 * 2;    // 16 KB
-constexpr int kNarrowBox = kNarrowBytes / 2;
-// Shared memory: two resident tiles (dq: Q, dO; dkv: K, V), kStages stages
-// of two streamed tiles (dq: K, V; dkv: Q, dO), then a third region (dq:
-// the resident O tile; dkv: each stage's lse and D of its 64 query rows),
-// the barriers.
-constexpr int kSmemA = 0;
-constexpr int kSmemB = kWideBytes;
-constexpr int kSmemRing = 2 * kWideBytes;
-constexpr int kStageBytes = 2 * kNarrowBytes;
-constexpr int kSmemC = kSmemRing + kStages * kStageBytes;   // 128 KB
+constexpr int kWideBox = kWide * kBox * 2;       // one 64-column box: 16 KB
+constexpr int kNarrowBox = kNarrow * kBox * 2;   // 8 KB
 constexpr int kStatBytes = 2 * kNarrow * 4;
-constexpr int kSmemBar = kSmemC + kWideBytes;
-constexpr int kNumBars = 1 + 2 * kStages;    // resident; full and empty
-constexpr int kSmemBytes = kSmemBar + 8 * kNumBars + 1024;  // + alignment
+
+// Shared memory at head dim HD: two resident tiles (dq: Q, dO; dkv: K, V),
+// kStages stages of two streamed tiles (dq: K, V; dkv: Q, dO), then a third
+// region (dq: the resident O tile; dkv: each stage's lse and D of its 64
+// query rows), the barriers. Each tile is HD / 64 boxes, one after the
+// other.
+template <int HD>
+struct Layout {
+  static_assert(HD == 64 || HD == 128, "head dim");
+  // A 3-stage ring at hd 64, where a stage is 16 KB and a tile's work
+  // short (tools/tc_hd64_probe.py: 2-3% of the call); 2 at hd 128.
+  static constexpr int kStages = HD == 64 ? 3 : 2;
+  static constexpr int kNumBars = 1 + 2 * kStages;  // resident; full, empty
+  static constexpr int kBoxes = HD / kBox;
+  static constexpr int kWideBytes = kBoxes * kWideBox;       // 16 or 32 KB
+  static constexpr int kNarrowBytes = kBoxes * kNarrowBox;   // 8 or 16 KB
+  static constexpr int kAcc = HD / 2;     // dQ, dK, dV floats a thread
+  static constexpr int kSmemA = 0;
+  static constexpr int kSmemB = kWideBytes;
+  static constexpr int kSmemRing = 2 * kWideBytes;
+  static constexpr int kStageBytes = 2 * kNarrowBytes;
+  static constexpr int kSmemC = kSmemRing + kStages * kStageBytes;
+  static constexpr int kSmemBar = kSmemC + kWideBytes;
+  static constexpr int kSmemBytes = kSmemBar + 8 * kNumBars + 1024;  // align
+  static_assert(kStages * kStatBytes <= kWideBytes, "statistics");
+};
 
 // Defined to 1 only by tools/bwd_tc_probe.py, to time what a forward that
 // saved its rows' log-sum-exp would leave of the dq kernel: that build keeps
@@ -133,10 +159,11 @@ constexpr int kSmemBytes = kSmemBar + 8 * kNumBars + 1024;  // + alignment
 constexpr bool kProbeFixedMax = MOBY_BWD_TC_PROBE_FIXED_MAX;
 
 struct Args {
-  __nv_bfloat16* dq;
+  __nv_bfloat16 *dq, *dk, *dv;
   float* stats;                // (2, B*H, rows): lse, D
-  float* part;                 // (2, B*H, SK, 128): dK, dV of each query head
+  float* part;                 // (2, B*H, SK, HD): dK, dV of each query head
   long long dq_b, dq_h, dq_s;  // elements
+  long long dk_b, dk_h, dk_s, dv_b, dv_h, dv_s;
   int n_bh, n_heads, group, sq, sk, rows, causal;
   float scale, scale_log2;     // hd^-0.5, and times log2(e)
 };
@@ -146,11 +173,11 @@ struct Args {
 // boxes lie BBox apart (a streamed 64-row tile, or the warpgroup's rows of
 // a resident one), both K-major; 4 steps of 16 in each 64-wide box (not
 // committed).
-template <int BBox = kNarrowBox>
+template <int HD, int BBox = kNarrowBox>
 __device__ __forceinline__ void issue_nt(float (&s)[32], uint32_t a_addr,
                                          uint32_t b_addr) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
     wgmma_ss_n64(s, smem_desc(a_addr + (kk / 4) * kWideBox + col, 16, 1024),
                  smem_desc(b_addr + (kk / 4) * BBox + col, 16, 1024),
@@ -158,16 +185,18 @@ __device__ __forceinline__ void issue_nt(float (&s)[32], uint32_t a_addr,
   }
 }
 
-// acc (64 x 128 f32) += A.B over 64 rows: A from registers (four 16-wide
+// acc (64 x HD f32) += A.B over 64 rows: A from registers (four 16-wide
 // fragments), B a streamed 64-row tile read MN-major (the head dim
-// contiguous; its two boxes 8 KB apart, the leading byte offset; each
-// 16-row step 2 KB further) (not committed).
-__device__ __forceinline__ void issue_nn(float (&acc)[64],
+// contiguous; at HD 128 its two boxes 8 KB apart, the leading byte offset;
+// each 16-row step 2 KB further) (not committed).
+template <int HD>
+__device__ __forceinline__ void issue_nn(float (&acc)[HD / 2],
                                          const uint32_t (&a)[4][4],
                                          uint32_t b_addr) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs(acc, a[kk], smem_desc(b_addr + kk * 16 * 128, kNarrowBox, 1024));
+    wgmma_rs_n<HD>(acc, a[kk],
+                   smem_desc(b_addr + kk * 16 * 128, kNarrowBox, 1024));
 }
 
 // A 64 x 64 f32 accumulator, rounded to bf16, as the A operand: its
@@ -183,10 +212,10 @@ __device__ __forceinline__ void pack(const float (&x)[32],
 
 __device__ __forceinline__ void init_bars(uint32_t bar_res,
                                           uint32_t bar_full,
-                                          uint32_t bar_empty) {
+                                          uint32_t bar_empty, int stages) {
   if (threadIdx.x == 0) {
     mbar_init(bar_res, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < stages; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, kThreads - 128);  // every consumer thread
     }
@@ -195,15 +224,18 @@ __device__ __forceinline__ void init_bars(uint32_t bar_res,
   __syncthreads();
 }
 
-// Two TMA boxes (the 128 head dims) of `map` at (row, head, b).
+// The HD / 64 TMA boxes (all head dims) of `map` at (row, head, b).
+template <int HD>
 __device__ __forceinline__ void load_tile(uint32_t dst, uint32_t box_bytes,
                                           const CUtensorMap* map,
                                           uint32_t bar, int row, int head,
                                           int b) {
-  tma_load(dst, map, bar, 0, row, head, b);
-  tma_load(dst + box_bytes, map, bar, kBox, row, head, b);
+#pragma unroll
+  for (int x = 0; x < HD / kBox; ++x)
+    tma_load(dst + x * box_bytes, map, bar, x * kBox, row, head, b);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
              const __grid_constant__ CUtensorMap domap,   // 128-row boxes
@@ -211,10 +243,12 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
              const __grid_constant__ CUtensorMap kmap,    // 64-row boxes
              const __grid_constant__ CUtensorMap vmap,    // 64-row boxes
              const Args a) {
+  using L = Layout<HD>;
+  constexpr int kAcc = L::kAcc, kStages = L::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bar_res = base + kSmemBar;
+  const uint32_t bar_res = base + L::kSmemBar;
   const uint32_t bar_full = bar_res + 8;                 // [kStages]
   const uint32_t bar_empty = bar_full + 8 * kStages;     // [kStages]
   const int bh = blockIdx.x;
@@ -224,28 +258,28 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
   // Keys past the tile's last query row are masked for every row.
   const int k_end = a.causal ? min(a.sk, q0 + kWide) : a.sk;
   const int n_tiles = (k_end + kNarrow - 1) / kNarrow;
-  init_bars(bar_res, bar_full, bar_empty);
+  init_bars(bar_res, bar_full, bar_empty, kStages);
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     // ---- producer: one thread keeps the TMA loads in flight ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_res, 3 * kWideBytes);
-      load_tile(base + kSmemA, kWideBox, &qmap, bar_res, q0, h, b);
-      load_tile(base + kSmemB, kWideBox, &domap, bar_res, q0, h, b);
-      load_tile(base + kSmemC, kWideBox, &omap, bar_res, q0, h, b);
+      mbar_expect_tx(bar_res, 3 * L::kWideBytes);
+      load_tile<HD>(base + L::kSmemA, kWideBox, &qmap, bar_res, q0, h, b);
+      load_tile<HD>(base + L::kSmemB, kWideBox, &domap, bar_res, q0, h, b);
+      load_tile<HD>(base + L::kSmemC, kWideBox, &omap, bar_res, q0, h, b);
       // A key and a value tile a stage. The first round finds the ring
       // empty (parity 1 passes at once).
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
-        const uint32_t dst = base + kSmemRing + s * kStageBytes;
+        const uint32_t dst = base + L::kSmemRing + s * L::kStageBytes;
         mbar_wait(bar_empty + 8 * s, ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * s, kStageBytes);
-        load_tile(dst, kNarrowBox, &kmap, bar_full + 8 * s, i * kNarrow, kvh,
-                  b);
-        load_tile(dst + kNarrowBytes, kNarrowBox, &vmap, bar_full + 8 * s,
-                  i * kNarrow, kvh, b);
+        mbar_expect_tx(bar_full + 8 * s, L::kStageBytes);
+        load_tile<HD>(dst, kNarrowBox, &kmap, bar_full + 8 * s, i * kNarrow,
+                      kvh, b);
+        load_tile<HD>(dst + L::kNarrowBytes, kNarrowBox, &vmap,
+                      bar_full + 8 * s, i * kNarrow, kvh, b);
       }
     }
   } else {
@@ -260,8 +294,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
     const int r_lo = row0 + 16 * warp + lane / 4;
     const int r_hi = r_lo + 8;
     const int col0 = 2 * (lane % 4);
-    const uint32_t q_addr = base + kSmemA + me * 64 * 128;
-    const uint32_t do_addr = base + kSmemB + me * 64 * 128;
+    const uint32_t q_addr = base + L::kSmemA + me * 64 * 128;
+    const uint32_t do_addr = base + L::kSmemB + me * 64 * 128;
     auto masked = [&](int i) {   // the tile's masking is needed
       return i * kNarrow + kNarrow > a.sk ||
              (a.causal && i * kNarrow + kNarrow - 1 > row0);
@@ -279,11 +313,11 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
     // threads: a quad sum of it and three zeros.
     float s[32], dp[32];
     float d_lo = 0.f, d_hi = 0.f, dkv_lo = 0.f, dkv_hi = 0.f;
-    const uint32_t o_addr = base + kSmemC + me * 64 * 128;
+    const uint32_t o_addr = base + L::kSmemC + me * 64 * 128;
     mbar_wait(bar_res, 0);
     wgmma_fence();
-    issue_nt<kWideBox>(s, do_addr, o_addr);
-    issue_nt<kWideBox>(dp, o_addr, do_addr);
+    issue_nt<HD, kWideBox>(s, do_addr, o_addr);
+    issue_nt<HD, kWideBox>(dp, o_addr, do_addr);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -314,17 +348,17 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
     // with dS's own relative rounding error.
     float m_lo = kProbeFixedMax ? 0.f : kNeg, m_hi = m_lo;
     float l_lo = 0.f, l_hi = 0.f;
-    float acc[64];
+    float acc[kAcc];
     uint32_t f[4][4];
 #pragma unroll
-    for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+    for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
     for (int i = 0; i < n_tiles; ++i) {
       const int st = i % kStages;
-      const uint32_t k_addr = base + kSmemRing + st * kStageBytes;
+      const uint32_t k_addr = base + L::kSmemRing + st * L::kStageBytes;
       mbar_wait(bar_full + 8 * st, (i / kStages) & 1);
       wgmma_fence();
-      issue_nt(s, q_addr, k_addr);
-      issue_nt(dp, do_addr, k_addr + kNarrowBytes);
+      issue_nt<HD>(s, q_addr, k_addr);
+      issue_nt<HD>(dp, do_addr, k_addr + L::kNarrowBytes);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -351,8 +385,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
         }
         const float mn_lo = fmaxf(m_lo, mx_lo * a.scale_log2);
         const float mn_hi = fmaxf(m_hi, mx_hi * a.scale_log2);
-        corr_lo = exp2f(m_lo - mn_lo);
-        corr_hi = exp2f(m_hi - mn_hi);
+        corr_lo = ex2_ftz(m_lo - mn_lo);
+        corr_hi = ex2_ftz(m_hi - mn_hi);
         m_lo = mn_lo;
         m_hi = mn_hi;
       }
@@ -360,7 +394,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const bool hi = (j / 2) % 2;
-        const float p = exp2f(__fmaf_rn(s[j], a.scale_log2,
+        const float p = ex2_ftz(__fmaf_rn(s[j], a.scale_log2,
                                         hi ? -m_hi : -m_lo));
         if (hi) sum_hi += p;
         else sum_lo += p;
@@ -370,11 +404,12 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
       l_hi = __fmaf_rn(l_hi, corr_hi, sum_hi);
       if (!kProbeFixedMax) {
 #pragma unroll
-        for (int j = 0; j < 64; ++j) acc[j] *= (j / 2) % 2 ? corr_hi : corr_lo;
+        for (int j = 0; j < kAcc; ++j)
+          acc[j] *= (j / 2) % 2 ? corr_hi : corr_lo;
       }
       pack(dp, f);
       wgmma_fence();
-      issue_nn(acc, f, k_addr);
+      issue_nn<HD>(acc, f, k_addr);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -393,7 +428,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
 
     __nv_bfloat16* dqb = a.dq + b * a.dq_b + h * a.dq_h;
 #pragma unroll
-    for (int j = 0; j < 64; j += 2) {
+    for (int j = 0; j < kAcc; j += 2) {
       const bool hi = (j / 2) % 2;
       const int qi = hi ? r_hi : r_lo;
       if (qi >= a.sq) continue;
@@ -413,15 +448,18 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
   }
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
               const __grid_constant__ CUtensorMap vmap,   // 128-row boxes
               const __grid_constant__ CUtensorMap qmap,   // 64-row boxes
               const __grid_constant__ CUtensorMap domap,  // 64-row boxes
               const Args a) {
+  using L = Layout<HD>;
+  constexpr int kAcc = L::kAcc, kStages = L::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bar_res = base + kSmemBar;
+  const uint32_t bar_res = base + L::kSmemBar;
   const uint32_t bar_full = bar_res + 8;
   const uint32_t bar_empty = bar_full + 8 * kStages;
   const int bh = blockIdx.x;
@@ -430,7 +468,7 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
   // Causal: query rows below k0 see none of these keys.
   const int t0 = a.causal ? k0 / kNarrow : 0;
   const int n_qt = (a.sq + kNarrow - 1) / kNarrow;
-  init_bars(bar_res, bar_full, bar_empty);
+  init_bars(bar_res, bar_full, bar_empty, kStages);
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
@@ -438,19 +476,19 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
     if (threadIdx.x == 0) {
       const float* lse = a.stats + static_cast<long long>(bh) * a.rows;
       const float* dsum = lse + static_cast<long long>(a.n_bh) * a.rows;
-      mbar_expect_tx(bar_res, 2 * kWideBytes);
-      load_tile(base + kSmemA, kWideBox, &kmap, bar_res, k0, kvh, b);
-      load_tile(base + kSmemB, kWideBox, &vmap, bar_res, k0, kvh, b);
+      mbar_expect_tx(bar_res, 2 * L::kWideBytes);
+      load_tile<HD>(base + L::kSmemA, kWideBox, &kmap, bar_res, k0, kvh, b);
+      load_tile<HD>(base + L::kSmemB, kWideBox, &vmap, bar_res, k0, kvh, b);
       for (int qt = t0; qt < n_qt; ++qt) {
         const int e = qt - t0, s = e % kStages;
-        const uint32_t dst = base + kSmemRing + s * kStageBytes;
-        const uint32_t sdst = base + kSmemC + s * kStatBytes;
+        const uint32_t dst = base + L::kSmemRing + s * L::kStageBytes;
+        const uint32_t sdst = base + L::kSmemC + s * kStatBytes;
         const uint32_t full = bar_full + 8 * s;
         mbar_wait(bar_empty + 8 * s, ((e / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, kStageBytes + kStatBytes);
-        load_tile(dst, kNarrowBox, &qmap, full, qt * kNarrow, h, b);
-        load_tile(dst + kNarrowBytes, kNarrowBox, &domap, full, qt * kNarrow,
-                  h, b);
+        mbar_expect_tx(full, L::kStageBytes + kStatBytes);
+        load_tile<HD>(dst, kNarrowBox, &qmap, full, qt * kNarrow, h, b);
+        load_tile<HD>(dst + L::kNarrowBytes, kNarrowBox, &domap, full,
+                      qt * kNarrow, h, b);
         bulk_load(sdst, lse + qt * kNarrow, kStatBytes / 2, full);
         bulk_load(sdst + kStatBytes / 2, dsum + qt * kNarrow, kStatBytes / 2,
                   full);
@@ -466,26 +504,26 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
     const int kr_lo = key0 + 16 * warp + lane / 4;
     const int kr_hi = kr_lo + 8;
     const int col0 = 2 * (lane % 4);
-    const uint32_t k_addr = base + kSmemA + me * 64 * 128;
-    const uint32_t v_addr = base + kSmemB + me * 64 * 128;
+    const uint32_t k_addr = base + L::kSmemA + me * 64 * 128;
+    const uint32_t v_addr = base + L::kSmemB + me * 64 * 128;
     const float* stats_smem = reinterpret_cast<const float*>(
-        smem_raw + (base - smem_u32(smem_raw)) + kSmemC);
+        smem_raw + (base - smem_u32(smem_raw)) + L::kSmemC);
 
-    float s[32], dp[32], dk[64], dv[64];
+    float s[32], dp[32], dk[kAcc], dv[kAcc];
     uint32_t pf[4][4], sf[4][4];
 #pragma unroll
-    for (int j = 0; j < 64; ++j) dk[j] = dv[j] = 0.f;
+    for (int j = 0; j < kAcc; ++j) dk[j] = dv[j] = 0.f;
     mbar_wait(bar_res, 0);
     for (int qt = t0; qt < n_qt; ++qt) {
       const int e = qt - t0, st = e % kStages;
-      const uint32_t q_addr = base + kSmemRing + st * kStageBytes;
-      const uint32_t do_addr = q_addr + kNarrowBytes;
+      const uint32_t q_addr = base + L::kSmemRing + st * L::kStageBytes;
+      const uint32_t do_addr = q_addr + L::kNarrowBytes;
       const float* lse = stats_smem + st * (kStatBytes / 4);
       const float* dsum = lse + kNarrow;
       mbar_wait(bar_full + 8 * st, (e / kStages) & 1);
       wgmma_fence();
-      issue_nt(s, k_addr, q_addr);      // S^T = K.Q^T
-      issue_nt(dp, v_addr, do_addr);    // dP^T = V.dO^T
+      issue_nt<HD>(s, k_addr, q_addr);      // S^T = K.Q^T
+      issue_nt<HD>(dp, v_addr, do_addr);    // dP^T = V.dO^T
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -502,7 +540,7 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
           const int j = 4 * g + u;
           const float row_lse = u % 2 ? l2.y : l2.x;
           const float row_d = u % 2 ? d2.y : d2.x;
-          float p = exp2f(__fmaf_rn(s[j], a.scale_log2, -row_lse));
+          float p = ex2_ftz(__fmaf_rn(s[j], a.scale_log2, -row_lse));
           if (mask && (u / 2 ? kr_hi : kr_lo) >
                           qt * kNarrow + 8 * g + col0 + u % 2)
             p = 0.f;
@@ -513,8 +551,8 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
       pack(s, pf);
       pack(dp, sf);
       wgmma_fence();
-      issue_nn(dv, pf, do_addr);
-      issue_nn(dk, sf, q_addr);
+      issue_nn<HD>(dv, pf, do_addr);
+      issue_nn<HD>(dk, sf, q_addr);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
@@ -524,14 +562,34 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
       mbar_arrive(bar_empty + 8 * st);
     }
 
-    // Partials of this query head: (2, B*H, SK, 128) f32, keys < sk.
-    float* out = a.part + static_cast<long long>(bh) * a.sk * 128;
-    const long long half = static_cast<long long>(a.n_bh) * a.sk * 128;
+    if (a.group == 1) {
+      // One query head a kv head: dK and dV rounded once to bf16 here, no
+      // partials and no group sum. The sum starts from +0, so it turns a
+      // -0 partial into +0; adding +0 here does the same, so the two paths
+      // agree bit for bit.
+      __nv_bfloat16* dkb = a.dk + b * a.dk_b + kvh * a.dk_h;
+      __nv_bfloat16* dvb = a.dv + b * a.dv_b + kvh * a.dv_h;
 #pragma unroll
-    for (int j = 0; j < 64; j += 2) {
+      for (int j = 0; j < kAcc; j += 2) {
+        const int kr = (j / 2) % 2 ? kr_hi : kr_lo;
+        if (kr >= a.sk) continue;
+        const int d = (j / 4) * 8 + col0;
+        *reinterpret_cast<__nv_bfloat162*>(dkb + kr * a.dk_s + d) =
+            __float22bfloat162_rn(make_float2(dk[j] * a.scale + 0.f,
+                                              dk[j + 1] * a.scale + 0.f));
+        *reinterpret_cast<__nv_bfloat162*>(dvb + kr * a.dv_s + d) =
+            __float22bfloat162_rn(make_float2(dv[j] + 0.f, dv[j + 1] + 0.f));
+      }
+      return;
+    }
+    // Partials of this query head: (2, B*H, SK, HD) f32, keys < sk.
+    float* out = a.part + static_cast<long long>(bh) * a.sk * HD;
+    const long long half = static_cast<long long>(a.n_bh) * a.sk * HD;
+#pragma unroll
+    for (int j = 0; j < kAcc; j += 2) {
       const int kr = (j / 2) % 2 ? kr_hi : kr_lo;
       if (kr >= a.sk) continue;
-      const long long at = static_cast<long long>(kr) * 128 + (j / 4) * 8 +
+      const long long at = static_cast<long long>(kr) * HD + (j / 4) * 8 +
                            col0;
       *reinterpret_cast<float2*>(out + at) =
           make_float2(dk[j] * a.scale, dk[j + 1] * a.scale);
@@ -542,27 +600,29 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
 }
 
 // dK, dV of each kv head: its G query heads' partials summed in head
-// order, rounded once to bf16; 4 head dims a thread.
+// order (from +0), rounded once to bf16; 4 head dims a thread.
+template <int HD>
 __global__ void reduce_tc_kernel(const float* __restrict__ part,
                                  __nv_bfloat16* dk, __nv_bfloat16* dv,
                                  long long dk_b, long long dk_h,
                                  long long dk_s, long long dv_b,
                                  long long dv_h, long long dv_s, int batch,
                                  int n_heads, int n_kv, int sk) {
+  constexpr int kQuads = HD / 4;
   const int g = n_heads / n_kv;
-  const long long n = static_cast<long long>(batch) * n_kv * sk * 32;
-  const long long half = static_cast<long long>(batch) * n_heads * sk * 128;
-  const long long head = static_cast<long long>(sk) * 128;
+  const long long n = static_cast<long long>(batch) * n_kv * sk * kQuads;
+  const long long half = static_cast<long long>(batch) * n_heads * sk * HD;
+  const long long head = static_cast<long long>(sk) * HD;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int d = static_cast<int>(i % 32) * 4;
-    const long long row = i / 32;
+    const int d = static_cast<int>(i % kQuads) * 4;
+    const long long row = i / kQuads;
     const int c = static_cast<int>(row % sk);
     const int bkv = static_cast<int>(row / sk);
     const int b = bkv / n_kv, kvh = bkv % n_kv;
     const float* src = part +
-        ((static_cast<long long>(b) * n_heads + kvh * g) * sk + c) * 128 + d;
+        ((static_cast<long long>(b) * n_heads + kvh * g) * sk + c) * HD + d;
     float4 sk4 = make_float4(0.f, 0.f, 0.f, 0.f), sv4 = sk4;
     for (int j = 0; j < g; ++j) {
       const float4 x = *reinterpret_cast<const float4*>(src + j * head);
@@ -581,23 +641,13 @@ __global__ void reduce_tc_kernel(const float* __restrict__ part,
   }
 }
 
-}  // namespace
-
-// bf16 q, o, dout, dq (B,H,SQ,128) and k, v, dk, dv (B,KV,SK,128) through
-// element strides st[3 t .. 3 t + 2] = {b, head, s} for t = q, k, v, o,
-// dout, dq, dk, dv; the head dim contiguous; base addresses 16-byte
-// aligned and the strides of q, k, v, o and dout multiples of 8 elements
-// (TMA's and the 16-byte loads' 16 bytes). H is a multiple of KV. Scratch:
-// stats (2, B*H, stats_rows) with stats_rows >= SQ rounded up to 128, and
-// part (2, B*H, SK, 128), f32. Returns a CUDA error code
-// (cudaErrorInvalidValue when a tensor map cannot describe an operand or
-// stats_rows is short).
-MOBY_API int moby_flash_attention_bwd_tc(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* stats, void* part,
-    const long long* st, int batch, int n_heads, int n_kv_heads, int sq,
-    int sk, int stats_rows, int causal, float scale, void* stream) {
-  if (batch * n_heads == 0 || (sq == 0 && sk == 0)) return 0;
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, void* dq, void* dk, void* dv, void* stats,
+           void* part, const long long* st, int batch, int n_heads,
+           int n_kv_heads, int sq, int sk, int stats_rows, int causal,
+           float scale, cudaStream_t s) {
+  using L = Layout<HD>;
   const int n_qt = (sq + kWide - 1) / kWide, n_kt = (sk + kWide - 1) / kWide;
   if (stats_rows < n_qt * kWide) return static_cast<int>(cudaErrorInvalidValue);
   // An empty operand's map is never read: it is built over the other
@@ -608,52 +658,89 @@ MOBY_API int moby_flash_attention_bwd_tc(
   const void* vs = sk ? v : q;
   CUtensorMap q_wide, do_wide, o_wide, k_narrow, v_narrow;  // dq kernel
   CUtensorMap k_wide, v_wide, q_narrow, do_narrow;          // dkv kernel
-  int err = make_map(&q_wide, qs, sq, n_heads, batch, st, kWide);
-  if (!err) err = make_map(&do_wide, dos, sq, n_heads, batch, st + 12, kWide);
+  int err = make_map(&q_wide, qs, sq, n_heads, batch, st, kWide, HD);
+  if (!err)
+    err = make_map(&do_wide, dos, sq, n_heads, batch, st + 12, kWide, HD);
   if (!err) err = make_map(&o_wide, sq ? o : k, sq, n_heads, batch, st + 9,
-                           kWide);
-  if (!err) err = make_map(&q_narrow, qs, sq, n_heads, batch, st, kNarrow);
+                           kWide, HD);
+  if (!err) err = make_map(&q_narrow, qs, sq, n_heads, batch, st, kNarrow, HD);
   if (!err)
-    err = make_map(&do_narrow, dos, sq, n_heads, batch, st + 12, kNarrow);
-  if (!err) err = make_map(&k_wide, ks, sk, n_kv_heads, batch, st + 3, kWide);
-  if (!err) err = make_map(&v_wide, vs, sk, n_kv_heads, batch, st + 6, kWide);
+    err = make_map(&do_narrow, dos, sq, n_heads, batch, st + 12, kNarrow, HD);
   if (!err)
-    err = make_map(&k_narrow, ks, sk, n_kv_heads, batch, st + 3, kNarrow);
+    err = make_map(&k_wide, ks, sk, n_kv_heads, batch, st + 3, kWide, HD);
   if (!err)
-    err = make_map(&v_narrow, vs, sk, n_kv_heads, batch, st + 6, kNarrow);
+    err = make_map(&v_wide, vs, sk, n_kv_heads, batch, st + 6, kWide, HD);
+  if (!err)
+    err = make_map(&k_narrow, ks, sk, n_kv_heads, batch, st + 3, kNarrow, HD);
+  if (!err)
+    err = make_map(&v_narrow, vs, sk, n_kv_heads, batch, st + 6, kNarrow, HD);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
-      dq_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      dq_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kSmemBytes);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(dkv_tc_kernel,
+    e = cudaFuncSetAttribute(dkv_tc_kernel<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
+                             L::kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Args a{static_cast<__nv_bfloat16*>(dq), static_cast<float*>(stats),
-               static_cast<float*>(part), st[15], st[16], st[17],
-               batch * n_heads, n_heads, n_heads / n_kv_heads, sq, sk,
-               stats_rows, causal, scale, scale * kLog2e};
-  const auto s = static_cast<cudaStream_t>(stream);
+  const Args a{static_cast<__nv_bfloat16*>(dq),
+               static_cast<__nv_bfloat16*>(dk),
+               static_cast<__nv_bfloat16*>(dv), static_cast<float*>(stats),
+               static_cast<float*>(part), st[15], st[16], st[17], st[18],
+               st[19], st[20], st[21], st[22], st[23], batch * n_heads,
+               n_heads, n_heads / n_kv_heads, sq, sk, stats_rows, causal,
+               scale, scale * kLog2e};
   // No keys: dQ is 0 (no key tile); no queries: dK and dV are 0 (no query
   // tile reaches a key tile).
   if (sq) {
-    dq_tc_kernel<<<dim3(batch * n_heads, n_qt), kThreads, kSmemBytes, s>>>(
-        q_wide, do_wide, o_wide, k_narrow, v_narrow, a);
+    dq_tc_kernel<HD><<<dim3(batch * n_heads, n_qt), kThreads, L::kSmemBytes,
+                       s>>>(q_wide, do_wide, o_wide, k_narrow, v_narrow, a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (!sk) return 0;
-  dkv_tc_kernel<<<dim3(batch * n_heads, n_kt), kThreads, kSmemBytes, s>>>(
-      k_wide, v_wide, q_narrow, do_narrow, a);
+  dkv_tc_kernel<HD><<<dim3(batch * n_heads, n_kt), kThreads, L::kSmemBytes,
+                      s>>>(k_wide, v_wide, q_narrow, do_narrow, a);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long groups =
-      static_cast<long long>(batch) * n_kv_heads * sk * 32 / kMobyThreads + 1;
+  if (e != cudaSuccess || n_heads == n_kv_heads) return static_cast<int>(e);
+  const long long groups = static_cast<long long>(batch) * n_kv_heads * sk *
+                           (HD / 4) / kMobyThreads + 1;
   const int blocks = static_cast<int>(
       groups < 132 * kMobyBlocksPerSm ? groups : 132 * kMobyBlocksPerSm);
-  reduce_tc_kernel<<<blocks, kMobyThreads, 0, s>>>(
+  reduce_tc_kernel<HD><<<blocks, kMobyThreads, 0, s>>>(
       static_cast<const float*>(part), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), st[18], st[19], st[20], st[21],
       st[22], st[23], batch, n_heads, n_kv_heads, sk);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// bf16 q, o, dout, dq (B,H,SQ,hd) and k, v, dk, dv (B,KV,SK,hd), hd = 64
+// or 128, through element strides st[3 t .. 3 t + 2] = {b, head, s} for
+// t = q, k, v, o, dout, dq, dk, dv; the head dim contiguous; base addresses
+// 16-byte aligned and the strides of q, k, v, o and dout multiples of 8
+// elements (TMA's and the 16-byte loads' 16 bytes). H is a multiple of KV.
+// Scratch: stats (2, B*H, stats_rows) with stats_rows >= SQ rounded up to
+// 128, and, where H > KV, part (2, B*H, SK, hd), f32 (at H = KV it is not
+// read). Returns a CUDA error code (cudaErrorInvalidValue for another head
+// dim, when a tensor map cannot describe an operand or stats_rows is
+// short).
+MOBY_API int moby_flash_attention_bwd_tc(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, void* stats, void* part,
+    const long long* st, int batch, int n_heads, int n_kv_heads, int sq,
+    int sk, int head_dim, int stats_rows, int causal, float scale,
+    void* stream) {
+  if (batch * n_heads == 0 || (sq == 0 && sk == 0)) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64: return launch<64>(q, k, v, o, dout, dq, dk, dv, stats, part, st,
+                               batch, n_heads, n_kv_heads, sq, sk,
+                               stats_rows, causal, scale, s);
+    case 128: return launch<128>(q, k, v, o, dout, dq, dk, dv, stats, part,
+                                 st, batch, n_heads, n_kv_heads, sq, sk,
+                                 stats_rows, causal, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -255,6 +255,47 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64x64 f32) += A (registers: bf16 pairs in the accumulator's row
+// layout) * B (smem, MN-major: the transpose bit set), k = 16.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The product of the accumulator's width N (64 or 128 columns) with A from
+// registers and B MN-major: wgmma_rs_n64 or wgmma_rs.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_n(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  static_assert(N == 64 || N == 128, "wgmma width");
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs(d, a, db);
+}
+
+// 2^x on the special-function unit alone: ex2.approx with results below
+// 2^-126 flushed to +0 (exp2f's non-flushing form adds a compare and two
+// multiplies to each exponential to keep them; a softmax weight below
+// 2^-126 changes no f32 sum it enters). -inf gives +0.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Two f32 as a bf16 pair (round to nearest even), lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __float22bfloat162_rn(make_float2(lo, hi));

@@ -10,14 +10,15 @@ kernel                  source                           replaces (TPU, Pallas)
 ``iou2d``               ``csrc/iou2d.cu``                ``repro/kernels/iou2d``
 ``ransac_score``        ``csrc/ransac_score.cu``         ``repro/kernels/ransac_score``
 ``flash_attention``     ``csrc/flash_attention.cu``      ``repro/kernels/flash_attention``
-                                                         (f32; bf16 at hd 16, 32, 64)
+                                                         (f32; bf16 at hd 16, 32)
 ``flash_attention_tc``  ``csrc/flash_attention_tc.cu``   ``repro/kernels/flash_attention``
-                                                         (bf16 at hd 128, and MLA's
+                                                         (bf16 at hd 64 and 128, and MLA's
                                                          qk 192 / value 128; tensor cores)
 ``flash_attention_bwd`` ``csrc/flash_attention_bwd.cu``  its VJP, ``repro/ops/api.py``
-                                                         (f32; bf16 at hd 16, 32, 64)
+                                                         (f32; bf16 at hd 16, 32)
 ``flash_attention_bwd_tc`` ``csrc/flash_attention_bwd_tc.cu`` its VJP, ``repro/ops/api.py``
-                                                         (bf16 at hd 128, tensor cores)
+                                                         (bf16 at hd 64 and 128, tensor
+                                                         cores)
 ``decode_attention``    ``csrc/decode_attention.cu``     ``repro/kernels/decode_attention``
 ``decode_attention_bwd`` ``csrc/decode_attention_bwd.cu`` its VJP, ``repro/ops/api.py``
 ``mla_decode_attention`` ``csrc/mla_decode_attention.cu`` no Pallas kernel: the einsums

@@ -4,14 +4,27 @@ A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
 launches one of two kernels, chosen by ``route`` before any launch, or the
 call raises:
 
-* ``"tc"``: bf16 at head dim 128 (every full-width dense config) and at
-  qk dim 192 / value dim 128 (deepseek-v2's MLA prefill) runs
+* ``"tc"``: bf16 at head dim 128 (every full-width dense config), at
+  head dim 64 (zamba2's and whisper's attention) and at qk dim 192 /
+  value dim 128 (deepseek-v2's MLA prefill) runs
   ``csrc/flash_attention_tc.cu`` on the tensor cores in bf16 (wgmma fed by
   TMA); ``tc_launches`` counts its launches;
 * ``"tf32x3"``: f32 (head dims 16-128, and MLA's (192, 128) and SMOKE's
-  (24, 16)), and bf16 at head dims 16-64, runs ``csrc/flash_attention.cu``
-  on the tensor cores too, f32-accurate by the 3xTF32 split (mma.sync fed
-  by cp.async); ``launches`` counts its launches.
+  (24, 16)), and bf16 at head dims 16 and 32, runs
+  ``csrc/flash_attention.cu`` on the tensor cores too, f32-accurate by the
+  3xTF32 split (mma.sync fed by cp.async); ``launches`` counts its
+  launches. bf16 at 16 and 32 stays there: only the SMOKE configs have
+  those widths, and their rows of 64 and 32 bytes would need another
+  swizzle than the 128-byte one the tensor-core kernels' TMA boxes and
+  wgmma descriptors are built on.
+
+| dtype | (qk, value) head dims | route, forward and gradient |
+| --- | --- | --- |
+| bf16 | (64, 64), (128, 128) | ``tc`` |
+| bf16 | (192, 128) | ``tc`` (forward only) |
+| bf16 | (16, 16), (32, 32) | ``tf32x3`` |
+| f32 | (16, 16) .. (128, 128) | ``tf32x3`` |
+| f32 | (192, 128), (24, 16) | ``tf32x3`` (forward only) |
 
 The value head dim vd may differ from the qk head dim hd only at MLA's
 pairs (``MLA_DIMS``); the scores are scaled by hd^-0.5 either way. The
@@ -54,7 +67,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 # (qk, value) head dims of MLA: deepseek-v2 at full width and at SMOKE.
 MLA_DIMS = ((192, 128), (24, 16))
 # (qk, value) head dims of the bf16 tensor-core route.
-TC_DIMS = ((128, 128), (192, 128))
+TC_DIMS = ((64, 64), (128, 128), (192, 128))
 # The tensor-core gradient keeps its rows' statistics for SQ rounded up to
 # a multiple of this (its query tile).
 TC_BWD_ROWS = 128
@@ -64,8 +77,8 @@ def route(dtype: torch.dtype, head_dim: int, value_dim=None) -> str:
     """Which kernel takes a CUDA call at qk head dim ``head_dim`` and value
     head dim ``value_dim`` (``head_dim`` when None): ``"tc"`` (bf16 at a
     pair of ``TC_DIMS``), ``"tf32x3"`` (f32 at ``HEAD_DIMS`` with equal
-    dims or at ``MLA_DIMS``; bf16 at ``HEAD_DIMS`` below 128 with equal
-    dims); anything else raises, naming what the kernels take."""
+    dims or at ``MLA_DIMS``; bf16 at the other ``HEAD_DIMS``, 16 and 32);
+    anything else raises, naming what the kernels take."""
     vd = head_dim if value_dim is None else value_dim
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {dtype}, the kernels take "
@@ -75,13 +88,13 @@ def route(dtype: torch.dtype, head_dim: int, value_dim=None) -> str:
         return "tc"
     equal = vd == head_dim and head_dim in HEAD_DIMS
     if (dtype == torch.float32 and (equal or dims in MLA_DIMS)) or \
-            (dtype == torch.bfloat16 and equal and head_dim < 128):
+            (dtype == torch.bfloat16 and equal):
         return "tf32x3"
     raise ValueError(
         f"flash_attention: head dims (qk {head_dim}, value {vd}) in "
         f"{dtype}; the kernels take equal head dims {HEAD_DIMS} (bf16 "
-        f"at 128 on the tensor-core route), (qk, value) {MLA_DIMS[0]} in "
-        f"f32 and bf16, and {MLA_DIMS[1]} in f32")
+        f"at 64 and 128 on the tensor-core route), (qk, value) "
+        f"{MLA_DIMS[0]} in f32 and bf16, and {MLA_DIMS[1]} in f32")
 
 
 def _check_aligned(name: str, t: torch.Tensor, path: str) -> None:
@@ -124,6 +137,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_heads(b, h, kv)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_aligned(name, t, path)
+        if path == "tc":
+            _check_tma("flash_attention", name, t)
     out = torch.empty((b, sq, h, vd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(
@@ -148,12 +163,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _check_tma(name: str, t: torch.Tensor) -> None:
+def _check_tma(kernel: str, name: str, t: torch.Tensor) -> None:
     """TMA's own limits on a tensor map over ``t`` (the tensor-core
-    gradient's operands): byte strides below 2^40, sizes below 2^32."""
+    kernels' operands, at every head dim of ``TC_DIMS``): byte strides
+    below 2^40, sizes below 2^32."""
     if any(s * t.element_size() >= 2 ** 40 for s in t.stride()[:3]) or \
             any(n >= 2 ** 32 for n in t.shape):
-        raise ValueError(f"flash_attention_bwd: {name} (shape "
+        raise ValueError(f"{kernel}: {name} (shape "
                          f"{tuple(t.shape)}, strides {t.stride()}) is beyond "
                          f"what a TMA tensor map describes (byte strides "
                          f"< 2^40, sizes < 2^32)")
@@ -167,9 +183,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On the card one call of the kernel that ``route`` picks (each
     recomputes its rows' statistics, which the forward does not save):
-    ``csrc/flash_attention_bwd_tc.cu`` for bf16 at hd 128,
+    ``csrc/flash_attention_bwd_tc.cu`` for bf16 at hd 64 and 128,
     ``csrc/flash_attention_bwd.cu`` for every other dtype and head dim the
-    forward takes. All five inputs are read through their strides (the
+    forward takes. The tensor-core kernel sums the G = H / KV query heads'
+    f32 partials of dK and dV in a pass of its own; at G = 1 it writes
+    them directly, equal bit for bit (no partials are allocated). All five inputs are read through their strides (the
     head dim contiguous, 16-byte aligned); dq is a (B, H, SQ, hd) view of
     (B, SQ, H, hd) storage and dk, dv (B, KV, SK, hd) views of (B, SK, KV,
     hd) storage, the layouts the model's projections continue in. A value
@@ -195,12 +213,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check_aligned(name, t, f"{path} backward")
         if path == "tc":
-            _check_tma(name, t)
+            _check_tma("flash_attention_bwd", name, t)
     dev, dt = q.device, q.dtype
     dq = torch.empty((b, sq, h, hd), dtype=dt, device=dev).transpose(1, 2)
     dk = torch.empty((b, sk, kv, hd), dtype=dt, device=dev).transpose(1, 2)
     dv = torch.empty((b, sk, kv, hd), dtype=dt, device=dev).transpose(1, 2)
-    part = torch.empty((2, b * h, sk, hd), dtype=torch.float32, device=dev)
+    # The f32 partials of dK and dV a query head, summed over each kv
+    # head's G query heads; the tensor-core kernel needs none at G = 1.
+    part = torch.empty((2, b * h, sk, hd) if path == "tf32x3" or h > kv
+                       else (0,), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
     ptrs = tuple(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv))
@@ -212,7 +233,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 device=dev)
             code = lib.moby_flash_attention_bwd_tc(
                 *ptrs, stats.data_ptr(), part.data_ptr(), strides, b, h, kv,
-                sq, sk, rows, int(causal), hd ** -0.5,
+                sq, sk, hd, rows, int(causal), hd ** -0.5,
                 _launch.stream_handle(dev))
         else:
             stats = torch.empty((3, b * h, sq), dtype=torch.float32,

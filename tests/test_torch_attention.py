@@ -248,18 +248,29 @@ def _flash_p_rounded(q, k, v, causal):
     return o.reshape(b, h, sq, hd).bfloat16()
 
 
-@pytest.mark.parametrize("fault", ["decode_last_chunk", "decode_chunk_1",
-                                   "flash_diagonal_tile",
-                                   "flash_neighbour_kv_head"])
-def test_bf16_card_check_rejects_planted_faults(fault):
+# The tensor-core route's widths: (head dim, query heads, kv heads), at hd
+# 128 with G = 2 and at hd 64 with G = 1 and 8.
+TC_WIDTHS = [(128, 4, 2), (64, 4, 4), (64, 16, 2)]
+
+
+@pytest.mark.parametrize(
+    "fault,width",
+    [pytest.param(f, None, id=f) for f in ("decode_last_chunk",
+                                           "decode_chunk_1")]
+    + [pytest.param(f, w, id=f if w == TC_WIDTHS[0]
+                    else f"{f}-hd{w[0]}-g{w[1] // w[2]}")
+       for f in ("flash_diagonal_tile", "flash_neighbour_kv_head")
+       for w in TC_WIDTHS])
+def test_bf16_card_check_rejects_planted_faults(fault, width):
     """Decode attention: the plain version's f32 result rounded to bf16
     passes the bf16 check; the same with one 512-position chunk of a
     request left out, as a faulty kernel would give it, fails. Flash
-    attention's tensor-core route (bf16, hd 128, causal, normal inputs as
-    at the prefill shape): the plain result with p rounded to bf16 as the
-    kernel rounds it passes the check with its p-rounding allowance; one
-    64-key diagonal tile left out of a query block, or a query head read
-    against the neighbouring kv head, fails it."""
+    attention's tensor-core route (bf16, hd 128 at G = 2 and hd 64 at
+    G = 1 and 8, causal, normal inputs as at the prefill shape): the plain
+    result with p rounded to bf16 as the kernel rounds it passes the check
+    with its p-rounding allowance; one 64-key diagonal tile left out of a
+    query block, or kv head 0's last query head read against kv head 1,
+    fails it."""
     g = torch.Generator().manual_seed(0)
 
     def randn(*shape):
@@ -279,9 +290,10 @@ def test_bf16_card_check_rejects_planted_faults(fault):
         assert _within_bf16_rounding(want.bfloat16(), want)
         assert not _within_bf16_rounding(bad.bfloat16(), want)
         return
-    assert fa_ops.route(torch.bfloat16, 128) == "tc"
-    q, k, v = randn(1, 4, 1024, 128), randn(1, 2, 1024, 128), \
-        randn(1, 2, 1024, 128)
+    hd, h, kv = width
+    assert fa_ops.route(torch.bfloat16, hd) == "tc"
+    q, k, v = randn(1, h, 1024, hd), randn(1, kv, 1024, hd), \
+        randn(1, kv, 1024, hd)
     want = fa_ref.flash_attention_ref(q, k, v, True)
     allowance = _chip_smoke().p_rounding_term(torch, q, k, v, True)
     assert _within_bf16_rounding(_flash_p_rounded(q, k, v, True), want,
@@ -290,9 +302,10 @@ def test_bf16_card_check_rejects_planted_faults(fault):
     if fault == "flash_diagonal_tile":
         bad[:, :, -64:] = fa_ref.flash_attention_ref(
             q[:, :, -64:], k[:, :, :-64], v[:, :, :-64], False)
-    else:   # head 1 (kv head 0) read against kv head 1
-        bad[:, 1] = fa_ref.flash_attention_ref(q[:, 1:2], k[:, 1:2],
-                                               v[:, 1:2], True)[:, 0]
+    else:   # kv head 0's last query head read against kv head 1
+        last = h // kv - 1
+        bad[:, last] = fa_ref.flash_attention_ref(
+            q[:, last:last + 1], k[:, 1:2], v[:, 1:2], True)[:, 0]
     assert not _within_bf16_rounding(bad.bfloat16(), want, allowance)
 
 
@@ -416,11 +429,12 @@ def test_one_term_tf32_fails_the_f32_check(shape, causal):
 
 
 def test_flash_route_by_dtype_and_head_dim():
-    """bf16 at head dim 128 goes to the bf16 tensor-core kernel; f32, and
-    bf16 at the other head dims, to the 3xTF32 kernel; other dtypes and
-    head dims raise before any launch."""
-    assert fa_ops.route(torch.bfloat16, 128) == "tc"
-    for hd in (16, 32, 64):
+    """bf16 at head dims 64 and 128 goes to the bf16 tensor-core kernel;
+    f32, and bf16 at head dims 16 and 32 (SMOKE widths), to the 3xTF32
+    kernel; other dtypes and head dims raise before any launch."""
+    for hd in (64, 128):
+        assert fa_ops.route(torch.bfloat16, hd) == "tc"
+    for hd in (16, 32):
         assert fa_ops.route(torch.bfloat16, hd) == "tf32x3"
     for hd in (16, 32, 64, 128):
         assert fa_ops.route(torch.float32, hd) == "tf32x3"
@@ -430,6 +444,55 @@ def test_flash_route_by_dtype_and_head_dim():
                       (torch.bfloat16, 8)):
         with pytest.raises(ValueError, match="head dim"):
             fa_ops.route(dtype, hd)
+
+
+@pytest.mark.parametrize("dtype,hd,path", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 32, "tf32x3"), (torch.float32, 64, "tf32x3")])
+def test_flash_forward_launches_its_route(monkeypatch, dtype, hd, path):
+    """On the card ``flash_attention`` calls the entry point of ``route``
+    with the head dim (``moby_flash_attention_tc`` for bf16 at hd 64 and
+    128, ``moby_flash_attention`` otherwise) and advances exactly that
+    route's counter; on the tensor-core route an operand beyond a TMA
+    tensor map raises before any launch. The library is a stand-in that
+    records the calls (the CPU has no card)."""
+    import contextlib
+    from repro_torch.kernels import _build, _launch
+    called = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def entry(*args):
+                called.append((name, args))
+                return 0
+            return entry
+    monkeypatch.setattr(_launch, "dispatch_device", lambda kernel, t: "cuda")
+    monkeypatch.setattr(_launch, "check_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(_launch, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    q = torch.zeros(1, 4, 77, hd, dtype=dtype)
+    k = torch.zeros(1, 2, 77, hd, dtype=dtype)
+    kernels.reset_launch_counts()
+    out = fa_ops.flash_attention(q, k, k, True)
+    counts = kernels.launch_counts()
+    tc = path == "tc"
+    name, args = called[-1]
+    assert name == ("moby_flash_attention_tc" if tc
+                    else "moby_flash_attention")
+    assert args[10] == hd   # after 4 pointers, the strides, b, h, kv, sq, sk
+    assert counts["flash_attention_tc"] == int(tc)
+    assert counts["flash_attention"] == int(not tc)
+    assert sum(counts.values()) == 1
+    assert out.shape == (1, 4, 77, hd) and out.transpose(1, 2).is_contiguous()
+    far = torch.zeros(hd, dtype=dtype).as_strided(
+        (1, 1, 1, hd), (2 ** 40, 2 ** 40, hd, 1))
+    n = len(called)
+    if tc:
+        with pytest.raises(ValueError, match="TMA"):
+            fa_ops.flash_attention(q[:, :1, :1], far, far, True)
+        assert len(called) == n
 
 
 @pytest.mark.cuda

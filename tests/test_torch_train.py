@@ -328,15 +328,29 @@ def _bf16_inputs(b, h, kv, sq, sk, hd, seed):
     return q, k, v, o, do
 
 
-def test_tc_bwd_rounding_model_holds_to_the_allowance():
+# The tensor-core route's widths: (head dim, query heads, kv heads), at hd
+# 128 with G = 2 (LM T's head dim) and at hd 64 (zamba2, whisper) with
+# G = 1 and 8; test ids of the hd-128 width are the bare test's.
+TC_WIDTHS = [(128, 4, 2), (64, 4, 4), (64, 16, 2)]
+
+
+def _width_id(w):
+    return "" if w == TC_WIDTHS[0] else f"hd{w[0]}-g{w[1] // w[2]}"
+
+
+@pytest.mark.parametrize("width", [
+    pytest.param(w, id=_width_id(w) or "hd128-g2") for w in TC_WIDTHS])
+def test_tc_bwd_rounding_model_holds_to_the_allowance(width):
     """A CPU model of the tensor-core gradient's rounding (the plain
     gradient with P and dS rounded to bf16 before their three products, at
-    LM T's head dim and GQA, S 1024, causal) passes ``chip_smoke.py``'s
-    bf16 check with the tensor-core route's allowance (``P_ROUNDING`` x
-    ``bwd_rounding_terms``), and fails the SIMT route's check without it:
-    the allowance is what the rounding needs."""
+    LM T's head dim and GQA, and at hd 64 with G = 1 and 8, S 1024,
+    causal) passes ``chip_smoke.py``'s bf16 check with the tensor-core
+    route's allowance (``P_ROUNDING`` x ``bwd_rounding_terms``), and fails
+    the SIMT route's check without it: the allowance is what the rounding
+    needs."""
     cs = _chip_smoke()
-    ins = _bf16_inputs(1, 4, 2, 1024, 1024, 128, 2)
+    hd, h, kv = width
+    ins = _bf16_inputs(1, h, kv, 1024, 1024, hd, 2)
     live = torch.ones(1024, 1024, dtype=torch.bool).tril()
     want = fa_ref.flash_attention_bwd_ref(*(t.double() for t in ins), True)
     got = _bwd_f64(*ins, live, rounded=True)
@@ -345,6 +359,37 @@ def test_tc_bwd_rounding_model_holds_to_the_allowance():
     assert worst <= 0.75
     with pytest.raises(SystemExit):
         cs.grads_close(torch, got, want, "P/dS rounded, no allowance")
+
+
+def test_g1_direct_write_equals_the_group_sum():
+    """At G = 1 the tensor-core gradient rounds each kv head's dK and dV
+    once to bf16 after adding +0 (``csrc/flash_attention_bwd_tc.cu``),
+    where at G > 1 its group-sum pass adds the query heads' f32 partials
+    to +0 in head order and rounds the sum. On the plain gradient of one
+    query head a kv head (the partials), with zeros of either sign planted,
+    the two give the same bits: the sum turns -0 into +0, and so does the
+    direct write's + 0 (rounding without it would keep -0). So does a sum
+    with a second partial of zeros of either sign, which chip_smoke's
+    ``group_sum_path`` relies on to hold the direct write to the sum on
+    the card."""
+    ins = _bf16_inputs(1, 4, 4, 77, 77, 64, 3)
+    _, dk, dv = fa_ref.flash_attention_bwd_ref(*ins, True)
+    assert dk.dtype == torch.float32
+    g = torch.Generator().manual_seed(4)
+    for part in (dk, dv):
+        part = part.clone()
+        flat = part.view(-1)
+        signs = torch.randint(0, 2, (40,), generator=g).bool()
+        flat[:40] = torch.where(signs, -0.0, 0.0)
+        summed = (torch.zeros_like(part) + part).bfloat16()
+        direct = (part + 0.0).bfloat16()
+        assert torch.equal(summed.view(torch.int16), direct.view(torch.int16))
+        assert not bool(torch.signbit(direct[0, 0, 0, :40]).any())
+        assert bool(torch.signbit(part.bfloat16()[0, 0, 0, :40]).any())
+        zeros = torch.where(torch.rand(part.shape, generator=g) < 0.5,
+                            -0.0, 0.0)
+        shadow = (torch.zeros_like(part) + part + zeros).bfloat16()
+        assert torch.equal(shadow.view(torch.int16), direct.view(torch.int16))
 
 
 def _tf32_hi(x: torch.Tensor) -> torch.Tensor:
@@ -437,10 +482,21 @@ BWD_FAULTS = ("flash_key_tile", "flash_kv_head", "flash_diagonal_mask",
               "decode_chunk")
 
 
-@pytest.mark.parametrize(
-    "fault,dtype", [pytest.param(f, "bfloat16", id=f) for f in BWD_FAULTS]
-    + [pytest.param(f, "float32", id=f"{f}-f32") for f in BWD_FAULTS])
-def test_bwd_card_check_rejects_planted_faults(fault, dtype):
+def _fault_params():
+    """(fault, dtype, width): each flash fault at every tensor-core width,
+    decode's at none; the ids of the hd-128 width are the bare test's."""
+    out = []
+    for f in BWD_FAULTS:
+        for dtype, tag in (("bfloat16", ""), ("float32", "-f32")):
+            for w in TC_WIDTHS if f.startswith("flash") else [None]:
+                wid = _width_id(w) if w else ""
+                out.append(pytest.param(f, dtype, w, id=f"{f}{tag}"
+                                        + (f"-{wid}" if wid else "")))
+    return out
+
+
+@pytest.mark.parametrize("fault,dtype,width", _fault_params())
+def test_bwd_card_check_rejects_planted_faults(fault, dtype, width):
     """``chip_smoke.py``'s checks of the backward kernels, bf16 (each value
     within half a bf16 ulp + 2e-5 rel + 1e-6 of the plain gradient, here
     computed in float64 for flash attention and in f32 for decode) and f32
@@ -450,11 +506,13 @@ def test_bwd_card_check_rejects_planted_faults(fault, dtype):
     neighbour's, the causal mask dropped on the 64x64 diagonal tiles, or
     decode's last live 256-position chunk of the cache cotangents left
     out. In bf16 the flash faults fail the tensor-core route's check too,
-    which adds its allowance for P and dS rounded to bf16."""
+    which adds its allowance for P and dS rounded to bf16; flash's at hd
+    128 (G = 2) and at hd 64 (G = 1 and 8)."""
     cs = _chip_smoke()
     terms = None
     if fault.startswith("flash"):
-        ins = _bf16_inputs(1, 4, 2, 256, 256, 128, 1)
+        hd, h, kv = width
+        ins = _bf16_inputs(1, h, kv, 256, 256, hd, 1)
         want = fa_ref.flash_attention_bwd_ref(*(t.double() for t in ins),
                                               True)
         if dtype == "bfloat16":
@@ -496,9 +554,10 @@ def test_bwd_card_check_rejects_planted_faults(fault, dtype):
 
 def test_flash_bwd_routes_like_the_forward(monkeypatch):
     """On the card ``flash_attention_bwd`` launches the kernel of
-    ``route``: bf16 at hd 128 the tensor-core one
+    ``route``: bf16 at hd 64 and 128 the tensor-core one
     (``moby_flash_attention_bwd_tc``, counter ``flash_attention_bwd_tc``),
-    every other dtype and head dim the SIMT one (``flash_attention_bwd``);
+    every other dtype and head dim the 3xTF32 one
+    (``flash_attention_bwd``);
     unsupported dtypes and head dims, and operands beyond a TMA tensor map
     on the tensor-core route, raise before any launch. Here the library is
     a stand-in that records the entry point called (the CPU has no card);
@@ -525,10 +584,10 @@ def test_flash_bwd_routes_like_the_forward(monkeypatch):
         if k is None:
             k = torch.zeros(1, 2, sq, hd, dtype=dtype)
         return fa_ops.flash_attention_bwd(q, k, k, q, q, True)
-    cases = [(torch.bfloat16, 128, "tc")] + [
+    cases = [(torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc")] + [
         (dt, hd, "tf32x3") for dt, hd in
-        ((torch.float32, 128), (torch.bfloat16, 64), (torch.bfloat16, 16),
-         (torch.float32, 32))]
+        ((torch.float32, 128), (torch.float32, 64), (torch.bfloat16, 32),
+         (torch.bfloat16, 16), (torch.float32, 32))]
     for dtype, hd, path in cases:
         kernels.reset_launch_counts()
         dq, dk, dv = call(dtype, hd)
