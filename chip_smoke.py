@@ -113,7 +113,9 @@ fatal on failure:
    fleet's transform branch (both recorded from the serving path on the
    card, both timed, its plain version eagerly, as it synchronises, with
    the time of a round and of a skeleton of the same rounds that only
-   synchronises the warp and tests for the end), seeded benefits on the
+   synchronises the warp and tests for the end, and a bound from the
+   bidders' rows alone, the bidders of each round counted by a replay of
+   the plain rounds), seeded benefits on the
    1e-3 grid with many exact ties at n = 1, 2, 12, 16, 24, 31, 32, 33, 40,
    64 and the row instances' cap (128) with batch 1, 16, 64 and 256, rows
    and columns of zeros, every row equal (all persons bid on one object)
@@ -122,9 +124,12 @@ fatal on failure:
    (``auction_wide``, n > 128) the same way on the benefits of a
    kitti-urban transform frame with max_obj = 80 (n = 160, recorded on
    the card, measured in full) and on seeded tied benefits at n = 129,
-   256, 512 and 1024 (batch 1 and 16), rows and columns of zeros and every
-   row equal at n = 256, these at 20,000 rounds a phase (their ties need
-   more than 4,000 from n = 512), each timed;
+   160, 256, 512 and 1024 (batch 1 and 16), at the card's resident bound
+   and one past it (its two tiers, ``auction.ops.plan``), rows and columns
+   of zeros and every row equal at n = 160 and 256, these at 20,000 rounds
+   a phase (their ties need more than 4,000 from n = 512), each timed with
+   the wide skeleton of its rounds (the instance's CTA barriers and end
+   test alone);
 4. the Moby serving path at KITTI's own size (``kitti-urban`` at 122,880
    points and a 375x1242 image, 24 frames) on the card, with every
    kernel's launch count checked against the run's frame kinds (K1's
@@ -136,7 +141,9 @@ fatal on failure:
    the golden tolerance; then kitti-urban at KITTI's size with max_obj = 80
    (auctions of n = 160 persons: the wide instance once a frame, the row
    instances never, checked) on the card after a warm-up, 6 frames, held
-   to its CPU run the same way; then the observability hooks on the card
+   to its CPU run the same way, its median wall ms a frame (all frames,
+   transform, anchor) in the kernel line's ``auction_wide`` entry
+   (``serve_wide_ms``); then the observability hooks on the card
    (``Session(obs=ObsConfig(...))``): kitti-urban, 8 frames, unobserved,
    with metrics and the trace, and with every switch on, each counting
    its synchronising CUDA calls under ``set_sync_debug_mode("warn")``: the
@@ -756,7 +763,7 @@ AUCTION_PLAIN_TIMED = ((40, 1), (128, 1))
 # The wide instance's seeded cases (n > 128). Their ties take more rounds a
 # phase than the serving default of 4,000 from n = 512 (at n = 1024 one
 # phase needs more), so both versions run them with this cap.
-AUCTION_WIDE_NS = (129, 256, 512, 1024)
+AUCTION_WIDE_NS = (129, 160, 256, 512, 1024)
 AUCTION_WIDE_BATCHES = (1, 16)
 WIDE_MAX_ITER = 20000
 
@@ -814,13 +821,62 @@ def optimum_cols(np, hungarian, b):
     return cols
 
 
+def bidders_a_round(torch, benefit, max_iter: int):
+    """The unassigned persons of each auction in each round of the plain
+    version's rounds (``auction/ref.py``'s arithmetic, replayed) on (...,
+    n, n) benefits: a (rounds, B) int64 tensor, every phase's rounds to the
+    last that any auction runs (an auction whose phase has ended counts 0
+    there, and changes nothing, as the plain version's mask holds it)."""
+    from repro_torch.core.batching import take
+    from repro_torch.kernels.auction.ref import phase_epsilons
+    n = benefit.shape[-1]
+    b = benefit.reshape(-1, n, n)
+    dev = b.device
+    prices = torch.zeros(b.shape[:2], dtype=b.dtype, device=dev)
+    ar = torch.arange(n, device=dev)
+    neg_col = torch.full((*b.shape[:2], 1), -1e9, dtype=b.dtype, device=dev)
+    neg_mat = torch.full_like(b, -1e9)
+    out = []
+    for eps in phase_epsilons(1e-4):
+        p2o = torch.full(b.shape[:2], -1, dtype=torch.int64, device=dev)
+        for _ in range(max_iter):
+            unassigned = p2o < 0
+            left = unassigned.sum(-1)
+            if not bool(left.any()):
+                break
+            out.append(left)
+            values = b - prices[:, None, :]
+            top2 = torch.topk(torch.cat([values, neg_col], -1), 2,
+                              -1).values
+            best_j = values.argmax(-1)
+            bid = take(prices, best_j) + top2[..., 0] - top2[..., 1] + eps
+            bid_mat = neg_mat.scatter(-1, best_j[..., None], torch.where(
+                unassigned, bid, -1e9)[..., None])
+            best_bid, winner = bid_mat.amax(-2), bid_mat.argmax(-2)
+            has_bid = best_bid > -5e8
+            won = unassigned & take(has_bid, best_j) \
+                & (take(winner, best_j) == ar)
+            cur = p2o.clamp(0, n - 1)
+            evicted = (p2o >= 0) & take(has_bid, cur) \
+                & (take(winner, cur) != ar)
+            p2o = torch.where(won, best_j, torch.where(evicted, -1, p2o))
+            prices = torch.where(has_bid, best_bid, prices)
+    if not out:
+        return torch.zeros((0, len(b)), dtype=torch.int64, device=dev)
+    return torch.stack(out)
+
+
 def check_auction(torch, np, au_ops, au_ref, hungarian, benefit, what,
-                  max_iter: int = 4000, skeleton: bool = True):
+                  max_iter: int = 4000, skeleton: bool = True,
+                  count_bidders: bool = False):
     """The auction kernel against its plain version on the card, bit for bit
     in person_to_obj, the prices and the rounds; the assignment a
     permutation whose total benefit is within n x eps_final (1e-4) of the
     optimum (``optimum_cols``) on the first matrices (up to 4; 1 at
-    n > 40). ``max_iter``: rounds a phase, both versions."""
+    n > 40). ``max_iter``: rounds a phase, both versions. The operations
+    are 6 a column of each bidder's row, the bidders counted by
+    ``bidders_a_round`` where ``count_bidders`` (a record measured in
+    full), else every person every round."""
     lead, n = tuple(benefit.shape[:-2]), benefit.shape[-1]
     got = au_ops.auction(benefit, max_iter_per_phase=max_iter)
     want = au_ref.auction_ref(benefit, max_iter_per_phase=max_iter)
@@ -846,18 +902,26 @@ def check_auction(torch, np, au_ops, au_ref, hungarian, benefit, what,
                 fail(f"auction {shape}: matrix {i}'s total benefit is "
                      f"{gap} under the optimum (limit n x 1e-4)")
     rounds = got[2].reshape(-1).cpu()
+    bids = n * int(rounds.sum())
+    if count_bidders:
+        left = bidders_a_round(torch, benefit, max_iter).cpu()
+        if not torch.equal((left > 0).sum(0).to(torch.int32), rounds):
+            fail(f"auction {shape}: the replayed rounds "
+                 f"{(left > 0).sum(0).tolist()} are not the kernel's")
+        bids = int(left.sum())
     rec = dict(shape=shape, exact=True, max_abs_err=0.0,
                tol="bit for bit (person_to_obj, prices, rounds); total "
                    "benefit within n x 1e-4 of the optimum",
                optimality_gap=worst, rounds_max=int(rounds.max()),
                rounds_sum=int(rounds.sum()),
                bytes=len(b) * (n * n * 4 + n * 12 + 4),
-               ops=6 * n * n * int(rounds.sum()), plain_eager=True)
-    # The probe of a round's synchronisation and end test alone (a tree
-    # from before it, timed with this script, has none), for the one-warp
-    # instance's rounds.
-    probe = getattr(au_ops, "auction_skeleton", None)
-    if skeleton and probe is not None:
+               bidders=bids, ops=6 * n * bids, plain_eager=True)
+    # The probe of a round's synchronisation and end test alone: the
+    # one-warp instance's, or past 128 persons the wide instance's CTA
+    # round.
+    probe = au_ops.auction_skeleton_wide if n > 128 \
+        else au_ops.auction_skeleton
+    if skeleton:
         rec["skeleton"] = lambda: probe(got[2])
     return rec, (lambda: au_ops.auction(benefit,
                                         max_iter_per_phase=max_iter)), \
@@ -866,17 +930,21 @@ def check_auction(torch, np, au_ops, au_ref, hungarian, benefit, what,
 
 def time_auction(torch, rec, kern, plain=None) -> None:
     """Device ms of an auction case that is not measured in full, its time
-    a round (over its longest auction's rounds) and, given ``plain``, its
-    plain version's ms (eagerly: it synchronises)."""
+    a round (over its longest auction's rounds), its skeleton's ms where
+    the record has one and, given ``plain``, its plain version's ms
+    (eagerly: it synchronises)."""
     est = eager_ms(kern, torch, runs=3, warmup=1)
-    rec["kernel_ms"] = graph_ms(kern, torch,
-                                reps=max(1, min(20, int(40 / est))),
-                                replays=5)
+    reps = max(1, min(20, int(40 / est)))
+    rec["kernel_ms"] = graph_ms(kern, torch, reps=reps, replays=5)
     rec["us_per_round"] = rec["kernel_ms"] * 1e3 / rec["rounds_max"]
+    rec["skeleton_ms"] = graph_ms(rec.pop("skeleton"), torch, reps=reps,
+                                  replays=5) if "skeleton" in rec else None
     rec["plain_ms"] = None if plain is None else eager_ms(
         plain, torch, runs=3, warmup=1)
     print(f"  device {rec['kernel_ms']:.5f} ms, {rec['us_per_round']:.4f} us"
           f" a round ({rec['rounds_max']} rounds)"
+          + ("" if rec["skeleton_ms"] is None else
+             f"; skeleton {rec['skeleton_ms']:.5f} ms")
           + ("" if plain is None else f"; plain {rec['plain_ms']:.4f} ms"),
           flush=True)
 
@@ -2784,7 +2852,8 @@ def serve_wide(torch, api, kernels):
     n = 160 persons, the auction's wide instance) on the card after a
     warm-up, its launches checked as phase 4's (the wide instance once a
     frame, the row instances never), then held to its CPU run in this
-    process. Returns the run's launch counts."""
+    process. Returns the run's launch counts and its median wall ms a
+    frame (all frames, transform, anchor)."""
     scn = api.scenario("kitti-urban", seed=0, max_obj=WIDE_MAX_OBJ, **KITTI)
     api.Session(scn, torch_device="cuda").run(2)
     session = api.Session(scn, torch_device="cuda")
@@ -2806,6 +2875,7 @@ def serve_wide(torch, api, kernels):
     per_kind = {k: statistics.median(w for w, kk in zip(walls, kinds)
                                      if (kk == "anchor") == (k == "anchor"))
                 * 1e3 for k in ("anchor", "transform")}
+    per_kind["frame"] = statistics.median(walls) * 1e3
     rows = csv_rows(report.to_csv())
     if not all(math.isfinite(float(r[k])) for r in rows for k in FLOAT_COLS):
         fail(f"kitti-urban max_obj={WIDE_MAX_OBJ}: non-finite values")
@@ -2816,10 +2886,11 @@ def serve_wide(torch, api, kernels):
     print(f"serve kitti-urban max_obj={WIDE_MAX_OBJ} (auctions of n = "
           f"{2 * WIDE_MAX_OBJ}) x{WIDE_FRAMES} on the card: {wall:.2f} s, "
           f"kinds {''.join(k[0] for k in kinds)}, launches {launches}, "
-          f"median wall ms/frame: transform {per_kind['transform']:.2f}, "
-          f"anchor {per_kind['anchor']:.2f}; the CPU run "
-          f"({time.perf_counter() - t1:.2f} s) matches it", flush=True)
-    return launches
+          f"median wall ms/frame {per_kind['frame']:.3f} (transform "
+          f"{per_kind['transform']:.3f}, anchor {per_kind['anchor']:.3f}); "
+          f"the CPU run ({time.perf_counter() - t1:.2f} s) matches it",
+          flush=True)
+    return launches, per_kind
 
 
 def count_syncs(torch, run):
@@ -3059,9 +3130,10 @@ def report_timing(name: str, r) -> None:
              f"pair on the special-function units)"
              if "exp2_floor_ms" in r else "")
           + (f", rounds {r['rounds_sum']} (the longest auction "
-             f"{r['rounds_max']}, {r['us_per_round']:.4f} us a round)"
+             f"{r['rounds_max']}, {r['us_per_round']:.4f} us a round; "
+             f"{r['bidders']} bids)"
              if "rounds_sum" in r else "")
-          + (f", skeleton {r['skeleton_ms']:.5f} ms (the rounds' warp "
+          + (f", skeleton {r['skeleton_ms']:.5f} ms (the rounds' "
              f"synchronisation and end test alone)"
              if "skeleton_ms" in r else ""), flush=True)
     print("  " + kernels_line(f"{name} kernel", r["kernels"]), flush=True)
@@ -3083,9 +3155,10 @@ def timing(r) -> dict:
             "library_ms": r.get("library_ms"),
             "library_kernel": lib[0][0] if lib else None,
             "passes": [[k, ms] for k, ms, _ in r["kernels"]],
-            **{k: r[k] for k in ("rounds_max", "rounds_sum",
+            **{k: r[k] for k in ("rounds_max", "rounds_sum", "bidders",
                                  "optimality_gap", "us_per_round",
-                                 "skeleton_ms", "cases") if k in r}}
+                                 "skeleton_ms", "cases", "serve_wide_ms")
+               if k in r}}
 
 
 def kernel_entry(name: str, r, launches) -> dict:
@@ -3230,13 +3303,15 @@ def main() -> None:
                 torch, np, au_ops, au_ref, association.hungarian_numpy,
                 torch.from_numpy(auction_benefits(
                     np, n, batch, seed, zero_rows, equal_rows)).to(dev),
-                what, max_iter=max_iter, skeleton=n <= 128)
+                what, max_iter=max_iter, skeleton=n > 128)
             rec["time_plain"] = (n, batch) in AUCTION_PLAIN_TIMED and \
                 not (zero_rows or equal_rows)
             return rec, kern, plain
         return case
 
     real_auctions = {}
+    # The wide instance's resident tier ends at this n on this card.
+    wide_bound = au_ops.resident_max_n(au_ops.smem_optin(dev))
 
     def auction_real(key):
         """The benefits of a kitti-urban transform frame (frame 2 of a run
@@ -3262,7 +3337,7 @@ def main() -> None:
                               "branch"}[key]
             return check_auction(torch, np, au_ops, au_ref,
                                  association.hungarian_numpy, b,
-                                 f" ({label})", skeleton=key != "kitti_wide")
+                                 f" ({label})", count_bidders=True)
         return case
 
     def k1_kitti(_):
@@ -3493,16 +3568,23 @@ def main() -> None:
                                    " all zeros")],
         # The wide instance (n > 128): the benefits of a kitti-urban
         # transform frame at max_obj = 80 (n = 160, measured in full), then
-        # seeded tied benefits at n = 129 to 1024, one auction and 16, zero
-        # rows and columns, every row equal (each timed too).
+        # seeded tied benefits at n = 129 to 1024, one auction and 16, at
+        # the card's resident bound and one past it, zero rows and columns,
+        # every row equal (each timed too).
         "auction_wide": [auction_real("kitti_wide")]
         + [auction_synthetic(n, batch, 100 * n + batch,
                              max_iter=WIDE_MAX_ITER)
            for n in AUCTION_WIDE_NS for batch in AUCTION_WIDE_BATCHES]
-        + [auction_synthetic(256, 1, 5, zero_rows=True, what=" zero rows",
-                             max_iter=WIDE_MAX_ITER),
-           auction_synthetic(256, 1, 6, equal_rows=True, what=" all tied",
-                             max_iter=WIDE_MAX_ITER)],
+        + [auction_synthetic(n, 1, 100 * n + 1, max_iter=WIDE_MAX_ITER,
+                             what=f" ({tier})")
+           for n, tier in ((wide_bound, "resident bound"),
+                           (wide_bound + 1, "streamed"))]
+        + [auction_synthetic(n, 1, seed, zero_rows=True, what=" zero rows",
+                             max_iter=WIDE_MAX_ITER)
+           for n, seed in ((160, 7), (256, 5))]
+        + [auction_synthetic(n, 1, seed, equal_rows=True, what=" all tied",
+                             max_iter=WIDE_MAX_ITER)
+           for n, seed in ((160, 8), (256, 6))],
     }
     # Besides each kernel's first case (the serving path's shape), these
     # are timed too: (kernel, case) -> key of its record.
@@ -3552,7 +3634,7 @@ def main() -> None:
                 time_auction(torch, rec, kern, plain if time_plain else None)
                 records[name].setdefault("cases", []).append(
                     [rec["shape"], rec["kernel_ms"], rec["us_per_round"],
-                     rec["rounds_max"], rec["plain_ms"]])
+                     rec["rounds_max"], rec["plain_ms"], rec["skeleton_ms"]])
             del rec, kern, plain
             torch.cuda.empty_cache()
     if only:
@@ -3611,7 +3693,8 @@ def main() -> None:
     by_path = {k: {"kitti-urban": main_launches[k]} for k in MOBY_KERNELS}
 
     # -- 5b. past 128 persons: kitti-urban with max_obj = 80 -----------------
-    launches = serve_wide(torch, api, kernels)
+    launches, records["auction_wide"]["serve_wide_ms"] = serve_wide(
+        torch, api, kernels)
     for k in by_path:
         by_path[k][f"kitti-urban max_obj={WIDE_MAX_OBJ}"] = launches[k]
         main_launches[k] += launches[k]

@@ -87,9 +87,10 @@ SIGNATURES = {
     "moby_auction": ((_P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), _I, _I,
                       _P, _P, _P, _P), _I),
     "moby_auction_wide": ((_P, _I, _I, ctypes.POINTER(ctypes.c_float), _I,
-                           _I, _P, _P, _P, _P, _P), _I),
+                           _I, _I, _P, _P, _P, _P, _P), _I),
     "moby_smem_optin": ((_I,), _I),
     "moby_auction_skeleton": ((_P, _I, _P, _P), _I),
+    "moby_auction_skeleton_wide": ((_P, _I, _P, _P), _I),
 }
 
 

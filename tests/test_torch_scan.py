@@ -146,9 +146,10 @@ def test_auction_instance_and_refusals():
     (tests/test_torch_auction.py holds its bound); the kernel's limits
     raise before a launch."""
     for n in range(1, au_ops.ROW_MAX_N + 1):
-        batch, got_n, eps, warps = au_ops.plan((2, 3, n, n), torch.float32,
-                                               1e-4)
+        batch, got_n, eps, warps, tier = au_ops.plan((2, 3, n, n),
+                                                     torch.float32, 1e-4)
         assert (batch, got_n, eps) == (6, n, au_ref.phase_epsilons(1e-4))
+        assert tier is None
         assert warps in au_ops.WARPS and n <= 32 * warps
         assert warps == 1 or n > 16 * warps
     assert au_ops.ROW_MAX_N == 128
