@@ -59,15 +59,18 @@ fatal on failure:
    cases; flash attention at MLA's head dims, qk 192 / value 128: the
    tensor-core route at MLA C's prefill shape (128 heads, S 8192, timed,
    its plain version 8 heads at a time), a ragged tile and full
-   attention, the 3xTF32 route in f32 at MLA B's shape (timed), full
-   attention, and at SMOKE's 24 / 16 (timed, and a ragged tile); the MLA
+   attention, the 3xTF32 route in f32 at MLA B's shape (its persistent
+   instance; timed, and at B 1, S 2048), full attention, runs of ragged
+   items, and at SMOKE's 24 / 16 (timed, and a ragged tile); the MLA
    decode kernel (``mla_decode_attention``, no Pallas counterpart: the
    einsums of JAX's absorbed decode) at MLA C's decode shape (B 16, 128
    heads, (R, P) = (512, 64), a 32k compressed cache, ragged lengths;
    timed), with lengths 1, S_max and off the tile and run boundaries,
-   100 heads with an empty request, its SIMT instance in f32 at MLA B's
-   decode shape and at SMOKE's (16, 8) (both timed), in bf16 at (16, 8),
-   in f32 with ragged lengths, then 64 heads (a cluster of one CTA), 65,
+   100 heads with an empty request, its tf32x3 instance (f32) at MLA B's
+   decode shape and its SIMT one at SMOKE's (16, 8) (both timed), in bf16
+   at (16, 8), in f32 with ragged lengths (timed), 100 heads with an empty
+   request, more requests than runs and one request over every run, then
+   the tensor-core instance at 64 heads (a cluster of one CTA), 65,
    one request of 32,768 positions, 64 short ragged requests and an empty
    request between live ones; each bf16 case with the P-rounding
    allowance, its library yardstick SDPA on [q_lat | q_rope],
@@ -231,8 +234,9 @@ fatal on failure:
    layer of 160 experts) in f32, MLA weights rescaled (``rescale_mla``),
    prefill at B=2, S=256 and four decode steps, logits within 1e-4, the
    routing equal (the smallest top-k gap printed); launches of A and B
-   checked (the 3xTF32 flash route at MLA's head dims and the MLA decode
-   kernel's SIMT instance, one a layer);
+   checked (the 3xTF32 flash route at MLA's head dims, one a layer a
+   prefill, and the MLA decode kernel one a layer a step, counted by
+   instance: the SIMT one in A, the tf32x3 one in B);
 10g. MLA C, serving deepseek-v2 at full width in bf16 (seeded weights,
    drawn a layer at a time) at 8 of its 60 layers (1 dense + 7 MoE,
    29.19B parameters) with LM C's traffic: prefill at B=1, S=8192 (median
@@ -445,11 +449,11 @@ KERNELS = {
 INSTANCES = {
     ("flash_attention_tc", 6): ("deepseek", "qk 192 / value 128, bf16",
                                 "MLA C serving"),
-    ("flash_attention", 7): ("deepseek_f32", "qk 192 / value 128, f32",
-                             "MLA B"),
+    ("flash_attention", 7): ("deepseek_f32", "qk 192 / value 128, f32 "
+                             "(persistent: 8 warps, 32-key tiles)", "MLA B"),
     ("flash_attention", 9): ("deepseek_smoke", "qk 24 / value 16, f32",
                              "MLA A"),
-    ("mla_decode_attention", 3): ("simt_f32", "SIMT, f32, (512, 64)",
+    ("mla_decode_attention", 3): ("tf32x3", "tf32x3, f32, (512, 64)",
                                   "MLA B"),
     ("mla_decode_attention", 4): ("simt_smoke", "SIMT, f32, (16, 8)",
                                   "MLA A"),
@@ -1206,13 +1210,18 @@ def check_mla_decode(torch, dev, mla_ops, mla_ref, b, h, s, r, p, dtype,
     kf = torch.cat([ckv, krope], -1)[:, None]
     mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[
         :, None, None]
+    # The tf32x3 instance takes three TF32 products a product.
+    ops = 2 * h * live * (2 * r + p)
     rec = dict(shape=shape, exact=exact, max_abs_err=err, tol=tol,
                worst=worst,
                bytes=(b * h * (2 * r + p) + live * (r + p)) * elt + 4 * b,
-               ops=2 * h * live * (2 * r + p),
-               peak=PEAK_BF16_PER_S if path == "tc" else PEAK_F32_PER_S,
+               ops=3 * ops if path == "tf32x3" else ops,
+               peak={"tc": PEAK_BF16_PER_S, "tf32x3": PEAK_TF32_PER_S}.get(
+                   path, PEAK_F32_PER_S),
                library=lambda: torch.nn.functional.scaled_dot_product_attention(
                    qf, kf, ckv[:, None], attn_mask=mask, scale=scale))
+    if path == "tf32x3":
+        rec["f32_simt_ms"] = ops / PEAK_F32_PER_S * 1e3
     return rec, (lambda: mla_ops.mla_decode_attention(*args)), \
         (lambda: mla_ref.mla_decode_attention_ref(*args))
 
@@ -1924,7 +1933,7 @@ def decode_kernel(cfg):
     counter, the names of its passes in a profile)."""
     if cfg.attn_kind == "mla":
         return "mla_decode_attention", ("mla_decode_tc_kernel",
-                                        "mla_decode_tc_combine_kernel")
+                                        "mla_decode_merge_kernel")
     return "decode_attention", ("decode_partial_kernel",
                                 "decode_combine_kernel")
 
@@ -1942,8 +1951,9 @@ def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
     kernel (MLA's SIMT instance), one launch a layer a prefill or step;
     returns those counts by phase, {counter: {"<label> A": n, ...}},
     checked."""
+    from repro_torch.kernels.mla_decode_attention import ops as mla_ops
     f32 = torch.float32
-    counts = {}
+    counts, routes = {}, {}
     # -- A: SMOKE on the card vs the JAX golden ------------------------------
     kernels.reset_launch_counts()
     cfg = dataclasses.replace(lm_configs.get_smoke(arch), dtype=f32)
@@ -1952,6 +1962,7 @@ def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
           f"match {golden.name} (max abs err {err:.3g}, tolerance 1e-5)",
           flush=True)
     counts[f"{label} A"] = (kernels.launch_counts(), cfg.n_layers)
+    routes[f"{label} A"] = dict(mla_ops.route_launches)
 
     # -- B: full width, 2 layers, f32: the card vs the CPU -----------------
     kernels.reset_launch_counts()
@@ -1979,6 +1990,7 @@ def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
         torch, lm, decode, cfg, p_cpu, tokens, dec_tokens, 512,
         torch.device("cpu")))
     counts[f"{label} B"] = (kernels.launch_counts(), b_layers)
+    routes[f"{label} B"] = dict(mla_ops.route_launches)
     gaps = (route_gap(torch, card_routes, cfg.top_k),
             route_gap(torch, cpu_routes, cfg.top_k))
     if len(card_routes) != len(cpu_routes):
@@ -2015,7 +2027,23 @@ def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
         expect.update({"flash_attention": n_layers, counter: 4 * n_layers})
         if launches != expect:
             fail(f"{phase} launch counts {launches} != {expect}")
-        print(f"{phase}: launches {launches}", flush=True)
+        names = ""
+        if cfg.attn_kind == "mla":
+            # SMOKE (A) at MLA's (24, 16) / (16, 8), full width (B) at
+            # (192, 128) / (512, 64): the instances of each.
+            small = phase.endswith("A")
+            inst = "simt" if small else "tf32x3"
+            want = dict.fromkeys(mla_ops.route_launches, 0)
+            want[inst] = 4 * n_layers
+            if routes[phase] != want:
+                fail(f"{phase}: MLA decode launches by instance "
+                     f"{routes[phase]} != {want}")
+            dims = ("qk 24 / value 16", "(16, 8)") if small else \
+                ("qk 192 / value 128, persistent", "(512, 64)")
+            names = (f" (flash_attention: the tf32x3 instance at {dims[0]};"
+                     f" mla_decode_attention: the {inst} instance at "
+                     f"{dims[1]}, {routes[phase][inst]} launches)")
+        print(f"{phase}: launches {launches}{names}", flush=True)
         for k in out:
             out[k][phase] = launches[k]
     return out
@@ -3166,7 +3194,8 @@ def kernel_entry(name: str, r, launches) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches, **timing(r)}
     for key in ("kitti", "f32_prefill", "bf16_hd64", "zamba2", "moonshot",
-                "deepseek", "sorted", "fleet_kitti", "fleet_16", "fleet_64"):
+                "deepseek", "deepseek_f32_s2048", "tf32x3_seeded", "sorted",
+                "fleet_kitti", "fleet_16", "fleet_64"):
         if key in r:
             entry[key] = timing(r[key])
     return entry
@@ -3404,7 +3433,12 @@ def main() -> None:
             flash_mla(LM_B_BATCH, 128, LM_B_S, 192, 128, f32, True),
             flash_mla(1, 8, 300, 192, 128, f32, False),
             flash_mla(2, 4, 16, 24, 16, f32, True),
-            flash_mla(2, 4, 77, 24, 16, f32, False)],
+            flash_mla(2, 4, 77, 24, 16, f32, False),
+            # The persistent (192, 128) instance away from the wave tail (B
+            # 1, 128 heads, S 2048, also timed), and runs of several ragged
+            # items a block.
+            flash_mla(1, 128, 2048, 192, 128, f32, True),
+            flash_mla(3, 48, 333, 192, 128, f32, True)],
         # The tensor-core route (bf16 at hd 128): the prefill shape of LM
         # phase C first, then a ragged causal tile, keys longer than
         # queries, GQA.
@@ -3469,6 +3503,12 @@ def main() -> None:
             mla_dec(2, 4, 32, 16, 8, f32, [1, 32]),
             mla_dec(3, 4, 100, 16, 8, bf16, [0, 1, 100]),
             mla_dec(4, 128, 2048, 512, 64, f32, (1, 2049)),
+            # The tf32x3 instance (f32): a partial head group (100 heads)
+            # with an empty request, more requests than runs, one request
+            # over every run.
+            mla_dec(3, 100, 700, 512, 64, f32, [0, 77, 700]),
+            mla_dec(64, 128, 2048, 512, 64, f32, (1, 300)),
+            mla_dec(1, 128, 8192, 512, 64, f32, [8192]),
             # The tensor-core instance's schedule and clusters: 64 heads (a
             # cluster of one CTA), 65 (a second CTA of one head), one
             # request of 32,768 positions spread over every cluster, 64
@@ -3598,6 +3638,8 @@ def main() -> None:
                   ("ransac_score", 7): "fleet_16",
                   ("ransac_score", 8): "fleet_64",
                   ("flash_attention", 1): "f32_prefill",
+                  ("flash_attention", 11): "deepseek_f32_s2048",
+                  ("mla_decode_attention", 6): "tf32x3_seeded",
                   ("flash_attention_tc", 4): "moonshot",
                   ("flash_attention_tc", 9): "zamba2",
                   ("flash_attention_bwd_tc", 7): "bf16_hd64",

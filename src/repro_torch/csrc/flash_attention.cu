@@ -26,14 +26,11 @@
 // (tools/mma_sync_rate.py measures both; PERF.md has the numbers): the
 // splits' subtractions and the softmax cost time of their own.
 //
-// The 3xTF32 split. Each f32 operand x becomes hi = x rounded to TF32
-// (nearest, ties away from zero: what cvt.rna.tf32.f32 computes, done here
-// by two integer operations on the bits, which issue beside the products)
-// and lo = x - hi, exact in f32, which the tensor core reads truncated to
-// TF32. A product is taken as lo_a*hi_b + hi_a*lo_b + hi_a*hi_b by
-// mma.sync.m16n8k8 (TF32 in, f32 accumulators); the dropped lo_a*lo_b is
-// below 2^-22 of it. bf16 values are exact in TF32, so for bf16 Q.K^T
-// takes one product and P.V two (p split, V exact).
+// The 3xTF32 split (tf32x3.cuh): each f32 operand becomes hi, rounded to
+// TF32, and lo = x - hi; a product is lo_a*hi_b + hi_a*lo_b + hi_a*hi_b by
+// mma.sync.m16n8k8 (TF32 in, f32 accumulators). bf16 values are exact in
+// TF32, so for bf16 Q.K^T takes one product and P.V two (p split, V
+// exact).
 //
 // Why mma.sync and not wgmma: wgmma transposes only 16-bit operands, so a
 // TF32 B operand must be K-major in shared memory, and V in P.V is
@@ -61,10 +58,21 @@
 //   K/V tile once for the block into shared memory was slower on the card
 //   (twice the fragment loads), as were 32-key tiles; 4-warp blocks are
 //   faster where 8-warp ones would leave SMs idle (LM B's shape) and
-//   slower elsewhere (the prefill shape). At MLA's f32 (192, 128) an 8-warp
-//   block would need 260 KB (96 KB of Q, a 164 KB ring), so it runs 4
-//   warps (48 KB + 164 KB); K and V rows have their own widths in a
-//   stage;
+//   slower elsewhere (the prefill shape). K and V rows have their own
+//   widths in a stage;
+// * MLA's f32 (192, 128) (deepseek-v2's prefill, H = KV: no K/V tile is
+//   shared between heads) has a tiling of its own (Tiling<192, 128>): 8
+//   warps over 32-key tiles in a 2-stage ring (96 KB of Q + 82 KB), where
+//   64-key tiles allowed only 4 warps (one a scheduler, stalled on its own
+//   loads and mma chains). Its blocks are persistent, one an SM: every
+//   (b, head) pair's query tiles, heaviest first, laid end to end by their
+//   key tiles and cut into equal runs, a run a block; the ring runs on
+//   across a block's items (the next item's first tiles load during the
+//   last tiles of one), and each warp copies the next item's Q as soon as
+//   its last scores are taken, behind that tile's softmax and P.V; a warp
+//   skips the tiles whose keys all lie past its last row. A pair's query
+//   tiles are neighbours in a run, so its K/V tiles are read again from
+//   L2;
 // * the online softmax runs in f32 on the accumulator fragments (a row
 //   lives on the 4 threads of a quad: two shuffles for its max; the sum l
 //   stays per thread until the end), as p = 2^(s c - m c) with c = scale *
@@ -83,15 +91,15 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "moby_kernels.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kBk = 64;          // key positions a shared tile
-constexpr int kStages = 2;       // tiles in the cp.async ring
 constexpr unsigned kFull = 0xffffffffu;
 // Dynamic shared memory a block may use on an H100 (227 KB).
 constexpr int kMaxSmem = 232448;
@@ -100,84 +108,47 @@ struct Strides {                 // in elements; the head dim has stride 1
   long long b, h, s;
 };
 
-// Shared row padding, in elements: 16 bytes either way.
-template <typename T>
-constexpr int kPad = 16 / sizeof(T);
+// An instance's tiles: keys a K/V tile, tiles in the cp.async ring, and
+// whether a block walks a run of items (persistent) or takes one.
+template <int HD, int VD, typename T>
+struct Tiling {
+  static constexpr int kBk = 64;
+  static constexpr int kStages = 2;
+  static constexpr bool kPersistent = false;
+};
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// hi: x rounded to TF32, nearest with ties away from zero (the rounding
-// of cvt.rna.tf32.f32, by two integer operations), as f32 bits with the 13
-// low mantissa bits clear; lo: the rest, x - hi, exact in f32, which the
-// tensor core reads truncated to TF32 (it ignores a TF32 operand's 13 low
-// bits), as CUTLASS's 3xTF32 rounds its small part.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// 2^x by the SFU's ex2.approx: a relative error below 2^-22; results
-// below 2^-126 flush to 0 (a row's largest p is 1).
-__device__ __forceinline__ float exp2_fast(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+// MLA's f32 (192, 128): 32-key tiles, so that 8 warps' Q (96 KB) and the
+// ring (2 stages, 82 KB) fit; one persistent block an SM.
+template <>
+struct Tiling<192, 128, float> {
+  static constexpr int kBk = 32;
+  static constexpr int kStages = 2;
+  static constexpr bool kPersistent = true;
+};
 
 // Shared memory of a block: each warp's Q fragments ([warp][hd/8][lane]
 // of 4 f32 words), then a ring of K/V stages (K [kBk][HD + pad], then V
 // [kBk][VD + pad], each).
 template <int HD, int VD, typename T, int NW>
 struct Smem {
+  using Tl = Tiling<HD, VD, T>;
   static constexpr int kRowK = HD + kPad<T>;     // elements
   static constexpr int kRowV = VD + kPad<T>;
-  static constexpr int kTile = kBk * (kRowK + kRowV);   // elements a stage
+  static constexpr int kTile = Tl::kBk * (kRowK + kRowV);   // elements a stage
   static constexpr int kQ = NW * (HD / 8) * 32 * 16;
   static constexpr int kBytes =
-      kQ + kStages * kTile * static_cast<int>(sizeof(T));
+      kQ + Tl::kStages * kTile * static_cast<int>(sizeof(T));
   static constexpr bool kFits = kBytes <= kMaxSmem;
 };
 
-// d += a (16x8, row) . b (8x8, col), TF32 in, f32 accumulators.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Keys [k0, k0 + kBk) of K and V into one stage: K [kBk][HD + pad], then
-// V [kBk][VD + pad].
+// Keys [k0, k0 + BK) of K and V into one stage: K [BK][HD + pad], then
+// V [BK][VD + pad].
 template <int HD, int VD, typename T, int NW>
 __device__ __forceinline__ void load_tile(T* stage, const T* kb,
                                           long long kss, const T* vb,
                                           long long vss, int k0, int sk) {
   using S = Smem<HD, VD, T, NW>;
+  constexpr int kBk = S::Tl::kBk;
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunksK = HD / kVec;       // 16-byte chunks a row
   constexpr int kChunksV = VD / kVec;
@@ -197,6 +168,26 @@ __device__ __forceinline__ void load_tile(T* stage, const T* kb,
   }
 }
 
+// The persistent instance's copy of a warp's A fragments of Q (f32),
+// into its slots of shared memory by 4-byte cp.async (in flight until the
+// caller's next wait; each lane writes and reads back only its own): a0
+// (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4) of each 8-dim k-step,
+// at qf[d * 32]. Rows past sq are 0 (and never stored).
+template <int HD>
+__device__ __forceinline__ void copy_q(uint4* qf, const float* qp,
+                                       long long qss, int row0, int sq,
+                                       int gq, int tq) {
+#pragma unroll 4
+  for (int d = 0; d < HD / 8; ++d)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + gq + (i & 1) * 8;
+      const bool ok = r < sq;
+      cp_async4(reinterpret_cast<float*>(qf + d * 32) + i,
+                qp + (ok ? r : 0) * qss + d * 8 + tq + (i & 2) * 2, ok);
+    }
+}
+
 // A B fragment element of a stage, split (f32); bf16 is exact in TF32
 // (lo unused).
 template <typename T>
@@ -210,17 +201,17 @@ __device__ __forceinline__ void fragment(const T* at, uint32_t& hi,
   }
 }
 
-// S = Q.K^T for one 16 x kBk tile of scores: B fragments b0 =
+// S = Q.K^T for one 16 x BK tile of scores: B fragments b0 =
 // K[n*8 + g][d*8 + t], b1 at dim t + 4. For f32 the small products
 // (lo.hi + hi.lo) go to accumulators of their own, added to the big ones
 // (hi.hi) at the end: two independent chains of products.
-template <int HD, typename T>
+template <int HD, int BK, typename T>
 __device__ __forceinline__ void scores(const T* kt, const uint4* qf,
                                        int gq, int tq,
-                                       float (&sc)[kBk / 8][4]) {
+                                       float (&sc)[BK / 8][4]) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kRow = HD + kPad<T>;
-  constexpr int kN = kBk / 8;
+  constexpr int kN = BK / 8;
   float small[kN][4];
 #pragma unroll
   for (int n = 0; n < kN; ++n)
@@ -255,23 +246,23 @@ __device__ __forceinline__ void scores(const T* kt, const uint4* qf,
   }
 }
 
-// Online softmax of one 16 x kBk tile of scores sc, raw dot products
+// Online softmax of one 16 x BK tile of scores sc, raw dot products
 // (rows g: c0, c1 and g+8: c2, c3; key k0 + n*8 + 2t + c), which then
 // holds p = 2^(s c - m c), c = scale * log2(e) (one fma and the SFU's
 // exp2; the running max m of a row is kept as mc = m c). Rescales the rows
 // of acc, unless no row's max moved. kMask: the tile holds keys past sk
 // or above a row's diagonal.
-template <bool kMask, int kD>
+template <bool kMask, int kD, int BK>
 __device__ __forceinline__ void online_softmax(
-    float (&sc)[kBk / 8][4], float (&acc)[kD][4], float (&m)[2],
+    float (&sc)[BK / 8][4], float (&acc)[kD][4], float (&m)[2],
     float (&mc)[2], float (&l)[2], const int (&rq)[2], int k0, int tq,
     int sk, int causal, float c) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bool live[kBk / 8][2];
+    bool live[BK / 8][2];
     float tile_max = kNeg;
 #pragma unroll
-    for (int n = 0; n < kBk / 8; ++n)
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int kj = k0 + n * 8 + 2 * tq + j;
@@ -286,7 +277,7 @@ __device__ __forceinline__ void online_softmax(
     const float mc_new = m_new * c;
     float psum = 0.0f;
 #pragma unroll
-    for (int n = 0; n < kBk / 8; ++n)
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         float& s = sc[n][2 * r + j];
@@ -307,17 +298,72 @@ __device__ __forceinline__ void online_softmax(
   }
 }
 
+// O += P.V for one 16 x BK tile: A fragment of keys n*8 + {2t, 2t+1}:
+// a0 = p(g, 2t), a1 = p(g+8, 2t), a2 = p(g, 2t+1), a3 = p(g+8, 2t+1)
+// (the scores' registers, no shuffles); B fragment b0 = V[n*8 + 2t][d*8 +
+// g], b1 = V[n*8 + 2t + 1][d*8 + g].
+template <int VD, int BK, typename T>
+__device__ __forceinline__ void pv_tile(const float (&sc)[BK / 8][4],
+                                        const T* vt, float (&acc)[VD / 8][4],
+                                        int gq, int tq) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kRowV = VD + kPad<T>;
+#pragma unroll
+  for (int n = 0; n < BK / 8; ++n) {
+    const float pa[4] = {sc[n][0], sc[n][2], sc[n][1], sc[n][3]};
+    uint32_t ph[4], pl[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(pa[i], ph[i], pl[i]);
+#pragma unroll
+    for (int d = 0; d < VD / 8; ++d) {
+      const T* at = vt + (n * 8 + 2 * tq) * kRowV + d * 8 + gq;
+      uint32_t bh[2], bl[2];
+      fragment(at, bh[0], bl[0]);
+      fragment(at + kRowV, bh[1], bl[1]);
+      mma(acc[d], pl, bh);
+      if (kF32) mma(acc[d], ph, bl);
+      mma(acc[d], ph, bh);
+    }
+  }
+}
+
+// A warp's 16 rows of O (rows past sq are not stored): acc / max(l,
+// 1e-30), l summed over the quad.
+template <int VD, typename T>
+__device__ __forceinline__ void store_rows(T* op, long long oss,
+                                           const float (&acc)[VD / 8][4],
+                                           const float (&l)[2],
+                                           const int (&rq)[2], int sq,
+                                           int tq) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(kFull, sum, 1);
+    sum += __shfl_xor_sync(kFull, sum, 2);
+    if (rq[r] >= sq) continue;
+    const float denom = fmaxf(sum, 1e-30f);
+    T* orow = op + rq[r] * oss + 2 * tq;
+#pragma unroll
+    for (int d = 0; d < VD / 8; ++d) {
+      narrow(orow + d * 8, acc[d][2 * r] / denom);
+      narrow(orow + d * 8 + 1, acc[d][2 * r + 1] / denom);
+    }
+  }
+}
+
+// A block of NW warps on one item: query tile blockIdx.x (heaviest first
+// when causal) of the (b, kv head, chunk of hb heads) pair blockIdx.y.
 template <int HD, int VD, typename T, int NW>
 __global__ void __launch_bounds__(NW * 32, 1)
 flash_tf32x3_kernel(const T* __restrict__ q, Strides qs,
                     const T* __restrict__ k, Strides ks,
                     const T* __restrict__ v, Strides vs,
-                    T* __restrict__ o, Strides os, int n_kv, int group,
-                    int hb, int sq, int sk, int causal, float scale) {
+                    T* __restrict__ o, Strides os, int batch, int n_kv,
+                    int group, int hb, int sq, int sk, int causal,
+                    float scale) {
   using S = Smem<HD, VD, T, NW>;
   static_assert(S::kFits, "shared memory");
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int kRowV = S::kRowV;
+  constexpr int kBk = S::Tl::kBk, kStages = S::Tl::kStages;
   constexpr int kD = HD / 8;       // Q.K^T k-steps
   constexpr int kDv = VD / 8;      // P.V n-tiles
   constexpr int kN = kBk / 8;      // Q.K^T n-tiles; P.V k-steps
@@ -327,6 +373,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, Strides qs,
   uint4* qf = smem4 + warp * kD * 32 + lane;   // [d * 32]: this lane's
   // [kStages][K [kBk][kRowK], V [kBk][kRowV]]
   T* ring = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) + S::kQ);
+  (void)batch;   // the persistent kernel's: here the grid gives the pair
 
   const int gq = lane / 4, tq = lane % 4;  // the mma's groupID, thread
   const int slabs = NW / hb;               // 16-row slabs a head
@@ -393,74 +440,276 @@ flash_tf32x3_kernel(const T* __restrict__ q, Strides qs,
     const T* kt = ring + it % kStages * kTile;
     const T* vt = kt + kBk * S::kRowK;
     float sc[kN][4];
-    scores<HD, T>(kt, qf, gq, tq, sc);
+    scores<HD, kBk, T>(kt, qf, gq, tq, sc);
     // Only the tiles that cross sk or a row's diagonal are masked.
     const int k0 = it * kBk;
     if (k0 + kBk <= sk && (!causal || k0 + kBk - 1 <= row0))
-      online_softmax<false>(sc, acc, m, mc, l, rq, k0, tq, sk, causal, c);
+      online_softmax<false, kDv, kBk>(sc, acc, m, mc, l, rq, k0, tq, sk,
+                                      causal, c);
     else
-      online_softmax<true>(sc, acc, m, mc, l, rq, k0, tq, sk, causal, c);
-
-    // O += P.V. A fragment of keys n*8 + {2t, 2t+1}: a0 = p(g, 2t),
-    // a1 = p(g+8, 2t), a2 = p(g, 2t+1), a3 = p(g+8, 2t+1); B fragment
-    // b0 = V[n*8 + 2t][d*8 + g], b1 = V[n*8 + 2t + 1][d*8 + g].
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      const float pa[4] = {sc[n][0], sc[n][2], sc[n][1], sc[n][3]};
-      uint32_t ph[4], pl[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split(pa[i], ph[i], pl[i]);
-#pragma unroll
-      for (int d = 0; d < kDv; ++d) {
-        const T* at = vt + (n * 8 + 2 * tq) * kRowV + d * 8 + gq;
-        uint32_t bh[2], bl[2];
-        fragment(at, bh[0], bl[0]);
-        fragment(at + kRowV, bh[1], bl[1]);
-        mma(acc[d], pl, bh);
-        if (kF32) mma(acc[d], ph, bl);
-        mma(acc[d], ph, bh);
-      }
-    }
+      online_softmax<true, kDv, kBk>(sc, acc, m, mc, l, rq, k0, tq, sk,
+                                     causal, c);
+    pv_tile<VD, kBk, T>(sc, vt, acc, gq, tq);
   }
   cp_async_wait<0>();
+  store_rows<VD, T>(o + b * os.b + h * os.h, os.s, acc, l, rq, sq, tq);
+}
 
-  T* op = o + b * os.b + h * os.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float sum = l[r];
-    sum += __shfl_xor_sync(kFull, sum, 1);
-    sum += __shfl_xor_sync(kFull, sum, 2);
-    if (rq[r] >= sq) continue;
-    const float denom = fmaxf(sum, 1e-30f);
-    T* orow = op + rq[r] * os.s + 2 * tq;
-#pragma unroll
-    for (int d = 0; d < kDv; ++d) {
-      narrow(orow + d * 8, acc[d][2 * r] / denom);
-      narrow(orow + d * 8 + 1, acc[d][2 * r + 1] / denom);
+// The items of a launch: (b, kv head, chunk of hb query heads) pairs x
+// query tiles of `rows` rows. Item j of a pair is its j-th heaviest query
+// tile when causal (the last first), else the j-th.
+struct Items {
+  int n_pairs, n_q, rows, sq, sk, causal;
+};
+
+template <int BK>
+__device__ __forceinline__ int item_qt(const Items& w, int j) {
+  return w.causal ? w.n_q - 1 - j : j;
+}
+
+// Key tiles item j of a pair walks: keys past its last query row are
+// masked for every row when causal. An item of no key (sk = 0) walks one
+// tile of masked keys, so that its rows come out 0.
+template <int BK>
+__device__ __forceinline__ int item_tiles(const Items& w, int j) {
+  const int k_end = w.causal ? min(w.sk, (item_qt<BK>(w, j) + 1) * w.rows)
+                             : w.sk;
+  return max((k_end + BK - 1) / BK, 1);
+}
+
+// A walk over a block's items tile by tile: the item (pair p, rank j), its
+// tile and tile count, and the items left, this one included.
+template <int BK>
+struct Cursor {
+  int p, j, tile, n, left;
+  __device__ __forceinline__ void start(const Items& w, int p0, int j0,
+                                        int items) {
+    p = p0;
+    j = j0;
+    tile = 0;
+    left = items;
+    n = item_tiles<BK>(w, j);
+  }
+  __device__ __forceinline__ void next(const Items& w) {
+    if (++tile < n) return;
+    tile = 0;
+    --left;
+    if (++j == w.n_q) {
+      j = 0;
+      ++p;
+    }
+    n = item_tiles<BK>(w, j);
+  }
+};
+
+// A persistent block's items: every pair's items in order, their key tiles
+// laid end to end and cut into n_c runs of equal work; block c takes the
+// items that start in run c, a contiguous range of `items` items from
+// (p0, j0). kernels/flash_attention/ops.py::block_items is the same in
+// Python.
+template <int BK>
+__device__ __forceinline__ void block_items(const Items& w, int c, int n_c,
+                                            int& p0, int& j0, int& items) {
+  long long per_pair = 0;
+  for (int j = 0; j < w.n_q; ++j) per_pair += item_tiles<BK>(w, j);
+  const long long total = per_pair * w.n_pairs;
+  const long long lo = total * c / n_c, hi = total * (c + 1) / n_c;
+  p0 = static_cast<int>(lo / per_pair);
+  j0 = 0;
+  long long s = p0 * per_pair;
+  while (s < lo) {
+    s += item_tiles<BK>(w, j0);
+    if (++j0 == w.n_q) {
+      j0 = 0;
+      ++p0;
     }
   }
+  items = 0;
+  for (int j = j0; s < hi; ++items) {
+    s += item_tiles<BK>(w, j);
+    if (++j == w.n_q) j = 0;
+  }
+}
+
+// The persistent instance (f32): a block an SM, walking the items of its
+// run (block_items) tile by tile. The ring of K/V tiles runs on across
+// items; each warp copies the next item's Q once its last scores are
+// taken, and skips the tiles whose keys all lie past its last row.
+template <int HD, int VD, int NW>
+__global__ void __launch_bounds__(NW * 32, 1)
+flash_tf32x3_persistent_kernel(const float* __restrict__ q, Strides qs,
+                               const float* __restrict__ k, Strides ks,
+                               const float* __restrict__ v, Strides vs,
+                               float* __restrict__ o, Strides os, int batch,
+                               int n_kv, int group, int hb, int sq, int sk,
+                               int causal, float scale) {
+  using S = Smem<HD, VD, float, NW>;
+  static_assert(S::kFits, "shared memory");
+  constexpr int kBk = S::Tl::kBk, kStages = S::Tl::kStages;
+  constexpr int kD = HD / 8;       // Q.K^T k-steps
+  constexpr int kDv = VD / 8;      // P.V n-tiles
+  constexpr int kN = kBk / 8;      // Q.K^T n-tiles; P.V k-steps
+  constexpr int kTile = S::kTile;  // elements of a stage
+  extern __shared__ uint4 smem4[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint4* qf = smem4 + warp * kD * 32 + lane;   // [d * 32]: this lane's
+  // [kStages][K [kBk][kRowK], V [kBk][kRowV]]
+  float* ring =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + S::kQ);
+
+  const int gq = lane / 4, tq = lane % 4;  // the mma's groupID, thread
+  const int slabs = NW / hb;               // 16-row slabs a head
+  const int chunks = group / hb;
+  const int rows = 16 * slabs;             // query rows an item
+  const Items w{batch * n_kv * chunks, (sq + rows - 1) / rows, rows, sq, sk,
+                causal};
+  // The tile consumed and the tile loaded, kStages - 1 ahead of it.
+  Cursor<kBk> cc, lc;
+  {
+    int p0, j0, items;
+    block_items<kBk>(w, blockIdx.x, gridDim.x, p0, j0, items);
+    cc.start(w, p0, j0, items);
+  }
+  lc = cc;
+  // Pair p: its batch, kv head, and this warp's query head.
+  auto batch_of = [&](int p) { return p / chunks / n_kv; };
+  auto kv_of = [&](int p) { return p / chunks % n_kv; };
+  auto head_of = [&](int p) {
+    return kv_of(p) * group + p % chunks * hb + warp / slabs;
+  };
+  // Item j's first row for this warp.
+  auto row_of = [&](int j) {
+    return item_qt<kBk>(w, j) * rows + warp % slabs * 16;
+  };
+  // The load cursor's tile into stage `slot`, then the cursor on; one
+  // group of copies, empty past the run's last tile.
+  const float* kb = nullptr;
+  const float* vb = nullptr;
+  int kb_pair = -1;
+  auto issue = [&](int slot) {
+    if (lc.left > 0) {
+      if (lc.p != kb_pair) {
+        kb_pair = lc.p;
+        kb = k + batch_of(lc.p) * ks.b + kv_of(lc.p) * ks.h;
+        vb = v + batch_of(lc.p) * vs.b + kv_of(lc.p) * vs.h;
+      }
+      load_tile<HD, VD, float, NW>(ring + slot * kTile, kb, ks.s, vb, vs.s,
+                                   lc.tile * kBk, sk);
+      lc.next(w);
+    }
+    cp_async_commit();
+  };
+  // Item (p, j)'s Q into this warp's slots: one group of copies.
+  auto fetch_q = [&](int p, int j) {
+    copy_q<HD>(qf, q + batch_of(p) * qs.b + head_of(p) * qs.h, qs.s,
+               row_of(j), sq, gq, tq);
+    cp_async_commit();
+  };
+
+  const float c = scale * 1.4426950408889634f;
+  float acc[kDv][4];
+  float m[2], mc[2], l[2];
+  int row0 = 0, rq[2] = {0, 0};
+
+  // kStages - 1 tiles in flight, then the first item's Q: the copies of a
+  // block's first tiles and of its Q overlap.
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) issue(t);
+  fetch_q(cc.p, cc.j);
+  // At tile it, tile it + kStages - 1 is loaded into the stage that tile
+  // it - 1 held.
+  for (int it = 0; cc.left > 0; ++it) {
+    if (cc.tile == 0) {
+      cp_async_wait<0>();           // this item's Q and tile have landed
+      row0 = row_of(cc.j);
+      rq[0] = row0 + gq;
+      rq[1] = row0 + gq + 8;
+#pragma unroll
+      for (int d = 0; d < kDv; ++d)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[d][i] = 0.0f;
+      m[0] = m[1] = kNeg;
+      mc[0] = mc[1] = kNeg * c;
+      l[0] = l[1] = 0.0f;
+    } else {
+      cp_async_wait<kStages - 2>();   // tile it has landed (this thread's part)
+    }
+    __syncthreads();                // ... everyone's; tile it - 1 is consumed
+    issue((it + kStages - 1) % kStages);
+    const bool last = cc.tile == cc.n - 1;
+    const int k0 = cc.tile * kBk;
+    // A tile whose keys all lie past this warp's last row adds nothing.
+    if (!causal || k0 <= row0 + 15) {
+      const float* kt = ring + it % kStages * kTile;
+      float sc[kN][4];
+      scores<HD, kBk, float>(kt, qf, gq, tq, sc);
+      if (last && cc.left > 1)   // the next item's Q, behind this P.V
+        fetch_q(cc.j + 1 == w.n_q ? cc.p + 1 : cc.p,
+                cc.j + 1 == w.n_q ? 0 : cc.j + 1);
+      // Only the tiles that cross sk or a row's diagonal are masked.
+      if (k0 + kBk <= sk && (!causal || k0 + kBk - 1 <= row0))
+        online_softmax<false, kDv, kBk>(sc, acc, m, mc, l, rq, k0, tq, sk,
+                                        causal, c);
+      else
+        online_softmax<true, kDv, kBk>(sc, acc, m, mc, l, rq, k0, tq, sk,
+                                       causal, c);
+      pv_tile<VD, kBk, float>(sc, kt + kBk * S::kRowK, acc, gq, tq);
+    } else if (last && cc.left > 1) {
+      fetch_q(cc.j + 1 == w.n_q ? cc.p + 1 : cc.p,
+              cc.j + 1 == w.n_q ? 0 : cc.j + 1);
+    }
+    if (last)
+      store_rows<VD, float>(o + batch_of(cc.p) * os.b + head_of(cc.p) * os.h,
+                            os.s, acc, l, rq, sq, tq);
+    cc.next(w);
+  }
+  cp_async_wait<0>();
 }
 
 int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
 
+// A block per item, or, for a persistent instance, as many blocks as fit
+// on the card at once (at most one an item), each walking a run of items.
 template <int HD, int VD, typename T, int NW>
 int launch_nw(const void* q, const void* k, const void* v, void* o,
               const long long* st, int batch, int n_heads, int n_kv_heads,
               int sq, int sk, int causal, float scale, cudaStream_t stream) {
   constexpr int kSmem = Smem<HD, VD, T, NW>::kBytes;
-  auto kernel = flash_tf32x3_kernel<HD, VD, T, NW>;
+  constexpr bool kPersistent = Tiling<HD, VD, T>::kPersistent;
+  auto kernel = [] {
+    if constexpr (kPersistent)
+      return flash_tf32x3_persistent_kernel<HD, VD, NW>;
+    else
+      return flash_tf32x3_kernel<HD, VD, T, NW>;
+  }();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int group = n_heads / n_kv_heads, hb = gcd(group, NW);
   const int rows = 16 * NW / hb;
-  const dim3 grid((sq + rows - 1) / rows, batch * n_kv_heads * (group / hb));
+  const int n_q = (sq + rows - 1) / rows;
+  const int pairs = batch * n_kv_heads * (group / hb);
+  dim3 grid(n_q, pairs);
+  if constexpr (kPersistent) {
+    int dev = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          NW * 32, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    grid = dim3(static_cast<unsigned>(
+                    std::min(static_cast<long long>(n_q) * pairs,
+                             static_cast<long long>(per_sm) * sms)),
+                1);
+  }
   kernel<<<grid, NW * 32, kSmem, stream>>>(
       static_cast<const T*>(q), Strides{st[0], st[1], st[2]},
       static_cast<const T*>(k), Strides{st[3], st[4], st[5]},
       static_cast<const T*>(v), Strides{st[6], st[7], st[8]},
-      static_cast<T*>(o), Strides{st[9], st[10], st[11]}, n_kv_heads, group,
-      hb, sq, sk, causal, scale);
+      static_cast<T*>(o), Strides{st[9], st[10], st[11]}, batch, n_kv_heads,
+      group, hb, sq, sk, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

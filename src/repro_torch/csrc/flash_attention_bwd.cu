@@ -28,7 +28,7 @@
 // dP in both of its first two kernels, dQ in the first, dV and dK in the
 // second.
 //
-// The 3xTF32 split, as flash_attention.cu's: hi = x rounded to TF32
+// The 3xTF32 split of tf32x3.cuh: hi = x rounded to TF32
 // (nearest, ties away from zero, by two integer operations on the bits)
 // and lo = x - hi, exact in f32, which the tensor core reads truncated to
 // TF32; a product is lo_a*hi_b + hi_a*lo_b + hi_a*hi_b by
@@ -98,6 +98,7 @@
 #include <type_traits>
 
 #include "moby_kernels.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -128,19 +129,6 @@ struct Args {
   int hb;                           // query heads a dq block: gcd(H/KV, 8)
 };
 
-// Shared row padding, in elements: 16 bytes either way.
-template <typename T>
-constexpr int kPad = 16 / sizeof(T);
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // dq_kernel's shared memory: every warp's Q fragments, then its dO
 // fragments (f32, [warp][HD / 8][32 lanes] of 16 bytes), two K tiles and
 // one V tile ([kBk][HD + pad] of T).
@@ -162,56 +150,6 @@ struct DkvSmem {
   static constexpr int kStage = 2 * kTile + 3 * kBq * 4;
   static constexpr int kBytes = 2 * kFrag + 2 * kStage;
 };
-
-// hi: x rounded to TF32, nearest with ties away from zero (the rounding
-// of cvt.rna.tf32.f32, by two integer operations), as f32 bits with the 13
-// low mantissa bits clear; lo: the rest, x - hi, exact in f32, which the
-// tensor core reads truncated to TF32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// 2^x by the SFU's ex2.approx: a relative error below 2^-22; results
-// below 2^-126 flush to 0 (a row's largest p is 1).
-__device__ __forceinline__ float exp2_fast(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d += a (16x8, row) . b (8x8, col), TF32 in, f32 accumulators.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // Rows [r0, r0 + R) of an operand (row r at src + r * rs, the head dim
 // contiguous) into dst ([R][HD + pad] of T) by 16-byte cp.async, issued by
@@ -454,7 +392,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
     T* orows = kbuf + kTile + warp * 16 * S::kRow;
     load_rows<16, HD>(orows, op, a.so_.s, row0, a.sq, lane, 32);
     cp_async_commit();
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncwarp();
     float od[2][4];
     product_nt<HD, 2>(orows, df, gq, tq, od);
@@ -493,7 +431,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * kBk;
     T* kt = kbuf + it % 2 * kTile;
-    cp_async_wait_all();   // K and V of tile it (this thread's part)
+    cp_async_wait<0>();   // K and V of tile it (this thread's part)
     __syncthreads();       // ... everyone's; tile it - 1 is consumed
     if (it + 1 < n_tiles)
       load_rows<kBk, HD>(kbuf + (it + 1) % 2 * kTile, kb, a.sk_.s,
@@ -526,7 +464,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
     cp_async_commit();
     product_nn<HD, kN>(ds, kt, gq, tq, dq);           // dQ~ += dS~.K
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
 
   T* dqp = static_cast<T*>(a.dq) + b * a.sdq_.b + h * a.sdq_.h;
   const long long plane = static_cast<long long>(a.batch) * a.h * a.sq;
@@ -608,7 +546,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Args a) {
   for (int it = 0; it < n; ++it) {
     const int q0 = (qt0 + it) * kBq;
     char* stage = ring + it % 2 * S::kStage;
-    cp_async_wait_all();   // tile it has landed (this thread's part)
+    cp_async_wait<0>();   // tile it has landed (this thread's part)
     __syncthreads();       // ... everyone's; tile it - 1 is consumed
     if (it + 1 < n)
       load_stage(ring + (it + 1) % 2 * S::kStage, q0 + kBq);
@@ -652,7 +590,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Args a) {
     product_nn<HD, kN>(sc, dos, gq, tq, dv);           // dV += P^T.dO
     product_nn<HD, kN>(ds, qs, gq, tq, dk);            // dK += dS^T.Q
   }
-  cp_async_wait_all();
+  cp_async_wait<0>();
 
   // Partials of this query head: (2, B*H, SK, HD) f32.
   const long long half = static_cast<long long>(a.batch) * a.h * a.sk * HD;

@@ -65,21 +65,47 @@
 //   softmax (p = 0), and their values zeroed in the CTA's copy of the
 //   stage before P.V, so what the cache holds there cannot reach the
 //   result; TMA reads rows past S as zeros.
-// The f32 instances (both sizes) and bf16 at SMOKE's (16, 8) are a plain
-// SIMT kernel (8 heads a block, the tile widened to f32 in shared memory,
-// a warp a head's softmax, each request's positions in equal splits);
-// only correctness runs reach them.
+// Design of the f32 instance at (512, 64) (deepseek-v2 in f32: MLA B's
+// decode): the tensor cores by 3xTF32 mma.sync (tf32x3.cuh), heads as the
+// mma's M, 16 a CTA. In f32 a live position is 2,304 bytes and 3 x
+// 278,528 TF32 flops at 128 heads: the products bound it (495 TFLOP/s).
+// * The schedule is the tensor-core instance's, over tiles of 32
+//   positions: C runs, C the groups of ceil(H / 16) CTAs that fit on the
+//   card at once (one CTA an SM), a run a group; the CTAs of a group
+//   (heads 0-15, 16-31, ...) are neighbours in launch order, so a tile
+//   leaves memory once and the others read it from L2; the merge is the
+//   same second pass (a block a (request, head) row, over every SM).
+// * A CTA is 8 warps. A segment's Q (16 heads) and its first tile of
+//   [ckv | krope] arrive in one group of 16-byte cp.async copies (rows at
+//   or past the last head or the length zero-filled), into padded f32 rows;
+//   each next tile of the segment is in flight while one is consumed (a
+//   ring of 2: 199 KB of shared memory with the exchanges).
+// * Warp w takes k-steps [9w, 9w + 9) of the scores' 72 (576 dims): each
+//   Q and K element is read and split by one warp; the 8 shares are summed
+//   in shared memory in warp order, and warp w runs the online softmax of
+//   heads 2w and 2w + 1 (a half-warp a head, two positions a lane). P goes
+//   back in the scores' fragment layout, and warp w takes value columns
+//   [64w, 64w + 64) of P.V: each V element read and split by one warp.
+// * Four barriers a tile: the tile landed, the shares written, P written,
+//   the tile consumed.
+// The instances at SMOKE's (16, 8) (f32 and bf16) are a plain SIMT kernel
+// (8 heads a block, the tile widened to f32 in shared memory, a warp a
+// head's softmax, each request's positions in equal splits); only
+// correctness runs reach them.
 //
 // The library builds with -fmad=false: each intended fused multiply-add is
 // an explicit fmaf. The barrier, TMA, cluster and wgmma helpers are
-// hopper.cuh's.
+// hopper.cuh's; the 3xTF32 split, mma.sync and cp.async tf32x3.cuh's.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "hopper.cuh"
 #include "moby_kernels.cuh"
+#include "tf32x3.cuh"
 
 // Probe builds (tools/mla_decode_probe.py) leave phases of the tensor-core
 // instance out, or undo a step of its design, to time the rest: bit 1 the
@@ -107,15 +133,6 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void narrow(float* p, float x) { *p = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
@@ -137,6 +154,158 @@ __device__ __forceinline__ void split_range(int len, int split, int n_split,
   const int per = (tiles + n_split - 1) / n_split * kTile;
   start = min(split * per, len);
   end = min(start + per, len);
+}
+
+// -- the schedule of the tensor-core and tf32x3 instances: every request's
+// live tiles of kT positions (64 and 32), requests in order, cut into
+// n_runs runs of equal length (to a tile). Run c takes global tiles
+// [c N / C, (c + 1) N / C) of the N; its stretch of request b is a
+// segment, and its unnormalised partial goes to slot c + b (unique: along
+// the tiles c and b never fall and one of them rises at each new segment,
+// so there are at most C + B - 1). kernels/mla_decode_attention/ops.py::
+// plan is the same in Python. A run is a cluster's (tensor-core instance)
+// or a group of CTAs' that split the heads (tf32x3).
+
+template <int kT>
+__device__ __forceinline__ int live_tiles(const int* lengths, int b,
+                                          int s_len) {
+  return (min(max(lengths[b], 0), s_len) + kT - 1) / kT;
+}
+
+// Warp-collective: the live tiles of requests [0, batch).
+template <int kT>
+__device__ __forceinline__ int count_tiles(const int* lengths, int batch,
+                                           int s_len) {
+  const int lane = threadIdx.x % 32;
+  int n = 0;
+  for (int b = lane; b < batch; b += 32) n += live_tiles<kT>(lengths, b, s_len);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
+  return n;
+}
+
+// Warp-collective: the request that holds global tile `tile` (below the
+// total) and its first global tile.
+template <int kT>
+__device__ __forceinline__ void find_request(const int* lengths, int batch,
+                                             int s_len, int tile, int& b_out,
+                                             int& first) {
+  const int lane = threadIdx.x % 32;
+  int done = 0;   // tiles of the requests before this chunk of 32
+  for (int base = 0; base < batch; base += 32) {
+    const int b = base + lane;
+    const int n = b < batch ? live_tiles<kT>(lengths, b, s_len) : 0;
+    int incl = n;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const unsigned hit = __ballot_sync(0xffffffffu, done + incl > tile);
+    if (hit) {
+      const int f = __ffs(hit) - 1;
+      b_out = base + f;
+      first = done + __shfl_sync(0xffffffffu, incl - n, f);
+      return;
+    }
+    done += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  b_out = batch;
+  first = done;
+}
+
+__device__ __forceinline__ int run_start(int c, int n_runs, int total) {
+  return static_cast<int>(static_cast<long long>(c) * total / n_runs);
+}
+
+// The run that holds global tile i: the last c with run_start(c) <= i.
+__device__ __forceinline__ int run_of(int i, int n_runs, int total) {
+  return static_cast<int>(((i + 1LL) * n_runs + total - 1) / total) - 1;
+}
+
+// Runs of no tile (more runs than tiles) write nothing.
+__device__ __forceinline__ bool run_live(int c, int n_runs, int total) {
+  return run_start(c, n_runs, total) < run_start(c + 1, n_runs, total);
+}
+
+// The runs' shape for the merge.
+struct RunArgs {
+  int batch, n_heads, s_len, n_runs;
+};
+
+// The merge of both (512, 64) instances: one block per (b, head) row, the
+// partials of request b's segments (slots c + b for the runs c that hold
+// its tiles: from the run of its first tile to that of its last, those
+// whose runs are not empty) rescaled to their common max (log2 domain) and
+// normalised; a request with no live position gives 0. A weight that
+// underflows to 0 skips its slot.
+constexpr int kMergeThreads = 128;
+
+template <int kT, int R, typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+mla_decode_merge_kernel(const int* __restrict__ lengths, RunArgs a,
+                        const float* __restrict__ part_m,
+                        const float* __restrict__ part_l,
+                        const float* __restrict__ part_acc,
+                        T* __restrict__ out) {
+  static_assert(R % kMergeThreads == 0, "columns a thread");
+  constexpr int kCols = R / kMergeThreads;
+  extern __shared__ float w_s[];   // [n_runs]
+  __shared__ float denom_s;
+  __shared__ int c_lo_s, c_hi_s;
+  const int row = blockIdx.x, b = row / a.n_heads, h = row % a.n_heads;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int total = count_tiles<kT>(lengths, a.batch, a.s_len);
+    const int first = count_tiles<kT>(lengths, b, a.s_len);
+    const int n = live_tiles<kT>(lengths, b, a.s_len);
+    int c_lo = 0, c_hi = -1;
+    if (n > 0) {
+      c_lo = run_of(first, a.n_runs, total);
+      c_hi = run_of(first + n - 1, a.n_runs, total);
+    }
+    float m = kNeg;
+    for (int c = c_lo + lane; c <= c_hi; c += 32)
+      if (run_live(c, a.n_runs, total))
+        m = fmaxf(m, part_m[static_cast<long long>(c + b) * a.n_heads + h]);
+    m = warp_max(m);
+    float l = 0.0f;
+    for (int c = c_lo + lane; c <= c_hi; c += 32) {
+      const long long at = static_cast<long long>(c + b) * a.n_heads + h;
+      const float w =
+          run_live(c, a.n_runs, total) ? exp2f(part_m[at] - m) : 0.0f;
+      w_s[c - c_lo] = w;
+      if (w != 0.0f) l = fmaf(part_l[at], w, l);
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      denom_s = fmaxf(l, 1e-30f);
+      c_lo_s = c_lo;
+      c_hi_s = c_hi;
+    }
+  }
+  __syncthreads();
+  const float denom = denom_s;
+  const int c_lo = c_lo_s, c_hi = c_hi_s;
+  // A thread's columns d = threadIdx.x + 128 i in accumulators of their
+  // own: a slot's loads issue together; the slots are summed in order.
+  float acc[kCols];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) acc[i] = 0.0f;
+  for (int c = c_lo; c <= c_hi; ++c) {
+    const float w = w_s[c - c_lo];
+    if (w == 0.0f) continue;
+    const float* src = part_acc +
+                       (static_cast<long long>(c + b) * a.n_heads + h) * R +
+                       threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < kCols; ++i)
+      acc[i] = fmaf(src[i * kMergeThreads], w, acc[i]);
+  }
+  T* dst = out + static_cast<long long>(row) * R + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < kCols; ++i)
+    narrow(dst + i * kMergeThreads, acc[i] / denom);
 }
 
 // ---- the tensor-core instance: bf16, R 512, P 64 ---------------------------
@@ -169,67 +338,6 @@ struct TcArgs {
   int batch, n_heads, s_len, n_clusters;
   float scale_log2;             // scale * log2(e)
 };
-
-// -- the schedule: every request's live tiles of 64 positions, requests in
-// order, cut into n_clusters runs of equal length (to a tile). Cluster c
-// takes global tiles [c N / C, (c + 1) N / C) of the N; its run of request
-// b is a segment, and its unnormalised partial goes to slot c + b (unique:
-// along the tiles c and b never fall and one of them rises at each new
-// segment, so there are at most C + B - 1). kernels/mla_decode_attention/
-// ops.py::plan is the same in Python.
-
-__device__ __forceinline__ int live_tiles(const int* lengths, int b,
-                                          int s_len) {
-  return (min(max(lengths[b], 0), s_len) + kTile - 1) / kTile;
-}
-
-// Warp-collective: the live tiles of requests [0, batch).
-__device__ __forceinline__ int count_tiles(const int* lengths, int batch, int s_len) {
-  const int lane = threadIdx.x % 32;
-  int n = 0;
-  for (int b = lane; b < batch; b += 32) n += live_tiles(lengths, b, s_len);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(0xffffffffu, n, o);
-  return n;
-}
-
-// Warp-collective: the request that holds global tile `tile` (below the
-// total) and its first global tile.
-__device__ __forceinline__ void find_request(const int* lengths, int batch, int s_len,
-                             int tile, int& b_out, int& first) {
-  const int lane = threadIdx.x % 32;
-  int done = 0;   // tiles of the requests before this chunk of 32
-  for (int base = 0; base < batch; base += 32) {
-    const int b = base + lane;
-    const int n = b < batch ? live_tiles(lengths, b, s_len) : 0;
-    int incl = n;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += y;
-    }
-    const unsigned hit = __ballot_sync(0xffffffffu, done + incl > tile);
-    if (hit) {
-      const int f = __ffs(hit) - 1;
-      b_out = base + f;
-      first = done + __shfl_sync(0xffffffffu, incl - n, f);
-      return;
-    }
-    done += __shfl_sync(0xffffffffu, incl, 31);
-  }
-  b_out = batch;
-  first = done;
-}
-
-__device__ __forceinline__ int run_start(int c, int n_clusters, int total) {
-  return static_cast<int>(static_cast<long long>(c) * total / n_clusters);
-}
-
-// The cluster whose run holds global tile i: the last c with
-// run_start(c) <= i.
-__device__ __forceinline__ int cluster_of(int i, int n_clusters, int total) {
-  return static_cast<int>(((i + 1LL) * n_clusters + total - 1) / total) - 1;
-}
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -272,7 +380,7 @@ __device__ __forceinline__ void consume(const Cta& cta,
   float acc0[64], acc1[64];
   int k = 0;
   for (int b = b_first, first = first_tile, g = lo; g < hi; ++b) {
-    const int n = live_tiles(lengths, b, a.s_len);
+    const int n = live_tiles<kTile>(lengths, b, a.s_len);
     const int j0 = g - first, j1 = min(n, hi - first);
     if (j1 <= j0) {
       first += n;
@@ -530,7 +638,7 @@ mla_decode_tc_kernel(const __grid_constant__ CUtensorMap ckv_map,
   if (warp == 1) {
     // This cluster's run [lo, hi) of the global tiles, from `lengths` on
     // the device; its first request and that request's first tile.
-    const int total = count_tiles(lengths, a.batch, a.s_len);
+    const int total = count_tiles<kTile>(lengths, a.batch, a.s_len);
     int lo, hi, b0 = 0, first = 0;
     if constexpr ((kProbeSkip & 32) != 0) {
       // Probe bit 32: each request's tiles cut into C / B equal runs.
@@ -538,15 +646,15 @@ mla_decode_tc_kernel(const __grid_constant__ CUtensorMap ckv_map,
       b0 = c / per;
       lo = hi = 0;
       if (b0 < a.batch) {
-        first = count_tiles(lengths, b0, a.s_len);
-        const int n = live_tiles(lengths, b0, a.s_len);
+        first = count_tiles<kTile>(lengths, b0, a.s_len);
+        const int n = live_tiles<kTile>(lengths, b0, a.s_len);
         lo = first + c % per * n / per;
         hi = first + (c % per + 1) * n / per;
       }
     } else {
       lo = run_start(c, a.n_clusters, total);
       hi = run_start(c + 1, a.n_clusters, total);
-      if (lo < hi) find_request(lengths, a.batch, a.s_len, lo, b0, first);
+      if (lo < hi) find_request<kTile>(lengths, a.batch, a.s_len, lo, b0, first);
     }
     if (lane == 0) {
       plan[0] = b0;
@@ -568,7 +676,7 @@ mla_decode_tc_kernel(const __grid_constant__ CUtensorMap ckv_map,
     if (threadIdx.x == 0) {
       int k = 0;   // the run's tile count: stage k % 2, round k / 2
       for (int b = b_first, first = first_tile, g = lo; g < hi; ++b) {
-        const int n = live_tiles(lengths, b, a.s_len);
+        const int n = live_tiles<kTile>(lengths, b, a.s_len);
         const int j0 = g - first, j1 = min(n, hi - first);
         for (int j = j0; j < j1; ++j, ++k) {
           const int s = k % kStages;
@@ -617,72 +725,6 @@ mla_decode_tc_kernel(const __grid_constant__ CUtensorMap ckv_map,
                                part_l, part_acc);
     }
     cluster_sync();
-  }
-}
-
-// One block per (b, head) row: the partials of request b's segments
-// (slots c + b for the clusters c whose runs hold its tiles: from the
-// cluster of its first tile to that of its last, those whose runs are not
-// empty) rescaled to their common max and normalised; a request with no
-// live position gives 0. A weight that underflows to 0 skips its slot.
-constexpr int kCombineThreads = 128;
-
-__global__ void __launch_bounds__(kCombineThreads)
-mla_decode_tc_combine_kernel(const int* __restrict__ lengths, TcArgs a,
-                             const float* __restrict__ part_m,
-                             const float* __restrict__ part_l,
-                             const float* __restrict__ part_acc,
-                             __nv_bfloat16* __restrict__ out) {
-  extern __shared__ float w_s[];   // [n_clusters]
-  __shared__ float denom_s;
-  __shared__ int c_lo_s, c_hi_s;
-  const int row = blockIdx.x, b = row / a.n_heads, h = row % a.n_heads;
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const int total = count_tiles(lengths, a.batch, a.s_len);
-    const int first = count_tiles(lengths, b, a.s_len);
-    const int n = live_tiles(lengths, b, a.s_len);
-    int c_lo = 0, c_hi = -1;
-    if (n > 0) {
-      c_lo = cluster_of(first, a.n_clusters, total);
-      c_hi = cluster_of(first + n - 1, a.n_clusters, total);
-    }
-    // Clusters of empty runs (more clusters than tiles) wrote nothing.
-    auto live = [&](int c) {
-      return run_start(c, a.n_clusters, total) <
-             run_start(c + 1, a.n_clusters, total);
-    };
-    float m = kNeg;
-    for (int c = c_lo + lane; c <= c_hi; c += 32)
-      if (live(c))
-        m = fmaxf(m, part_m[static_cast<long long>(c + b) * a.n_heads + h]);
-    m = warp_max(m);
-    float l = 0.0f;
-    for (int c = c_lo + lane; c <= c_hi; c += 32) {
-      const long long at = static_cast<long long>(c + b) * a.n_heads + h;
-      const float w = live(c) ? exp2f(part_m[at] - m) : 0.0f;
-      w_s[c - c_lo] = w;
-      if (w != 0.0f) l = fmaf(part_l[at], w, l);
-    }
-    l = warp_sum(l);
-    if (lane == 0) {
-      denom_s = fmaxf(l, 1e-30f);
-      c_lo_s = c_lo;
-      c_hi_s = c_hi;
-    }
-  }
-  __syncthreads();
-  const float denom = denom_s;
-  const int c_lo = c_lo_s, c_hi = c_hi_s;
-  for (int d = threadIdx.x; d < kR; d += kCombineThreads) {
-    float acc = 0.0f;
-    for (int c = c_lo; c <= c_hi; ++c)
-      if (w_s[c - c_lo] != 0.0f)
-        acc = fmaf(part_acc[(static_cast<long long>(c + b) * a.n_heads + h) *
-                                kR + d],
-                   w_s[c - c_lo], acc);
-    out[static_cast<long long>(row) * kR + d] =
-        __float2bfloat16_rn(acc / denom);
   }
 }
 
@@ -744,16 +786,340 @@ int launch(const void* q_lat, const void* q_rope, const void* ckv,
                          static_cast<const __nv_bfloat16*>(q_rope),
                          static_cast<const int*>(lengths), a, pm, pl, pa);
   if (e != cudaSuccess) return static_cast<int>(e);
-  mla_decode_tc_combine_kernel<<<batch * n_heads, kCombineThreads,
-                                 n_clusters * sizeof(float), stream>>>(
-      static_cast<const int*>(lengths), a, pm, pl, pa,
-      static_cast<__nv_bfloat16*>(out));
+  mla_decode_merge_kernel<kTile, kR, __nv_bfloat16>
+      <<<batch * n_heads, kMergeThreads, n_clusters * sizeof(float),
+         stream>>>(static_cast<const int*>(lengths),
+                   RunArgs{batch, n_heads, s_len, n_clusters}, pm, pl, pa,
+                   static_cast<__nv_bfloat16*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
-// ---- the SIMT instances: f32 (both sizes), bf16 at (16, 8) ----------------
+// ---- the tf32x3 instance: f32, R 512, P 64 ---------------------------------
+
+namespace tf {
+
+constexpr int kR = 512, kP = 64, kK = kR + kP;
+constexpr int kHeads = 16;                  // heads a CTA: the mma's M
+constexpr int kTile = 32;                   // positions a tile
+constexpr int kStages = 2;                  // tiles in the cp.async ring
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSteps = kK / 8 / kWarps;     // k-steps of the scores a warp: 9
+constexpr int kCols = kR / kWarps;          // value columns a warp: 64
+constexpr int kN = kTile / 8;               // score n-tiles; P.V k-steps
+constexpr int kRow = kK + 4;                // f32 a row of Q or a tile, padded
+constexpr int kSmemQ = 0;                                 // [kHeads][kRow]
+constexpr int kSmemTile = kSmemQ + kHeads * kRow * 4;     // [stage][kTile][kRow]
+constexpr int kSmemRed = kSmemTile + kStages * kTile * kRow * 4;  // [warp][kN][lane]
+constexpr int kSmemP = kSmemRed + kWarps * kN * 32 * 16;  // [kN][lane]
+constexpr int kSmemCorr = kSmemP + kN * 32 * 16;          // [kHeads]
+constexpr int kSmemPlan = kSmemCorr + kHeads * 4;
+constexpr int kSmemBytes = kSmemPlan + 16;
+static_assert(kSteps * 8 * kWarps == kK, "the scores' depth by warp");
+static_assert(kSmemBytes <= 232448, "shared memory");
+
+struct TfArgs {
+  long long ql_b, ql_h;         // q_lat (B, H, R)
+  long long qr_b, qr_h;         // q_rope (B, H, P)
+  long long c_b, c_s;           // ckv (B, S, R)
+  long long k_b, k_s;           // krope (B, S, P)
+  int batch, n_heads, s_len, n_runs;
+  float scale_log2;             // scale * log2(e)
+};
+
+// Rows [0, n) of [a | b] (a row of a: kR floats at a + r * sa; of b: kP
+// at b + r * sb) into dst ([rows][kRow] f32) by 16-byte cp.async; rows
+// [n, rows) are zeros.
+template <int kRows>
+__device__ __forceinline__ void copy_rows(float* dst, const float* a,
+                                          long long sa, const float* b,
+                                          long long sb, int n) {
+  for (int e = threadIdx.x; e < kRows * (kK / 4); e += kThreads) {
+    const int row = e / (kK / 4), q4 = e % (kK / 4);
+    const bool ok = row < n;
+    const long long r = ok ? row : 0;
+    const float* src = q4 < kR / 4 ? a + r * sa + q4 * 4
+                                   : b + r * sb + (q4 - kR / 4) * 4;
+    cp_async16(dst + row * kRow + q4 * 4, src, ok);
+  }
+}
+
+// A CTA of 8 warps takes 16 heads (h0 = 16 x its group) of the requests of
+// its run (run = blockIdx.x / groups); the groups of a run are neighbours
+// in launch order, so a tile leaves memory once and the other groups read
+// it from L2.
+__global__ void __launch_bounds__(kThreads, 1)
+mla_decode_tf32x3_kernel(const float* __restrict__ q_lat,
+                         const float* __restrict__ q_rope,
+                         const float* __restrict__ ckv,
+                         const float* __restrict__ krope,
+                         const int* __restrict__ lengths, const TfArgs a,
+                         float* __restrict__ part_m,
+                         float* __restrict__ part_l,
+                         float* __restrict__ part_acc) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* const qs = reinterpret_cast<float*>(smem + kSmemQ);
+  float* const ring = reinterpret_cast<float*>(smem + kSmemTile);
+  float4* const red = reinterpret_cast<float4*>(smem + kSmemRed);
+  float4* const p_s = reinterpret_cast<float4*>(smem + kSmemP);
+  float* const corr_s = reinterpret_cast<float*>(smem + kSmemCorr);
+  int* const plan = reinterpret_cast<int*>(smem + kSmemPlan);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;   // the mma's groupID, thread
+  const int groups = (a.n_heads + kHeads - 1) / kHeads;
+  const int c = blockIdx.x / groups;
+  const int h0 = blockIdx.x % groups * kHeads;
+  const int hg = min(kHeads, a.n_heads - h0);
+  if (warp == 0) {
+    // This run [lo, hi) of the global tiles, from `lengths` on the device;
+    // its first request and that request's first tile.
+    const int total = count_tiles<kTile>(lengths, a.batch, a.s_len);
+    const int lo = run_start(c, a.n_runs, total);
+    const int hi = run_start(c + 1, a.n_runs, total);
+    int b0 = 0, first = 0;
+    if (lo < hi) find_request<kTile>(lengths, a.batch, a.s_len, lo, b0, first);
+    if (lane == 0) {
+      plan[0] = b0;
+      plan[1] = first;
+      plan[2] = lo;
+      plan[3] = hi;
+    }
+  }
+  __syncthreads();
+  const int b_first = plan[0], first_tile = plan[1], lo = plan[2],
+            hi = plan[3];
+  // The softmax of rows (heads) 2 warp and 2 warp + 1: this lane's row,
+  // its positions 2 k2 and 2 k2 + 1 of a tile, and where the scores'
+  // fragments hold them (n-tile, lane, register).
+  const int sr = 2 * warp + lane / 16, k2 = lane % 16;
+  const int s_n = k2 / 4, s_lane = sr % 8 * 4 + k2 % 4, s_reg = sr / 8 * 2;
+  // This warp's A fragments of Q: a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+  // a3 (g+8, t+4) of its k-steps, dims [72 warp, + 72) of [q_lat | q_rope].
+  const float* const qa = qs + gq * kRow + warp * kSteps * 8 + tq;
+
+  float acc[kCols / 8][4];   // O, heads g and g + 8 x this warp's columns
+  float mc_run = 0.0f, l_run = 0.0f;   // row sr: max (log2 domain), sum
+  for (int b = b_first, first = first_tile, g = lo; g < hi; ++b) {
+    const int n = live_tiles<kTile>(lengths, b, a.s_len);
+    const int j0 = g - first, j1 = min(n, hi - first);
+    if (j1 <= j0) {
+      first += n;
+      continue;
+    }
+    const int len = min(max(lengths[b], 0), a.s_len);
+    const float* cb = ckv + b * a.c_b;
+    const float* kb = krope + b * a.k_b;
+    // The segment's queries (heads past the last are zeros) and its first
+    // tile in one group of copies; then each tile's successor in flight
+    // while it is consumed.
+    copy_rows<kHeads>(qs, q_lat + b * a.ql_b + h0 * a.ql_h, a.ql_h,
+                      q_rope + b * a.qr_b + h0 * a.qr_h, a.qr_h, hg);
+    copy_rows<kTile>(ring, cb + static_cast<long long>(j0) * kTile * a.c_s,
+                     a.c_s, kb + static_cast<long long>(j0) * kTile * a.k_s,
+                     a.k_s, len - j0 * kTile);
+    cp_async_commit();
+#pragma unroll
+    for (int d = 0; d < kCols / 8; ++d)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[d][i] = 0.0f;
+    mc_run = kNeg;
+    l_run = 0.0f;
+
+    for (int j = j0; j < j1; ++j) {
+      const int p0 = j * kTile;
+      if (j + 1 < j1) {
+        const long long p1 = p0 + kTile;
+        copy_rows<kTile>(ring + (j + 1 - j0) % kStages * kTile * kRow,
+                         cb + p1 * a.c_s, a.c_s, kb + p1 * a.k_s, a.k_s,
+                         len - static_cast<int>(p1));
+      }
+      cp_async_commit();
+      cp_async_wait<1>();   // tile j (and the segment's Q) has landed
+      __syncthreads();
+      const float* tile = ring + (j - j0) % kStages * kTile * kRow;
+
+      // This warp's share of S = Q.K^T (its 9 of the 72 k-steps; B
+      // fragments b0 = K[n*8 + g][d*8 + t], b1 at dim t + 4), to `red`.
+      {
+        float sc[kN][4];
+#pragma unroll
+        for (int nn = 0; nn < kN; ++nn)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sc[nn][i] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) {
+          uint32_t ah[4], al[4];
+          split(qa[kk * 8], ah[0], al[0]);
+          split(qa[kk * 8 + 8 * kRow], ah[1], al[1]);
+          split(qa[kk * 8 + 4], ah[2], al[2]);
+          split(qa[kk * 8 + 8 * kRow + 4], ah[3], al[3]);
+          const float* kt = tile + gq * kRow + (warp * kSteps + kk) * 8 + tq;
+#pragma unroll
+          for (int nn = 0; nn < kN; ++nn) {
+            uint32_t bh[2], bl[2];
+            split(kt[nn * 8 * kRow], bh[0], bl[0]);
+            split(kt[nn * 8 * kRow + 4], bh[1], bl[1]);
+            mma(sc[nn], al, bh);
+            mma(sc[nn], ah, bl);
+            mma(sc[nn], ah, bh);
+          }
+        }
+#pragma unroll
+        for (int nn = 0; nn < kN; ++nn)
+          red[(warp * kN + nn) * 32 + lane] =
+              make_float4(sc[nn][0], sc[nn][1], sc[nn][2], sc[nn][3]);
+      }
+      __syncthreads();
+
+      // The online softmax of rows sr (a half-warp each): the warps'
+      // shares summed in warp order, positions at or past the length
+      // masked (-1e30, p = 0); p = 2^(s c - m c) to p_s in the scores'
+      // fragment layout, the row's rescale factor to corr_s.
+      {
+        float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          const float2 x = *reinterpret_cast<const float2*>(
+              reinterpret_cast<const float*>(red + (w * kN + s_n) * 32 +
+                                             s_lane) + s_reg);
+          s0 += x.x;
+          s1 += x.y;
+        }
+        const bool live0 = p0 + 2 * k2 < len, live1 = p0 + 2 * k2 + 1 < len;
+        s0 = live0 ? s0 : kNeg;
+        s1 = live1 ? s1 : kNeg;
+        float mx = fmaxf(s0, s1);
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float mc_new = fmaxf(mc_run, mx * a.scale_log2);
+        const float e0 =
+            live0 ? exp2_fast(__fmaf_rn(s0, a.scale_log2, -mc_new)) : 0.0f;
+        const float e1 =
+            live1 ? exp2_fast(__fmaf_rn(s1, a.scale_log2, -mc_new)) : 0.0f;
+        float ps = e0 + e1;
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          ps += __shfl_xor_sync(0xffffffffu, ps, o);
+        const float corr = exp2_fast(mc_run - mc_new);
+        l_run = l_run * corr + ps;
+        mc_run = mc_new;
+        *reinterpret_cast<float2*>(
+            reinterpret_cast<float*>(p_s + s_n * 32 + s_lane) + s_reg) =
+            make_float2(e0, e1);
+        if (k2 == 0) corr_s[sr] = corr;
+      }
+      __syncthreads();
+
+      // O += P.V over the tile for this warp's 64 columns: A fragment of
+      // positions kk*8 + {2t, 2t+1} (the scores' layout: a0 = p(g, 2t),
+      // a1 = p(g+8, 2t), a2 = p(g, 2t+1), a3 = p(g+8, 2t+1)); B fragment
+      // b0 = V[kk*8 + 2t][col], b1 = V[kk*8 + 2t + 1][col], V = the ckv
+      // columns of the same tile.
+      {
+        const float cg = corr_s[gq], cg8 = corr_s[gq + 8];
+#pragma unroll
+        for (int d = 0; d < kCols / 8; ++d) {
+          acc[d][0] *= cg;
+          acc[d][1] *= cg;
+          acc[d][2] *= cg8;
+          acc[d][3] *= cg8;
+        }
+#pragma unroll
+        for (int kk = 0; kk < kN; ++kk) {
+          const float4 pv = p_s[kk * 32 + lane];
+          const float pa[4] = {pv.x, pv.z, pv.y, pv.w};
+          uint32_t ph[4], pl[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split(pa[i], ph[i], pl[i]);
+          const float* vt = tile + (kk * 8 + 2 * tq) * kRow + warp * kCols + gq;
+#pragma unroll
+          for (int d = 0; d < kCols / 8; ++d) {
+            uint32_t bh[2], bl[2];
+            split(vt[d * 8], bh[0], bl[0]);
+            split(vt[d * 8 + kRow], bh[1], bl[1]);
+            mma(acc[d], pl, bh);
+            mma(acc[d], ph, bl);
+            mma(acc[d], ph, bh);
+          }
+        }
+      }
+      // The stage, red and p_s are free for the next tile; after the
+      // segment's last, Q is free for the next segment.
+      __syncthreads();
+    }
+
+    // The segment's unnormalised partial: slot c + b, rows h0 + r.
+    const long long row0 = static_cast<long long>(c + b) * a.n_heads + h0;
+    float* pa = part_acc + row0 * kR + warp * kCols + 2 * tq;
+#pragma unroll
+    for (int d = 0; d < kCols / 8; ++d) {
+      if (gq < hg)
+        *reinterpret_cast<float2*>(pa + gq * kR + d * 8) =
+            make_float2(acc[d][0], acc[d][1]);
+      if (gq + 8 < hg)
+        *reinterpret_cast<float2*>(pa + (gq + 8) * kR + d * 8) =
+            make_float2(acc[d][2], acc[d][3]);
+    }
+    if (k2 == 0 && sr < hg) {
+      part_m[row0 + sr] = mc_run;
+      part_l[row0 + sr] = l_run;
+    }
+
+    g = first + j1;
+    first += n;
+  }
+}
+
+// Runs of CTAs that fit on the card at once (one CTA an SM; a run is
+// ceil(H / 16) CTAs), at least 1.
+int max_runs(int n_heads, int* n) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mla_decode_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mla_decode_tf32x3_kernel, kThreads, kSmemBytes);
+  const int groups = (n_heads + kHeads - 1) / kHeads;
+  *n = std::max(1, per_sm * sms / groups);
+  return static_cast<int>(err);
+}
+
+int launch(const void* q_lat, const void* q_rope, const void* ckv,
+           const void* krope, const void* lengths, void* out, float* pm,
+           float* pl, float* pa, const long long* st, int batch, int n_heads,
+           int s_len, int n_runs, float scale, cudaStream_t stream) {
+  if (n_runs < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      mla_decode_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const TfArgs a{st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+                 batch, n_heads, s_len, n_runs, scale * 1.4426950408889634f};
+  const int groups = (n_heads + kHeads - 1) / kHeads;
+  mla_decode_tf32x3_kernel<<<n_runs * groups, kThreads, kSmemBytes, stream>>>(
+      static_cast<const float*>(q_lat), static_cast<const float*>(q_rope),
+      static_cast<const float*>(ckv), static_cast<const float*>(krope),
+      static_cast<const int*>(lengths), a, pm, pl, pa);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  mla_decode_merge_kernel<kTile, kR, float>
+      <<<batch * n_heads, kMergeThreads, n_runs * sizeof(float), stream>>>(
+          static_cast<const int*>(lengths),
+          RunArgs{batch, n_heads, s_len, n_runs}, pm, pl, pa,
+          static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tf
+
+// ---- the SIMT instances: f32 and bf16 at (16, 8) ----------------------------
 
 namespace simt {
 
@@ -942,15 +1308,16 @@ int launch(Kernel partial, int smem, int heads_per_block, int r_dim,
 
 // q_lat (B,H,R) and q_rope (B,H,P) through strides st[0..1], st[2..3] =
 // {b, h}; ckv (B,S,R) and krope (B,S,P) through st[4..5], st[6..7] =
-// {b, s}; the last dim contiguous, and for bf16 at (512, 64) every base and
-// stride 16-byte aligned (TMA's and the 16-byte query loads'). lengths (B,)
+// {b, s}; the last dim contiguous, and at (512, 64) every base and stride
+// 16-byte aligned (TMA's, cp.async's and the 16-byte query loads'). lengths (B,)
 // int32: positions attended per request ([0, lengths)). out (B,H,R)
 // contiguous, of the inputs' type (bf16 if is_bf16, else f32). (R, P) is
-// (512, 64) or (16, 8); H at most 128 (the wrapper's limit). n_part: for
-// bf16 at (512, 64) the clusters (moby_mla_decode_clusters), with scratch
-// part_m, part_l (n_part + B, H) and part_acc (n_part + B, H, R) f32;
-// otherwise the SIMT instance's splits a request, with scratch part_m,
-// part_l (n_part, B*H) and part_acc (n_part, B*H, R).
+// (512, 64) or (16, 8); H at most 128 (the wrapper's limit). n_part: at
+// (512, 64) the runs, bf16's clusters (moby_mla_decode_clusters) or f32's
+// (moby_mla_decode_runs), with scratch part_m, part_l (n_part + B, H) and
+// part_acc (n_part + B, H, R) f32; at (16, 8) the SIMT instance's splits a
+// request, with scratch part_m, part_l (n_part, B*H) and part_acc (n_part,
+// B*H, R).
 MOBY_API int moby_mla_decode_attention(
     const void* q_lat, const void* q_rope, const void* ckv, const void* krope,
     const void* lengths, void* out, void* part_m, void* part_l,
@@ -965,7 +1332,7 @@ MOBY_API int moby_mla_decode_attention(
   const bool wide = r_dim == 512 && p_dim == 64;
   if (!wide && !(r_dim == 16 && p_dim == 8))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (is_bf16 && wide)
+  if (wide && is_bf16)
     return n_heads > tc::kHeads
                ? tc::launch<2>(q_lat, q_rope, ckv, krope, lengths, out, pm,
                                pl, pa, st, batch, n_heads, s_len, n_part,
@@ -973,6 +1340,9 @@ MOBY_API int moby_mla_decode_attention(
                : tc::launch<1>(q_lat, q_rope, ckv, krope, lengths, out, pm,
                                pl, pa, st, batch, n_heads, s_len, n_part,
                                scale, s);
+  if (wide)
+    return tf::launch(q_lat, q_rope, ckv, krope, lengths, out, pm, pl, pa,
+                      st, batch, n_heads, s_len, n_part, scale, s);
   const Args a{st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
                n_heads, s_len, n_part, scale};
   if (is_bf16)
@@ -980,11 +1350,6 @@ MOBY_API int moby_mla_decode_attention(
         simt::mla_decode_simt_kernel<16, 8, __nv_bfloat16>,
         simt::Smem<16, 8>::kBytes, simt::kHeads, r_dim, q_lat, q_rope, ckv,
         krope, lengths, out, pm, pl, pa, batch, a, s);
-  if (wide)
-    return launch<float>(simt::mla_decode_simt_kernel<512, 64, float>,
-                         simt::Smem<512, 64>::kBytes, simt::kHeads, r_dim,
-                         q_lat, q_rope, ckv, krope, lengths, out, pm, pl, pa,
-                         batch, a, s);
   return launch<float>(simt::mla_decode_simt_kernel<16, 8, float>,
                        simt::Smem<16, 8>::kBytes, simt::kHeads, r_dim, q_lat,
                        q_rope, ckv, krope, lengths, out, pm, pl, pa, batch, a,
@@ -998,5 +1363,14 @@ MOBY_API int moby_mla_decode_clusters(int n_heads) {
   int n = 0;
   const int err = n_heads > tc::kHeads ? tc::max_clusters<2>(&n)
                                        : tc::max_clusters<1>(&n);
+  return err ? -err : n;
+}
+
+// The runs the tf32x3 instance splits the live tiles into at n_heads query
+// heads: the groups of ceil(n_heads / 16) CTAs that fit on the card at
+// once (one CTA an SM), or minus a CUDA error code.
+MOBY_API int moby_mla_decode_runs(int n_heads) {
+  int n = 0;
+  const int err = tf::max_runs(n_heads, &n);
   return err ? -err : n;
 }

@@ -39,9 +39,10 @@ instances of one kernel, one counter each (``point_proj.ops.point_proj``
 and ``project_and_label``). ``flash_attention`` has two kernels, one
 counter each; ``flash_attention.ops.route`` picks one, for the forward
 and for the gradient alike. So has the auction
-(``auction.ops.plan`` picks by n). ``mla_decode_attention`` has two
-instances, a tensor-core one and a SIMT one, under one counter
-(``mla_decode_attention.ops.route`` picks).
+(``auction.ops.plan`` picks by n). ``mla_decode_attention`` has three
+instances, a bf16 tensor-core one, an f32 3xTF32 one and a SIMT one at
+SMOKE's dims, under one counter (``mla_decode_attention.ops.route``
+picks; ``ops.route_launches`` counts by instance).
 """
 from __future__ import annotations
 
@@ -86,3 +87,5 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _COUNTERS.values():
         setattr(mod, attr, 0)
+    for route in _mla_decode_attention.route_launches:
+        _mla_decode_attention.route_launches[route] = 0

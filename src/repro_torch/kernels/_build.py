@@ -37,7 +37,7 @@ SOURCES = ("errors.cu", "point_proj.cu", "iou2d.cu", "ransac_score.cu",
            "decode_attention.cu",
            "decode_attention_bwd.cu", "mla_decode_attention.cu",
            "pillar_scatter.cu", "auction.cu")
-HEADERS = ("moby_kernels.cuh", "hopper.cuh")
+HEADERS = ("moby_kernels.cuh", "hopper.cuh", "tf32x3.cuh")
 # Where the CUDA toolkit installs nvcc when it is not on PATH.
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -81,6 +81,7 @@ SIGNATURES = {
                                    _I, _I, _I, _I, _I, _I, _I,
                                    ctypes.c_float, _P), _I),
     "moby_mla_decode_clusters": ((_I,), _I),
+    "moby_mla_decode_runs": ((_I,), _I),
     "moby_pillar_scatter": ((_P, _P, _P, _LL, _I, _I, _P, _P), _I),
     "moby_pillar_scatter_bwd": ((_P, _P, _P, _P, _P, _LL, _I, _I, _P, _P, _P,
                                  _P), _I),

@@ -13,10 +13,11 @@ call raises:
   (24, 16)), and bf16 at head dims 16 and 32, runs
   ``csrc/flash_attention.cu`` on the tensor cores too, f32-accurate by the
   3xTF32 split (mma.sync fed by cp.async); ``launches`` counts its
-  launches. bf16 at 16 and 32 stays there: only the SMOKE configs have
-  those widths, and their rows of 64 and 32 bytes would need another
-  swizzle than the 128-byte one the tensor-core kernels' TMA boxes and
-  wgmma descriptors are built on.
+  launches. Its (192, 128) instance is persistent: a block an SM walks a
+  run of query tiles (``block_items``). bf16 at 16 and 32 stays there:
+  only the SMOKE configs have those widths, and their rows of 64 and 32
+  bytes would need another swizzle than the 128-byte one the tensor-core
+  kernels' TMA boxes and wgmma descriptors are built on.
 
 | dtype | (qk, value) head dims | route, forward and gradient |
 | --- | --- | --- |
@@ -50,6 +51,7 @@ every device (training MLA is a later slice).
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
 import torch
 
@@ -95,6 +97,50 @@ def route(dtype: torch.dtype, head_dim: int, value_dim=None) -> str:
         f"{dtype}; the kernels take equal head dims {HEAD_DIMS} (bf16 "
         f"at 64 and 128 on the tensor-core route), (qk, value) "
         f"{MLA_DIMS[0]} in f32 and bf16, and {MLA_DIMS[1]} in f32")
+
+
+# The tf32x3 kernel's persistent instance, MLA's f32 (192, 128): keys a
+# tile, and query rows a warp stacks (16) times the warps of its blocks.
+PERSISTENT_TILE = 32
+
+
+def item_tiles(j: int, n_q: int, rows: int, sk: int, causal: bool,
+               tile: int = PERSISTENT_TILE) -> int:
+    """Key tiles the j-th item of a (b, kv head, head chunk) pair walks in
+    the tf32x3 kernel: query tile n_q - 1 - j when causal (the heaviest
+    first), j otherwise, over keys up to its last row (causal) or sk; at
+    least 1 (an item of no key walks one tile of masked keys)."""
+    qt = n_q - 1 - j if causal else j
+    k_end = min(sk, (qt + 1) * rows) if causal else sk
+    return max(-(-k_end // tile), 1)
+
+
+def block_items(n_pairs: int, n_q: int, rows: int, sk: int, causal: bool,
+                n_blocks: int, tile: int = PERSISTENT_TILE
+                ) -> List[Tuple[int, int, int]]:
+    """The persistent instance's schedule (``block_items`` in
+    ``csrc/flash_attention.cu``): every pair's items in order, their key
+    tiles laid end to end and cut into ``n_blocks`` runs of equal work;
+    block c takes the items that start in run c, as (first pair, first
+    item, items)."""
+    per_pair = sum(item_tiles(j, n_q, rows, sk, causal, tile)
+                   for j in range(n_q))
+    total, out = per_pair * n_pairs, []
+    for c in range(n_blocks):
+        lo, hi = total * c // n_blocks, total * (c + 1) // n_blocks
+        p0, j0 = lo // per_pair, 0
+        s = p0 * per_pair
+        while s < lo:
+            s += item_tiles(j0, n_q, rows, sk, causal, tile)
+            j0 += 1
+            if j0 == n_q:
+                p0, j0 = p0 + 1, 0
+        items, j = 0, j0
+        while s < hi:
+            s += item_tiles(j, n_q, rows, sk, causal, tile)
+            items, j = items + 1, (j + 1) % n_q
+        out.append((p0, j0, items))
+    return out
 
 
 def _check_aligned(name: str, t: torch.Tensor, path: str) -> None:

@@ -5,25 +5,27 @@ of ``repro/models/mla.py::mla_decode_apply`` over the compressed cache.
 A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
 launches the kernel (a pass over the cache and a merge of its partials,
 one launch of the C entry point), or the call raises. ``launches`` counts
-those launches. ``route`` names the instance: ``"tc"`` (bf16 at (R, P) =
-(512, 64): wgmma fed by TMA, 64 heads a CTA, a cluster of two CTAs above
-64 heads) or ``"simt"`` (f32 at both sizes, bf16 at SMOKE's (16, 8): 8
-heads a block).
+those launches, ``route_launches`` the same by instance. ``route`` names
+the instance: ``"tc"`` (bf16 at (R, P) = (512, 64): wgmma fed by TMA, 64
+heads a CTA, a cluster of two CTAs above 64 heads), ``"tf32x3"`` (f32 at
+(512, 64): 3xTF32 mma.sync fed by cp.async, 16 heads a CTA) or ``"simt"``
+(f32 and bf16 at SMOKE's (16, 8): 8 heads a block).
 
 The kernel reads its operands through their strides (the last dim
 contiguous) and ``lengths`` on the card, with no host sync. The
-tensor-core instance copies by TMA and 16-byte loads, so there every base
-address and byte stride must be a multiple of 16: the wrapper checks and
-raises, it never copies. The scratch of the partials (maxima, sums and
-accumulators, f32) is allocated here: for the tensor-core instance
-``clusters + B`` slots of (H, R), ``clusters`` the clusters that fit on
-the card at once; for the SIMT instance ``n_split`` splits a request.
+instances at (512, 64) copy by TMA, cp.async and 16-byte loads, so there
+every base address and byte stride must be a multiple of 16: the wrapper
+checks and raises, it never copies. The scratch of the partials (maxima,
+sums and accumulators, f32) is allocated here: at (512, 64) ``runs + B``
+slots of (H, R), ``runs`` the clusters (``tc``) or the groups of CTAs
+(``tf32x3``) that fit on the card at once; for the SIMT instance
+``n_split`` splits a request.
 
-``plan`` is the tensor-core instance's schedule in Python (the kernel
-computes the same on the device from ``lengths``): every request's live
-tiles of 64 positions, in request order, cut into equal runs, a run a
-cluster; ``merge_clusters`` is which clusters' partials the merge reads
-for a request.
+``plan`` is the schedule of both (512, 64) instances in Python (the
+kernel computes the same on the device from ``lengths``): every request's
+live tiles (64 positions for ``tc``, 32 for ``tf32x3``), in request order,
+cut into equal runs; ``merge_clusters`` is which runs' partials the merge
+reads for a request.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.mla_decode_attention import ref as _ref
 
 launches = 0
+route_launches = {"tc": 0, "tf32x3": 0, "simt": 0}
 
 DTYPES = (torch.float32, torch.bfloat16)
 # (R, P): the latent (kv_lora) and rope dims of deepseek-v2 at full width
@@ -48,6 +51,9 @@ MAX_HEADS = 128
 TC_HEADS = 64
 # Positions a tile of the tensor-core instance: the schedule's unit.
 TC_TILE = 64
+# The tf32x3 instance: heads a CTA, positions a tile (its schedule's unit).
+TF_HEADS = 16
+TF_TILE = 32
 # The SIMT instance: heads a block, positions a tile (a split takes whole
 # tiles), blocks an SM that n_splits aims at.
 SIMT_HEADS = 8
@@ -57,15 +63,17 @@ WAVES = 4
 
 def route(dtype: torch.dtype, r: int, p: int) -> str:
     """The instance that takes a CUDA call: ``"tc"`` (bf16 at (512, 64)),
-    ``"simt"`` (f32 at ``DIMS``, bf16 at (16, 8)); anything else
-    raises."""
+    ``"tf32x3"`` (f32 at (512, 64)), ``"simt"`` (both dtypes at (16, 8));
+    anything else raises."""
     if dtype not in DTYPES:
         raise TypeError(f"mla_decode_attention: dtype {dtype}, the kernel "
                         f"takes {DTYPES}")
     if (r, p) not in DIMS:
         raise ValueError(f"mla_decode_attention: (latent, rope) dims "
                          f"({r}, {p}), the kernel takes {DIMS}")
-    return "tc" if dtype == torch.bfloat16 and (r, p) == DIMS[0] else "simt"
+    if (r, p) != DIMS[0]:
+        return "simt"
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def cluster_size(h: int) -> int:
@@ -73,10 +81,10 @@ def cluster_size(h: int) -> int:
     return 1 if h <= TC_HEADS else 2
 
 
-def live_tiles(length: int, s: int) -> int:
-    """Tiles of 64 positions that hold a request's live positions
-    [0, min(length, S))."""
-    return -(-min(max(length, 0), s) // TC_TILE)
+def live_tiles(length: int, s: int, tile: int = TC_TILE) -> int:
+    """Tiles of ``tile`` positions (the tensor-core instance's 64 by
+    default) that hold a request's live positions [0, min(length, S))."""
+    return -(-min(max(length, 0), s) // tile)
 
 
 def run_start(c: int, n_clusters: int, total: int) -> int:
@@ -85,14 +93,16 @@ def run_start(c: int, n_clusters: int, total: int) -> int:
     return c * total // n_clusters
 
 
-def plan(lengths: Sequence[int], s: int, n_clusters: int
-         ) -> List[Tuple[int, int, int, int]]:
-    """The tensor-core instance's schedule: segments (cluster, request,
-    first tile, end tile) in order, tiles counted within the request.
-    Cluster c takes global tiles [run_start(c), run_start(c + 1)) of all
-    requests' live tiles laid end to end; its stretch of request b is a
-    segment, whose partial goes to slot c + b."""
-    n = [live_tiles(x, s) for x in lengths]
+def plan(lengths: Sequence[int], s: int, n_clusters: int,
+         tile: int = TC_TILE) -> List[Tuple[int, int, int, int]]:
+    """The schedule of the (512, 64) instances: segments (run, request,
+    first tile, end tile) in order, tiles of ``tile`` positions counted
+    within the request (64, the tensor-core instance's clusters, by
+    default; ``TF_TILE`` for the tf32x3 instance's runs). Run c takes
+    global tiles [run_start(c), run_start(c + 1)) of all requests' live
+    tiles laid end to end; its stretch of request b is a segment, whose
+    partial goes to slot c + b."""
+    n = [live_tiles(x, s, tile) for x in lengths]
     total, segs = sum(n), []
     for c in range(n_clusters):
         lo, hi = run_start(c, n_clusters, total), \
@@ -106,14 +116,14 @@ def plan(lengths: Sequence[int], s: int, n_clusters: int
     return segs
 
 
-def merge_clusters(lengths: Sequence[int], s: int, n_clusters: int
-                   ) -> List[List[int]]:
-    """For each request, the clusters whose runs hold its tiles, as the
+def merge_clusters(lengths: Sequence[int], s: int, n_clusters: int,
+                   tile: int = TC_TILE) -> List[List[int]]:
+    """For each request, the runs (clusters) that hold its tiles, as the
     merge finds them (none for a request with no live position): those
-    from the cluster of its first global tile to that of its last (the
-    cluster of tile i being the last c with run_start(c) <= i) whose runs
-    are not empty (with more clusters than tiles, some are)."""
-    n = [live_tiles(x, s) for x in lengths]
+    from the run of its first global tile to that of its last (the run of
+    tile i being the last c with run_start(c) <= i) that are not empty
+    (with more runs than tiles, some are)."""
+    n = [live_tiles(x, s, tile) for x in lengths]
     total, out, first = sum(n), [], 0
     for nb in n:
         out.append([])
@@ -141,6 +151,25 @@ def _clusters(index: int, size: int) -> int:
     if n <= 0:
         _build.check(-n or 1, "mla_decode_attention (clusters)")
     return n
+
+
+@functools.cache
+def _runs(index: int, h: int) -> int:
+    """Runs of the tf32x3 instance at ``h`` heads on card ``index``: the
+    groups of ceil(h / 16) CTAs that fit on it at once (asked of the CUDA
+    runtime)."""
+    with torch.cuda.device(index):
+        n = _build.load().moby_mla_decode_runs(h)
+    if n <= 0:
+        _build.check(-n or 1, "mla_decode_attention (runs)")
+    return n
+
+
+def tf_runs(h: int, sms: int, ctas_per_sm: int = 1) -> int:
+    """The tf32x3 instance's runs on a card of ``sms`` SMs holding
+    ``ctas_per_sm`` of its CTAs each (one on an H100): what
+    ``moby_mla_decode_runs`` computes from the runtime's occupancy."""
+    return max(1, ctas_per_sm * sms // -(-h // TF_HEADS))
 
 
 def n_splits(b: int, h: int, s: int, sms: int) -> int:
@@ -173,12 +202,12 @@ def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
                            ("krope", krope, (b, s, p))):
         _launch.check_cuda("mla_decode_attention", name, t, dt, shape, dev,
                            strided=True)
-        if path == "tc" and (t.data_ptr() % 16 or any(
+        if path != "simt" and (t.data_ptr() % 16 or any(
                 st * t.element_size() % 16 for st in t.stride()[:2])):
             raise ValueError(f"mla_decode_attention: {name} (address "
                              f"{t.data_ptr():#x}, strides {t.stride()}) is "
-                             f"not 16-byte aligned, as the tensor-core "
-                             f"instance's TMA and 16-byte loads need")
+                             f"not 16-byte aligned, as the {path} "
+                             f"instance's 16-byte copies need")
     _launch.check_cuda("mla_decode_attention", "lengths", lengths,
                        torch.int32, (b,), dev)
     if h > MAX_HEADS:
@@ -187,8 +216,9 @@ def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if b > 65535:
         raise ValueError(f"mla_decode_attention: {b} requests exceed the "
                          f"kernel's grid (65,535)")
-    if path == "tc":
-        n_part = _clusters(dev.index, cluster_size(h))
+    if path != "simt":
+        n_part = _clusters(dev.index, cluster_size(h)) if path == "tc" \
+            else _runs(dev.index, h)
         rows = (n_part + b, h)
     else:
         n_part = n_splits(b, h, s, _sm_count(dev.index))
@@ -210,4 +240,5 @@ def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
             float(scale), _launch.stream_handle(dev))
     _build.check(code, f"mla_decode_attention ({path})")
     launches += 1
+    route_launches[path] += 1
     return out

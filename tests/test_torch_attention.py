@@ -446,6 +446,50 @@ def test_flash_route_by_dtype_and_head_dim():
             fa_ops.route(dtype, hd)
 
 
+# The persistent (192, 128) instance's schedules: (pairs, query tiles,
+# rows a tile, sk, causal, blocks). MLA B (B 2 x 128 heads, S 256, 8-warp
+# blocks of 128 rows, one an SM on 132 SMs), chip_smoke's S 2048 case, its
+# ragged runs (3 x 48 heads, S 333), 4-warp blocks of 64 rows over full
+# attention (an item a block), keys of length 0.
+PERSISTENT_CASES = {
+    "mla_b": (256, 2, 128, 256, True, 132),
+    "s2048": (128, 16, 128, 2048, True, 132),
+    "ragged": (144, 3, 128, 333, True, 132),
+    "full": (8, 5, 64, 300, False, 40),
+    "no_keys": (3, 2, 64, 0, True, 6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PERSISTENT_CASES))
+def test_persistent_blocks_take_every_query_tile_once(case):
+    """``ops.block_items`` (the schedule ``csrc/flash_attention.cu``
+    computes on the card): the blocks' runs, in block order, walk every
+    (pair, query tile) item once in the global order (a pair's tiles
+    heaviest first when causal), and no block's work in key tiles exceeds
+    an equal share by more than one item's."""
+    n_pairs, n_q, rows, sk, causal, n_blocks = PERSISTENT_CASES[case]
+    runs = fa_ops.block_items(n_pairs, n_q, rows, sk, causal, n_blocks)
+    assert len(runs) == n_blocks
+    walked, work = [], []
+    for p0, j0, items in runs:
+        p, j, w = p0, j0, 0
+        for _ in range(items):
+            walked.append((p, j))
+            w += fa_ops.item_tiles(j, n_q, rows, sk, causal)
+            p, j = (p + 1, 0) if j + 1 == n_q else (p, j + 1)
+        work.append(w)
+    assert walked == [(p, j) for p in range(n_pairs) for j in range(n_q)]
+    tiles = [fa_ops.item_tiles(j, n_q, rows, sk, causal) for j in range(n_q)]
+    assert max(work) <= sum(tiles) * n_pairs / n_blocks + max(tiles)
+    if causal and sk:
+        # Heaviest first: the last query tile of a pair walks every key.
+        assert tiles[0] == -(-min(sk, n_q * rows) // fa_ops.PERSISTENT_TILE)
+        assert tiles == sorted(tiles, reverse=True)
+    if case == "mla_b":
+        # 24 key tiles a block at most: the equal share, 23.3, rounded up.
+        assert max(work) == 24
+
+
 @pytest.mark.parametrize("dtype,hd,path", [
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 32, "tf32x3"), (torch.float32, 64, "tf32x3")])

@@ -364,8 +364,9 @@ def test_mla_decode_ref_masks_past_the_length():
 def test_routes_at_mla_dims():
     """Flash attention: bf16 at (192, 128) to the tensor-core kernel, f32
     at (192, 128) and (24, 16) to the 3xTF32 kernel, other unequal pairs
-    raise; MLA decode: bf16 at (512, 64) to its tensor-core instance, the
-    rest to its SIMT one, other dims raise."""
+    raise; MLA decode: bf16 at (512, 64) to its tensor-core instance, f32
+    at (512, 64) to its 3xTF32 one, both dtypes at (16, 8) to its SIMT one,
+    other dims raise."""
     assert fa_ops.route(torch.bfloat16, 192, 128) == "tc"
     assert fa_ops.route(torch.bfloat16, 128, 128) == "tc"
     assert fa_ops.route(torch.float32, 192, 128) == "tf32x3"
@@ -376,7 +377,7 @@ def test_routes_at_mla_dims():
             fa_ops.route(dtype, hd, vd)
     assert mla_ops.route(torch.bfloat16, 512, 64) == "tc"
     assert mla_ops.route(torch.bfloat16, 16, 8) == "simt"
-    assert mla_ops.route(torch.float32, 512, 64) == "simt"
+    assert mla_ops.route(torch.float32, 512, 64) == "tf32x3"
     assert mla_ops.route(torch.float32, 16, 8) == "simt"
     with pytest.raises(ValueError, match="latent"):
         mla_ops.route(torch.bfloat16, 256, 64)
@@ -432,6 +433,126 @@ def test_decode_splits_fill_the_card(case):
     for b in range(len(lengths)):
         assert sorted(merge[b]) == sorted(c for c, bb, _, _ in segs
                                           if bb == b)
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_tf32x3_runs_fill_the_card(case):
+    """The f32 instance's schedule: ``ops.plan`` over tiles of 32 positions
+    and ``tf_runs`` runs (one 16-head CTA an SM on 132 SMs: 16 runs at 128
+    heads). Every live tile of every request is covered exactly once, the
+    runs differ by at most one tile, a request's partials are the slots
+    run + request the merge reads, and there are at most runs + B of
+    them."""
+    lengths, s, h = PLAN_CASES[case]
+    tile = mla_ops.TF_TILE
+    n_runs = mla_ops.tf_runs(h, 132)
+    segs = mla_ops.plan(lengths, s, n_runs, tile)
+    covered, per_run = set(), [0] * n_runs
+    for c, b, j0, j1 in segs:
+        assert 0 <= j0 < j1 <= mla_ops.live_tiles(lengths[b], s, tile)
+        for j in range(j0, j1):
+            assert (b, j) not in covered
+            covered.add((b, j))
+        per_run[c] += j1 - j0
+    assert covered == {(b, j) for b, x in enumerate(lengths)
+                       for j in range(mla_ops.live_tiles(x, s, tile))}
+    assert max(per_run) - min(per_run) <= 1
+    slots = [c + b for c, b, _, _ in segs]
+    assert len(set(slots)) == len(slots)
+    assert max(slots, default=0) < n_runs + len(lengths)
+    merge = mla_ops.merge_clusters(lengths, s, n_runs, tile)
+    for b in range(len(lengths)):
+        assert sorted(merge[b]) == sorted(c for c, bb, _, _ in segs
+                                          if bb == b)
+
+
+def test_tf32x3_runs_by_heads():
+    """Runs of the f32 instance: as many groups of ceil(H / 16) CTAs as
+    one an SM allows (MLA B's 128 heads on an H100: 16), at least one."""
+    assert mla_ops.tf_runs(128, 132) == 16
+    assert mla_ops.tf_runs(100, 132) == 18
+    assert mla_ops.tf_runs(16, 132) == 132
+    assert mla_ops.tf_runs(128, 132, ctas_per_sm=2) == 33
+    assert mla_ops.tf_runs(128, 2) == 1
+
+
+@pytest.mark.parametrize("n_runs", [7, 16])
+def test_tf32x3_segments_merge_to_the_unsplit_softmax(n_runs):
+    """The f32 instance's split of the softmax: ``ref.py`` run segment by
+    segment along ``ops.plan`` over tiles of 32 positions (each segment's
+    unnormalised partial, ``mla_decode_partial_ref``), merged with the
+    merge's formula (``mla_decode_merge_ref``), equals
+    ``mla_decode_attention_ref`` unsplit within 1e-6 in f32, at
+    deepseek-v2's (512, 64) and small S; a request of length 0 gives 0.
+    7 runs cross request boundaries; 16 (MLA B's at 128 heads) leave runs
+    of one or two tiles."""
+    r, p, h, s = 512, 64, 8, 300
+    lengths = [130, 0, 64, 1, 300, 77]
+    rng = np.random.default_rng(6)
+    q_lat, q_rope, ckv, krope = (
+        torch.from_numpy(rng.normal(size=sh)).float()
+        for sh in ((6, h, r), (6, h, p), (6, s, r), (6, s, p)))
+    scale = (r // 4 + p) ** -0.5
+    want = mla_ref.mla_decode_attention_ref(
+        q_lat, q_rope, ckv, krope, torch.tensor(lengths), scale)
+    tile = mla_ops.TF_TILE
+    segs = mla_ops.plan(lengths, s, n_runs, tile)
+    for b, n in enumerate(lengths):
+        sl = slice(b, b + 1)
+        parts = [mla_ref.mla_decode_partial_ref(
+            q_lat[sl], q_rope[sl], ckv[sl], krope[sl], j0 * tile,
+            min(j1 * tile, n), scale)
+            for c, bb, j0, j1 in segs if bb == b]
+        assert len(parts) == len(
+            mla_ops.merge_clusters(lengths, s, n_runs, tile)[b])
+        if not parts:
+            assert n == 0 and (want[b] == 0).all()
+            continue
+        got = mla_ref.mla_decode_merge_ref(parts)
+        torch.testing.assert_close(got, want[sl], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,r,p,path", [
+    (torch.bfloat16, 512, 64, "tc"), (torch.float32, 512, 64, "tf32x3"),
+    (torch.float32, 16, 8, "simt"), (torch.bfloat16, 16, 8, "simt")])
+def test_decode_launches_its_instance(monkeypatch, dtype, r, p, path):
+    """On the card ``mla_decode_attention`` calls the C entry point once
+    with its instance's partition (the clusters, the runs or the SIMT
+    splits) and advances the kernel's counter and its instance's. The
+    library is a stand-in that records the calls (the CPU has no card)."""
+    import contextlib
+    from repro_torch.kernels import _build, _launch
+    called = []
+
+    class Lib:
+        def moby_mla_decode_attention(self, *args):
+            called.append(args)
+            return 0
+    monkeypatch.setattr(_launch, "dispatch_device", lambda kernel, t: "cuda")
+    monkeypatch.setattr(_launch, "check_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(_launch, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(mla_ops, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(mla_ops, "_clusters", lambda index, size: 132 // size)
+    monkeypatch.setattr(mla_ops, "_runs",
+                        lambda index, h: mla_ops.tf_runs(h, 132))
+    b, h, s = 2, 128, 512
+    ins = [torch.zeros(shape, dtype=dtype)
+           for shape in ((b, h, r), (b, h, p), (b, s, r), (b, s, p))]
+    kernels.reset_launch_counts()
+    out = mla_ops.mla_decode_attention(
+        *ins, torch.tensor([260, 260], dtype=torch.int32), 0.07)
+    assert out.shape == (b, h, r) and out.dtype == dtype
+    (args,) = called
+    n_part = {"tc": 66, "tf32x3": 16,
+              "simt": mla_ops.n_splits(b, h, s, 132)}[path]
+    assert args[15] == n_part
+    assert args[16] == int(dtype == torch.bfloat16)
+    assert kernels.launch_counts()["mla_decode_attention"] == 1
+    assert mla_ops.route_launches == {k: int(k == path)
+                                      for k in ("tc", "tf32x3", "simt")}
 
 
 def test_simt_splits_fill_the_card():
@@ -642,9 +763,9 @@ def test_flash_backward_raises_at_vd_ne_hd():
 
 @pytest.mark.cuda
 def test_mla_kernels_match_plain_on_card():
-    """The MLA decode kernel (both instances) and flash attention at MLA's
-    head dims agree with their plain versions on card tensors (bf16: half
-    an ulp plus the P rounding, as chip_smoke.py holds them)."""
+    """The MLA decode kernel (its three instances) and flash attention at
+    MLA's head dims agree with their plain versions on card tensors (f32
+    within 2e-5, the f32 routes' tolerance; bf16 within 2e-2)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run python3 chip_smoke.py there)")
     dev = torch.device("cuda")
@@ -652,6 +773,10 @@ def test_mla_kernels_match_plain_on_card():
     for dtype, r, p, h, lens in (
             (torch.bfloat16, 512, 64, 128, [1, 77, 300]),
             (torch.float32, 16, 8, 128, [1, 77, 300]),
+            # The f32 instance: 128 heads (8 CTAs a run), 100 (a partial
+            # group), an empty request between live ones.
+            (torch.float32, 512, 64, 128, [1, 77, 300]),
+            (torch.float32, 512, 64, 100, [300, 0, 33]),
             # Clusters of one CTA (64 heads), a nearly empty second CTA
             # (65), an empty request between live ones.
             (torch.bfloat16, 512, 64, 64, [300, 0, 77]),
@@ -662,16 +787,22 @@ def test_mla_kernels_match_plain_on_card():
         got = mla_ops.mla_decode_attention(*ins, lengths, 0.07)
         want = mla_ref.mla_decode_attention_ref(*(t.float() for t in ins),
                                                 lengths, 0.07)
-        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
-    for dtype, hd, vd in ((torch.bfloat16, 192, 128),
-                          (torch.float32, 24, 16)):
-        q, k = (torch.from_numpy(rng.normal(size=(1, 4, 130, hd))).to(
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    # (192, 128) in f32: 4 heads (4-warp blocks, an item each) and 132
+    # (8-warp persistent blocks, runs of items).
+    for dtype, hd, vd, h in ((torch.bfloat16, 192, 128, 4),
+                             (torch.float32, 24, 16, 4),
+                             (torch.float32, 192, 128, 4),
+                             (torch.float32, 192, 128, 132)):
+        q, k = (torch.from_numpy(rng.normal(size=(1, h, 130, hd))).to(
             dev, dtype) for _ in range(2))
-        v = torch.from_numpy(rng.normal(size=(1, 4, 130, vd))).to(dev, dtype)
+        v = torch.from_numpy(rng.normal(size=(1, h, 130, vd))).to(dev, dtype)
         got = fa_ops.flash_attention(q, k, v, True)
         want = fa_ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                           True)
-        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,7 @@ OUT = ROOT / "build" / "mla_decode_probe"
 SKIPS = {"no_scores": 1, "no_softmax": 2, "no_pv": 4, "no_loads": 8,
          "loads_only": 7, "products_only": 10, "step1": 48, "step2": 32}
 MAIN_PASS = r"mla_decode_(tc|simt)_kernel"
-MERGE = r"mla_decode_(tc_)?combine_kernel"
+MERGE = r"mla_decode_(merge|(tc_)?combine)_kernel"
 
 
 def start_build(name: str, source: Path, defines=()):
