@@ -56,12 +56,14 @@ fatal on failure:
    (32 heads, a kv head each) with whisper-small's encoder and cross
    attention checked; decode attention timed at LM C's decode
    shape and at MoE C's, G = 1 too; both also at G = 1 on small ragged
-   cases; flash attention at MLA's head dims, qk 192 / value 128: the
+   cases, and at the ported configs' G = 3, 6, 16 and 48 (minitron-4b,
+   qwen2-vl, glm4-9b, granite-20b); flash attention at MLA's head dims, qk 192 / value 128: the
    tensor-core route at MLA C's prefill shape (128 heads, S 8192, timed,
    its plain version 8 heads at a time), a ragged tile and full
    attention, the 3xTF32 route in f32 at MLA B's shape (its persistent
    instance; timed, and at B 1, S 2048), full attention, runs of ragged
-   items, and at SMOKE's 24 / 16 (timed, and a ragged tile); the MLA
+   items, and at SMOKE's 24 / 16 in f32 and bf16 (each timed, and a
+   ragged tile); the MLA
    decode kernel (``mla_decode_attention``, no Pallas counterpart: the
    einsums of JAX's absorbed decode) at MLA C's decode shape (B 16, 128
    heads, (R, P) = (512, 64), a 32k compressed cache, ragged lengths;
@@ -90,11 +92,12 @@ fatal on failure:
    keys longer than queries; ``flash_attention_bwd_tc``, the bf16
    tensor-core kernel: LM T's bf16 shape, Sq = Sk = 1, a ragged 77 with
    contiguous operands, keys longer than queries, full attention at S
-   256, S 1024 causal; every case of both called twice and the two
-   results equal bit for bit; ``decode_attention_bwd``: the decode shape
-   with ragged positions and an empty request, f32 GQA and MQA, SMOKE's
-   head dim, 48 query heads a kv head), f32 within 2e-5 of the gradient's
-   scale (flash attention's computed in float64), bf16 within half a bf16
+   256, S 1024 causal; ``decode_attention_bwd``: the decode shape with
+   ragged positions and an empty request, f32 GQA and MQA, SMOKE's head
+   dim, 3, 16 and 48 query heads a kv head; every case of the three called
+   twice and the two results equal bit for bit), f32 within 2e-5 of the
+   gradient's scale (flash attention's computed in float64), bf16 within
+   half a bf16
    ulp + 2e-5 rel + 1e-6 of the plain gradient computed in float64 on the
    same bf16 inputs, plus, for the tensor-core
    route, which rounds P and dS to bf16 as operands of its products,
@@ -228,7 +231,10 @@ fatal on failure:
    memory, and torch.profiler windows over a prefill and 4 steps;
 10e. MLA A, the card against JAX: deepseek-v2-236b SMOKE in f32 with
    the weights of ``tests/goldens/lm_deepseek_v2_236b_smoke.npz``,
-   prefill and four decode steps within 1e-5 of the golden's logits;
+   prefill and four decode steps within 1e-5 of the golden's logits; then
+   in bf16 (SMOKE's own dtype; K5's ``tf32x3`` bf16 (24, 16) instance)
+   against the port's CPU run of the same weights, within 3e-2 of the
+   logits' scale (``tests/test_torch_mla.py``'s bf16 tolerance);
 10f. MLA B, the card against the port's CPU run at full width:
    deepseek-v2 with 2 of its 60 layers (the dense first layer and one MoE
    layer of 160 experts) in f32, MLA weights rescaled (``rescale_mla``),
@@ -453,6 +459,8 @@ INSTANCES = {
                              "(persistent: 8 warps, 32-key tiles)", "MLA B"),
     ("flash_attention", 9): ("deepseek_smoke", "qk 24 / value 16, f32",
                              "MLA A"),
+    ("flash_attention", 13): ("deepseek_smoke_bf16",
+                              "qk 24 / value 16, bf16", "MLA A bf16"),
     ("mla_decode_attention", 3): ("tf32x3", "tf32x3, f32, (512, 64)",
                                   "MLA B"),
     ("mla_decode_attention", 4): ("simt_smoke", "SIMT, f32, (16, 8)",
@@ -1411,8 +1419,9 @@ def check_decode_bwd(torch, dev, dec_ops, dec_ref, b, h, kv, s, hd, dtype,
                      pos, seed, empty=()):
     """K6's backward kernel vs its plain version on (B, S, KV, hd) caches
     passed as (B, KV, S, hd) views; ``pos`` as in ``check_decode``, then
-    the requests of ``empty`` set to cache_pos = 0. Timed beside SDPA's
-    autograd backward on the same inputs."""
+    the requests of ``empty`` set to cache_pos = 0 (their gradients all
+    zero). Called twice, one launch a call, the two results equal bit for
+    bit. Timed beside SDPA's autograd backward on the same inputs."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, 1, h, hd, generator=gen, device=dev, dtype=dtype)[:, 0]
     ck, cv = (torch.randn(b, s, kv, hd, generator=gen, device=dev,
@@ -1426,13 +1435,20 @@ def check_decode_bwd(torch, dev, dec_ops, dec_ref, b, h, kv, s, hd, dtype,
     for i in empty:
         pos[i] = 0
     o = dec_ops.decode_attention(q, ck, cv, pos)
-    before = dec_ops.bwd_launches
-    got = dec_ops.decode_attention_bwd(q, ck, cv, pos, o, do)
-    if dec_ops.bwd_launches != before + 1:
-        fail("decode_attention_bwd: the kernel did not launch")
     shape = (f"B={b} H={h} KV={kv} S={s} hd={hd} {str(dtype)[6:]} "
              f"pos {int(pos.min())}..{int(pos.max())}"
              + (f", {len(empty)} empty" if empty else ""))
+    got = []
+    for _ in range(2):
+        before = dec_ops.bwd_launches
+        got.append(dec_ops.decode_attention_bwd(q, ck, cv, pos, o, do))
+        if dec_ops.bwd_launches != before + 1:
+            fail("decode_attention_bwd: the kernel did not launch once a "
+                 "call")
+    if not all(torch.equal(x, y) for x, y in zip(*got)):
+        fail(f"decode_attention_bwd {shape}: two calls on the same inputs "
+             f"differ")
+    got = got[0]
     wide = torch.float32 if dtype == torch.float32 else torch.float64
     want = dec_ref.decode_attention_bwd_ref(
         q.to(wide), ck.to(wide), cv.to(wide), pos, o.to(wide), do.to(wide))
@@ -1963,6 +1979,10 @@ def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
           flush=True)
     counts[f"{label} A"] = (kernels.launch_counts(), cfg.n_layers)
     routes[f"{label} A"] = dict(mla_ops.route_launches)
+    if cfg.attn_kind == "mla":
+        counts[f"{label} A bf16"], routes[f"{label} A bf16"] = mla_smoke_bf16(
+            torch, np, dev, kernels, mla_ops, lm_configs, convert, lm,
+            decode, params, layers, label, arch, golden)
 
     # -- B: full width, 2 layers, f32: the card vs the CPU -----------------
     kernels.reset_launch_counts()
@@ -2029,9 +2049,9 @@ def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
             fail(f"{phase} launch counts {launches} != {expect}")
         names = ""
         if cfg.attn_kind == "mla":
-            # SMOKE (A) at MLA's (24, 16) / (16, 8), full width (B) at
-            # (192, 128) / (512, 64): the instances of each.
-            small = phase.endswith("A")
+            # SMOKE (A, in f32 and bf16) at MLA's (24, 16) / (16, 8), full
+            # width (B) at (192, 128) / (512, 64): the instances of each.
+            small = not phase.endswith("B")
             inst = "simt" if small else "tf32x3"
             want = dict.fromkeys(mla_ops.route_launches, 0)
             want[inst] = 4 * n_layers
@@ -2047,6 +2067,60 @@ def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
         for k in out:
             out[k][phase] = launches[k]
     return out
+
+
+def mla_smoke_bf16(torch, np, dev, kernels, mla_ops, lm_configs, convert,
+                   lm, decode, params, layers, label, arch, golden):
+    """MLA A in its own dtype: the SMOKE config in bf16 (its default) with
+    the golden's weights, prefill and four decode steps on the card held
+    to the port's CPU run within the bf16 tolerance of
+    ``tests/test_torch_mla.py`` (3e-2, absolute and relative, of the
+    logits' own scale where it passes 1); K5 takes its `tf32x3` bf16
+    (24, 16) instance. Returns the launch counts and the MLA decode's
+    launches by instance."""
+    cfg = lm_configs.get_smoke(arch)
+    if cfg.dtype != torch.bfloat16:
+        fail(f"{label} A bf16: {cfg.name}'s SMOKE dtype is {cfg.dtype}")
+    with np.load(golden) as f:
+        gold = {k: f[k] for k in f.files}
+    tree = params.from_leaves((tuple(k.split("/")[1:]), v)
+                              for k, v in gold.items()
+                              if k.startswith("params/"))
+    tokens = torch.from_numpy(gold["tokens"])
+    dec_tokens = torch.from_numpy(gold["decode_tokens"])
+    kernels.reset_launch_counts()
+    card, card_routes = recorded_routes(layers, lambda: lm_run(
+        torch, lm, decode, cfg, convert.params_from_jax(tree, cfg, dev),
+        tokens, dec_tokens, 32, dev))
+    launches = kernels.launch_counts()
+    by_instance = dict(mla_ops.route_launches)
+    cpu, cpu_routes = recorded_routes(layers, lambda: lm_run(
+        torch, lm, decode, cfg, convert.params_from_jax(tree, cfg, "cpu"),
+        tokens, dec_tokens, 32, torch.device("cpu")))
+    same_routes = len(card_routes) == len(cpu_routes) and all(
+        torch.equal(got.cpu(), want) for (_, got), (_, want)
+        in zip(card_routes, cpu_routes))
+    err = 0.0
+    for name, g, w in zip(("prefill", "decode"), card, cpu):
+        g, w = g.float().cpu(), w.float().cpu()
+        tol = 3e-2 * max(1.0, float(w.abs().max()))
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            fail(f"{label} A bf16: {name} logits {tuple(g.shape)} (want "
+                 f"{tuple(w.shape)}) or not finite")
+        err = max(err, float((g - w).abs().max()))
+        if not torch.allclose(g, w, rtol=tol, atol=tol):
+            fail(f"{label} A bf16: {name} logits off by {err} (tolerance "
+                 f"{tol:.3g}); routing "
+                 f"{'equal' if same_routes else 'differs'} on the card and "
+                 f"the CPU")
+    print(f"{label} A bf16: {cfg.name} bf16 prefill + 4 decode steps on the "
+          f"card match the port's CPU run (max abs err {err:.3g}, tolerance "
+          f"3e-2 of the logits' scale); routing "
+          f"{'equal' if same_routes else 'differs'}, smallest gap between "
+          f"the k-th and (k+1)-th router probability "
+          f"{route_gap(torch, card_routes, cfg.top_k):.3g} (card)",
+          flush=True)
+    return (launches, cfg.n_layers), by_instance
 
 
 def serve_moe(torch, dev, kernels, lm_configs, lm, decode, params, layers,
@@ -3438,7 +3512,11 @@ def main() -> None:
             # 1, 128 heads, S 2048, also timed), and runs of several ragged
             # items a block.
             flash_mla(1, 128, 2048, 192, 128, f32, True),
-            flash_mla(3, 48, 333, 192, 128, f32, True)],
+            flash_mla(3, 48, 333, 192, 128, f32, True),
+            # SMOKE's (24, 16) in bf16 (deepseek-v2's SMOKE dtype: MLA A
+            # bf16's shape, also timed), full attention on a ragged tile.
+            flash_mla(2, 4, 16, 24, 16, bf16, True),
+            flash_mla(2, 4, 77, 24, 16, bf16, False)],
         # The tensor-core route (bf16 at hd 128): the prefill shape of LM
         # phase C first, then a ragged causal tile, keys longer than
         # queries, GQA.
@@ -3468,7 +3546,14 @@ def main() -> None:
             flash(1, 12, 12, 448, 1500, 64, bf16, False),
             flash(2, 4, 4, 1, 1, 64, bf16, True),
             flash(2, 4, 4, 77, 77, 64, bf16, True),
-            flash(1, 16, 2, 300, 300, 64, bf16, True)],
+            flash(1, 16, 2, 300, 300, 64, bf16, True),
+            # The ported configs' other query heads a kv head: G = 3
+            # (minitron-4b), 6 (qwen2-vl), 16 (glm4-9b) and 48
+            # (granite-20b's MQA).
+            flash(1, 6, 2, 300, 300, 128, bf16, True),
+            flash(2, 12, 2, 77, 77, 128, bf16, True),
+            flash(1, 32, 2, 300, 300, 128, bf16, True),
+            flash(1, 48, 1, 200, 200, 128, bf16, True)],
         # The decode shape of LM phase C first (ragged positions), then
         # f32 GQA, MQA with positions 1 and S, SMOKE's head dim with an
         # empty request, and bf16 at hd 16 (2-byte rows of V a lane).
@@ -3483,7 +3568,13 @@ def main() -> None:
             # with ragged positions and an empty request.
             dec(DECODE_B, 16, 16, DECODE_MAX, 128, bf16,
                 (DECODE_POS_LO, DECODE_MAX)),
-            dec(3, 4, 4, 300, 128, bf16, [0, 77, 300])],
+            dec(3, 4, 4, 300, 128, bf16, [0, 77, 300]),
+            # G = 3, 6, 16 and 48 (the ported configs'; 8 heads a block,
+            # so partial and several head groups), ragged, empty requests.
+            dec(3, 6, 2, 700, 128, bf16, [0, 77, 700]),
+            dec(2, 12, 2, 1000, 128, f32, [1, 1000]),
+            dec(2, 32, 2, 600, 128, bf16, [600, 333]),
+            dec(2, 48, 1, 500, 128, bf16, [0, 500])],
         # MLA's absorbed decode over the compressed cache: MLA C's decode
         # shape first (B 16, 128 heads, (R, P) = (512, 64), ragged lengths
         # over a 32k cache), then lengths 1 and S_max and lengths off the
@@ -3575,7 +3666,8 @@ def main() -> None:
         # K6's gradient: LM C's decode shape with ragged positions and one
         # empty request first, then f32 GQA, MQA with positions 1 and S,
         # SMOKE's head dim with an empty request, bf16 at hd 16, and 48
-        # query heads a kv head (granite-20B's MQA).
+        # query heads a kv head (granite-20B's MQA); each called twice,
+        # the two results equal bit for bit.
         "decode_attention_bwd": [
             dec_bwd(DECODE_B, 16, 2, DECODE_MAX, 128, bf16,
                     (DECODE_POS_LO, DECODE_MAX), empty=(3,)),
@@ -3583,7 +3675,12 @@ def main() -> None:
             dec_bwd(2, 8, 1, 700, 64, f32, [1, 700]),
             dec_bwd(2, 4, 2, 32, 16, f32, [0, 17]),
             dec_bwd(2, 4, 2, 100, 16, bf16, [0, 97]),
-            dec_bwd(3, 48, 1, 300, 128, bf16, [5, 256, 300])],
+            dec_bwd(3, 48, 1, 300, 128, bf16, [5, 256, 300]),
+            # G = 3 (a partial head group) with an empty request, G = 16
+            # (two groups) in f32 and in bf16 at hd 64.
+            dec_bwd(3, 6, 2, 700, 128, bf16, [0, 77, 700]),
+            dec_bwd(2, 32, 2, 600, 128, f32, [1, 600]),
+            dec_bwd(2, 32, 2, 333, 64, bf16, [333, 5])],
         # Det B's shape first (the real pillar ids of a kitti-urban frame),
         # then dense collisions, every point masked out, planted ties,
         # special values, one pillar, sorted points, 7- and 40-channel

@@ -4,13 +4,14 @@
 // Replaces the TPU kernel
 // repro/kernels/flash_attention/flash_attention.py (flash_attention_pallas).
 // This is the "tf32x3" route: f32 inputs, and bf16 at head dims 16 and
-// 32 (the SMOKE configs). bf16 at head dims 64 and 128 (zamba2, whisper
+// 32 and at MLA's (24, 16) (the SMOKE configs). bf16 at head dims 64 and 128 (zamba2, whisper
 // and the full-width dense configs) runs on the tensor cores in bf16 in
 // flash_attention_tc.cu; kernels/flash_attention/ops.py::route chooses.
 // The bf16 hd-64 instance this kernel had until then is gone (its times
 // stay in PERF.md). The value head dim VD
 // equals the qk head dim HD, except at MLA's (HD, VD) = (192, 128)
-// (deepseek-v2) and (24, 16) (its SMOKE config), in f32: the JAX
+// (deepseek-v2, f32) and (24, 16) (its SMOKE config, f32 and bf16: rows
+// of 48 and 32 bytes in bf16, whole 16-byte copies): the JAX
 // package's plain attention at those dims
 // (repro/models/layers.py::multihead_attention), which the Pallas kernel
 // does not take.
@@ -745,7 +746,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
 // with the head dim contiguous and every base and stride 16-byte aligned.
 // is_bf16 selects bf16 for all four, else f32. vd = hd at hd 16, 32, 64 or
 // 128 (f32), 16 or 32 (bf16); f32 also at (hd, vd) = (192, 128) and
-// (24, 16) (MLA). H is a multiple of KV.
+// (24, 16) (MLA), bf16 at (24, 16). H is a multiple of KV.
 MOBY_API int moby_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, const long long* st, int batch,
                                   int n_heads, int n_kv_heads, int sq, int sk,
@@ -754,7 +755,12 @@ MOBY_API int moby_flash_attention(const void* q, const void* k, const void* v,
   if (batch * n_heads == 0 || sq == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   if (value_dim != head_dim) {
-    if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+    if (is_bf16)   // deepseek-v2's SMOKE config in its own dtype
+      return head_dim == 24 && value_dim == 16
+          ? launch<24, 16, __nv_bfloat16>(q, k, v, o, st, batch, n_heads,
+                                          n_kv_heads, sq, sk, causal, scale,
+                                          s)
+          : static_cast<int>(cudaErrorInvalidValue);
     if (head_dim == 192 && value_dim == 128)
       return launch<192, 128, float>(q, k, v, o, st, batch, n_heads,
                                      n_kv_heads, sq, sk, causal, scale, s);

@@ -14,8 +14,11 @@ positions must span fewer than 2^31 elements (32-bit offsets): the
 wrapper checks and raises, it never copies.
 
 The gradient (``decode_attention_bwd``) is a second kernel,
-``csrc/decode_attention_bwd.cu`` (``bwd_launches`` counts its launches);
-a CPU tensor goes to ``ref.decode_attention_bwd_ref``.
+``csrc/decode_attention_bwd.cu`` (``bwd_launches`` counts its launches):
+a pass for the softmax statistics, the gradients a cache chunk, the dq
+sum, the caches streamed as the forward streams them (16-byte copies: the
+same alignment checks). A CPU tensor goes to
+``ref.decode_attention_bwd_ref``.
 :class:`DecodeAttention` ties the two directions into one differentiable
 op (the int positions get no gradient).
 """
@@ -50,6 +53,16 @@ def _check_heads(kernel: str, dtype: torch.dtype, hd: int, h: int,
         raise ValueError(f"{kernel}: {h} query heads over {kv} kv heads")
 
 
+def _check_aligned(kernel: str, name: str, t: torch.Tensor) -> None:
+    """The kernels copy a cache by 16-byte units: its base address and
+    byte strides must be multiples of 16 (checked, never copied)."""
+    if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                for st in t.stride()[:3]):
+        raise ValueError(f"{kernel}: {name} (address {t.data_ptr():#x}, "
+                         f"strides {t.stride()}) is not 16-byte aligned, "
+                         f"as the kernel's 16-byte copies need")
+
+
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cache_pos: torch.Tensor
                      ) -> torch.Tensor:
@@ -69,12 +82,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
         _launch.check_cuda("decode_attention", name, t, q.dtype,
                            (b, kv, s, hd), dev, strided=True)
-        if t.data_ptr() % 16 or any(st * t.element_size() % 16
-                                    for st in t.stride()[:3]):
-            raise ValueError(f"decode_attention: {name} (address "
-                             f"{t.data_ptr():#x}, strides {t.stride()}) is "
-                             f"not 16-byte aligned, as the kernel's "
-                             f"16-byte copies need")
+        _check_aligned("decode_attention", name, t)
         if s * t.stride(2) >= 2 ** 31:
             raise ValueError(f"decode_attention: {name}'s positions span "
                              f"{s * t.stride(2)} elements, past the "
@@ -120,9 +128,10 @@ def decode_attention_bwd(q: torch.Tensor, cache_k: torch.Tensor,
 
     On the card one launch of ``csrc/decode_attention_bwd.cu`` (a stats
     pass, the gradients a cache chunk, the dq sum). Every operand is read
-    through its strides (the head dim contiguous; no alignment needed);
-    dk and dv are (B, KV, S, hd) views of (B, S, KV, hd) storage, the
-    caches' layout.
+    through its strides (the head dim contiguous); the caches by 16-byte
+    copies, so their base addresses and byte strides must be multiples of
+    16 (checked). dk and dv are (B, KV, S, hd) views of (B, S, KV, hd)
+    storage, the caches' layout.
     """
     global bwd_launches
     if _launch.dispatch_device("decode_attention_bwd", q) == "cpu":
@@ -139,12 +148,15 @@ def decode_attention_bwd(q: torch.Tensor, cache_k: torch.Tensor,
                            strided=True)
     _launch.check_cuda("decode_attention_bwd", "cache_pos", cache_pos,
                        torch.int32, (b,), dev)
+    for name, t in (("cache_k", cache_k), ("cache_v", cache_v)):
+        _check_aligned("decode_attention_bwd", name, t)
     _check_heads("decode_attention_bwd", dt, hd, h, kv)
-    if b * kv > 65535:
-        raise ValueError(f"decode_attention_bwd: {b * kv} (request, kv "
-                         f"head) blocks exceed the kernel's grid")
+    if b > 65535:
+        raise ValueError(f"decode_attention_bwd: {b} requests exceed the "
+                         f"kernel's grid")
     lib = _build.load()
-    smem = lib.moby_decode_attention_bwd_smem(h // kv, hd)
+    smem = lib.moby_decode_attention_bwd_smem(h // kv, hd,
+                                              int(dt == torch.bfloat16))
     if smem > MAX_SMEM:
         raise ValueError(f"decode_attention_bwd: {h // kv} query heads a kv "
                          f"head at head dim {hd} need {smem} bytes of shared "

@@ -10,7 +10,8 @@ call raises:
   ``csrc/flash_attention_tc.cu`` on the tensor cores in bf16 (wgmma fed by
   TMA); ``tc_launches`` counts its launches;
 * ``"tf32x3"``: f32 (head dims 16-128, and MLA's (192, 128) and SMOKE's
-  (24, 16)), and bf16 at head dims 16 and 32, runs
+  (24, 16)), and bf16 at head dims 16 and 32 and at SMOKE's (24, 16)
+  (deepseek-v2's SMOKE config is bf16 by default), runs
   ``csrc/flash_attention.cu`` on the tensor cores too, f32-accurate by the
   3xTF32 split (mma.sync fed by cp.async); ``launches`` counts its
   launches. Its (192, 128) instance is persistent: a block an SM walks a
@@ -26,6 +27,7 @@ call raises:
 | bf16 | (16, 16), (32, 32) | ``tf32x3`` |
 | f32 | (16, 16) .. (128, 128) | ``tf32x3`` |
 | f32 | (192, 128), (24, 16) | ``tf32x3`` (forward only) |
+| bf16 | (24, 16) | ``tf32x3`` (forward only) |
 
 The value head dim vd may differ from the qk head dim hd only at MLA's
 pairs (``MLA_DIMS``); the scores are scaled by hd^-0.5 either way. The
@@ -79,8 +81,9 @@ def route(dtype: torch.dtype, head_dim: int, value_dim=None) -> str:
     """Which kernel takes a CUDA call at qk head dim ``head_dim`` and value
     head dim ``value_dim`` (``head_dim`` when None): ``"tc"`` (bf16 at a
     pair of ``TC_DIMS``), ``"tf32x3"`` (f32 at ``HEAD_DIMS`` with equal
-    dims or at ``MLA_DIMS``; bf16 at the other ``HEAD_DIMS``, 16 and 32);
-    anything else raises, naming what the kernels take."""
+    dims or at ``MLA_DIMS``; bf16 at the other ``HEAD_DIMS``, 16 and 32,
+    and at SMOKE's ``MLA_DIMS[1]``); anything else raises, naming what the
+    kernels take."""
     vd = head_dim if value_dim is None else value_dim
     if dtype not in DTYPES:
         raise TypeError(f"flash_attention: dtype {dtype}, the kernels take "
@@ -90,13 +93,13 @@ def route(dtype: torch.dtype, head_dim: int, value_dim=None) -> str:
         return "tc"
     equal = vd == head_dim and head_dim in HEAD_DIMS
     if (dtype == torch.float32 and (equal or dims in MLA_DIMS)) or \
-            (dtype == torch.bfloat16 and equal):
+            (dtype == torch.bfloat16 and (equal or dims == MLA_DIMS[1])):
         return "tf32x3"
     raise ValueError(
         f"flash_attention: head dims (qk {head_dim}, value {vd}) in "
         f"{dtype}; the kernels take equal head dims {HEAD_DIMS} (bf16 "
-        f"at 64 and 128 on the tensor-core route), (qk, value) "
-        f"{MLA_DIMS[0]} in f32 and bf16, and {MLA_DIMS[1]} in f32")
+        f"at 64 and 128 on the tensor-core route) and (qk, value) "
+        f"{MLA_DIMS[0]} and {MLA_DIMS[1]}, in f32 and bf16")
 
 
 # The tf32x3 kernel's persistent instance, MLA's f32 (192, 128): keys a

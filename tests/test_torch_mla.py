@@ -363,15 +363,16 @@ def test_mla_decode_ref_masks_past_the_length():
 
 def test_routes_at_mla_dims():
     """Flash attention: bf16 at (192, 128) to the tensor-core kernel, f32
-    at (192, 128) and (24, 16) to the 3xTF32 kernel, other unequal pairs
-    raise; MLA decode: bf16 at (512, 64) to its tensor-core instance, f32
-    at (512, 64) to its 3xTF32 one, both dtypes at (16, 8) to its SIMT one,
-    other dims raise."""
+    at (192, 128) and both dtypes at (24, 16) to the 3xTF32 kernel, other
+    unequal pairs raise; MLA decode: bf16 at (512, 64) to its tensor-core
+    instance, f32 at (512, 64) to its 3xTF32 one, both dtypes at (16, 8)
+    to its SIMT one, other dims raise."""
     assert fa_ops.route(torch.bfloat16, 192, 128) == "tc"
     assert fa_ops.route(torch.bfloat16, 128, 128) == "tc"
     assert fa_ops.route(torch.float32, 192, 128) == "tf32x3"
     assert fa_ops.route(torch.float32, 24, 16) == "tf32x3"
-    for dtype, hd, vd in ((torch.bfloat16, 24, 16), (torch.float32, 192, 64),
+    assert fa_ops.route(torch.bfloat16, 24, 16) == "tf32x3"
+    for dtype, hd, vd in ((torch.float32, 192, 64),
                           (torch.bfloat16, 128, 64), (torch.float32, 64, 128)):
         with pytest.raises(ValueError, match="head dims"):
             fa_ops.route(dtype, hd, vd)

@@ -138,7 +138,10 @@ def test_flash_attention_bwd_matches_jax_vjp(shape, causal, dtype):
 
 
 DECODE_BWD_CASES = [(2, 4, 4, 512, 64), (4, 8, 2, 300, 128),
-                    (1, 8, 1, 700, 64), (2, 4, 2, 32, 16)]
+                    (1, 8, 1, 700, 64), (2, 4, 2, 32, 16),
+                    # minitron-4b's G = 3, glm4-9b's 16, granite-20b's 48
+                    (2, 6, 2, 300, 32), (2, 32, 2, 64, 16),
+                    (1, 48, 1, 80, 64)]
 
 
 @pytest.mark.parametrize("dtype", list(JDT))
