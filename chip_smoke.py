@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) serves
-Moby (one stream and a fleet), serves and trains the dense LMs, serves the
+Moby (one stream and a fleet), serves and trains the dense LMs and the
 moe family (moonshot-v1-16b-a3b; deepseek-v2-236b with MLA), and serves
 and trains the PointPillars detector on an NVIDIA H100.
 
@@ -89,10 +89,17 @@ fatal on failure:
    tensor-core kernel: LM T's shape in f32 and at hd 64 in bf16, LM T's
    f32 correctness shape, G = 1, 2, 3, 4, 8 and 16, Sq = Sk = 1, 77, 256
    and 4096, causal and not, every head dim in f32 and in bf16,
-   keys longer than queries; ``flash_attention_bwd_tc``, the bf16
+   keys longer than queries, and at MLA's qk 192 / value 128 in f32 (MLA
+   T's correctness shape, timed) and 24 / 16 in f32 and bf16 (MLA A's
+   shape, both timed); ``flash_attention_bwd_tc``, the bf16
    tensor-core kernel: LM T's bf16 shape, Sq = Sk = 1, a ragged 77 with
    contiguous operands, keys longer than queries, full attention at S
-   256, S 1024 causal; ``decode_attention_bwd``: the decode shape with
+   256, S 1024 causal, and at qk 192 / value 128 MLA T's shape (128
+   heads, S 4096, timed; its plain version 8 heads at a time) and
+   moonshot's MoE T shape at hd 128 (G = 1, timed); at G = 1 either
+   route's direct write of dK and dV held bit for bit to the partials'
+   group sum (``group_sum_path``); ``decode_attention_bwd``: the decode
+   shape with
    ragged positions and an empty request, f32 GQA and MQA, SMOKE's head
    dim, 3, 16 and 48 query heads a kv head; every case of the three called
    twice and the two results equal bit for bit), f32 within 2e-5 of the
@@ -169,7 +176,9 @@ fatal on failure:
    frames), ``fleet-64-mixed`` (6 frames; TX2/Orin edges, a 4-GPU cloud
    pool), each as the preset defines it, and the full-width fleet,
    ``kitti-urban`` with 16 streams at KITTI's own size on the ``fcc1``
-   cell (8 frames), each after a 2-frame warm-up, its tapes recorded
+   cell (4 frames: its tapes take ~9 s of host time a frame, and the
+   whole run has to fit its time limit), each after a 2-frame warm-up,
+   its tapes recorded
    before the timed run; the launches checked per fleet frame (K1's
    labels instance 1, K2 and the auction 2: the anchor and the transform
    branch, K3 1, the others 0); wall ms per fleet frame and per
@@ -177,7 +186,7 @@ fatal on failure:
    the share spent copying the frame's inputs to the card, peak device
    memory; a torch.profiler window over 2 frames of the full-width fleet;
    each run held to the port's CPU run of the same preset in this
-   process (the full-width fleet's first 4 frames): kinds exact, floats
+   process (the full-width fleet's first 2 frames): kinds exact, floats
    within the golden tolerance; one ``{"fleets": [...]}`` JSON line;
    then the same three fleets in scan mode (``run(scan=True)``: the tape
    copied to the card once, one frame of the body captured in a CUDA
@@ -188,7 +197,7 @@ fatal on failure:
    share, device ops a fleet frame, each kernel's launches by name), wall
    ms a fleet frame and a stream-frame, the tape's copy, warm-up and
    capture times, peak memory, and the rows held to the port's CPU scan
-   (the full-width fleet's first 4 frames); ``fleet-256-congested`` (4
+   (the full-width fleet's first 2 frames); ``fleet-256-congested`` (4
    frames) against ``tests/goldens/fleet-256-congested-scan.csv`` (stream,
    frame, kind, device exact; the modelled times at the golden tolerance)
    and, every column, against its CPU scan; one ``{"scans": [...]}`` JSON
@@ -260,8 +269,9 @@ fatal on failure:
    gradient at LM T's MLP shape held to JAX's arithmetic (F4:
    ``check_matmul_grad``); full width with
    2 layers in f32 (LM B's rescaled weights) at B=2, S=256: the loss and
-   every gradient, three ``make_train_step`` steps and one with
-   ``grad_accum=2`` against the same on the CPU in this process, within
+   every gradient, a ``make_train_step`` step and one with
+   ``grad_accum=2`` (the CPU's half of a step takes ~10 s) against the
+   same on the CPU in this process, within
    1e-4 of the values' scale (the parameters also within the sum of the
    steps' learning rates, AdamW's move of an entry whose gradient is near
    eps), the ``tf32x3`` gradient launched once a layer a backward pass
@@ -276,6 +286,25 @@ fatal on failure:
    SMOKE config in f32,
    checkpoints every 2 steps, cut after 4 and resumed: losses equal to the
    uncut run's bit for bit;
+11b. MoE T and MLA T, training the moe family on the card: the experts'
+   batched bf16 GEMM's gradient (``_BmmF32Out``) at moonshot's expert
+   shape held to JAX's arithmetic (F4, ``check_bmm_grad``); deepseek-v2
+   SMOKE (qk 24 / value 16) in f32, seeded and rescaled: the loss, every
+   gradient and 3 train steps against the CPU (1e-4), and in bf16 its
+   loss and logits within 3e-2 of the CPU's (``train_smoke``); then each
+   of moonshot (MoE T) and deepseek-v2 (MLA T) at full width
+   (``train_moe``): f32 correctness at B=2, S=256 on the card against the
+   CPU within 1e-4 (moonshot at 2 layers, the dense one and a MoE layer:
+   the loss, every gradient, 3 steps and one with grad_accum 2;
+   deepseek-v2 at 1, its dense MLA layer: the loss, every gradient and a
+   step), the routing equal; timed in bf16 over f32 masters, remat
+   "full", B=1, S=4096: moonshot at 6 layers, AdamW steps, deepseek-v2 at
+   2 layers (the dense one and a 160-expert MoE layer), loss-and-gradient
+   passes (AdamW's state does not fit beside them); a warm-up whose
+   recomputed forward (remat) routes every token as the first did, then 3
+   counted steps or passes by CUDA events: ms, tokens/s, expert loads and
+   drops, peak memory, launches checked (the tensor-core flash route 2 a
+   layer, its gradient 1), a profile of 2;
 12. Det A, the card against JAX: the PointPillars detector at a small
    config (32x32 pillars) with the weights and frame of
    ``tests/goldens/det3d_smoke.npz``: forward, loss, every gradient,
@@ -287,8 +316,9 @@ fatal on failure:
    pass, one backward a step), peak device memory, a torch.profiler window
    over 4 detect calls; then 2 frames on the CPU against the card;
 14. one ``{"kernels": [...]}`` JSON line (an entry a kernel, and one for
-   each of this slice's instances at MLA's dims: ``INSTANCES``), the card
-   line again, and last the ``{"ok": true, "device": ...}`` line.
+   each instance at MLA's dims and the gradient's at moonshot's G = 1:
+   ``INSTANCES``), the card line again, and last the ``{"ok": true,
+   "device": ...}`` line.
 """
 from __future__ import annotations
 
@@ -334,7 +364,7 @@ KITTI_FRAMES = 24
 FLEETS = (
     ("fleet-16-congested", {}, 8, 8, "fleet_16"),
     ("fleet-64-mixed", {}, 6, 6, "fleet_64"),
-    ("kitti-urban", dict(n_streams=16, trace="fcc1", **KITTI), 8, 4,
+    ("kitti-urban", dict(n_streams=16, trace="fcc1", **KITTI), 4, 2,
      "fleet_kitti"),
 )
 FLEET_WARMUP, FLEET_PROFILE_FRAMES = 2, 2
@@ -391,6 +421,21 @@ MOE_B_LAYERS, MOE_C_LAYERS = 2, 12
 MLA_ARCH = "deepseek_v2_236b"
 MLA_GOLDEN = ROOT / "tests" / "goldens" / "lm_deepseek_v2_236b_smoke.npz"
 MLA_B_LAYERS, MLA_C_LAYERS = 2, 8
+# MoE T and MLA T, training the moe family at full width. Correctness in
+# f32 at LM B's shape, the card against the CPU: moonshot at 2 layers (the
+# dense first layer and one MoE layer: 1.345B parameters), deepseek-v2 at
+# 1 (the dense first layer with MLA: 1.387B; its MoE layer would add
+# 3.97B, past what the card and the host hold in f32 with AdamW's state).
+# Timed in bf16 over f32 masters, remat "full", at LM T's B=1, S=4096:
+# moonshot at 6 of its 48 layers (3.696B parameters: f32 masters,
+# gradients and both AdamW moments are 59.1 GB) with AdamW steps;
+# deepseek-v2 at 2 of its 60 (the dense first layer and one MoE layer:
+# 5.359B parameters), loss-and-gradient passes only, since AdamW's 16
+# bytes a parameter (85.7 GB) pass one 80 GB card (the parameters and
+# gradients alone are 42.9 GB). A warm-up, then TM_STEPS timed.
+MOE_T_CHECK_LAYERS, MOE_T_LAYERS = 2, 6
+MLA_T_CHECK_LAYERS, MLA_T_LAYERS = 1, 2
+TM_STEPS = 3
 
 # The PointPillars detector (models/detector3d.py). Det A holds the card to
 # the JAX golden at a small config; Det B runs the default config (128x128
@@ -425,7 +470,8 @@ KERNELS = {
     # (repro/ops/api.py; plain JAX, recomputing the scores).
     "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/ops/api.py:54"),
-    # K5's gradient on the tensor cores (bf16 at head dims 64 and 128).
+    # K5's gradient on the tensor cores (bf16 at head dims 64 and 128, and
+    # MLA's qk 192 / value 128).
     "flash_attention_bwd_tc": (
         "src/repro_torch/csrc/flash_attention_bwd_tc.cu",
         "src/repro/ops/api.py:54"),
@@ -449,12 +495,25 @@ KERNELS = {
 }
 
 
-# The instances of this slice (MLA's head dims) that the kernel JSON line
-# lists as entries of their own: (kernel, phase-3 case) -> (key of its
-# timed record, label, the path whose launches are its own).
+# The instances at MLA's head dims (and the gradient's at moonshot's G = 1)
+# that the kernel JSON line lists as entries of their own: (kernel,
+# phase-3 case) -> (key of its timed record, label, the path whose
+# launches are its own).
 INSTANCES = {
     ("flash_attention_tc", 6): ("deepseek", "qk 192 / value 128, bf16",
                                 "MLA C serving"),
+    ("flash_attention_bwd_tc", 15): ("deepseek", "qk 192 / value 128, bf16",
+                                     "MLA T training"),
+    ("flash_attention_bwd_tc", 16): ("moonshot", "hd 128, G = 1, bf16",
+                                     "MoE T training"),
+    ("flash_attention_bwd", 15): ("deepseek_f32", "qk 192 / value 128, f32 "
+                                  "(4-warp dq, 8-warp dkv)",
+                                  "MLA T f32 correctness"),
+    ("flash_attention_bwd", 16): ("deepseek_smoke", "qk 24 / value 16, f32",
+                                  "MLA T SMOKE f32"),
+    ("flash_attention_bwd", 17): ("deepseek_smoke_bf16",
+                                  "qk 24 / value 16, bf16",
+                                  "MLA T SMOKE bf16"),
     ("flash_attention", 7): ("deepseek_f32", "qk 192 / value 128, f32 "
                              "(persistent: 8 warps, 32-key tiles)", "MLA B"),
     ("flash_attention", 9): ("deepseek_smoke", "qk 24 / value 16, f32",
@@ -1236,7 +1295,8 @@ def check_mla_decode(torch, dev, mla_ops, mla_ref, b, h, s, r, p, dtype,
 
 def bwd_rounding_terms(torch, q, k, v, o, do, causal: bool):
     """The rounding terms of the tensor-core gradient's allowance, in
-    float64, for q, o, do (B, H, SQ, hd) and k, v (B, KV, SK, hd): with a
+    float64, for q (B, H, SQ, hd), o, do (B, H, SQ, vd), k (B, KV, SK, hd)
+    and v (B, KV, SK, vd): with a
     the plain version's softmax weights and ds its dS (float64, its
     masking), dQ[i,d]: scale sqrt(sum_j (ds_ij k_jd)^2), dK[j,d]: scale
     sqrt(sum_i (ds_ij q_id)^2), dV[j,d]: sqrt(sum_i (a_ij do_id)^2), the
@@ -1244,12 +1304,12 @@ def bwd_rounding_terms(torch, q, k, v, o, do, causal: bool):
     One query head at a time, so LM T's S = 4096 holds one (SQ, SK)
     matrix of each. Returns (dq, dk, dv) terms."""
     b, h, sq, hd = q.shape
-    kv, sk = k.shape[1], k.shape[2]
+    kv, sk, vd = k.shape[1], k.shape[2], v.shape[-1]
     f64 = torch.float64
     scale = hd ** -0.5
     tq = torch.zeros((b, h, sq, hd), dtype=f64, device=q.device)
     tk = torch.zeros((b, kv, sk, hd), dtype=f64, device=q.device)
-    tv = torch.zeros_like(tk)
+    tv = torch.zeros((b, kv, sk, vd), dtype=f64, device=q.device)
     live = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
     if causal:
         live = live.tril()
@@ -1323,8 +1383,8 @@ def grads_close(torch, got, want, what: str, p_rounding=None):
 
 
 def group_sum_path(torch, fa_ops, q, k, v, o, do, causal, got, what):
-    """At G = 1 the tensor-core gradient writes dK and dV directly; hold
-    that to its partials and group-sum pass bit for bit. The same inputs
+    """At G = 1 the gradient (either route) writes dK and dV directly;
+    hold that to its partials and group-sum pass bit for bit. The same inputs
     at G = 2: query head 2i is head i (q, o, do), head 2i + 1 has do = 0,
     so its partials are zeros (dS = P (0 - 0)) and each kv head's sum is
     +0 + (head 2i's partial) + (a zero), which the direct write's +0
@@ -1340,39 +1400,56 @@ def group_sum_path(torch, fa_ops, q, k, v, o, do, causal, got, what):
              f"the partials' group sum")
 
 
-def check_flash_bwd(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
-                    causal, seed, views=True):
-    """K5's backward kernel vs its plain version, on the forward kernel's
-    output and a random cotangent: q, k, v, o and do are (B, heads, S, hd)
-    views of (B, S, heads, hd) storage, as the model passes them, or
-    contiguous (``views`` False). The wrapper's route (``fa_ops.route``)
-    picks the kernel. Either route's result must equal a second call's bit
-    for bit; both are held to the plain gradient on the same inputs
-    computed in float64 (``grads_close``), the tensor-core route with its
-    allowance for P and dS rounded to bf16 (``bwd_rounding_terms``). Timed
-    beside PyTorch's SDPA backward (its autograd gradient on the same
-    inputs); the bound is the inputs' (bf16 tensor products for bf16, on
-    either route; three TF32 products a product for f32), with the f32
-    SIMT bound beside it."""
-    g = torch.Generator(device=dev).manual_seed(seed)
+def bwd_heads_at_a_time(torch, plain, n: int):
+    """``plain`` (a gradient reference over (B, H, S, dim) operands with KV
+    = H heads) computed ``n`` heads at a time: MLA T's 128 heads at S 4096
+    would hold 17 GB of float64 scores a tensor at once."""
+    def run(q, k, v, o, do, causal):
+        parts = [plain(q[:, i:i + n], k[:, i:i + n], v[:, i:i + n],
+                       o[:, i:i + n], do[:, i:i + n], causal)
+                 for i in range(0, q.shape[1], n)]
+        return tuple(torch.cat(x, dim=1) for x in zip(*parts))
+    return run
 
-    def act(heads, s):
-        x = torch.randn(b, s, heads, hd, generator=g, device=dev, dtype=dtype)
+
+def check_flash_bwd(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
+                    causal, seed, views=True, vd=None):
+    """K5's backward kernel vs its plain version, on the forward kernel's
+    output and a random cotangent: q, k, v, o and do are (B, heads, S, dim)
+    views of (B, S, heads, dim) storage, as the model passes them, or
+    contiguous (``views`` False); v, o and do have the value head dim
+    ``vd`` (``hd`` when None: MLA's differ). The wrapper's route
+    (``fa_ops.route``) picks the kernel. Either route's result must equal
+    a second call's bit for bit; both are held to the plain gradient on
+    the same inputs computed in float64 (``grads_close``; with KV = H past
+    16 heads, 8 heads at a time), the tensor-core route with its allowance
+    for P and dS rounded to bf16 (``bwd_rounding_terms``). Timed beside
+    PyTorch's SDPA backward (its autograd gradient on the same inputs);
+    the bound is the inputs' (bf16 tensor products for bf16, on either
+    route; three TF32 products a product for f32), with the f32 SIMT bound
+    beside it."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vd = hd if vd is None else vd
+
+    def act(heads, s, dim=hd):
+        x = torch.randn(b, s, heads, dim, generator=g, device=dev,
+                        dtype=dtype)
         return x.transpose(1, 2) if views else \
             x.transpose(1, 2).contiguous()
-    q, k, v = act(h, sq), act(kv, sk), act(kv, sk)
+    q, k, v = act(h, sq), act(kv, sk), act(kv, sk, vd)
     o = fa_ops.flash_attention(q, k, v, causal)
     if not views:
         o = o.contiguous()
-    do = act(h, sq)
-    route = fa_ops.route(dtype, hd)
+    do = act(h, sq, vd)
+    route = fa_ops.route(dtype, hd, vd)
     counter = "bwd_tc_launches" if route == "tc" else "bwd_launches"
     before = getattr(fa_ops, counter)
     got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal)
     if getattr(fa_ops, counter) != before + 1:
         fail(f"flash_attention_bwd: the {route} route's kernel did not "
              f"launch")
-    shape = (f"({b},{h},{kv},{sq},{sk},{hd}) {str(dtype)[6:]} "
+    dims = f"{hd}" if vd == hd else f"{hd}/{vd}"
+    shape = (f"({b},{h},{kv},{sq},{sk},{dims}) {str(dtype)[6:]} "
              + ("causal" if causal else "full")
              + ("" if views else ", contiguous"))
     again = fa_ops.flash_attention_bwd(q, k, v, o, do, causal)
@@ -1380,11 +1457,13 @@ def check_flash_bwd(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
         fail(f"flash_attention_bwd ({route}) {shape}: two calls on the same "
              f"inputs differ")
     del again
-    if route == "tc" and h == kv:
+    if h == kv:
         group_sum_path(torch, fa_ops, q, k, v, o, do, causal, got,
-                       f"flash_attention_bwd (tc) {shape}")
-    want = fa_ref.flash_attention_bwd_ref(
-        *(t.double() for t in (q, k, v, o, do)), causal)
+                       f"flash_attention_bwd ({route}) {shape}")
+    plain = fa_ref.flash_attention_bwd_ref
+    if kv == h and h > 16:
+        plain = bwd_heads_at_a_time(torch, plain, 8)
+    want = plain(*(t.double() for t in (q, k, v, o, do)), causal)
     p_rounding = bwd_rounding_terms(torch, q, k, v, o, do, causal) \
         if route == "tc" else None
     err, tol, worst = grads_close(torch, got, want,
@@ -1395,24 +1474,28 @@ def check_flash_bwd(torch, dev, fa_ops, fa_ref, b, h, kv, sq, sk, hd, dtype,
                 for x, w in zip(got, want))
     del got, want
     pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    # The five products of the gradient (S recomputed, dP, dV, dQ, dK),
-    # 2 hd flops a live (query head, key) pair each; in f32 three TF32
-    # products each (the 3xTF32 split), in bf16 one bf16 product each.
-    ops = 10 * hd * b * h * pairs
+    # The five products of the gradient (S recomputed, dP, dV, dQ, dK), 2
+    # dim flops a live (query head, key) pair each, dim the qk head dim
+    # for S, dQ and dK and the value head dim for dP and dV; in f32 three
+    # TF32 products each (the 3xTF32 split), in bf16 one bf16 product each.
+    ops = 2 * (3 * hd + 2 * vd) * b * h * pairs
     f32 = dtype == torch.float32
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
     lib_out = torch.nn.functional.scaled_dot_product_attention(
         qr, kr, vr, is_causal=causal, enable_gqa=True)
+    # Each input read once and each output written once: q, o, do, dq on
+    # the query side; k, v, dk, dv on the key side.
     rec = dict(shape=shape, exact=exact, max_abs_err=err, tol=tol,
                worst=worst,
-               bytes=(4 * b * h * sq + 4 * b * kv * sk) * hd * q.element_size(),
+               bytes=2 * (hd + vd) * (b * h * sq + b * kv * sk)
+               * q.element_size(),
                ops=3 * ops if f32 else ops,
                peak=PEAK_TF32_PER_S if f32 else PEAK_BF16_PER_S,
                f32_simt_ms=ops / PEAK_F32_PER_S * 1e3, library_eager=True,
                library=lambda: torch.autograd.grad(
                    lib_out, (qr, kr, vr), do, retain_graph=True))
     return rec, (lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, causal)), \
-        (lambda: fa_ref.flash_attention_bwd_ref(q, k, v, o, do, causal))
+        (lambda: plain(q, k, v, o, do, causal))
 
 
 def check_decode_bwd(torch, dev, dec_ops, dec_ref, b, h, kv, s, hd, dtype,
@@ -1927,7 +2010,7 @@ def route_gap(torch, calls, k: int) -> float:
     probability over the recorded calls: how near the routing came to a
     tie."""
     return min(float((w[:, k - 1] - w[:, k]).min()) for w in (
-        torch.sort(probs.float(), dim=-1, descending=True)[0]
+        torch.sort(probs.detach().float(), dim=-1, descending=True)[0]
         for probs, _ in calls))
 
 
@@ -2308,6 +2391,43 @@ def check_matmul_grad(torch, dev, layers) -> None:
           f"one ulp + 2^-16)", flush=True)
 
 
+def check_bmm_grad(torch, dev, layers, cfg, n_tokens: int) -> None:
+    """F4 for the experts' batched GEMM on the card: the gradient of
+    ``cfg``'s w_gate product at ``n_tokens`` tokens (E experts x the
+    capacity's rows, d_model @ d_model x moe_d_ff, f32 out) through
+    ``layers._bmm_f32``'s autograd (``_BmmF32Out``), against JAX's
+    arithmetic emulated in float64 and rounded once to bf16, as
+    ``check_matmul_grad`` holds the dense GEMM's."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    e, c = cfg.n_experts, layers.moe_capacity(cfg, n_tokens)
+    k, n = cfg.d_model, cfg.moe_d_ff
+    x = torch.randn(e, c, k, generator=g, device=dev).bfloat16() \
+        .requires_grad_()
+    w = (torch.randn(e, k, n, generator=g, device=dev) * k ** -0.5) \
+        .bfloat16().requires_grad_()
+    dy = torch.randn(e, c, n, generator=g, device=dev)
+    layers._bmm_f32(x, w).backward(dy)
+    d64 = dy.double()
+    wants = (torch.bmm(d64, w.detach().double().transpose(1, 2)).bfloat16(),
+             torch.bmm(x.detach().double().transpose(1, 2), d64).bfloat16())
+    scales = (torch.bmm(dy.abs(), w.detach().float().abs().transpose(1, 2)),
+              torch.bmm(x.detach().float().abs().transpose(1, 2), dy.abs()))
+    out = []
+    for name, got, want, scale in zip(("dx", "dw"), (x.grad, w.grad), wants,
+                                      scales):
+        share, excess = bf16_departure(torch, got, want, scale)
+        if excess > F4_SLACK:
+            fail(f"F4: the experts' batched GEMM's {name} departs from JAX's "
+                 f"arithmetic by {excess:.3g} of |dy|.|w| past one bf16 ulp "
+                 f"(allowed {F4_SLACK:.3g})")
+        out.append(f"{name} {100 * share:.4f}% of entries past one ulp, "
+                   f"excess at most 2^{math.log2(max(excess, 2 ** -149)):.1f}"
+                   f" of |dy|.|w|")
+    print(f"F4: {cfg.name}'s expert GEMM's gradient ({e} x {c}x{k} @ "
+          f"{k}x{n}, _BmmF32Out) against JAX's arithmetic (float64, rounded "
+          f"once): {'; '.join(out)} (allowed one ulp + 2^-16)", flush=True)
+
+
 def check_gradients_reach(torch, dev, ops, fa_ops, dec_ops) -> None:
     """F3 on the card: autograd through ``ops.flash_attention`` and
     ``ops.decode_attention`` gives q, k and v (and the caches) their
@@ -2364,6 +2484,11 @@ def tree_close(torch, params, got, want, tol: float, what: str,
     worst = 0.0
     for path, g in params.leaves(got):
         w = want[path].to(g.device)
+        if not w.numel():   # a stack of no layers
+            if g.shape != w.shape:
+                fail(f"{what} {'/'.join(path)}: shape {tuple(g.shape)}, "
+                     f"want {tuple(w.shape)}")
+            continue
         scale = float(w.abs().max())
         diff = float((g.float() - w.float()).abs().max())
         if not bool(torch.isfinite(g).all()) or \
@@ -2374,11 +2499,64 @@ def tree_close(torch, params, got, want, tol: float, what: str,
     return worst
 
 
+def grads_of(torch, params, lm, cfg, p, batch):
+    """(loss, gradient tree) of ``lm.loss_fn`` at ``p``; a leaf the loss
+    does not reach (a stack of no layers) gets zeros, as in the train
+    step."""
+    req = params.tree_map(lambda t: t.detach().requires_grad_(), p)
+    loss = lm.loss_fn(req, cfg, batch)
+    g = torch.autograd.grad(loss, [t for _, t in params.leaves(req)],
+                            allow_unused=True, materialize_grads=True)
+    return loss.detach(), params.from_leaves(zip(
+        (path for path, _ in params.leaves(req)), g))
+
+
+def steps_agree(torch, params, optimizer, trainstep, cfg, p_card, p_cpu,
+                batch_pair, accums, what: str) -> None:
+    """A ``make_train_step`` step for each grad_accum of ``accums`` from
+    the same f32 weights on the card and on the CPU (``batch_pair(b)``
+    gives the two copies of a batch of b sequences: LM_B_BATCH a step,
+    twice that at grad_accum 2), held to each other: the loss within
+    1e-4, both moments within 1e-4 of their scale and the parameters
+    within 1e-4 of theirs plus the sum of the steps' learning rates
+    (AdamW's normalised move of an entry whose gradient is near eps)."""
+    ocfg = optimizer.AdamWConfig()
+    steps = {w: (p, optimizer.init(p)) for w, p in (("card", p_card),
+                                                    ("cpu", p_cpu))}
+    lr_sum = 0.0
+    for i, accum in enumerate(accums):
+        c = dataclasses.replace(cfg, grad_accum=accum)
+        card_batch, cpu_batch = batch_pair(2 * LM_B_BATCH if accum > 1
+                                           else LM_B_BATCH)
+        out = {}
+        for where, batch in (("card", card_batch), ("cpu", cpu_batch)):
+            p, state = steps[where]
+            p, state, m = trainstep.make_train_step(c, ocfg)(p, state, batch)
+            steps[where] = (p, state)
+            out[where] = m
+        lr_sum += float(out["cpu"]["lr"])
+        lc, lp = float(out["card"]["loss"]), float(out["cpu"]["loss"])
+        if abs(lc - lp) > 1e-4 * abs(lp):
+            fail(f"{what} step {i + 1} (grad_accum {accum}): loss {lc} on "
+                 f"the card vs {lp} on the CPU")
+        for name in ("m", "v"):
+            tree_close(torch, params, getattr(steps["card"][1], name),
+                       getattr(steps["cpu"][1], name), 1e-4,
+                       f"{what} step {i + 1} {name}")
+        worst = tree_close(torch, params, steps["card"][0], steps["cpu"][0],
+                           1e-4, f"{what} step {i + 1} params", lr_sum)
+        print(f"{what}: step {i + 1} (grad_accum {accum}): loss {lc:.6f} "
+              f"(CPU {lp:.6f}), grad norm {float(out['card']['grad_norm']):.6f}"
+              f" (CPU {float(out['cpu']['grad_norm']):.6f}); moments within "
+              f"1e-4 of their scale, parameters within {worst:.3g} of theirs",
+              flush=True)
+
+
 def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
              trainstep, loop):
     """LM T: training qwen2.5-3B on the card. Correctness: full width with
     2 layers in f32 (LM B's rescaled attention weights), loss and every
-    gradient, three train steps and one with grad_accum 2, the card against
+    gradient, a train step and one with grad_accum 2, the card against
     the CPU within 1e-4 of the values' scale (the parameters also within
     the sum of the steps' learning rates: AdamW's normalised move of an
     entry whose gradient is near eps). Timed: 36 layers in bf16 over f32
@@ -2411,11 +2589,8 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
     grads = {}
     for where, p, batch in (("card", p_card, card_batch),
                             ("cpu", p_cpu, cpu_batch)):
-        req = params.tree_map(lambda t: t.detach().requires_grad_(), p)
-        loss = lm.loss_fn(req, cfg, batch)
-        g = torch.autograd.grad(loss, [t for _, t in params.leaves(req)])
-        grads[where] = (float(loss.detach()), params.from_leaves(zip(
-            (path for path, _ in params.leaves(req)), g)))
+        loss, g = grads_of(torch, params, lm, cfg, p, batch)
+        grads[where] = (float(loss), g)
     if abs(grads["card"][0] - grads["cpu"][0]) > 1e-4 * abs(grads["cpu"][0]):
         fail(f"LM T: loss on the card {grads['card'][0]} vs the CPU "
              f"{grads['cpu'][0]}")
@@ -2426,46 +2601,18 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
           f"{grads['cpu'][0]:.6f}), every gradient within {worst:.3g} of "
           f"its scale of the CPU's (tolerance 1e-4)", flush=True)
     del grads
-    ocfg = optimizer.AdamWConfig()
-    steps = {w: (p, optimizer.init(p)) for w, p in (("card", p_card),
-                                                    ("cpu", p_cpu))}
-    lr_sum = 0.0
-    for i, accum in enumerate((1, 1, 1, 2)):
-        c = dataclasses.replace(cfg, grad_accum=accum)
-        card_batch, cpu_batch = batch_pair(2 * LM_B_BATCH if accum > 1
-                                           else LM_B_BATCH)
-        out = {}
-        for where, batch in (("card", card_batch), ("cpu", cpu_batch)):
-            p, state = steps[where]
-            p, state, m = trainstep.make_train_step(c, ocfg)(p, state, batch)
-            steps[where] = (p, state)
-            out[where] = m
-        lr_sum += float(out["cpu"]["lr"])
-        lc, lp = float(out["card"]["loss"]), float(out["cpu"]["loss"])
-        if abs(lc - lp) > 1e-4 * abs(lp):
-            fail(f"LM T step {i + 1} (grad_accum {accum}): loss {lc} on the "
-                 f"card vs {lp} on the CPU")
-        for name in ("m", "v"):
-            tree_close(torch, params, getattr(steps["card"][1], name),
-                       getattr(steps["cpu"][1], name), 1e-4,
-                       f"LM T step {i + 1} {name}")
-        worst = tree_close(torch, params, steps["card"][0], steps["cpu"][0],
-                           1e-4, f"LM T step {i + 1} params", lr_sum)
-        print(f"LM T: step {i + 1} (grad_accum {accum}): loss {lc:.6f} "
-              f"(CPU {lp:.6f}), grad norm {float(out['card']['grad_norm']):.6f}"
-              f" (CPU {float(out['cpu']['grad_norm']):.6f}); moments within "
-              f"1e-4 of their scale, parameters within {worst:.3g} of theirs",
-              flush=True)
+    steps_agree(torch, params, optimizer, trainstep, cfg, p_card, p_cpu,
+                batch_pair, (1, 2), "LM T")
     f32_bwd = kernels.launch_counts()["flash_attention_bwd"]
-    # A backward pass for the gradient, one for each of three steps, two
-    # for the grad_accum 2 step: one launch a layer each.
-    if f32_bwd != LM_B_LAYERS * 6:
+    # A backward pass for the gradient, one for the first step, two for
+    # the grad_accum 2 step: one launch a layer each.
+    if f32_bwd != LM_B_LAYERS * 4:
         fail(f"LM T: the f32 steps launched the tf32x3 gradient {f32_bwd} "
-             f"times, not {LM_B_LAYERS * 6}")
+             f"times, not {LM_B_LAYERS * 4}")
     print(f"LM T: correctness on the card vs the CPU in "
           f"{time.perf_counter() - t0:.1f} s; flash_attention_bwd (tf32x3) "
           f"launched {f32_bwd} times", flush=True)
-    del steps, p_card, p_cpu
+    del p_card, p_cpu
     torch.cuda.empty_cache()
 
     # -- timed: 36 layers, bf16 compute over f32 masters ---------------------
@@ -2474,6 +2621,7 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
     t0 = time.perf_counter()
     p = params.init_params(lm.model_defs(cfg), gen, dev)
     state = optimizer.init(p)
+    ocfg = optimizer.AdamWConfig()
     step = trainstep.make_train_step(cfg, ocfg)
     batches = [{k: torch.randint(0, cfg.vocab, (T_BATCH, T_SEQ),
                                  generator=gen, device=dev,
@@ -2553,6 +2701,286 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
                                     "flash_attention_bwd_tc",
                                     "decode_attention", "decode_attention_bwd")}
     out["flash_attention_bwd"] = f32_bwd + fit_bwd
+    return out
+
+
+def rescale_stacks(cfg, p, lm) -> None:
+    """Every attention stack of ``p`` rescaled in place (``rescale_mla``
+    for MLA, ``rescale_attention`` otherwise): scores of order 1, a
+    well-conditioned f32 gradient (see ``rescale_attention``)."""
+    for key, _ in lm.stacks(cfg):
+        if cfg.attn_kind == "mla":
+            rescale_mla(p[key])
+        else:
+            rescale_attention(p[key], cfg)
+
+
+def same_routes(torch, label: str, card_routes, cpu_routes, k: int) -> str:
+    """Fail unless the card's recorded MoE calls routed every token to the
+    CPU's experts; returns a line with the smallest top-k gaps."""
+    if len(card_routes) != len(cpu_routes):
+        fail(f"{label}: {len(card_routes)} MoE calls on the card, "
+             f"{len(cpu_routes)} on the CPU")
+    for i, ((_, got), (_, want)) in enumerate(zip(card_routes, cpu_routes)):
+        if not torch.equal(got.cpu(), want):
+            fail(f"{label}: MoE call {i} routed "
+                 f"{int((got.cpu() != want).any(-1).sum())} tokens to other "
+                 f"experts on the card than on the CPU")
+    if not cpu_routes:
+        return "no MoE layer"
+    return (f"routing of {sum(w.shape[0] for _, w in cpu_routes)} tokens "
+            f"over {len(cpu_routes)} MoE calls equal; smallest gap between "
+            f"the k-th and (k+1)-th router probability "
+            f"{route_gap(torch, card_routes, k):.3g} (card), "
+            f"{route_gap(torch, cpu_routes, k):.3g} (CPU)")
+
+
+def train_smoke(torch, dev, kernels, lm_configs, lm, params, optimizer,
+                trainstep, label: str, arch: str, seed: int):
+    """MLA T at SMOKE size (deepseek-v2's qk 24 / value 16: K5's ``tf32x3``
+    gradient at (24, 16)): in f32 (seeded weights, attention rescaled) the
+    loss, every gradient and three train steps (grad_accum 1, 1, 2) on the
+    card against the CPU within 1e-4 of the values' scale; in bf16 (the
+    SMOKE config's own dtype) the loss and the logits within 3e-2 of the
+    CPU's (``mla_smoke_bf16``'s tolerance) and every gradient finite.
+    Returns the ``tf32x3`` gradient's launches: {"<label> T SMOKE f32": n,
+    "<label> T SMOKE bf16": n}, checked (one a layer a backward pass)."""
+    cpu = torch.device("cpu")
+    out = {}
+    t0 = time.perf_counter()
+    smoke = lm_configs.get_smoke(arch)
+    for dtype in (torch.float32, torch.bfloat16):
+        kernels.reset_launch_counts()
+        cfg = dataclasses.replace(smoke, dtype=dtype)
+        p_card = params.init_params(
+            lm.model_defs(cfg), torch.Generator(device=dev).manual_seed(seed),
+            dev)
+        rescale_stacks(cfg, p_card, lm)
+        p_cpu = params.tree_map(lambda t: t.to(cpu, copy=True), p_card)
+        gen = torch.Generator().manual_seed(seed + 1)
+
+        def batch_pair(b):
+            host = {k: torch.randint(0, cfg.vocab, (b, 64), generator=gen,
+                                     dtype=torch.int32)
+                    for k in ("tokens", "labels")}
+            return {k: v.to(dev) for k, v in host.items()}, host
+        card_batch, cpu_batch = batch_pair(LM_B_BATCH)
+        loss_c, g_c = grads_of(torch, params, lm, cfg, p_card, card_batch)
+        loss_p, g_p = grads_of(torch, params, lm, cfg, p_cpu, cpu_batch)
+        name = f"{label} T SMOKE " + ("bf16" if dtype == torch.bfloat16
+                                      else "f32")
+        if dtype == torch.bfloat16:
+            with torch.no_grad():
+                lc = lm.forward(p_card, cfg, card_batch["tokens"]).cpu()
+                lp = lm.forward(p_cpu, cfg, cpu_batch["tokens"])
+            err = float((lc - lp).abs().max())
+            tol = 3e-2 * max(1.0, float(lp.abs().max()))
+            if abs(float(loss_c) - float(loss_p)) > 3e-2 * max(
+                    1.0, abs(float(loss_p))) or err > tol or not all(
+                    bool(torch.isfinite(g).all())
+                    for _, g in params.leaves(g_c)):
+                fail(f"{name}: loss {float(loss_c)} (CPU {float(loss_p)}), "
+                     f"logits off by {err} (tolerance {tol:.3g}), or a "
+                     f"gradient not finite")
+            launches = kernels.launch_counts()
+            print(f"{name}: {cfg.name} bf16 B={LM_B_BATCH} S=64: loss "
+                  f"{float(loss_c):.5f} (CPU {float(loss_p):.5f}), logits "
+                  f"within {err:.3g} of the CPU's (tolerance 3e-2 of their "
+                  f"scale), every gradient finite; launches {launches}",
+                  flush=True)
+            # One backward pass, and the logits' forward (no gradient).
+            passes, forwards = 1, cfg.n_layers
+        else:
+            if abs(float(loss_c) - float(loss_p)) > 1e-4 * abs(float(loss_p)):
+                fail(f"{name}: loss on the card {float(loss_c)} vs the CPU "
+                     f"{float(loss_p)}")
+            worst = tree_close(torch, params, g_c, g_p, 1e-4,
+                               f"{name} gradient")
+            print(f"{name}: {cfg.name} f32 B={LM_B_BATCH} S=64: loss "
+                  f"{float(loss_c):.6f} (CPU {float(loss_p):.6f}), every "
+                  f"gradient within {worst:.3g} of its scale of the CPU's",
+                  flush=True)
+            accums = (1, 1, 2)
+            steps_agree(torch, params, optimizer, trainstep, cfg, p_card,
+                        p_cpu, batch_pair, accums, name)
+            launches = kernels.launch_counts()
+            passes, forwards = 1 + sum(accums), 0
+        expect = dict.fromkeys(launches, 0)
+        expect.update(flash_attention=(1 + (cfg.remat == "full"))
+                      * cfg.n_layers * passes + forwards,
+                      flash_attention_bwd=cfg.n_layers * passes)
+        if launches != expect:
+            fail(f"{name} launch counts {launches} != {expect}")
+        out[name] = launches["flash_attention_bwd"]
+    print(f"{label} T SMOKE: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def train_moe(torch, dev, kernels, lm_configs, lm, params, optimizer,
+              trainstep, layers, label: str, arch: str, check_layers: int,
+              layers_timed: int, seed: int, accums=(1, 1, 1, 2),
+              adamw: bool = True):
+    """MoE T / MLA T: training a moe architecture on the card.
+    Correctness: full width at ``check_layers`` layers in f32 (attention
+    rescaled, ``rescale_stacks``) at LM B's shape: the loss and every
+    gradient, then a ``make_train_step`` step for each of ``accums`` (its
+    grad_accum), the card against the CPU within 1e-4 of the values'
+    scale (the parameters also within the steps' learning rates), the
+    routing equal. Timed: ``layers_timed`` layers in bf16 over f32 masters,
+    remat "full", B=T_BATCH, S=T_SEQ, a warm-up then TM_STEPS train steps
+    (``adamw``) or loss-and-gradient passes; the warm-up's recomputed
+    forward (remat) routes every token as its first forward did; launches
+    checked, expert loads and drops, a profile. Returns the attention
+    kernels' launches over the counted runs: the f32 correctness passes
+    (the ``tf32x3`` gradient) and the timed ones (the ``tc`` routes)."""
+    f32 = torch.float32
+    cpu = torch.device("cpu")
+    out = {}
+    # -- correctness: full width, f32, card vs CPU ---------------------------
+    cfg = dataclasses.replace(lm_configs.get(arch), n_layers=check_layers,
+                              dtype=f32)
+    p_card = params.init_params(lm.model_defs(cfg),
+                                torch.Generator(device=dev).manual_seed(seed),
+                                dev)
+    rescale_stacks(cfg, p_card, lm)
+    p_cpu = params.tree_map(lambda t: t.to(cpu, copy=True), p_card)
+    n_params = params.param_count(lm.model_defs(cfg))
+    gen = torch.Generator().manual_seed(seed + 1)
+
+    def batch_pair(b):
+        host = {k: torch.randint(0, cfg.vocab, (b, LM_B_S), generator=gen,
+                                 dtype=torch.int32)
+                for k in ("tokens", "labels")}
+        return {k: v.to(dev) for k, v in host.items()}, host
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    card_batch, cpu_batch = batch_pair(LM_B_BATCH)
+    (loss_c, g_c), routes_c = recorded_routes(layers, lambda: grads_of(
+        torch, params, lm, cfg, p_card, card_batch))
+    (loss_p, g_p), routes_p = recorded_routes(layers, lambda: grads_of(
+        torch, params, lm, cfg, p_cpu, cpu_batch))
+    routing = same_routes(torch, f"{label} T", routes_c, routes_p, cfg.top_k)
+    if abs(float(loss_c) - float(loss_p)) > 1e-4 * abs(float(loss_p)):
+        fail(f"{label} T: loss on the card {float(loss_c)} vs the CPU "
+             f"{float(loss_p)}")
+    worst = tree_close(torch, params, g_c, g_p, 1e-4, f"{label} T gradient")
+    print(f"{label} T: {cfg.name} x{check_layers} layers ({cfg.first_dense}"
+          f" dense + {check_layers - cfg.first_dense} MoE, "
+          f"{n_params / 1e9:.3f}B parameters) f32 B={LM_B_BATCH} S={LM_B_S}: "
+          f"loss {float(loss_c):.6f} (CPU {float(loss_p):.6f}), every "
+          f"gradient within {worst:.3g} of its scale of the CPU's "
+          f"(tolerance 1e-4); {routing}", flush=True)
+    del g_c, g_p, routes_c, routes_p
+    steps_agree(torch, params, optimizer, trainstep, cfg, p_card, p_cpu,
+                batch_pair, accums, f"{label} T")
+    launches = kernels.launch_counts()
+    # A backward pass for the gradient, one a step, two a grad_accum 2
+    # step: one tf32x3 gradient launch a layer each, and the forward's
+    # (twice under remat: its recompute).
+    passes = 1 + sum(accums)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attention=(1 + (cfg.remat == "full")) * check_layers
+                  * passes, flash_attention_bwd=check_layers * passes)
+    if launches != expect:
+        fail(f"{label} T: the f32 correctness passes' launch counts "
+             f"{launches} != {expect}")
+    out["flash_attention_bwd"] = launches["flash_attention_bwd"]
+    print(f"{label} T: correctness on the card vs the CPU in "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    del p_card, p_cpu
+    torch.cuda.empty_cache()
+
+    # -- timed: bf16 over f32 masters, remat full -----------------------------
+    cfg = dataclasses.replace(lm_configs.get(arch), n_layers=layers_timed,
+                              grad_accum=1)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    t0 = time.perf_counter()
+    p = params.init_params(lm.model_defs(cfg), gen, dev)
+    rescale_stacks(cfg, p, lm)
+    n_params = params.param_count(lm.model_defs(cfg))
+    state = optimizer.init(p) if adamw else None
+    step = trainstep.make_train_step(cfg, optimizer.AdamWConfig())
+    batches = [{k: torch.randint(0, cfg.vocab, (T_BATCH, T_SEQ),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int32)
+                for k in ("tokens", "labels")} for _ in range(TM_STEPS + 3)]
+    torch.cuda.synchronize()
+    print(f"{label} T: {cfg.name} ({layers_timed} layers: {cfg.first_dense} "
+          f"dense + {layers_timed - cfg.first_dense} MoE, "
+          f"{n_params / 1e9:.3f}B parameters, {str(cfg.dtype)[6:]} over f32 "
+          f"masters, remat {cfg.remat}) weights"
+          + (" and AdamW state" if adamw else "") + f" on the card in "
+          f"{time.perf_counter() - t0:.1f} s; device memory "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+
+    def run(batch):
+        nonlocal p, state
+        if adamw:
+            p, state, m = step(p, state, batch)
+            return m["loss"]
+        loss, grads = grads_of(torch, params, lm, cfg, p, batch)
+        del grads
+        return loss
+    # Warm-up, its routing recorded: the forward's MoE calls, then the
+    # backward's recomputes (remat) in reverse layer order.
+    _, routes = recorded_routes(layers, lambda: run(batches[-1]))
+    torch.cuda.synchronize()
+    n_moe = layers_timed - cfg.first_dense
+    if len(routes) != 2 * n_moe or not all(
+            torch.equal(a[1], b[1]) for a, b in
+            zip(routes[:n_moe], routes[n_moe:][::-1])):
+        fail(f"{label} T: the recomputed forward (remat) routed tokens "
+             f"otherwise than the first ({len(routes)} MoE calls)")
+    cap = layers.moe_capacity(cfg, T_BATCH * T_SEQ)
+    loads = torch.stack([torch.bincount(topi.flatten(),
+                                        minlength=cfg.n_experts)
+                         for _, topi in routes[:n_moe]])
+    dropped = int((loads - cap).clamp_min(0).sum())
+    del routes
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for batch in batches[:TM_STEPS]:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = run(batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(loss))
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attention_tc=2 * layers_timed * TM_STEPS,
+                  flash_attention_bwd_tc=layers_timed * TM_STEPS)
+    if launches != expect:
+        fail(f"{label} T launch counts {launches} != {expect}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label} T losses {losses} not finite")
+    med = statistics.median(ms)
+    what = "train step" if adamw else "loss and gradient pass"
+    print(f"{label} T: {what} B={T_BATCH} S={T_SEQ}: median {med:.2f} ms "
+          f"({', '.join(f'{x:.2f}' for x in ms)}), "
+          f"{T_BATCH * T_SEQ / med * 1e3:.1f} tokens/s; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; launches a {what} "
+          f"{ {k: v // TM_STEPS for k, v in launches.items() if v} }; the "
+          f"warm-up's routing over {n_moe} MoE layers (equal in remat's "
+          f"recompute): the busiest expert takes {int(loads.max())} of "
+          f"{T_BATCH * T_SEQ} tokens (capacity {cap}), the idlest "
+          f"{int(loads.min())}, {dropped} of {int(loads.sum())} assignments "
+          f"dropped; peak device memory {peak:.2f} GiB", flush=True)
+    it = iter(batches[TM_STEPS:TM_STEPS + 2])
+    print(profile_window(torch, f"{cfg.name} x{layers_timed} {what} "
+                         f"B={T_BATCH} S={T_SEQ}",
+                         lambda: [run(batch) for batch in it], 2,
+                         "step" if adamw else "pass", names=T_PROFILED),
+          flush=True)
+    del p, state, batches, it
+    torch.cuda.empty_cache()
+    out.update(flash_attention_tc=launches["flash_attention_tc"],
+               flash_attention_bwd_tc=launches["flash_attention_bwd_tc"])
     return out
 
 
@@ -3362,9 +3790,9 @@ def main() -> None:
         return lambda s: check_mla_decode(torch, dev, mla_ops, mla_ref,
                                           *shape, s)
 
-    def flash_bwd(*shape, views=True):
+    def flash_bwd(*shape, views=True, vd=None):
         return lambda s: check_flash_bwd(torch, dev, fa_ops, fa_ref, *shape,
-                                         s, views)
+                                         s, views, vd)
 
     def dec_bwd(*shape, empty=()):
         return lambda s: check_decode_bwd(torch, dev, dec_ops, dec_ref,
@@ -3634,7 +4062,25 @@ def main() -> None:
             flash_bwd(1, 4, 2, 300, 300, 128, f32, True),
             flash_bwd(1, 6, 2, 150, 150, 64, f32, True),
             flash_bwd(1, 16, 1, 200, 200, 32, bf16, True),
-            flash_bwd(2, 4, 2, 77, 77, 16, bf16, False)],
+            flash_bwd(2, 4, 2, 77, 77, 16, bf16, False),
+            # MLA's head dims (qk 192 / value 128 in f32: 4-warp dq blocks
+            # over 32-key tiles, 8-warp dkv blocks over 16-query tiles; qk
+            # 24 / value 16 in f32 and bf16): MLA T's f32 correctness shape
+            # (MLA B's) and MLA A's SMOKE shape (B 2, 4 heads, S 16) in f32
+            # and bf16 (all three timed), then G = 4 and 3, ragged,
+            # contiguous operands, keys longer than queries, Sq = Sk = 1,
+            # S 1024.
+            flash_bwd(LM_B_BATCH, 128, 128, LM_B_S, LM_B_S, 192, f32, True,
+                      vd=128),
+            flash_bwd(2, 4, 4, 16, 16, 24, f32, True, vd=16),
+            flash_bwd(2, 4, 4, 16, 16, 24, bf16, True, vd=16),
+            flash_bwd(1, 8, 2, 77, 77, 192, f32, False, vd=128),
+            flash_bwd(1, 4, 4, 300, 300, 192, f32, True, views=False,
+                      vd=128),
+            flash_bwd(2, 6, 2, 300, 300, 24, f32, True, vd=16),
+            flash_bwd(1, 4, 2, 128, 640, 24, bf16, False, vd=16),
+            flash_bwd(2, 4, 4, 1, 1, 192, f32, True, vd=128),
+            flash_bwd(1, 4, 4, 1024, 1024, 24, bf16, True, vd=16)],
         # The tensor-core route (bf16 at hd 64 and 128): LM T's timed shape
         # first (S 4096, G 8, causal), then Sq = Sk = 1, a ragged 77 with
         # contiguous operands, keys longer than queries (not causal), full
@@ -3662,7 +4108,23 @@ def main() -> None:
             flash_bwd(2, 4, 4, 1, 1, 64, bf16, True),
             flash_bwd(2, 8, 8, 77, 77, 64, bf16, True, views=False),
             flash_bwd(1, 8, 4, 300, 300, 64, bf16, True),
-            flash_bwd(2, 8, 1, 256, 256, 64, bf16, False)],
+            flash_bwd(2, 8, 1, 256, 256, 64, bf16, False),
+            # qk 192 / value 128 (MLA): MLA T's shape (128 heads, a kv
+            # head each, S 4096, causal; its plain version 8 heads at a
+            # time; timed), then moonshot's MoE T shape at hd 128 (16
+            # heads, G = 1, S 4096; timed), then Sq = Sk = 1, a ragged 77
+            # with contiguous operands, keys longer than queries at G = 4
+            # (the partials' group sum), S 1024 causal at G = 2, G = 1 at
+            # a ragged 300 (held to the group sum bit for bit).
+            flash_bwd(T_BATCH, 128, 128, T_SEQ, T_SEQ, 192, bf16, True,
+                      vd=128),
+            flash_bwd(T_BATCH, 16, 16, T_SEQ, T_SEQ, 128, bf16, True),
+            flash_bwd(2, 4, 4, 1, 1, 192, bf16, True, vd=128),
+            flash_bwd(2, 8, 8, 77, 77, 192, bf16, True, views=False,
+                      vd=128),
+            flash_bwd(2, 8, 2, 128, 640, 192, bf16, False, vd=128),
+            flash_bwd(1, 4, 2, 1024, 1024, 192, bf16, True, vd=128),
+            flash_bwd(1, 4, 4, 300, 300, 192, bf16, True, vd=128)],
         # K6's gradient: LM C's decode shape with ragged positions and one
         # empty request first, then f32 GQA, MQA with positions 1 and S,
         # SMOKE's head dim with an empty request, bf16 at hd 16, and 48
@@ -3921,6 +4383,30 @@ def main() -> None:
     for k, n in training.items():
         main_launches[k] = main_launches.get(k, 0) + n
         lm_paths.setdefault(k, {})["LM T training"] = n
+
+    # -- 11b. MoE T and MLA T: training the moe family on the card ---------
+    torch.cuda.empty_cache()
+    check_bmm_grad(torch, dev, layers, lm_configs.get(MOE_ARCH),
+                   T_BATCH * T_SEQ)
+    trained = [("flash_attention_bwd", path, n) for path, n in
+               train_smoke(torch, dev, kernels, lm_configs, lm, params,
+                           optimizer, trainstep, "MLA", MLA_ARCH,
+                           41).items()]
+    for label, arch, check_layers, timed_layers, seed, accums, adamw in (
+            ("MoE", MOE_ARCH, MOE_T_CHECK_LAYERS, MOE_T_LAYERS, 21,
+             (1, 1, 1, 2), True),
+            ("MLA", MLA_ARCH, MLA_T_CHECK_LAYERS, MLA_T_LAYERS, 31, (1,),
+             False)):
+        torch.cuda.empty_cache()
+        res = train_moe(torch, dev, kernels, lm_configs, lm, params,
+                        optimizer, trainstep, layers, label, arch,
+                        check_layers, timed_layers, seed, accums, adamw)
+        trained.append(("flash_attention_bwd", f"{label} T f32 correctness",
+                        res.pop("flash_attention_bwd")))
+        trained += [(k, f"{label} T training", n) for k, n in res.items()]
+    for k, path, n in trained:
+        main_launches[k] = main_launches.get(k, 0) + n
+        lm_paths.setdefault(k, {})[path] = n
     by_path.update(lm_paths)
 
     # -- 12-13. Det A and B: the PointPillars detector ----------------------

@@ -4,7 +4,9 @@
 //
 // Replaces the VJP around the TPU kernel: repro/ops/api.py (_flash_bwd),
 // jax.vjp of repro/models/layers.py::_chunked_attention, which recomputes
-// the scores a query block at a time. Its plain version is
+// the scores a query block at a time, and at MLA's head dims (qk 192 /
+// value 128, SMOKE's 24 / 16) jax.vjp of JAX's plain attention
+// (_dense_attention, _chunked_attention). Its plain version is
 // kernels/flash_attention/ref.py::flash_attention_bwd_ref:
 //   A = softmax(scale Q.K^T) with the forward's masking (masked keys give
 //   p = 0, the causal limit kj <= qi, keys past sk masked),
@@ -12,10 +14,13 @@
 //   dQ = scale dS K, dK = scale dS^T Q,
 // with the G = H / KV query heads of a kv head summed into its dK and dV.
 // This is the "tf32x3" route of kernels/flash_attention/ops.py::route: f32
-// at head dims 16-128, bf16 at head dims 16 and 32 (the SMOKE configs).
-// bf16 at head dims 64 and 128 (zamba2 and whisper; training's route at
-// full width) runs flash_attention_bwd_tc.cu; the bf16 hd-64 instance
-// this kernel had until then is gone (its times stay in PERF.md).
+// at head dims 16-128 and at MLA's (192, 128) and (24, 16), bf16 at head
+// dims 16 and 32 and at (24, 16) (the SMOKE configs). bf16 at head dims 64
+// and 128 and at (192, 128) (training's route at full width) runs
+// flash_attention_bwd_tc.cu; the bf16 hd-64 instance this kernel had
+// until then is gone (its times stay in PERF.md). The value head dim VD
+// may differ from the qk head dim QK: S, dQ and dK run over QK, dP and dV
+// over VD, and the scale is QK^-0.5.
 //
 // What bounds it on an H100: operations. At the training shape (B=1,
 // H=16, KV=2, S=4096, hd=128, causal) the five products of the gradient
@@ -56,7 +61,8 @@
 // plain version's.
 //
 // Design, deterministic and without float atomics (three launches of one
-// entry point, in stream order), blocks of 8 warps:
+// entry point, in stream order; two at G = 1), blocks of 8 warps (the
+// Tiling of an instance; (192, 128) below):
 // * dq_kernel, a block per (16 * 8 / hb query rows, b, hb query heads of
 //   one kv head), hb = gcd(H / KV, 8), the heaviest causal blocks first
 //   (grid y, slowest); each warp takes 16 rows of one head, so a K/V tile
@@ -84,7 +90,17 @@
 //   GQA; each writes f32 partials of its query head: 128 KB of fragments
 //   + 2 x 34 KB of ring at hd 128 in f32;
 // * reduce_kernel sums the G partials of each kv head in head order and
-//   rounds once to the input type.
+//   rounds once to the input type. At G = 1 (MLA, moonshot) dkv_kernel
+//   rounds dK and dV once itself (+0 added, as the sum's start does, so
+//   the two agree bit for bit) and no partials exist: at MLA B's shape the
+//   pass took 0.114 ms of 0.941 (chip_smoke.py, PERF.md).
+// MLA's f32 (192, 128), where 8 warps' Q and dO fragments alone would be
+// 160 KB and a dkv warp holds dK and dV (160 floats a thread): dq blocks
+// of 4 warps over 32-key tiles (147 KB: fragments 80 KB, two K tiles and a
+// V tile), dkv blocks of 8 warps over 16-query tiles (206 KB: fragments
+// 160 KB, 2 stages of 21 KB), products summing 2 output tiles at once;
+// ptxas gives both kernels 255 registers and 12-24 bytes of spill stores
+// (the hd-128 instance's dkv kernel spills 44 bytes).
 // Tile rows in shared memory are padded by 16 bytes, so B fragments, read
 // either way (X[n][k] for S and dP, X[k][n] for the others), fall on
 // distinct banks. Masking is applied only to the tiles that cross sk, sq
@@ -103,15 +119,30 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBk = 64;              // keys a tile of the dq walk
-constexpr int kBq = 32;              // queries a tile of the dkv walk
-constexpr int kKeys = 16 * kWarps;   // keys a dkv block
-constexpr int kNG = 4;               // 8-column output tiles summed at once
 constexpr unsigned kFull = 0xffffffffu;
 // Dynamic shared memory a block may use on an H100 (227 KB).
 constexpr int kMaxSmem = 232448;
+
+// An instance's tiling at (qk, value) head dims (QK, VD): the warps of a
+// dq block and of a dkv block, keys a tile of the dq walk, queries a tile
+// of the dkv walk, and 8-column output tiles a product sums at once.
+template <int QK, int VD, typename T>
+struct Tiling {
+  static constexpr int kDqWarps = 8, kDkvWarps = 8;
+  static constexpr int kBk = 64, kBq = 32, kNG = 4;
+};
+
+// MLA's f32 (192, 128). dq: 4 warps over 32-key tiles, so that Q's
+// fragments (48 KB), dO's (32 KB), two K tiles and a V tile fit (147 KB;
+// 8 warps' fragments alone would be 160 KB), and dQ (96 floats a thread)
+// leaves room for a tile's S, dS and their split; dkv: 8 warps (K's and
+// V's fragments: 160 KB) over 16-query tiles, two output tiles summed at
+// once, since dK and dV hold 160 floats a thread over the walk.
+template <>
+struct Tiling<192, 128, float> {
+  static constexpr int kDqWarps = 4, kDkvWarps = 8;
+  static constexpr int kBk = 32, kBq = 16, kNG = 2;
+};
 
 struct Strides {                    // in elements; the head dim has stride 1
   long long b, h, s;
@@ -121,45 +152,62 @@ struct Args {
   const void *q, *k, *v, *o, *dout;
   void *dq, *dk, *dv;
   float* stats;                     // (3, B*H, SQ): m, l, D
-  float* part;                      // (2, B*H, SK, hd): dK, dV partials
+  float* part;                      // (B*H, SK, QK) dK, (B*H, SK, VD) dV
   Strides sq_, sk_, sv_, so_, sdo_, sdq_, sdk_, sdv_;
   int batch, h, kv, sq, sk;
   int causal;
   float scale;
-  int hb;                           // query heads a dq block: gcd(H/KV, 8)
+  int hb;                           // query heads a dq block: gcd(H/KV,
+                                    // the dq block's warps)
 };
 
-// dq_kernel's shared memory: every warp's Q fragments, then its dO
-// fragments (f32, [warp][HD / 8][32 lanes] of 16 bytes), two K tiles and
-// one V tile ([kBk][HD + pad] of T).
-template <int HD, typename T>
+// dq_kernel's shared memory: every warp's Q fragments, then every warp's
+// dO fragments (f32, [warp][dim / 8][32 lanes] of 16 bytes), two K tiles
+// ([kBk][QK + pad] of T) and one V tile ([kBk][VD + pad] of T). The
+// warps' O rows ([16][VD + pad] each) are staged where K tile 1 and V
+// will be.
+template <int QK, int VD, typename T>
 struct DqSmem {
-  static constexpr int kRow = HD + kPad<T>;
-  static constexpr int kFrag = kWarps * (HD / 8) * 32 * 16;
-  static constexpr int kTile = kBk * kRow * static_cast<int>(sizeof(T));
-  static constexpr int kBytes = 2 * kFrag + 3 * kTile;
+  using Tl = Tiling<QK, VD, T>;
+  static constexpr int kWarps = Tl::kDqWarps;
+  static constexpr int kRowK = QK + kPad<T>;
+  static constexpr int kRowV = VD + kPad<T>;
+  static constexpr int kFragQ = kWarps * (QK / 8) * 32 * 16;
+  static constexpr int kFragDo = kWarps * (VD / 8) * 32 * 16;
+  static constexpr int kTileK = Tl::kBk * kRowK * static_cast<int>(sizeof(T));
+  static constexpr int kTileV = Tl::kBk * kRowV * static_cast<int>(sizeof(T));
+  static constexpr int kBytes = kFragQ + kFragDo + 2 * kTileK + kTileV;
+  static_assert(kWarps * 16 * kRowV * static_cast<int>(sizeof(T)) <=
+                    kTileK + kTileV, "O rows");
 };
 
-// dkv_kernel's: every warp's K fragments, then its V fragments, then two
-// stages of [Q tile, dO tile ([kBq][HD + pad] of T), m, l, D ([3][kBq] f32)].
-template <int HD, typename T>
+// dkv_kernel's: every warp's K fragments, then every warp's V fragments,
+// then two stages of [Q tile ([kBq][QK + pad] of T), dO tile ([kBq][VD +
+// pad] of T), m, l, D ([3][kBq] f32)].
+template <int QK, int VD, typename T>
 struct DkvSmem {
-  static constexpr int kRow = HD + kPad<T>;
-  static constexpr int kFrag = kWarps * (HD / 8) * 32 * 16;
-  static constexpr int kTile = kBq * kRow * static_cast<int>(sizeof(T));
-  static constexpr int kStage = 2 * kTile + 3 * kBq * 4;
-  static constexpr int kBytes = 2 * kFrag + 2 * kStage;
+  using Tl = Tiling<QK, VD, T>;
+  static constexpr int kWarps = Tl::kDkvWarps;
+  static constexpr int kRowK = QK + kPad<T>;
+  static constexpr int kRowV = VD + kPad<T>;
+  static constexpr int kFragK = kWarps * (QK / 8) * 32 * 16;
+  static constexpr int kFragV = kWarps * (VD / 8) * 32 * 16;
+  static constexpr int kTileQ = Tl::kBq * kRowK * static_cast<int>(sizeof(T));
+  static constexpr int kTileDo =
+      Tl::kBq * kRowV * static_cast<int>(sizeof(T));
+  static constexpr int kStage = kTileQ + kTileDo + 3 * Tl::kBq * 4;
+  static constexpr int kBytes = kFragK + kFragV + 2 * kStage;
+  static_assert(kStage % 16 == 0, "16-byte aligned stages");
 };
 
 // Rows [r0, r0 + R) of an operand (row r at src + r * rs, the head dim
 // contiguous) into dst ([R][HD + pad] of T) by 16-byte cp.async, issued by
-// the block's threads (or by the lanes of a warp: tid, threads); rows >= n
-// are zero-filled.
+// `threads` threads (the block's, or the lanes of a warp), this one being
+// `tid`; rows >= n are zero-filled.
 template <int R, int HD, typename T>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, long long rs,
-                                          int r0, int n,
-                                          int tid = threadIdx.x,
-                                          int threads = kThreads) {
+                                          int r0, int n, int tid,
+                                          int threads) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunks = HD / kVec;
   for (int c = tid; c < R * kChunks; c += threads) {
@@ -253,16 +301,16 @@ __device__ __forceinline__ void product_nt(const T* bt, const uint4* af,
 // fragments x[k] of a previous product (rows g: c0, c1 and g + 8: c2, c3,
 // columns k*8 + 2t, 2t + 1), taken as A fragments with k index t for
 // column 2t and t + 4 for 2t + 1; B = bt[k*8 + 2t (+1)][d*8 + g] of tile
-// bt ([kK * 8][HD + pad] of T). X is split once; each group of kG (kNG,
+// bt ([kK * 8][HD + pad] of T). X is split once; each group of kG (NG,
 // or all HD / 8 when fewer) 8-column output tiles sums its kK k-steps in
 // fresh accumulators (small products apart), then adds them to acc in f32.
-template <int HD, int kK, typename T>
+template <int HD, int kK, int NG, typename T>
 __device__ __forceinline__ void product_nn(const float (&x)[kK][4],
                                            const T* bt, int gq, int tq,
                                            float (&acc)[HD / 8][4]) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int kRow = HD + kPad<T>;
-  constexpr int kG = kNG < HD / 8 ? kNG : HD / 8;
+  constexpr int kG = NG < HD / 8 ? NG : HD / 8;
   static_assert(HD / 8 % kG == 0, "output tile groups");
   uint32_t xh[kK][4], xl[kK][4];
 #pragma unroll
@@ -297,25 +345,25 @@ __device__ __forceinline__ void product_nn(const float (&x)[kK][4],
   }
 }
 
-// p = 2^(s c - m c) in place of one 16 x kBk tile of raw scores sc (rows
+// p = 2^(s c - m c) in place of one 16 x BK tile of raw scores sc (rows
 // g: c0, c1 and g + 8: c2, c3; key k0 + n*8 + 2t + c), c = scale * log2(e),
 // masked keys 0. Each row's running max m (mc = m c) and its thread's
 // share of the sum l take the tile in first, and corr is the factor by
 // which earlier tiles' sums rescale; returns whether any row of the warp
 // has corr != 1. kMask: the tile holds keys past sk or above a row's
 // diagonal.
-template <bool kMask>
+template <bool kMask, int BK>
 __device__ __forceinline__ bool softmax_tile(
-    float (&sc)[kBk / 8][4], float (&m)[2], float (&mc)[2], float (&l)[2],
+    float (&sc)[BK / 8][4], float (&m)[2], float (&mc)[2], float (&l)[2],
     float (&corr)[2], const int (&rq)[2], int k0, int tq, int sk,
     int causal, float c) {
   bool moved = false;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bool live[kBk / 8][2];
+    bool live[BK / 8][2];
     float tile_max = kNeg;
 #pragma unroll
-    for (int n = 0; n < kBk / 8; ++n)
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int kj = k0 + n * 8 + 2 * tq + j;
@@ -333,7 +381,7 @@ __device__ __forceinline__ bool softmax_tile(
     mc[r] = mc_new;
     float psum = 0.0f;
 #pragma unroll
-    for (int n = 0; n < kBk / 8; ++n)
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         float& s = sc[n][2 * r + j];
@@ -346,21 +394,25 @@ __device__ __forceinline__ bool softmax_tile(
   return __any_sync(kFull, moved);
 }
 
-template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
-  using S = DqSmem<HD, T>;
+template <int QK, int VD, typename T>
+__global__ void __launch_bounds__(32 * Tiling<QK, VD, T>::kDqWarps, 1)
+dq_kernel(Args a) {
+  using S = DqSmem<QK, VD, T>;
   static_assert(S::kBytes <= kMaxSmem, "shared memory");
-  constexpr int kD = HD / 8;         // k-steps of S and dP; dQ's n-tiles
+  constexpr int kWarps = S::kWarps, kThreads = 32 * kWarps;
+  constexpr int kBk = S::Tl::kBk, kNG = S::Tl::kNG;
+  constexpr int kD = QK / 8;         // k-steps of S; dQ's n-tiles
+  constexpr int kDv = VD / 8;        // k-steps of dP
   constexpr int kN = kBk / 8;        // n-tiles of S and dP; dQ's k-steps
-  constexpr int kTile = kBk * S::kRow;   // elements of a K or V tile
+  constexpr int kTile = kBk * S::kRowK;   // elements of a K tile
   extern __shared__ uint4 smem4[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, tq = lane % 4;  // the mma's groupID, thread
   uint4* qf = smem4 + warp * kD * 32 + lane;
-  uint4* df = smem4 + (kWarps + warp) * kD * 32 + lane;
-  // [K buffer 0, K buffer 1, V], each [kBk][HD + pad]
+  uint4* df = smem4 + kWarps * kD * 32 + warp * kDv * 32 + lane;
+  // [K buffer 0, K buffer 1 ([kBk][QK + pad] each), V ([kBk][VD + pad])]
   T* kbuf = reinterpret_cast<T*>(reinterpret_cast<char*>(smem4) +
-                                 2 * S::kFrag);
+                                 S::kFragQ + S::kFragDo);
   T* vbuf = kbuf + 2 * kTile;
 
   const int group = a.h / a.kv, chunks = group / a.hb;
@@ -379,23 +431,23 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
   const T* dop = static_cast<const T*>(a.dout) + b * a.sdo_.b +
                  h * a.sdo_.h;
   const T* op = static_cast<const T*>(a.o) + b * a.so_.b + h * a.so_.h;
-  store_frags<HD>(qf, qp, a.sq_.s, row0, a.sq, gq, tq);
-  store_frags<HD>(df, dop, a.sdo_.s, row0, a.sq, gq, tq);
+  store_frags<QK>(qf, qp, a.sq_.s, row0, a.sq, gq, tq);
+  store_frags<VD>(df, dop, a.sdo_.s, row0, a.sq, gq, tq);
   // D = rowsum(dO * O), O as the forward stored it, as the diagonal of
   // dO.O^T over the warp's 16 rows: the products and sums of dP = dO.V^T,
   // so a row whose one live key j has O = V_j (every such row in bf16)
   // gets dP - D = 0 exactly, as in the exact gradient, here and in the dkv
   // kernel (whose dP^T takes the same products). The warp's O rows are
-  // staged where K buffer 1 and V will be: 8 x 16 rows.
+  // staged where K buffer 1 and V will be: kWarps x 16 rows.
   float dsum[2];
   {
-    T* orows = kbuf + kTile + warp * 16 * S::kRow;
-    load_rows<16, HD>(orows, op, a.so_.s, row0, a.sq, lane, 32);
+    T* orows = kbuf + kTile + warp * 16 * S::kRowV;
+    load_rows<16, VD>(orows, op, a.so_.s, row0, a.sq, lane, 32);
     cp_async_commit();
     cp_async_wait<0>();
     __syncwarp();
     float od[2][4];
-    product_nt<HD, 2>(orows, df, gq, tq, od);
+    product_nt<VD, 2>(orows, df, gq, tq, od);
     // (g, g) is c0 or c1 of n-tile 0 at lane (g, g / 2); (g + 8, g + 8)
     // c2 or c3 of n-tile 1.
     const int src = gq * 4 + gq / 2;
@@ -424,8 +476,8 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) dq[d][i] = 0.0f;
   if (n_tiles > 0) {
-    load_rows<kBk, HD>(kbuf, kb, a.sk_.s, 0, a.sk);
-    load_rows<kBk, HD>(vbuf, vb, a.sv_.s, 0, a.sk);
+    load_rows<kBk, QK>(kbuf, kb, a.sk_.s, 0, a.sk, threadIdx.x, kThreads);
+    load_rows<kBk, VD>(vbuf, vb, a.sv_.s, 0, a.sk, threadIdx.x, kThreads);
   }
   cp_async_commit();
   for (int it = 0; it < n_tiles; ++it) {
@@ -434,17 +486,17 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
     cp_async_wait<0>();   // K and V of tile it (this thread's part)
     __syncthreads();       // ... everyone's; tile it - 1 is consumed
     if (it + 1 < n_tiles)
-      load_rows<kBk, HD>(kbuf + (it + 1) % 2 * kTile, kb, a.sk_.s,
-                         k0 + kBk, a.sk);
+      load_rows<kBk, QK>(kbuf + (it + 1) % 2 * kTile, kb, a.sk_.s,
+                         k0 + kBk, a.sk, threadIdx.x, kThreads);
     cp_async_commit();
 
     float sc[kN][4];
-    product_nt<HD, kN>(kt, qf, gq, tq, sc);           // S = Q.K^T
+    product_nt<QK, kN>(kt, qf, gq, tq, sc);           // S = Q.K^T
     const bool moved = masked(k0)
-        ? softmax_tile<true>(sc, m, mc, l, corr, rq, k0, tq, a.sk, a.causal,
-                             c)
-        : softmax_tile<false>(sc, m, mc, l, corr, rq, k0, tq, a.sk, a.causal,
-                              c);
+        ? softmax_tile<true, kBk>(sc, m, mc, l, corr, rq, k0, tq, a.sk,
+                                  a.causal, c)
+        : softmax_tile<false, kBk>(sc, m, mc, l, corr, rq, k0, tq, a.sk,
+                                   a.causal, c);
     if (moved) {
 #pragma unroll
       for (int d = 0; d < kD; ++d)
@@ -452,7 +504,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
         for (int i = 0; i < 4; ++i) dq[d][i] *= corr[i / 2];
     }
     float ds[kN][4];
-    product_nt<HD, kN>(vbuf, df, gq, tq, ds);         // dP = dO.V^T
+    product_nt<VD, kN>(vbuf, df, gq, tq, ds);         // dP = dO.V^T
 #pragma unroll
     for (int n = 0; n < kN; ++n)
 #pragma unroll
@@ -460,9 +512,10 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
         ds[n][i] = sc[n][i] * (ds[n][i] - dsum[i / 2]);   // dS~
     __syncthreads();       // every warp has read V
     if (it + 1 < n_tiles)
-      load_rows<kBk, HD>(vbuf, vb, a.sv_.s, k0 + kBk, a.sk);
+      load_rows<kBk, VD>(vbuf, vb, a.sv_.s, k0 + kBk, a.sk, threadIdx.x,
+                         kThreads);
     cp_async_commit();
-    product_nn<HD, kN>(ds, kt, gq, tq, dq);           // dQ~ += dS~.K
+    product_nn<QK, kN, kNG>(ds, kt, gq, tq, dq);      // dQ~ += dS~.K
   }
   cp_async_wait<0>();
 
@@ -491,26 +544,31 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Args a) {
   }
 }
 
-template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Args a) {
-  using S = DkvSmem<HD, T>;
+template <int QK, int VD, typename T>
+__global__ void __launch_bounds__(32 * Tiling<QK, VD, T>::kDkvWarps, 1)
+dkv_kernel(Args a) {
+  using S = DkvSmem<QK, VD, T>;
   static_assert(S::kBytes <= kMaxSmem, "shared memory");
-  constexpr int kD = HD / 8;         // k-steps of S^T and dP^T
+  constexpr int kWarps = S::kWarps, kThreads = 32 * kWarps;
+  constexpr int kBq = S::Tl::kBq, kNG = S::Tl::kNG;
+  constexpr int kKeys = 16 * kWarps;  // keys a block
+  constexpr int kD = QK / 8;         // k-steps of S^T; dK's n-tiles
+  constexpr int kDv = VD / 8;        // k-steps of dP^T; dV's n-tiles
   constexpr int kN = kBq / 8;        // their n-tiles; dV's and dK's k-steps
   extern __shared__ uint4 smem4[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, tq = lane % 4;
   uint4* kf = smem4 + warp * kD * 32 + lane;
-  uint4* vf = smem4 + (kWarps + warp) * kD * 32 + lane;
-  char* ring = reinterpret_cast<char*>(smem4) + 2 * S::kFrag;
+  uint4* vf = smem4 + kWarps * kD * 32 + warp * kDv * 32 + lane;
+  char* ring = reinterpret_cast<char*>(smem4) + S::kFragK + S::kFragV;
 
   const int bh = blockIdx.x, b = bh / a.h, h = bh % a.h;
   const int kvh = h / (a.h / a.kv);
   const int k0 = blockIdx.y * kKeys;
   const int kw = k0 + 16 * warp;        // the warp's first key
-  store_frags<HD>(kf, static_cast<const T*>(a.k) + b * a.sk_.b +
+  store_frags<QK>(kf, static_cast<const T*>(a.k) + b * a.sk_.b +
                   kvh * a.sk_.h, a.sk_.s, kw, a.sk, gq, tq);
-  store_frags<HD>(vf, static_cast<const T*>(a.v) + b * a.sv_.b +
+  store_frags<VD>(vf, static_cast<const T*>(a.v) + b * a.sv_.b +
                   kvh * a.sv_.h, a.sv_.s, kw, a.sk, gq, tq);
   const T* qp = static_cast<const T*>(a.q) + b * a.sq_.b + h * a.sq_.h;
   const T* dop = static_cast<const T*>(a.dout) + b * a.sdo_.b +
@@ -520,22 +578,28 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Args a) {
 
   // Stage: Q rows, dO rows, then m, l and D of the tile's queries.
   auto load_stage = [&](char* stage, int q0) {
-    load_rows<kBq, HD>(reinterpret_cast<T*>(stage), qp, a.sq_.s, q0, a.sq);
-    load_rows<kBq, HD>(reinterpret_cast<T*>(stage + S::kTile), dop,
-                       a.sdo_.s, q0, a.sq);
+    load_rows<kBq, QK>(reinterpret_cast<T*>(stage), qp, a.sq_.s, q0, a.sq,
+                       threadIdx.x, kThreads);
+    load_rows<kBq, VD>(reinterpret_cast<T*>(stage + S::kTileQ), dop,
+                       a.sdo_.s, q0, a.sq, threadIdx.x, kThreads);
     if (threadIdx.x < 3 * kBq) {
       const int p = threadIdx.x / kBq, r = threadIdx.x % kBq;
       const bool ok = q0 + r < a.sq;
-      cp_async4(reinterpret_cast<float*>(stage + 2 * S::kTile) + threadIdx.x,
+      cp_async4(reinterpret_cast<float*>(stage + S::kTileQ + S::kTileDo) +
+                    threadIdx.x,
                 st + p * plane + (ok ? q0 + r : 0), ok);
     }
   };
 
-  float dk[kD][4], dv[kD][4];
+  float dk[kD][4], dv[kDv][4];
 #pragma unroll
   for (int d = 0; d < kD; ++d)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dk[d][i] = dv[d][i] = 0.0f;
+    for (int i = 0; i < 4; ++i) dk[d][i] = 0.0f;
+#pragma unroll
+  for (int d = 0; d < kDv; ++d)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dv[d][i] = 0.0f;
   const float c = a.scale * 1.4426950408889634f;
   const int n_qt = (a.sq + kBq - 1) / kBq;
   // Causal: query rows below k0 see none of these keys.
@@ -555,13 +619,14 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Args a) {
     // nothing to store, or nothing live.
     if (kw >= a.sk || (a.causal && kw > q0 + kBq - 1)) continue;
     const T* qs = reinterpret_cast<const T*>(stage);
-    const T* dos = reinterpret_cast<const T*>(stage + S::kTile);
-    const float* sm = reinterpret_cast<const float*>(stage + 2 * S::kTile);
+    const T* dos = reinterpret_cast<const T*>(stage + S::kTileQ);
+    const float* sm =
+        reinterpret_cast<const float*>(stage + S::kTileQ + S::kTileDo);
 
     // Thread (g, t): keys kw + g (c0, c1) and kw + g + 8 (c2, c3), queries
     // q0 + n*8 + 2t (c0, c2) and + 1 (c1, c3) of each n-tile.
     float sc[kN][4];
-    product_nt<HD, kN>(qs, kf, gq, tq, sc);            // S^T = K.Q^T
+    product_nt<QK, kN>(qs, kf, gq, tq, sc);            // S^T = K.Q^T
     const bool masked = (a.causal && kw + 15 > q0) || q0 + kBq > a.sq;
 #pragma unroll
     for (int nn = 0; nn < kN; ++nn)
@@ -580,71 +645,109 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Args a) {
         }
       }
     float ds[kN][4];
-    product_nt<HD, kN>(dos, vf, gq, tq, ds);           // dP^T = V.dO^T
+    product_nt<VD, kN>(dos, vf, gq, tq, ds);           // dP^T = V.dO^T
 #pragma unroll
     for (int nn = 0; nn < kN; ++nn)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         ds[nn][i] = sc[nn][i] *      // dS^T = P^T (dP^T - D)
                     (ds[nn][i] - sm[2 * kBq + nn * 8 + 2 * tq + i % 2]);
-    product_nn<HD, kN>(sc, dos, gq, tq, dv);           // dV += P^T.dO
-    product_nn<HD, kN>(ds, qs, gq, tq, dk);            // dK += dS^T.Q
+    product_nn<VD, kN, kNG>(sc, dos, gq, tq, dv);      // dV += P^T.dO
+    product_nn<QK, kN, kNG>(ds, qs, gq, tq, dk);       // dK += dS^T.Q
   }
   cp_async_wait<0>();
 
-  // Partials of this query head: (2, B*H, SK, HD) f32.
-  const long long half = static_cast<long long>(a.batch) * a.h * a.sk * HD;
-  float* out = a.part + static_cast<long long>(bh) * a.sk * HD;
+  if (a.h == a.kv) {
+    // One query head a kv head: dK and dV rounded once to the input type
+    // here, no partials and no group sum. The sum starts from +0, so it
+    // turns a -0 partial into +0; adding +0 here does the same, so the two
+    // agree bit for bit.
+    T* dkp = static_cast<T*>(a.dk) + b * a.sdk_.b + kvh * a.sdk_.h;
+    T* dvp = static_cast<T*>(a.dv) + b * a.sdv_.b + kvh * a.sdv_.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kw + gq + 8 * r;
+      if (key >= a.sk) continue;
+#pragma unroll
+      for (int d = 0; d < kD; ++d)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          narrow(dkp + key * a.sdk_.s + d * 8 + 2 * tq + j,
+                 dk[d][2 * r + j] * a.scale + 0.0f);
+#pragma unroll
+      for (int d = 0; d < kDv; ++d)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          narrow(dvp + key * a.sdv_.s + d * 8 + 2 * tq + j,
+                 dv[d][2 * r + j] + 0.0f);
+    }
+    return;
+  }
+  // Partials of this query head, f32: dK (B*H, SK, QK), then dV (B*H, SK,
+  // VD).
+  float* out_k = a.part + static_cast<long long>(bh) * a.sk * QK;
+  float* out_v = a.part + static_cast<long long>(a.batch) * a.h * a.sk * QK +
+                 static_cast<long long>(bh) * a.sk * VD;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = kw + gq + 8 * r;
     if (key >= a.sk) continue;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) {
-      const long long at = static_cast<long long>(key) * HD + d * 8 + 2 * tq;
-      *reinterpret_cast<float2*>(out + at) =
+    for (int d = 0; d < kD; ++d)
+      *reinterpret_cast<float2*>(out_k + static_cast<long long>(key) * QK +
+                                 d * 8 + 2 * tq) =
           make_float2(dk[d][2 * r] * a.scale, dk[d][2 * r + 1] * a.scale);
-      *reinterpret_cast<float2*>(out + half + at) =
+#pragma unroll
+    for (int d = 0; d < kDv; ++d)
+      *reinterpret_cast<float2*>(out_v + static_cast<long long>(key) * VD +
+                                 d * 8 + 2 * tq) =
           make_float2(dv[d][2 * r], dv[d][2 * r + 1]);
-    }
   }
 }
 
-// dK, dV of each kv head: its G query heads' partials summed in head order.
-template <int D, typename T>
+// dK, dV of each kv head: its G query heads' partials summed in head order
+// (a head dim a thread: of dK, and of dV where the value dim reaches it).
+template <int QK, int VD, typename T>
 __global__ void reduce_kernel(Args a) {
   const int g = a.h / a.kv;
-  const long long n = static_cast<long long>(a.batch) * a.kv * a.sk * D;
-  const long long half = static_cast<long long>(a.batch) * a.h * a.sk * D;
+  const long long n = static_cast<long long>(a.batch) * a.kv * a.sk * QK;
+  const float* part_v =
+      a.part + static_cast<long long>(a.batch) * a.h * a.sk * QK;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int d = static_cast<int>(i % D);
-    const long long row = i / D;
+    const int d = static_cast<int>(i % QK);
+    const long long row = i / QK;
     const int c = static_cast<int>(row % a.sk);
     const int bkv = static_cast<int>(row / a.sk);
     const int b = bkv / a.kv, kvh = bkv % a.kv;
-    const float* src = a.part +
-        ((static_cast<long long>(b) * a.h + kvh * g) * a.sk + c) * D + d;
+    const long long head0 =
+        (static_cast<long long>(b) * a.h + kvh * g) * a.sk + c;
+    const float* src_k = a.part + head0 * QK + d;
+    const float* src_v = part_v + head0 * VD + d;
     float sk = 0.f, sv = 0.f;
     for (int j = 0; j < g; ++j) {
-      sk += src[j * static_cast<long long>(a.sk) * D];
-      sv += src[half + j * static_cast<long long>(a.sk) * D];
+      sk += src_k[j * static_cast<long long>(a.sk) * QK];
+      if (d < VD) sv += src_v[j * static_cast<long long>(a.sk) * VD];
     }
     narrow(static_cast<T*>(a.dk) + b * a.sdk_.b + kvh * a.sdk_.h +
            c * a.sdk_.s + d, sk);
-    narrow(static_cast<T*>(a.dv) + b * a.sdv_.b + kvh * a.sdv_.h +
-           c * a.sdv_.s + d, sv);
+    if (d < VD)
+      narrow(static_cast<T*>(a.dv) + b * a.sdv_.b + kvh * a.sdv_.h +
+             c * a.sdv_.s + d, sv);
   }
 }
 
 int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
 
-template <int D, typename T>
+template <int QK, int VD, typename T>
 int launch(Args a, cudaStream_t s) {
-  constexpr int kDq = DqSmem<D, T>::kBytes, kDkv = DkvSmem<D, T>::kBytes;
-  auto dq_fn = dq_kernel<D, T>;
-  auto dkv_fn = dkv_kernel<D, T>;
+  using Tl = Tiling<QK, VD, T>;
+  constexpr int kDq = DqSmem<QK, VD, T>::kBytes;
+  constexpr int kDkv = DkvSmem<QK, VD, T>::kBytes;
+  constexpr int kKeys = 16 * Tl::kDkvWarps;   // keys a dkv block
+  auto dq_fn = dq_kernel<QK, VD, T>;
+  auto dkv_fn = dkv_kernel<QK, VD, T>;
   cudaError_t err = cudaFuncSetAttribute(
       dq_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kDq);
   if (err == cudaSuccess)
@@ -652,46 +755,49 @@ int launch(Args a, cudaStream_t s) {
         dkv_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkv);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int group = a.h / a.kv;
-  a.hb = gcd(group, kWarps);
+  a.hb = gcd(group, Tl::kDqWarps);
   // No keys: dQ is 0 (the walk runs no tile); no queries: dK and dV are 0
   // (no query tile reaches a key block).
-  const int rows = 16 * kWarps / a.hb;
+  const int rows = 16 * Tl::kDqWarps / a.hb;
   const int n_qt = (a.sq + rows - 1) / rows;
   const int n_kt = (a.sk + kKeys - 1) / kKeys;
   if (n_qt > 65535 || n_kt > 65535) return static_cast<int>(
       cudaErrorInvalidConfiguration);
   if (n_qt) {
-    dq_fn<<<dim3(a.batch * a.kv * (group / a.hb), n_qt), kThreads, kDq,
-            s>>>(a);
+    dq_fn<<<dim3(a.batch * a.kv * (group / a.hb), n_qt), 32 * Tl::kDqWarps,
+            kDq, s>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (!n_kt) return 0;
-  dkv_fn<<<dim3(a.batch * a.h, n_kt), kThreads, kDkv, s>>>(a);
+  dkv_fn<<<dim3(a.batch * a.h, n_kt), 32 * Tl::kDkvWarps, kDkv, s>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || a.h == a.kv) return static_cast<int>(err);
   const long long rows_out = static_cast<long long>(a.batch) * a.kv * a.sk *
-                             D / kMobyThreads + 1;
+                             QK / kMobyThreads + 1;
   const int blocks = static_cast<int>(rows_out < 132 * kMobyBlocksPerSm
                                           ? rows_out
                                           : 132 * kMobyBlocksPerSm);
-  reduce_kernel<D, T><<<blocks, kMobyThreads, 0, s>>>(a);
+  reduce_kernel<QK, VD, T><<<blocks, kMobyThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, o, dout, dq (B,H,SQ,hd) and k, v, dk, dv (B,KV,SK,hd) through
-// strides st[3 t .. 3 t + 2] = {b, head, s} for t = q, k, v, o, dout, dq,
-// dk, dv; the head dim contiguous; the inputs 16-byte aligned. Scratch:
-// stats (3, B*H, SQ) and part (2, B*H, SK, hd), f32. Inputs and outputs
-// bf16 if is_bf16 (head dims 16, 32), else f32 (16, 32, 64, 128).
+// q, dq (B,H,SQ,hd), o, dout (B,H,SQ,vd), k, dk (B,KV,SK,hd) and v, dv
+// (B,KV,SK,vd) through strides st[3 t .. 3 t + 2] = {b, head, s} for t =
+// q, k, v, o, dout, dq, dk, dv; the head dim contiguous; the inputs 16-byte
+// aligned. Scratch: stats (3, B*H, SQ) and, where H > KV, part
+// (B*H*SK*(hd + vd): dK's partials, then dV's; at H = KV it is not read),
+// f32. Inputs and outputs bf16 if is_bf16 ((hd, vd)
+// = (16, 16), (32, 32), (24, 16)), else f32 (equal dims 16, 32, 64, 128,
+// and (192, 128), (24, 16)).
 MOBY_API int moby_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* stats, void* part,
     const long long* st, int batch, int n_heads, int n_kv_heads, int sq,
-    int sk, int head_dim, int causal, int is_bf16, float scale,
-    void* stream) {
+    int sk, int head_dim, int value_dim, int causal, int is_bf16,
+    float scale, void* stream) {
   if (batch * n_heads == 0) return 0;
   Args a{q, k, v, o, dout, dq, dk, dv, static_cast<float*>(stats),
          static_cast<float*>(part),
@@ -701,18 +807,24 @@ MOBY_API int moby_flash_attention_bwd(
          {st[18], st[19], st[20]}, {st[21], st[22], st[23]},
          batch, n_heads, n_kv_heads, sq, sk, causal, scale, 1};
   const auto s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 24 && value_dim == 16)
+    return is_bf16 ? launch<24, 16, __nv_bfloat16>(a, s)
+                   : launch<24, 16, float>(a, s);
+  if (head_dim == 192 && value_dim == 128 && !is_bf16)
+    return launch<192, 128, float>(a, s);
+  if (head_dim != value_dim) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) {
     switch (head_dim) {
-      case 16: return launch<16, __nv_bfloat16>(a, s);
-      case 32: return launch<32, __nv_bfloat16>(a, s);
+      case 16: return launch<16, 16, __nv_bfloat16>(a, s);
+      case 32: return launch<32, 32, __nv_bfloat16>(a, s);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (head_dim) {
-    case 16: return launch<16, float>(a, s);
-    case 32: return launch<32, float>(a, s);
-    case 64: return launch<64, float>(a, s);
-    case 128: return launch<128, float>(a, s);
+    case 16: return launch<16, 16, float>(a, s);
+    case 32: return launch<32, 32, float>(a, s);
+    case 64: return launch<64, 64, float>(a, s);
+    case 128: return launch<128, 128, float>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

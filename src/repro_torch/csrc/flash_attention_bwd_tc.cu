@@ -1,11 +1,16 @@
 // Backward pass of blocked softmax attention (prefill) on Hopper's tensor
-// cores: bf16 operands, f32 accumulation, wgmma fed by TMA. Head dims 64
-// (zamba2, whisper) and 128 (every full-size dense config), GQA-aware: dQ,
-// dK and dV from Q, K, V, the forward's output O and its cotangent dO.
+// cores: bf16 operands, f32 accumulation, wgmma fed by TMA. (qk, value)
+// head dims (64, 64) (zamba2, whisper), (128, 128) (every full-size dense
+// config, moonshot) and (192, 128) (MLA: deepseek-v2's nope 128 + rope
+// 64), GQA-aware: dQ, dK and dV from Q, K, V, the forward's output O and
+// its cotangent dO.
 //
 // Replaces the VJP around the TPU kernel: repro/ops/api.py (_flash_bwd),
 // jax.vjp of repro/models/layers.py::_chunked_attention, for bf16 at head
-// dims 64 and 128 (the route that training takes at full width).
+// dims 64 and 128 (the route that training takes at full width), and
+// jax.vjp of JAX's plain attention at MLA's (192, 128)
+// (repro/models/layers.py::_dense_attention, _chunked_attention, which
+// the Pallas kernel does not take).
 // flash_attention_bwd.cu (3xTF32 on the tensor cores) keeps f32 and bf16
 // at head dims 16 and 32 (it also took bf16 at 64 until this instance
 // did); kernels/flash_attention/ops.py::route chooses before any launch.
@@ -27,7 +32,11 @@
 // exp2 a score, twice) competes with them for issue slots and the SFU. At
 // hd 64 (zamba2's gradient: B=1, H=KV=32, S=4096, causal) the products
 // are again 1.7e11 flops, but that f32 work a score is the same for half
-// the products.
+// the products. At MLA's (192, 128) (MLA T: B=1, H=KV=128, S=4096,
+// causal) the products take 2 (3 x 192 + 2 x 128) flops a live pair,
+// 1.79e12 in all on 1.34 GB: 1.81 ms at the bf16 tensor rate, 0.40 ms of
+// memory; the f32 work a score is that of hd 128 for 1.6 times the
+// products.
 //
 // Precision: every product has bf16 operands and an f32 accumulator. P and
 // dS are rounded to bf16 (round to nearest even) only as the A operands of
@@ -62,9 +71,16 @@
 //   V resident; the ring brings each 64-row query tile that sees the keys
 //   with its rows' (lse, D) (a bulk copy each, on the same barrier); S^T =
 //   K.Q^T and dP^T = V.dO^T (m64n64k16), P^T = exp2(S^T c - lse) and dS^T
-//   in registers, dV += P^T.dO and dK += dS^T.Q (m64nHDk16, A from
-//   registers, B MN-major). The two 64 x HD f32 accumulators stay in
-//   registers over the walk; the CTA writes f32 partials of its query
+//   in registers, dV += P^T.dO (m64nVDk16) and dK += dS^T.Q (m64nQKk16;
+//   A from registers, B MN-major). The 64 x QK and 64 x VD f32
+//   accumulators stay in registers over the walk. At qk 192 they are 160
+//   floats a thread, and S^T and dP^T beside them would be 224 of the 240
+//   (a build that kept both spilled, 4 bytes: ptxas -v): there S^T alone
+//   is computed first, P^T kept only as its bf16 A fragments, dV += P^T.dO
+//   issued with dP^T = V.dO^T, and dS^T = P^T (dP^T - D) taken from the
+//   fragments (P^T rounded once more than at hd 64 and 128, within the
+//   same allowance: chip_smoke.py), then dK += dS^T.Q; the CTA writes f32
+//   partials of its query
 //   head. One CTA a query head keeps 512 CTAs at the training shape busy
 //   (one a kv head would give 64 for the 132 SMs). At G = 1 (one query
 //   head a kv head: zamba2, whisper) it writes dK and dV in bf16 instead,
@@ -80,8 +96,11 @@
 // adds a compare and two multiplies to each).
 // Shared memory at hd 128: 2 resident tiles of 32 KB, 2 stages of 2 x 16
 // KB, then O (dq, 32 KB) or 2 x 512 bytes of statistics (dkv): ~161 KB; at
-// hd 64 tiles of half the size and 3 stages, ~97 KB. Each tile is HD / 64 TMA boxes of 64 columns
-// (128 bytes, the widest a 128-byte swizzle allows), one after the other;
+// hd 64 tiles of half the size and 3 stages, ~97 KB; at (192, 128) the
+// qk-dim tiles (Q, K) are three boxes: 48 + 32 KB resident, 2 stages of
+// 24 + 16 KB, O 32 KB: ~193 KB. Each tile is QK / 64 or VD / 64 TMA boxes
+// of 64 columns (128 bytes, the widest a 128-byte swizzle allows), one
+// after the other;
 // the wgmma descriptors use the same swizzle
 // (8-row atoms of 1024 bytes: stride byte offset 1024; MN-major: leading
 // byte offset = the box size). Tensor maps are built on the host per call
@@ -99,9 +118,9 @@
 // warnings C7515, C7512); a 3-stage ring; two tiles' S in one commit group.
 //
 // ptxas (-Xptxas -v, sm_90a): 168 registers a thread at launch for both
-// kernels at both head dims (the consumers raise theirs to 240 with
-// setmaxnreg, the producer drops to 24), no spills; chip_smoke.py prints
-// the build log.
+// kernels at all three pairs of head dims (the consumers raise theirs to
+// 240 with setmaxnreg, the producer drops to 24), no spills; chip_smoke.py
+// prints the build log.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,30 +141,41 @@ constexpr int kWideBox = kWide * kBox * 2;       // one 64-column box: 16 KB
 constexpr int kNarrowBox = kNarrow * kBox * 2;   // 8 KB
 constexpr int kStatBytes = 2 * kNarrow * 4;
 
-// Shared memory at head dim HD: two resident tiles (dq: Q, dO; dkv: K, V),
-// kStages stages of two streamed tiles (dq: K, V; dkv: Q, dO), then a third
-// region (dq: the resident O tile; dkv: each stage's lse and D of its 64
-// query rows), the barriers. Each tile is HD / 64 boxes, one after the
-// other.
-template <int HD>
+// Shared memory at (qk, value) head dims (QK, VD): two resident tiles, A
+// at the qk dim and B at the value dim (dq: Q, dO; dkv: K, V), kStages
+// stages of two streamed tiles, again at the qk dim and then the value dim
+// (dq: K, V; dkv: Q, dO), then a third region (dq: the resident O tile;
+// dkv: each stage's lse and D of its 64 query rows), the barriers. Each
+// tile is QK / 64 or VD / 64 boxes, one after the other.
+template <int QK, int VD>
 struct Layout {
-  static_assert(HD == 64 || HD == 128, "head dim");
+  static_assert((QK == 64 && VD == 64) || (QK == 128 && VD == 128) ||
+                (QK == 192 && VD == 128), "head dims");
   // A 3-stage ring at hd 64, where a stage is 16 KB and a tile's work
-  // short (tools/tc_hd64_probe.py: 2-3% of the call); 2 at hd 128.
-  static constexpr int kStages = HD == 64 ? 3 : 2;
+  // short (tools/tc_hd64_probe.py: 2-3% of the call); 2 at 128 and 192.
+  static constexpr int kStages = QK == 64 ? 3 : 2;
   static constexpr int kNumBars = 1 + 2 * kStages;  // resident; full, empty
-  static constexpr int kBoxes = HD / kBox;
-  static constexpr int kWideBytes = kBoxes * kWideBox;       // 16 or 32 KB
-  static constexpr int kNarrowBytes = kBoxes * kNarrowBox;   // 8 or 16 KB
-  static constexpr int kAcc = HD / 2;     // dQ, dK, dV floats a thread
+  static constexpr int kWideA = QK / kBox * kWideBox;       // 16, 32, 48 KB
+  static constexpr int kWideB = VD / kBox * kWideBox;       // 16 or 32 KB
+  static constexpr int kNarrowA = QK / kBox * kNarrowBox;   // 8, 16, 24 KB
+  static constexpr int kNarrowB = VD / kBox * kNarrowBox;   // 8 or 16 KB
+  static constexpr int kAccQk = QK / 2;   // dQ, dK floats a thread
+  static constexpr int kAccV = VD / 2;    // dV floats a thread
+  // At qk 192 a dkv consumer holds dK (96 floats) and dV (64) over the
+  // walk: it keeps a tile's P^T only as its bf16 A fragments (P^T rounded
+  // once, as dV's operand) and takes dS^T = P^T (dP^T - D) from them, so
+  // one 64 x 64 f32 tile (dP^T) is live beside the accumulators instead
+  // of two (S^T and dP^T: 224 registers of the 240).
+  static constexpr bool kPackedP = QK == 192;
   static constexpr int kSmemA = 0;
-  static constexpr int kSmemB = kWideBytes;
-  static constexpr int kSmemRing = 2 * kWideBytes;
-  static constexpr int kStageBytes = 2 * kNarrowBytes;
+  static constexpr int kSmemB = kWideA;
+  static constexpr int kSmemRing = kWideA + kWideB;
+  static constexpr int kStageBytes = kNarrowA + kNarrowB;
   static constexpr int kSmemC = kSmemRing + kStages * kStageBytes;
-  static constexpr int kSmemBar = kSmemC + kWideBytes;
+  static constexpr int kSmemBar = kSmemC + kWideB;
   static constexpr int kSmemBytes = kSmemBar + 8 * kNumBars + 1024;  // align
-  static_assert(kStages * kStatBytes <= kWideBytes, "statistics");
+  static_assert(kStages * kStatBytes <= kWideB, "statistics");
+  static_assert(kSmemBytes <= 232448, "shared memory");
 };
 
 // Defined to 1 only by tools/bwd_tc_probe.py, to time what a forward that
@@ -161,14 +191,14 @@ constexpr bool kProbeFixedMax = MOBY_BWD_TC_PROBE_FIXED_MAX;
 struct Args {
   __nv_bfloat16 *dq, *dk, *dv;
   float* stats;                // (2, B*H, rows): lse, D
-  float* part;                 // (2, B*H, SK, HD): dK, dV of each query head
+  float* part;                 // (B*H, SK, QK) dK, then (B*H, SK, VD) dV
   long long dq_b, dq_h, dq_s;  // elements
   long long dk_b, dk_h, dk_s, dv_b, dv_h, dv_s;
   int n_bh, n_heads, group, sq, sk, rows, causal;
   float scale, scale_log2;     // hd^-0.5, and times log2(e)
 };
 
-// S (64 x 64 f32) = A.B^T over the head dim: A the warpgroup's 64 rows of
+// S (64 x 64 f32) = A.B^T over head dim HD: A the warpgroup's 64 rows of
 // a resident 128-row tile (boxes 16 KB apart), B 64 rows of a tile whose
 // boxes lie BBox apart (a streamed 64-row tile, or the warpgroup's rows of
 // a resident one), both K-major; 4 steps of 16 in each 64-wide box (not
@@ -187,8 +217,8 @@ __device__ __forceinline__ void issue_nt(float (&s)[32], uint32_t a_addr,
 
 // acc (64 x HD f32) += A.B over 64 rows: A from registers (four 16-wide
 // fragments), B a streamed 64-row tile read MN-major (the head dim
-// contiguous; at HD 128 its two boxes 8 KB apart, the leading byte offset;
-// each 16-row step 2 KB further) (not committed).
+// contiguous; at HD 128 and 192 its boxes 8 KB apart, the leading byte
+// offset; each 16-row step 2 KB further) (not committed).
 template <int HD>
 __device__ __forceinline__ void issue_nn(float (&acc)[HD / 2],
                                          const uint32_t (&a)[4][4],
@@ -210,6 +240,12 @@ __device__ __forceinline__ void pack(const float (&x)[32],
       f[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
 }
 
+// Element j of the accumulator that `pack` rounded into f, as f32.
+__device__ __forceinline__ float unpacked(const uint32_t (&f)[4][4], int j) {
+  const uint32_t w = f[j / 8][(j % 8) / 2];
+  return __uint_as_float(j % 2 ? w & 0xffff0000u : w << 16);
+}
+
 __device__ __forceinline__ void init_bars(uint32_t bar_res,
                                           uint32_t bar_full,
                                           uint32_t bar_empty, int stages) {
@@ -224,7 +260,8 @@ __device__ __forceinline__ void init_bars(uint32_t bar_res,
   __syncthreads();
 }
 
-// The HD / 64 TMA boxes (all head dims) of `map` at (row, head, b).
+// The HD / 64 TMA boxes (all of a tile's head dims) of `map` at (row,
+// head, b).
 template <int HD>
 __device__ __forceinline__ void load_tile(uint32_t dst, uint32_t box_bytes,
                                           const CUtensorMap* map,
@@ -235,7 +272,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, uint32_t box_bytes,
     tma_load(dst + x * box_bytes, map, bar, x * kBox, row, head, b);
 }
 
-template <int HD>
+template <int QK, int VD>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
              const __grid_constant__ CUtensorMap domap,   // 128-row boxes
@@ -243,8 +280,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
              const __grid_constant__ CUtensorMap kmap,    // 64-row boxes
              const __grid_constant__ CUtensorMap vmap,    // 64-row boxes
              const Args a) {
-  using L = Layout<HD>;
-  constexpr int kAcc = L::kAcc, kStages = L::kStages;
+  using L = Layout<QK, VD>;
+  constexpr int kAcc = L::kAccQk, kStages = L::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -265,10 +302,10 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
     // ---- producer: one thread keeps the TMA loads in flight ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_res, 3 * L::kWideBytes);
-      load_tile<HD>(base + L::kSmemA, kWideBox, &qmap, bar_res, q0, h, b);
-      load_tile<HD>(base + L::kSmemB, kWideBox, &domap, bar_res, q0, h, b);
-      load_tile<HD>(base + L::kSmemC, kWideBox, &omap, bar_res, q0, h, b);
+      mbar_expect_tx(bar_res, L::kWideA + 2 * L::kWideB);
+      load_tile<QK>(base + L::kSmemA, kWideBox, &qmap, bar_res, q0, h, b);
+      load_tile<VD>(base + L::kSmemB, kWideBox, &domap, bar_res, q0, h, b);
+      load_tile<VD>(base + L::kSmemC, kWideBox, &omap, bar_res, q0, h, b);
       // A key and a value tile a stage. The first round finds the ring
       // empty (parity 1 passes at once).
       for (int i = 0; i < n_tiles; ++i) {
@@ -276,9 +313,9 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
         const uint32_t dst = base + L::kSmemRing + s * L::kStageBytes;
         mbar_wait(bar_empty + 8 * s, ((i / kStages) & 1) ^ 1);
         mbar_expect_tx(bar_full + 8 * s, L::kStageBytes);
-        load_tile<HD>(dst, kNarrowBox, &kmap, bar_full + 8 * s, i * kNarrow,
+        load_tile<QK>(dst, kNarrowBox, &kmap, bar_full + 8 * s, i * kNarrow,
                       kvh, b);
-        load_tile<HD>(dst + L::kNarrowBytes, kNarrowBox, &vmap,
+        load_tile<VD>(dst + L::kNarrowA, kNarrowBox, &vmap,
                       bar_full + 8 * s, i * kNarrow, kvh, b);
       }
     }
@@ -316,8 +353,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
     const uint32_t o_addr = base + L::kSmemC + me * 64 * 128;
     mbar_wait(bar_res, 0);
     wgmma_fence();
-    issue_nt<HD, kWideBox>(s, do_addr, o_addr);
-    issue_nt<HD, kWideBox>(dp, o_addr, do_addr);
+    issue_nt<VD, kWideBox>(s, do_addr, o_addr);
+    issue_nt<VD, kWideBox>(dp, o_addr, do_addr);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -357,8 +394,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
       const uint32_t k_addr = base + L::kSmemRing + st * L::kStageBytes;
       mbar_wait(bar_full + 8 * st, (i / kStages) & 1);
       wgmma_fence();
-      issue_nt<HD>(s, q_addr, k_addr);
-      issue_nt<HD>(dp, do_addr, k_addr + L::kNarrowBytes);
+      issue_nt<QK>(s, q_addr, k_addr);
+      issue_nt<VD>(dp, do_addr, k_addr + L::kNarrowA);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -409,7 +446,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
       }
       pack(dp, f);
       wgmma_fence();
-      issue_nn<HD>(acc, f, k_addr);
+      issue_nn<QK>(acc, f, k_addr);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -448,15 +485,15 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
   }
 }
 
-template <int HD>
+template <int QK, int VD>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
               const __grid_constant__ CUtensorMap vmap,   // 128-row boxes
               const __grid_constant__ CUtensorMap qmap,   // 64-row boxes
               const __grid_constant__ CUtensorMap domap,  // 64-row boxes
               const Args a) {
-  using L = Layout<HD>;
-  constexpr int kAcc = L::kAcc, kStages = L::kStages;
+  using L = Layout<QK, VD>;
+  constexpr int kAccQk = L::kAccQk, kAccV = L::kAccV, kStages = L::kStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_res = base + L::kSmemBar;
@@ -476,9 +513,9 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
     if (threadIdx.x == 0) {
       const float* lse = a.stats + static_cast<long long>(bh) * a.rows;
       const float* dsum = lse + static_cast<long long>(a.n_bh) * a.rows;
-      mbar_expect_tx(bar_res, 2 * L::kWideBytes);
-      load_tile<HD>(base + L::kSmemA, kWideBox, &kmap, bar_res, k0, kvh, b);
-      load_tile<HD>(base + L::kSmemB, kWideBox, &vmap, bar_res, k0, kvh, b);
+      mbar_expect_tx(bar_res, L::kWideA + L::kWideB);
+      load_tile<QK>(base + L::kSmemA, kWideBox, &kmap, bar_res, k0, kvh, b);
+      load_tile<VD>(base + L::kSmemB, kWideBox, &vmap, bar_res, k0, kvh, b);
       for (int qt = t0; qt < n_qt; ++qt) {
         const int e = qt - t0, s = e % kStages;
         const uint32_t dst = base + L::kSmemRing + s * L::kStageBytes;
@@ -486,8 +523,8 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
         const uint32_t full = bar_full + 8 * s;
         mbar_wait(bar_empty + 8 * s, ((e / kStages) & 1) ^ 1);
         mbar_expect_tx(full, L::kStageBytes + kStatBytes);
-        load_tile<HD>(dst, kNarrowBox, &qmap, full, qt * kNarrow, h, b);
-        load_tile<HD>(dst + L::kNarrowBytes, kNarrowBox, &domap, full,
+        load_tile<QK>(dst, kNarrowBox, &qmap, full, qt * kNarrow, h, b);
+        load_tile<VD>(dst + L::kNarrowA, kNarrowBox, &domap, full,
                       qt * kNarrow, h, b);
         bulk_load(sdst, lse + qt * kNarrow, kStatBytes / 2, full);
         bulk_load(sdst + kStatBytes / 2, dsum + qt * kNarrow, kStatBytes / 2,
@@ -509,56 +546,102 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
     const float* stats_smem = reinterpret_cast<const float*>(
         smem_raw + (base - smem_u32(smem_raw)) + L::kSmemC);
 
-    float s[32], dp[32], dk[kAcc], dv[kAcc];
+    float s[32], dp[32], dk[kAccQk], dv[kAccV];
     uint32_t pf[4][4], sf[4][4];
 #pragma unroll
-    for (int j = 0; j < kAcc; ++j) dk[j] = dv[j] = 0.f;
+    for (int j = 0; j < kAccQk; ++j) dk[j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kAccV; ++j) dv[j] = 0.f;
     mbar_wait(bar_res, 0);
     for (int qt = t0; qt < n_qt; ++qt) {
       const int e = qt - t0, st = e % kStages;
       const uint32_t q_addr = base + L::kSmemRing + st * L::kStageBytes;
-      const uint32_t do_addr = q_addr + L::kNarrowBytes;
+      const uint32_t do_addr = q_addr + L::kNarrowA;
       const float* lse = stats_smem + st * (kStatBytes / 4);
       const float* dsum = lse + kNarrow;
       mbar_wait(bar_full + 8 * st, (e / kStages) & 1);
-      wgmma_fence();
-      issue_nt<HD>(s, k_addr, q_addr);      // S^T = K.Q^T
-      issue_nt<HD>(dp, v_addr, do_addr);    // dP^T = V.dO^T
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
-      fence_regs(dp);
       // Rows past sq have lse = +inf: p = 0 without a mask.
       const bool mask = a.causal && key0 + 63 > qt * kNarrow;
+      // P^T = exp2(S^T c - lse) in place of S^T, masked keys 0.
+      auto softmax_t = [&]() {
 #pragma unroll
-      for (int g = 0; g < 8; ++g) {   // query columns 8g + col0 + (0, 1)
-        const float2 l2 = *reinterpret_cast<const float2*>(lse + 8 * g + col0);
-        const float2 d2 =
-            *reinterpret_cast<const float2*>(dsum + 8 * g + col0);
+        for (int g = 0; g < 8; ++g) {   // query columns 8g + col0 + (0, 1)
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lse + 8 * g + col0);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int j = 4 * g + u;
-          const float row_lse = u % 2 ? l2.y : l2.x;
-          const float row_d = u % 2 ? d2.y : d2.x;
-          float p = ex2_ftz(__fmaf_rn(s[j], a.scale_log2, -row_lse));
-          if (mask && (u / 2 ? kr_hi : kr_lo) >
-                          qt * kNarrow + 8 * g + col0 + u % 2)
-            p = 0.f;
-          s[j] = p;
-          dp[j] = p * (dp[j] - row_d);   // dS^T
+          for (int u = 0; u < 4; ++u) {
+            const int j = 4 * g + u;
+            float p = ex2_ftz(__fmaf_rn(s[j], a.scale_log2,
+                                        -(u % 2 ? l2.y : l2.x)));
+            if (mask && (u / 2 ? kr_hi : kr_lo) >
+                            qt * kNarrow + 8 * g + col0 + u % 2)
+              p = 0.f;
+            s[j] = p;
+          }
         }
+      };
+      // dS^T = P^T (dP^T - D) in place of dP^T, P^T from `p(j)`.
+      auto ds_t = [&](auto p) {
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(dsum + 8 * g + col0);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int j = 4 * g + u;
+            dp[j] = p(j) * (dp[j] - (u % 2 ? d2.y : d2.x));
+          }
+        }
+      };
+      if constexpr (!L::kPackedP) {
+        wgmma_fence();
+        issue_nt<QK>(s, k_addr, q_addr);      // S^T = K.Q^T
+        issue_nt<VD>(dp, v_addr, do_addr);    // dP^T = V.dO^T
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        softmax_t();
+        ds_t([&](int j) { return s[j]; });
+        pack(s, pf);
+        pack(dp, sf);
+        wgmma_fence();
+        issue_nn<VD>(dv, pf, do_addr);
+        issue_nn<QK>(dk, sf, q_addr);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pf);
+        fence_regs(sf);
+      } else {
+        // S^T; P^T as dV's bf16 A fragments (S^T's registers free again);
+        // dV += P^T.dO beside dP^T = V.dO^T; dS^T from the fragments;
+        // dK += dS^T.Q.
+        wgmma_fence();
+        issue_nt<QK>(s, k_addr, q_addr);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        softmax_t();
+        pack(s, pf);
+        wgmma_fence();
+        issue_nn<VD>(dv, pf, do_addr);
+        issue_nt<VD>(dp, v_addr, do_addr);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dp);
+        fence_regs(pf);
+        ds_t([&](int j) { return unpacked(pf, j); });
+        pack(dp, sf);
+        wgmma_fence();
+        issue_nn<QK>(dk, sf, q_addr);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk);
+        fence_regs(sf);
       }
-      pack(s, pf);
-      pack(dp, sf);
-      wgmma_fence();
-      issue_nn<HD>(dv, pf, do_addr);
-      issue_nn<HD>(dk, sf, q_addr);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dv);
-      fence_regs(dk);
-      fence_regs(pf);
-      fence_regs(sf);
       mbar_arrive(bar_empty + 8 * st);
     }
 
@@ -570,49 +653,55 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
       __nv_bfloat16* dkb = a.dk + b * a.dk_b + kvh * a.dk_h;
       __nv_bfloat16* dvb = a.dv + b * a.dv_b + kvh * a.dv_h;
 #pragma unroll
-      for (int j = 0; j < kAcc; j += 2) {
+      for (int j = 0; j < kAccQk; j += 2) {
         const int kr = (j / 2) % 2 ? kr_hi : kr_lo;
         if (kr >= a.sk) continue;
         const int d = (j / 4) * 8 + col0;
         *reinterpret_cast<__nv_bfloat162*>(dkb + kr * a.dk_s + d) =
             __float22bfloat162_rn(make_float2(dk[j] * a.scale + 0.f,
                                               dk[j + 1] * a.scale + 0.f));
-        *reinterpret_cast<__nv_bfloat162*>(dvb + kr * a.dv_s + d) =
-            __float22bfloat162_rn(make_float2(dv[j] + 0.f, dv[j + 1] + 0.f));
+        if (j < kAccV)
+          *reinterpret_cast<__nv_bfloat162*>(dvb + kr * a.dv_s + d) =
+              __float22bfloat162_rn(make_float2(dv[j] + 0.f,
+                                                dv[j + 1] + 0.f));
       }
       return;
     }
-    // Partials of this query head: (2, B*H, SK, HD) f32, keys < sk.
-    float* out = a.part + static_cast<long long>(bh) * a.sk * HD;
-    const long long half = static_cast<long long>(a.n_bh) * a.sk * HD;
+    // Partials of this query head, keys < sk: dK (B*H, SK, QK), then dV
+    // (B*H, SK, VD), f32.
+    float* out_k = a.part + static_cast<long long>(bh) * a.sk * QK;
+    float* out_v = a.part + static_cast<long long>(a.n_bh) * a.sk * QK +
+                   static_cast<long long>(bh) * a.sk * VD;
 #pragma unroll
-    for (int j = 0; j < kAcc; j += 2) {
+    for (int j = 0; j < kAccQk; j += 2) {
       const int kr = (j / 2) % 2 ? kr_hi : kr_lo;
       if (kr >= a.sk) continue;
-      const long long at = static_cast<long long>(kr) * HD + (j / 4) * 8 +
-                           col0;
-      *reinterpret_cast<float2*>(out + at) =
+      const int d = (j / 4) * 8 + col0;
+      *reinterpret_cast<float2*>(out_k + static_cast<long long>(kr) * QK +
+                                 d) =
           make_float2(dk[j] * a.scale, dk[j + 1] * a.scale);
-      *reinterpret_cast<float2*>(out + half + at) =
-          make_float2(dv[j], dv[j + 1]);
+      if (j < kAccV)
+        *reinterpret_cast<float2*>(out_v + static_cast<long long>(kr) * VD +
+                                   d) = make_float2(dv[j], dv[j + 1]);
     }
   }
 }
 
 // dK, dV of each kv head: its G query heads' partials summed in head
-// order (from +0), rounded once to bf16; 4 head dims a thread.
-template <int HD>
+// order (from +0), rounded once to bf16; 4 head dims a thread (of dK, and
+// of dV where the value dim reaches them).
+template <int QK, int VD>
 __global__ void reduce_tc_kernel(const float* __restrict__ part,
                                  __nv_bfloat16* dk, __nv_bfloat16* dv,
                                  long long dk_b, long long dk_h,
                                  long long dk_s, long long dv_b,
                                  long long dv_h, long long dv_s, int batch,
                                  int n_heads, int n_kv, int sk) {
-  constexpr int kQuads = HD / 4;
+  constexpr int kQuads = QK / 4;
   const int g = n_heads / n_kv;
   const long long n = static_cast<long long>(batch) * n_kv * sk * kQuads;
-  const long long half = static_cast<long long>(batch) * n_heads * sk * HD;
-  const long long head = static_cast<long long>(sk) * HD;
+  const float* part_v =
+      part + static_cast<long long>(batch) * n_heads * sk * QK;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
@@ -621,33 +710,43 @@ __global__ void reduce_tc_kernel(const float* __restrict__ part,
     const int c = static_cast<int>(row % sk);
     const int bkv = static_cast<int>(row / sk);
     const int b = bkv / n_kv, kvh = bkv % n_kv;
-    const float* src = part +
-        ((static_cast<long long>(b) * n_heads + kvh * g) * sk + c) * HD + d;
+    const long long head0 =
+        (static_cast<long long>(b) * n_heads + kvh * g) * sk + c;
+    const float* src_k = part + head0 * QK + d;
+    const float* src_v = part_v + head0 * VD + d;
+    const bool has_v = d < VD;
     float4 sk4 = make_float4(0.f, 0.f, 0.f, 0.f), sv4 = sk4;
     for (int j = 0; j < g; ++j) {
-      const float4 x = *reinterpret_cast<const float4*>(src + j * head);
-      const float4 y = *reinterpret_cast<const float4*>(src + half + j * head);
+      const float4 x = *reinterpret_cast<const float4*>(
+          src_k + static_cast<long long>(j) * sk * QK);
       sk4 = make_float4(sk4.x + x.x, sk4.y + x.y, sk4.z + x.z, sk4.w + x.w);
-      sv4 = make_float4(sv4.x + y.x, sv4.y + y.y, sv4.z + y.z, sv4.w + y.w);
+      if (has_v) {
+        const float4 y = *reinterpret_cast<const float4*>(
+            src_v + static_cast<long long>(j) * sk * VD);
+        sv4 = make_float4(sv4.x + y.x, sv4.y + y.y, sv4.z + y.z,
+                          sv4.w + y.w);
+      }
     }
     __nv_bfloat162* pk = reinterpret_cast<__nv_bfloat162*>(
         dk + b * dk_b + kvh * dk_h + c * dk_s + d);
-    __nv_bfloat162* pv = reinterpret_cast<__nv_bfloat162*>(
-        dv + b * dv_b + kvh * dv_h + c * dv_s + d);
     pk[0] = __float22bfloat162_rn(make_float2(sk4.x, sk4.y));
     pk[1] = __float22bfloat162_rn(make_float2(sk4.z, sk4.w));
-    pv[0] = __float22bfloat162_rn(make_float2(sv4.x, sv4.y));
-    pv[1] = __float22bfloat162_rn(make_float2(sv4.z, sv4.w));
+    if (has_v) {
+      __nv_bfloat162* pv = reinterpret_cast<__nv_bfloat162*>(
+          dv + b * dv_b + kvh * dv_h + c * dv_s + d);
+      pv[0] = __float22bfloat162_rn(make_float2(sv4.x, sv4.y));
+      pv[1] = __float22bfloat162_rn(make_float2(sv4.z, sv4.w));
+    }
   }
 }
 
-template <int HD>
+template <int QK, int VD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv, void* stats,
            void* part, const long long* st, int batch, int n_heads,
            int n_kv_heads, int sq, int sk, int stats_rows, int causal,
            float scale, cudaStream_t s) {
-  using L = Layout<HD>;
+  using L = Layout<QK, VD>;
   const int n_qt = (sq + kWide - 1) / kWide, n_kt = (sk + kWide - 1) / kWide;
   if (stats_rows < n_qt * kWide) return static_cast<int>(cudaErrorInvalidValue);
   // An empty operand's map is never read: it is built over the other
@@ -658,28 +757,33 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const void* vs = sk ? v : q;
   CUtensorMap q_wide, do_wide, o_wide, k_narrow, v_narrow;  // dq kernel
   CUtensorMap k_wide, v_wide, q_narrow, do_narrow;          // dkv kernel
-  int err = make_map(&q_wide, qs, sq, n_heads, batch, st, kWide, HD);
+  // The storage behind an empty operand has the other side's head dim.
+  const int vd_s = sq ? VD : QK;
+  int err = make_map(&q_wide, qs, sq, n_heads, batch, st, kWide, QK);
   if (!err)
-    err = make_map(&do_wide, dos, sq, n_heads, batch, st + 12, kWide, HD);
+    err = make_map(&do_wide, dos, sq, n_heads, batch, st + 12, kWide, vd_s);
   if (!err) err = make_map(&o_wide, sq ? o : k, sq, n_heads, batch, st + 9,
-                           kWide, HD);
-  if (!err) err = make_map(&q_narrow, qs, sq, n_heads, batch, st, kNarrow, HD);
+                           kWide, vd_s);
+  if (!err) err = make_map(&q_narrow, qs, sq, n_heads, batch, st, kNarrow, QK);
   if (!err)
-    err = make_map(&do_narrow, dos, sq, n_heads, batch, st + 12, kNarrow, HD);
+    err = make_map(&do_narrow, dos, sq, n_heads, batch, st + 12, kNarrow,
+                   vd_s);
   if (!err)
-    err = make_map(&k_wide, ks, sk, n_kv_heads, batch, st + 3, kWide, HD);
+    err = make_map(&k_wide, ks, sk, n_kv_heads, batch, st + 3, kWide, QK);
   if (!err)
-    err = make_map(&v_wide, vs, sk, n_kv_heads, batch, st + 6, kWide, HD);
+    err = make_map(&v_wide, vs, sk, n_kv_heads, batch, st + 6, kWide,
+                   sk ? VD : QK);
   if (!err)
-    err = make_map(&k_narrow, ks, sk, n_kv_heads, batch, st + 3, kNarrow, HD);
+    err = make_map(&k_narrow, ks, sk, n_kv_heads, batch, st + 3, kNarrow, QK);
   if (!err)
-    err = make_map(&v_narrow, vs, sk, n_kv_heads, batch, st + 6, kNarrow, HD);
+    err = make_map(&v_narrow, vs, sk, n_kv_heads, batch, st + 6, kNarrow,
+                   sk ? VD : QK);
   if (err) return err;
   cudaError_t e = cudaFuncSetAttribute(
-      dq_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_tc_kernel<QK, VD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kSmemBytes);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(dkv_tc_kernel<HD>,
+    e = cudaFuncSetAttribute(dkv_tc_kernel<QK, VD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::kSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -693,21 +797,23 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   // No keys: dQ is 0 (no key tile); no queries: dK and dV are 0 (no query
   // tile reaches a key tile).
   if (sq) {
-    dq_tc_kernel<HD><<<dim3(batch * n_heads, n_qt), kThreads, L::kSmemBytes,
-                       s>>>(q_wide, do_wide, o_wide, k_narrow, v_narrow, a);
+    dq_tc_kernel<QK, VD><<<dim3(batch * n_heads, n_qt), kThreads,
+                           L::kSmemBytes, s>>>(q_wide, do_wide, o_wide,
+                                               k_narrow, v_narrow, a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (!sk) return 0;
-  dkv_tc_kernel<HD><<<dim3(batch * n_heads, n_kt), kThreads, L::kSmemBytes,
-                      s>>>(k_wide, v_wide, q_narrow, do_narrow, a);
+  dkv_tc_kernel<QK, VD><<<dim3(batch * n_heads, n_kt), kThreads,
+                          L::kSmemBytes, s>>>(k_wide, v_wide, q_narrow,
+                                              do_narrow, a);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_heads == n_kv_heads) return static_cast<int>(e);
   const long long groups = static_cast<long long>(batch) * n_kv_heads * sk *
-                           (HD / 4) / kMobyThreads + 1;
+                           (QK / 4) / kMobyThreads + 1;
   const int blocks = static_cast<int>(
       groups < 132 * kMobyBlocksPerSm ? groups : 132 * kMobyBlocksPerSm);
-  reduce_tc_kernel<HD><<<blocks, kMobyThreads, 0, s>>>(
+  reduce_tc_kernel<QK, VD><<<blocks, kMobyThreads, 0, s>>>(
       static_cast<const float*>(part), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), st[18], st[19], st[20], st[21],
       st[22], st[23], batch, n_heads, n_kv_heads, sk);
@@ -716,31 +822,36 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// bf16 q, o, dout, dq (B,H,SQ,hd) and k, v, dk, dv (B,KV,SK,hd), hd = 64
-// or 128, through element strides st[3 t .. 3 t + 2] = {b, head, s} for
-// t = q, k, v, o, dout, dq, dk, dv; the head dim contiguous; base addresses
-// 16-byte aligned and the strides of q, k, v, o and dout multiples of 8
-// elements (TMA's and the 16-byte loads' 16 bytes). H is a multiple of KV.
+// bf16 q, dq (B,H,SQ,hd), o, dout (B,H,SQ,vd), k, dk (B,KV,SK,hd) and v, dv
+// (B,KV,SK,vd), (hd, vd) = (64, 64), (128, 128) or (192, 128), through
+// element strides st[3 t .. 3 t + 2] = {b, head, s} for t = q, k, v, o,
+// dout, dq, dk, dv; the head dim contiguous; base addresses 16-byte
+// aligned and the strides of q, k, v, o and dout multiples of 8 elements
+// (TMA's and the 16-byte loads' 16 bytes). H is a multiple of KV.
 // Scratch: stats (2, B*H, stats_rows) with stats_rows >= SQ rounded up to
-// 128, and, where H > KV, part (2, B*H, SK, hd), f32 (at H = KV it is not
-// read). Returns a CUDA error code (cudaErrorInvalidValue for another head
-// dim, when a tensor map cannot describe an operand or stats_rows is
-// short).
+// 128, and, where H > KV, part (B*H*SK*(hd + vd) f32: dK's partials, then
+// dV's; at H = KV it is not read). Returns a CUDA error code
+// (cudaErrorInvalidValue for other head dims, when a tensor map cannot
+// describe an operand or stats_rows is short).
 MOBY_API int moby_flash_attention_bwd_tc(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* stats, void* part,
     const long long* st, int batch, int n_heads, int n_kv_heads, int sq,
-    int sk, int head_dim, int stats_rows, int causal, float scale,
-    void* stream) {
+    int sk, int head_dim, int value_dim, int stats_rows, int causal,
+    float scale, void* stream) {
   if (batch * n_heads == 0 || (sq == 0 && sk == 0)) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 64: return launch<64>(q, k, v, o, dout, dq, dk, dv, stats, part, st,
-                               batch, n_heads, n_kv_heads, sq, sk,
-                               stats_rows, causal, scale, s);
-    case 128: return launch<128>(q, k, v, o, dout, dq, dk, dv, stats, part,
-                                 st, batch, n_heads, n_kv_heads, sq, sk,
-                                 stats_rows, causal, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (head_dim == 64 && value_dim == 64)
+    return launch<64, 64>(q, k, v, o, dout, dq, dk, dv, stats, part, st,
+                          batch, n_heads, n_kv_heads, sq, sk, stats_rows,
+                          causal, scale, s);
+  if (head_dim == 128 && value_dim == 128)
+    return launch<128, 128>(q, k, v, o, dout, dq, dk, dv, stats, part, st,
+                            batch, n_heads, n_kv_heads, sq, sk, stats_rows,
+                            causal, scale, s);
+  if (head_dim == 192 && value_dim == 128)
+    return launch<192, 128>(q, k, v, o, dout, dq, dk, dv, stats, part, st,
+                            batch, n_heads, n_kv_heads, sq, sk, stats_rows,
+                            causal, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

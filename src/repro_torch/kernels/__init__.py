@@ -15,10 +15,12 @@ kernel                  source                           replaces (TPU, Pallas)
                                                          (bf16 at hd 64 and 128, and MLA's
                                                          qk 192 / value 128; tensor cores)
 ``flash_attention_bwd`` ``csrc/flash_attention_bwd.cu``  its VJP, ``repro/ops/api.py``
-                                                         (f32; bf16 at hd 16, 32)
+                                                         (f32; bf16 at hd 16, 32 and
+                                                         MLA SMOKE's 24 / 16)
 ``flash_attention_bwd_tc`` ``csrc/flash_attention_bwd_tc.cu`` its VJP, ``repro/ops/api.py``
-                                                         (bf16 at hd 64 and 128, tensor
-                                                         cores)
+                                                         (bf16 at hd 64 and 128, and
+                                                         MLA's qk 192 / value 128;
+                                                         tensor cores)
 ``decode_attention``    ``csrc/decode_attention.cu``     ``repro/kernels/decode_attention``
 ``decode_attention_bwd`` ``csrc/decode_attention_bwd.cu`` its VJP, ``repro/ops/api.py``
 ``mla_decode_attention`` ``csrc/mla_decode_attention.cu`` no Pallas kernel: the einsums

@@ -64,10 +64,10 @@ SIGNATURES = {
     "moby_flash_attention_tc": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, ctypes.c_float, _P), _I),
     "moby_flash_attention_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                   ctypes.c_float, _P), _I),
     "moby_flash_attention_bwd_tc": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                      ctypes.c_float, _P), _I),
     "moby_decode_attention_chunk": ((), _I),
     "moby_decode_attention": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -22,12 +22,9 @@ call raises:
 
 | dtype | (qk, value) head dims | route, forward and gradient |
 | --- | --- | --- |
-| bf16 | (64, 64), (128, 128) | ``tc`` |
-| bf16 | (192, 128) | ``tc`` (forward only) |
-| bf16 | (16, 16), (32, 32) | ``tf32x3`` |
-| f32 | (16, 16) .. (128, 128) | ``tf32x3`` |
-| f32 | (192, 128), (24, 16) | ``tf32x3`` (forward only) |
-| bf16 | (24, 16) | ``tf32x3`` (forward only) |
+| bf16 | (64, 64), (128, 128), (192, 128) | ``tc`` |
+| bf16 | (16, 16), (32, 32), (24, 16) | ``tf32x3`` |
+| f32 | (16, 16) .. (128, 128), (192, 128), (24, 16) | ``tf32x3`` |
 
 The value head dim vd may differ from the qk head dim hd only at MLA's
 pairs (``MLA_DIMS``); the scores are scaled by hd^-0.5 either way. The
@@ -47,8 +44,8 @@ runs ``csrc/flash_attention_bwd.cu`` (f32-accurate on the tensor cores by
 the 3xTF32 split, mma.sync fed by cp.async, as the forward;
 ``bwd_launches``). A CPU tensor goes to ``ref.flash_attention_bwd_ref``.
 :class:`FlashAttention` ties the two directions into one differentiable
-op. The gradient takes vd == hd only: at MLA's head dims it raises on
-every device (training MLA is a later slice).
+op, at every pair of head dims the forward takes (MLA's too: dq and dk at
+the qk head dim, dv at the value head dim).
 """
 from __future__ import annotations
 
@@ -228,36 +225,34 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor,
                         causal: bool = True):
     """The gradient of :func:`flash_attention`: (dq, dk, dv) for the output
-    cotangent ``do`` (B, H, SQ, hd), given the forward's output ``o``.
+    cotangent ``do`` (B, H, SQ, vd), given the forward's output ``o``
+    (B, H, SQ, vd).
 
     On the card one call of the kernel that ``route`` picks (each
     recomputes its rows' statistics, which the forward does not save):
-    ``csrc/flash_attention_bwd_tc.cu`` for bf16 at hd 64 and 128,
-    ``csrc/flash_attention_bwd.cu`` for every other dtype and head dim the
-    forward takes. The tensor-core kernel sums the G = H / KV query heads'
-    f32 partials of dK and dV in a pass of its own; at G = 1 it writes
-    them directly, equal bit for bit (no partials are allocated). All five inputs are read through their strides (the
-    head dim contiguous, 16-byte aligned); dq is a (B, H, SQ, hd) view of
-    (B, SQ, H, hd) storage and dk, dv (B, KV, SK, hd) views of (B, SK, KV,
-    hd) storage, the layouts the model's projections continue in. A value
-    head dim unequal to the qk head dim (MLA) raises on every device.
+    ``csrc/flash_attention_bwd_tc.cu`` for bf16 at (qk, value) head dims
+    (64, 64), (128, 128) and (192, 128), ``csrc/flash_attention_bwd.cu``
+    for every other dtype and pair of head dims the forward takes. Both
+    sum the G = H / KV query heads' f32 partials of dK and dV in a pass of
+    their own; at G = 1 both write them directly, equal bit for bit (no
+    partials are allocated). All five inputs are read
+    through their strides (the head dim contiguous, 16-byte aligned); dq
+    is a (B, H, SQ, hd) view of (B, SQ, H, hd) storage, dk a (B, KV, SK,
+    hd) view of (B, SK, KV, hd) storage and dv a (B, KV, SK, vd) view of
+    (B, SK, KV, vd) storage, the layouts the model's projections continue
+    in. The scores' scale is hd^-0.5, hd the qk head dim, as the forward's.
     """
     global bwd_launches, bwd_tc_launches
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            f"flash_attention_bwd: value head dim {v.shape[-1]} != qk head "
-            f"dim {q.shape[-1]} (MLA): its gradient is not ported yet "
-            f"(training MLA is a later slice; see ROADMAP.md)")
     if _launch.dispatch_device("flash_attention_bwd", q) == "cpu":
         return _ref.flash_attention_bwd_ref(q, k, v, o, do, causal)
     b, h, sq, hd = q.shape
-    kv, sk = k.shape[1], k.shape[2]
+    kv, sk, vd = k.shape[1], k.shape[2], v.shape[-1]
     for name, t, shape in (("q", q, (b, h, sq, hd)), ("k", k, (b, kv, sk, hd)),
-                           ("v", v, (b, kv, sk, hd)), ("o", o, (b, h, sq, hd)),
-                           ("do", do, (b, h, sq, hd))):
+                           ("v", v, (b, kv, sk, vd)), ("o", o, (b, h, sq, vd)),
+                           ("do", do, (b, h, sq, vd))):
         _launch.check_cuda("flash_attention_bwd", name, t, q.dtype, shape,
                            q.device, strided=True)
-    path = route(q.dtype, hd)
+    path = route(q.dtype, hd, vd)
     _check_heads(b, h, kv)
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check_aligned(name, t, f"{path} backward")
@@ -266,11 +261,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev, dt = q.device, q.dtype
     dq = torch.empty((b, sq, h, hd), dtype=dt, device=dev).transpose(1, 2)
     dk = torch.empty((b, sk, kv, hd), dtype=dt, device=dev).transpose(1, 2)
-    dv = torch.empty((b, sk, kv, hd), dtype=dt, device=dev).transpose(1, 2)
-    # The f32 partials of dK and dV a query head, summed over each kv
-    # head's G query heads; the tensor-core kernel needs none at G = 1.
-    part = torch.empty((2, b * h, sk, hd) if path == "tf32x3" or h > kv
-                       else (0,), dtype=torch.float32, device=dev)
+    dv = torch.empty((b, sk, kv, vd), dtype=dt, device=dev).transpose(1, 2)
+    # The f32 partials of dK (B*H, SK, hd) and then dV (B*H, SK, vd) a
+    # query head, summed over each kv head's G query heads; none at G = 1.
+    part = torch.empty((b * h * sk * (hd + vd) if h > kv else 0,),
+                       dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
     ptrs = tuple(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv))
@@ -282,14 +277,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 device=dev)
             code = lib.moby_flash_attention_bwd_tc(
                 *ptrs, stats.data_ptr(), part.data_ptr(), strides, b, h, kv,
-                sq, sk, hd, rows, int(causal), hd ** -0.5,
+                sq, sk, hd, vd, rows, int(causal), hd ** -0.5,
                 _launch.stream_handle(dev))
         else:
             stats = torch.empty((3, b * h, sq), dtype=torch.float32,
                                 device=dev)
             code = lib.moby_flash_attention_bwd(
                 *ptrs, stats.data_ptr(), part.data_ptr(), strides, b, h, kv,
-                sq, sk, hd, int(causal), int(dt == torch.bfloat16),
+                sq, sk, hd, vd, int(causal), int(dt == torch.bfloat16),
                 hd ** -0.5, _launch.stream_handle(dev))
     _build.check(code, f"flash_attention_bwd ({path})")
     if path == "tc":

@@ -47,23 +47,24 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, causal: bool = True):
     """The gradient of :func:`flash_attention_ref` at (q, k, v) for the
-    output cotangent ``do`` (B, H, SQ, hd), given the forward's output
-    ``o``, written out in float32, or float64 for float64 inputs (no
-    autograd): with A the softmax
+    output cotangent ``do`` (B, H, SQ, vd), given the forward's output
+    ``o`` (B, H, SQ, vd), written out in float32, or float64 for float64
+    inputs (no autograd): with A the softmax
     weights, dV = A^T dO, dP = dO V^T, dS = A * (dP - rowsum(dO * O)),
-    dQ = scale dS K, dK = scale dS^T Q, the G = H / KV query heads of a kv
-    head summed into its dK and dV. Returns (dq, dk, dv) in the inputs'
-    dtypes."""
+    dQ = scale dS K, dK = scale dS^T Q (scale = hd^-0.5, hd the qk head
+    dim), the G = H / KV query heads of a kv head summed into its dK and
+    dV. dq and dk have the qk head dim, dv the value head dim (MLA's
+    differ). Returns (dq, dk, dv) in the inputs' dtypes."""
     b, h, sq, hd = q.shape
-    kv = k.shape[1]
-    grouped = (b, kv, h // kv, sq, hd)
-    qg = _wide(q.reshape(grouped))
-    dog = _wide(do.reshape(grouped))
+    kv, vd = k.shape[1], v.shape[-1]
+    qg = _wide(q.reshape(b, kv, h // kv, sq, hd))
+    dog = _wide(do.reshape(b, kv, h // kv, sq, vd))
     p = _exp_scores(qg, k, causal)
     a = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     dv = torch.einsum("bkgqs,bkgqh->bksh", a, dog)
     dp = torch.einsum("bkgqh,bksh->bkgqs", dog, _wide(v))
-    ds = a * (dp - (dog * _wide(o.reshape(grouped))).sum(-1, keepdim=True))
+    og = _wide(o.reshape(b, kv, h // kv, sq, vd))
+    ds = a * (dp - (dog * og).sum(-1, keepdim=True))
     scale = hd ** -0.5
     dq = torch.einsum("bkgqs,bksh->bkgqh", ds, _wide(k)) * scale
     dk = torch.einsum("bkgqs,bkgqh->bksh", ds, qg) * scale

@@ -50,6 +50,15 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
     return y.reshape(*lead, *k)
 
 
+def _hi_lo(dy: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An f32 cotangent as two parts of a 16-bit ``dtype``, stacked: hi (dy
+    rounded) and lo (the rest, rounded), which hold dy to 2^-16 of it."""
+    parts = torch.empty((2, *dy.shape), dtype=dtype, device=dy.device)
+    parts[0] = dy
+    parts[1] = dy - parts[0]
+    return parts
+
+
 def matmul_f32_out_grads(dy: torch.Tensor, x: torch.Tensor,
                          w: torch.Tensor, mm, need_x: bool = True,
                          need_w: bool = True):
@@ -64,9 +73,7 @@ def matmul_f32_out_grads(dy: torch.Tensor, x: torch.Tensor,
     product up to f32 summation. (Rounding dy once to 16 bits instead puts
     13% of a bf16 gradient's entries more than a bf16 ulp from JAX's.)"""
     d = dy.reshape(-1, dy.shape[-1])
-    parts = torch.empty((2, *d.shape), dtype=x.dtype, device=d.device)
-    parts[0] = d
-    parts[1] = d - parts[0]
+    parts = _hi_lo(d, x.dtype)
     dx = dw = None
     if need_x:
         wt = w.t()
@@ -114,14 +121,59 @@ def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
+def bmm_f32_out_grads(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                      bmm, need_x: bool = True, need_w: bool = True):
+    """The batched counterpart of :func:`matmul_f32_out_grads`: the
+    gradients of ``x @ w`` (x (E, C, K), w (E, K, N), both of one 16-bit
+    dtype, an f32 result) for its f32 cotangent ``dy`` (E, C, N), as
+    ``jax.vjp`` of JAX's ``einsum('ecd,edf->ecf',
+    preferred_element_type=float32)`` computes them: the cotangent enters
+    ``bmm(a, b)`` (16-bit batched matrices, f32 sums and result) as its
+    16-bit ``hi`` and ``lo`` parts, two products a gradient, each
+    gradient rounded once to the operand's dtype."""
+    parts = _hi_lo(dy, x.dtype)
+    dx = dw = None
+    if need_x:
+        wt = w.transpose(1, 2)
+        dx = bmm(parts[0], wt).add_(bmm(parts[1], wt)).to(x.dtype)
+    if need_w:
+        # One product over the two parts stacked along the rows.
+        x2 = torch.cat([x, x], dim=1).transpose(1, 2)
+        dw = bmm(x2, torch.cat([parts[0], parts[1]], dim=1)).to(x.dtype)
+    return dx, dw
+
+
+def _bmm_f32_out(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+class _BmmF32Out(torch.autograd.Function):
+    """``x @ w`` (x (E, C, K), w (E, K, N), both of one 16-bit dtype) as
+    one batched GEMM that writes f32 (``torch.bmm``'s ``out_dtype``, which
+    has no autograd formula). Backward: :func:`bmm_f32_out_grads`, JAX's
+    arithmetic, by two such GEMMs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _bmm_f32_out(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return bmm_f32_out_grads(dy, x, w, _bmm_f32_out,
+                                 *ctx.needs_input_grad)
+
+
 def _bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The batched counterpart of :func:`_dot_f32`: x (E, C, K) @ w
     (E, K, N) -> (E, C, N) f32 (JAX's ``einsum('ecd,edf->ecf',
     preferred_element_type=float32)``). On the card a 16-bit batched GEMM
-    writes f32 (``torch.bmm``'s ``out_dtype``; serving only, it has no
-    autograd formula); elsewhere the operands are widened."""
+    writes f32 (:class:`_BmmF32Out`, differentiable in JAX's arithmetic);
+    elsewhere the operands are widened, which gives the same exact
+    products."""
     if x.is_cuda and x.dtype != torch.float32:
-        return torch.bmm(x, w, out_dtype=torch.float32)
+        return _BmmF32Out.apply(x, w)
     return torch.bmm(x.float(), w.float())
 
 

@@ -7,11 +7,13 @@ The parameter tree is the JAX package's: ``{"embed", "final_norm",
 none), with every leaf of a stack on a leading layer axis. ``forward``
 walks the stacks in that order, a Python loop over views of the layer
 axis (JAX's ``lax.scan``). It is the prefill entry point and, under
-``loss_fn``, the dense family's training forward; the serving step is
+``loss_fn``, the training forward; the serving step is
 ``repro_torch.models.decode.decode_step``. The moe family's attention is
 full attention (``layers.attn_apply``) or MLA (``models/mla.py``,
-deepseek-v2), as ``cfg.attn_kind`` says. The training of the moe family,
-and the ssm, hybrid, encdec and vlm families are later slices and raise.
+deepseek-v2), as ``cfg.attn_kind`` says. Both families train through
+``loss_fn``, as JAX's one ``loss_fn`` trains every family (no auxiliary
+loss). The ssm, hybrid, encdec and vlm families are later slices and
+raise.
 """
 from __future__ import annotations
 
@@ -202,15 +204,12 @@ def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
     default; divided by max(sum, 1)) of logsumexp(logits) - the label's
     logit, in f32. The weights are cast to ``cfg.dtype`` at each use
     (``layers.cast``), so gradients reach the f32 parameters; pass them
-    as they are stored, not through :func:`cast_params`. The moe family
-    serves but does not train yet (a later slice): it raises.
+    as they are stored, not through :func:`cast_params`. The dense and
+    moe families (full attention and MLA) train alike: the MoE layers'
+    gradients are those of their dispatch (``layers.moe_apply``), with no
+    load-balancing loss, as in the JAX package.
     """
     require_ported(cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported "
-            f"yet (a later slice; it serves through forward and "
-            f"decode_step; see ROADMAP.md)")
     if batch.get("enc_embeds") is not None:
         raise NotImplementedError(f"{cfg.name}: encoder inputs belong to "
                                   f"the encdec family, not ported yet")

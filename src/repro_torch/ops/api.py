@@ -77,10 +77,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The value head dim equals the qk head dim, or not at MLA's head dims
     (``kernels/flash_attention/ops.py::route``). q, k and v may be
     transposed views (the head dim contiguous): the kernel reads them in
-    place. Differentiable for q, k and v at vd == hd: the gradient is a
-    kernel on the card (``flash_attention_bwd``), the plain gradient on
-    the CPU, as the JAX package's VJP recomputes the scores; at vd != hd
-    the backward raises (training MLA is a later slice)."""
+    place. Differentiable for q, k and v at every pair of head dims: the
+    gradient is a kernel on the card (``flash_attention_bwd``), the plain
+    gradient on the CPU, as the JAX package's VJP recomputes the scores
+    (at MLA's vd != hd JAX differentiates its plain attention)."""
     return _fa_ops.FlashAttention.apply(q, k, v, causal)
 
 

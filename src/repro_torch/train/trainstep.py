@@ -51,7 +51,11 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig,
                for path, t in leaves(params)]
         with torch.enable_grad():
             loss = lm.loss_fn(from_leaves(req), cfg, batch)
-            grads = torch.autograd.grad(loss, [t for _, t in req])
+            # A leaf the loss does not reach (a stack of no layers, as at
+            # n_layers == first_dense) gets zeros, as in jax.grad.
+            grads = torch.autograd.grad(loss, [t for _, t in req],
+                                        allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), [(path, g) for (path, _), g in zip(req, grads)]
 
     def loss_and_grads(params, batch):

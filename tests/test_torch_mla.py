@@ -733,28 +733,64 @@ def test_entry_points_default_to_the_card():
 
 
 def test_loss_fn_raises_for_deepseek():
-    _, cfg = _cfgs()
-    _, p = _weights(cfg)
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="training the moe"):
-        lm.loss_fn(p, cfg, {"tokens": tokens, "labels": tokens})
+    """deepseek-v2 trains now (``tests/test_torch_moe_train.py`` holds its
+    gradients and steps to JAX's): on JAX's SMOKE weights in f32 the loss
+    equals ``repro.models.lm.loss_fn``'s within 1e-5 and every parameter,
+    MLA's included, gets a finite gradient. An encoder input still
+    raises."""
+    jcfg, cfg = _cfgs()
+    jparams, p = _weights(cfg)
+    batch = {k: _tokens(cfg.vocab, seed)[0] for k, seed in
+             (("tokens", 7), ("labels", 8))}
+    want = jlm.loss_fn(jparams, jcfg, {k: jnp.asarray(v)
+                                       for k, v in batch.items()})
+    p = params.tree_map(lambda t: t.requires_grad_(), p)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss = lm.loss_fn(p, cfg, tb)
+    assert abs(float(loss.detach()) - float(want)) <= 1e-5
+    leaves = list(params.leaves(p))
+    grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    got = dict(zip((path for path, _ in leaves), grads))
+    for name in ("wkv_a", "wk_b", "wv_b", "wq_b", "wo"):
+        assert bool(got[("moe_blocks", "attn", name)].any()), name
+    with pytest.raises(NotImplementedError, match="encoder inputs"):
+        lm.loss_fn(p, cfg, dict(tb, enc_embeds=torch.zeros(2, 4, 64)))
 
 
 def test_flash_backward_raises_at_vd_ne_hd():
-    """MLA's prefill attention has no gradient yet: backward raises rather
-    than return gradients of the wrong shape (value dim 16, qk dim 24)."""
+    """MLA's prefill attention has a gradient now (value dim 16, qk dim
+    24): autograd through ``ops.flash_attention`` gives q and k gradients
+    at the qk dim and v at the value dim, the plain gradient
+    (``flash_attention_bwd_ref``), which equals autograd of the attention
+    written out in float64 within 1e-6 of each gradient's scale (the
+    plain forward computes in f32, so D = rowsum(dO * O) carries O's f32
+    rounding), G = 1 and 2."""
     rng = np.random.default_rng(2)
-    q, k = (torch.from_numpy(rng.normal(size=(1, 4, 8, 24))).float()
-            .requires_grad_() for _ in range(2))
-    v = torch.from_numpy(rng.normal(size=(1, 4, 8, 16))).float() \
-        .requires_grad_()
-    out = ops.flash_attention(q, k, v, True)
-    assert tuple(out.shape) == (1, 4, 8, 16)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        out.sum().backward()
-    with pytest.raises(NotImplementedError, match="value head dim"):
-        fa_ops.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
-                                   out.detach(), out.detach(), True)
+    for kv in (4, 2):
+        q = torch.from_numpy(rng.normal(size=(1, 4, 8, 24))).requires_grad_()
+        k = torch.from_numpy(rng.normal(size=(1, kv, 8, 24))).requires_grad_()
+        v = torch.from_numpy(rng.normal(size=(1, kv, 8, 16))).requires_grad_()
+        do = torch.from_numpy(rng.normal(size=(1, 4, 8, 16)))
+        out = ops.flash_attention(q, k, v, True)
+        assert tuple(out.shape) == (1, 4, 8, 16)
+        out.backward(do)
+        got = (q.grad, k.grad, v.grad)
+        assert [tuple(t.shape) for t in got] == [
+            (1, 4, 8, 24), (1, kv, 8, 24), (1, kv, 8, 16)]
+        direct = fa_ops.flash_attention_bwd(q.detach(), k.detach(),
+                                            v.detach(), out.detach(), do,
+                                            True)
+        qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        ke, ve = (t.repeat_interleave(4 // kv, dim=1) for t in (ka, va))
+        s = (qa @ ke.transpose(-1, -2) * 24 ** -0.5).masked_fill(
+            ~torch.ones(8, 8, dtype=torch.bool).tril(), float("-inf"))
+        auto = torch.autograd.grad(torch.softmax(s, -1) @ ve, (qa, ka, va),
+                                   do)
+        for g, d, a in zip(got, direct, auto):
+            torch.testing.assert_close(g, d, rtol=0, atol=0)
+            scale = float(a.abs().max())
+            torch.testing.assert_close(g, a, rtol=0, atol=1e-6 * scale)
 
 
 # ---------------------------------------------------------------------------

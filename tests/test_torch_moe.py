@@ -363,11 +363,27 @@ def test_entry_points_default_to_the_card():
 
 
 def test_loss_fn_raises_for_moe():
-    _, cfg = _cfgs()
-    _, p = _weights(cfg)
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="training the moe"):
-        lm.loss_fn(p, cfg, {"tokens": tokens, "labels": tokens})
+    """The moe family trains now (``tests/test_torch_moe_train.py`` holds
+    its gradients and steps to JAX's): on JAX's SMOKE weights the loss
+    equals ``repro.models.lm.loss_fn``'s within 1e-5 and every parameter
+    gets a finite gradient. What still raises is an encoder input, which
+    belongs to the encdec family."""
+    jcfg, cfg = _cfgs()
+    jparams, p = _weights(cfg)
+    rng = np.random.default_rng(5)
+    batch = {k: rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    want = jlm.loss_fn(jparams, jcfg, {k: jnp.asarray(v)
+                                       for k, v in batch.items()})
+    p = params.tree_map(lambda t: t.requires_grad_(), p)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss = lm.loss_fn(p, cfg, tb)
+    assert abs(float(loss.detach()) - float(want)) <= 1e-5
+    grads = torch.autograd.grad(loss, [t for _, t in params.leaves(p)])
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert any(bool(g.any()) for g in grads)
+    with pytest.raises(NotImplementedError, match="encoder inputs"):
+        lm.loss_fn(p, cfg, dict(tb, enc_embeds=torch.zeros(2, 4, 64)))
 
 
 def test_mla_raises():
