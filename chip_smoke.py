@@ -502,13 +502,14 @@ KERNELS = {
 INSTANCES = {
     ("flash_attention_tc", 6): ("deepseek", "qk 192 / value 128, bf16",
                                 "MLA C serving"),
-    ("flash_attention_bwd_tc", 15): ("deepseek", "qk 192 / value 128, bf16",
+    ("flash_attention_bwd_tc", 15): ("deepseek", "qk 192 / value 128, bf16 "
+                                     "(persistent: a CTA an SM)",
                                      "MLA T training"),
     ("flash_attention_bwd_tc", 16): ("moonshot", "hd 128, G = 1, bf16",
                                      "MoE T training"),
     ("flash_attention_bwd", 15): ("deepseek_f32", "qk 192 / value 128, f32 "
-                                  "(4-warp dq, 8-warp dkv)",
-                                  "MLA T f32 correctness"),
+                                  "(8-warp dq skipping dead tiles, 8-warp "
+                                  "dkv)", "MLA T f32 correctness"),
     ("flash_attention_bwd", 16): ("deepseek_smoke", "qk 24 / value 16, f32",
                                   "MLA T SMOKE f32"),
     ("flash_attention_bwd", 17): ("deepseek_smoke_bf16",
@@ -4063,7 +4064,7 @@ def main() -> None:
             flash_bwd(1, 6, 2, 150, 150, 64, f32, True),
             flash_bwd(1, 16, 1, 200, 200, 32, bf16, True),
             flash_bwd(2, 4, 2, 77, 77, 16, bf16, False),
-            # MLA's head dims (qk 192 / value 128 in f32: 4-warp dq blocks
+            # MLA's head dims (qk 192 / value 128 in f32: 8-warp dq blocks
             # over 32-key tiles, 8-warp dkv blocks over 16-query tiles; qk
             # 24 / value 16 in f32 and bf16): MLA T's f32 correctness shape
             # (MLA B's) and MLA A's SMOKE shape (B 2, 4 heads, S 16) in f32
@@ -4080,7 +4081,10 @@ def main() -> None:
             flash_bwd(2, 6, 2, 300, 300, 24, f32, True, vd=16),
             flash_bwd(1, 4, 2, 128, 640, 24, bf16, False, vd=16),
             flash_bwd(2, 4, 4, 1, 1, 192, f32, True, vd=128),
-            flash_bwd(1, 4, 4, 1024, 1024, 24, bf16, True, vd=16)],
+            flash_bwd(1, 4, 4, 1024, 1024, 24, bf16, True, vd=16),
+            # (192, 128) over 3 x 48 heads at a ragged S 333: 6 dq blocks
+            # and 24 dkv blocks a head, the last tile of each ragged.
+            flash_bwd(3, 48, 48, 333, 333, 192, f32, True, vd=128)],
         # The tensor-core route (bf16 at hd 64 and 128): LM T's timed shape
         # first (S 4096, G 8, causal), then Sq = Sk = 1, a ragged 77 with
         # contiguous operands, keys longer than queries (not causal), full
@@ -4124,7 +4128,11 @@ def main() -> None:
                       vd=128),
             flash_bwd(2, 8, 2, 128, 640, 192, bf16, False, vd=128),
             flash_bwd(1, 4, 2, 1024, 1024, 192, bf16, True, vd=128),
-            flash_bwd(1, 4, 4, 300, 300, 192, bf16, True, vd=128)],
+            flash_bwd(1, 4, 4, 300, 300, 192, bf16, True, vd=128),
+            # The persistent (192, 128) kernels over items that no wave of
+            # 132 CTAs divides (3 x 48 heads, S 333: 432 items of each
+            # kernel), the last tile of each ragged.
+            flash_bwd(3, 48, 48, 333, 333, 192, bf16, True, vd=128)],
         # K6's gradient: LM C's decode shape with ragged positions and one
         # empty request first, then f32 GQA, MQA with positions 1 and S,
         # SMOKE's head dim with an empty request, bf16 at hd 16, and 48

@@ -94,13 +94,24 @@
 //   rounds dK and dV once itself (+0 added, as the sum's start does, so
 //   the two agree bit for bit) and no partials exist: at MLA B's shape the
 //   pass took 0.114 ms of 0.941 (chip_smoke.py, PERF.md).
-// MLA's f32 (192, 128), where 8 warps' Q and dO fragments alone would be
-// 160 KB and a dkv warp holds dK and dV (160 floats a thread): dq blocks
-// of 4 warps over 32-key tiles (147 KB: fragments 80 KB, two K tiles and a
-// V tile), dkv blocks of 8 warps over 16-query tiles (206 KB: fragments
-// 160 KB, 2 stages of 21 KB), products summing 2 output tiles at once;
-// ptxas gives both kernels 255 registers and 12-24 bytes of spill stores
-// (the hd-128 instance's dkv kernel spills 44 bytes).
+// MLA's f32 (192, 128), where 8 warps' Q and dO fragments are 160 KB and
+// a dkv warp holds dK and dV (160 floats a thread): dq blocks of 8 warps
+// (128 query rows) over 32-key tiles (226 KB: fragments 160 KB, two K
+// tiles and a V tile, the warps' O rows staged unpadded over all three),
+// each warp skipping the key tiles that lie wholly above its last row (at
+// MLA B's S = 256 a third of a 128-row block's tiles: they would add
+// zeros), dkv blocks of 8 warps over 16-query tiles (206 KB: fragments
+// 160 KB, 2 stages of 21 KB), products summing 2 output tiles at once.
+// At MLA B's shape the 8-warp dq took the call from 0.873 to 0.837 ms and
+// the skip to 0.802, under SDPA's 0.832 (tools/mla_bwd_probe.py). Tried
+// and left out there: dkv warps in pairs over 32-query tiles, one warp
+// holding dV (S^T, P^T, dV), the other dK (dP^T, dS^T from the first's
+// P^T, dK), 0.52 ms against 0.47 (the second waits on the first); a
+// 3-stage dkv ring, 0.48 against 0.47; dq over 16-key tiles, 0.83 ms a
+// call against 0.80. ptxas gives both kernels 255 registers and 8 (dq) and
+// 24 (dkv) bytes of spill stores (the 4-warp dq spilled 12; the hd-128
+// instance's dkv kernel spills 44 bytes): hoisted addresses of the walk's
+// copies, reloaded outside the products (cuobjdump -sass).
 // Tile rows in shared memory are padded by 16 bytes, so B fragments, read
 // either way (X[n][k] for S and dP, X[k][n] for the others), fall on
 // distinct banks. Masking is applied only to the tiles that cross sk, sq
@@ -125,23 +136,28 @@ constexpr int kMaxSmem = 232448;
 
 // An instance's tiling at (qk, value) head dims (QK, VD): the warps of a
 // dq block and of a dkv block, keys a tile of the dq walk, queries a tile
-// of the dkv walk, and 8-column output tiles a product sums at once.
+// of the dkv walk, 8-column output tiles a product sums at once, and
+// whether a dq warp skips the key tiles that lie wholly above its rows
+// (kSkipDead; the products it leaves out would add only zeros).
 template <int QK, int VD, typename T>
 struct Tiling {
   static constexpr int kDqWarps = 8, kDkvWarps = 8;
   static constexpr int kBk = 64, kBq = 32, kNG = 4;
+  static constexpr bool kSkipDead = false;
 };
 
-// MLA's f32 (192, 128). dq: 4 warps over 32-key tiles, so that Q's
-// fragments (48 KB), dO's (32 KB), two K tiles and a V tile fit (147 KB;
-// 8 warps' fragments alone would be 160 KB), and dQ (96 floats a thread)
-// leaves room for a tile's S, dS and their split; dkv: 8 warps (K's and
-// V's fragments: 160 KB) over 16-query tiles, two output tiles summed at
-// once, since dK and dV hold 160 floats a thread over the walk.
+// MLA's f32 (192, 128). dq: 8 warps (128 query rows) over 32-key tiles:
+// Q's and dO's fragments (160 KB), two K tiles and a V tile fit in 226 KB,
+// the O rows staged unpadded over all three, each warp skipping the key
+// tiles past its last row (at MLA B's S = 256 a third of the 128-row
+// blocks' tiles); dkv: 8 warps (K's and V's fragments: 160 KB) over
+// 16-query tiles, two output tiles summed at once, since dK and dV hold
+// 160 floats a thread over the walk.
 template <>
 struct Tiling<192, 128, float> {
-  static constexpr int kDqWarps = 4, kDkvWarps = 8;
+  static constexpr int kDqWarps = 8, kDkvWarps = 8;
   static constexpr int kBk = 32, kBq = 16, kNG = 2;
+  static constexpr bool kSkipDead = true;
 };
 
 struct Strides {                    // in elements; the head dim has stride 1
@@ -165,7 +181,8 @@ struct Args {
 // dO fragments (f32, [warp][dim / 8][32 lanes] of 16 bytes), two K tiles
 // ([kBk][QK + pad] of T) and one V tile ([kBk][VD + pad] of T). The
 // warps' O rows ([16][VD + pad] each) are staged where K tile 1 and V
-// will be.
+// will be, or, where they do not fit there (8 warps at (192, 128)),
+// unpadded ([16][VD]) from K tile 0 on.
 template <int QK, int VD, typename T>
 struct DqSmem {
   using Tl = Tiling<QK, VD, T>;
@@ -177,8 +194,14 @@ struct DqSmem {
   static constexpr int kTileK = Tl::kBk * kRowK * static_cast<int>(sizeof(T));
   static constexpr int kTileV = Tl::kBk * kRowV * static_cast<int>(sizeof(T));
   static constexpr int kBytes = kFragQ + kFragDo + 2 * kTileK + kTileV;
-  static_assert(kWarps * 16 * kRowV * static_cast<int>(sizeof(T)) <=
-                    kTileK + kTileV, "O rows");
+  static constexpr bool kOPadded =
+      kWarps * 16 * kRowV * static_cast<int>(sizeof(T)) <= kTileK + kTileV;
+  static constexpr int kRowO = kOPadded ? kRowV : VD;
+  // Elements from K tile 0 to the staged O rows.
+  static constexpr int kOAt = kOPadded ? Tl::kBk * kRowK : 0;
+  static_assert(kWarps * 16 * kRowO * static_cast<int>(sizeof(T)) <=
+                    2 * kTileK + kTileV - kOAt * static_cast<int>(sizeof(T)),
+                "O rows");
 };
 
 // dkv_kernel's: every warp's K fragments, then every warp's V fragments,
@@ -201,10 +224,10 @@ struct DkvSmem {
 };
 
 // Rows [r0, r0 + R) of an operand (row r at src + r * rs, the head dim
-// contiguous) into dst ([R][HD + pad] of T) by 16-byte cp.async, issued by
+// contiguous) into dst ([R][kRow] of T) by 16-byte cp.async, issued by
 // `threads` threads (the block's, or the lanes of a warp), this one being
 // `tid`; rows >= n are zero-filled.
-template <int R, int HD, typename T>
+template <int R, int HD, typename T, int kRow = HD + kPad<T>>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, long long rs,
                                           int r0, int n, int tid,
                                           int threads) {
@@ -213,7 +236,7 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long rs,
   for (int c = tid; c < R * kChunks; c += threads) {
     const int r = c / kChunks, col = c % kChunks * kVec;
     const bool ok = r0 + r < n;
-    cp_async16(dst + r * (HD + kPad<T>) + col,
+    cp_async16(dst + r * kRow + col,
                src + (ok ? r0 + r : 0) * rs + col, ok);
   }
 }
@@ -254,15 +277,14 @@ __device__ __forceinline__ void fragment(const T* at, uint32_t& hi,
 
 // sc = A.B^T for one warp's 16 rows and kNt * 8 columns: A from the
 // warp's fragments af (f32; split per k-step), B the rows of tile bt
-// ([kNt * 8][HD + pad] of T): b0 = B[n*8 + g][d*8 + t], b1 at dim t + 4.
+// ([kNt * 8][kRow] of T): b0 = B[n*8 + g][d*8 + t], b1 at dim t + 4.
 // For f32 the small products (lo.hi + hi.lo) go to accumulators of their
 // own, added to the big ones (hi.hi) at the end.
-template <int HD, int kNt, typename T>
+template <int HD, int kNt, typename T, int kRow = HD + kPad<T>>
 __device__ __forceinline__ void product_nt(const T* bt, const uint4* af,
                                            int gq, int tq,
                                            float (&sc)[kNt][4]) {
   constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int kRow = HD + kPad<T>;
   float small[kNt][4];
 #pragma unroll
   for (int n = 0; n < kNt; ++n)
@@ -438,22 +460,23 @@ dq_kernel(Args a) {
   // so a row whose one live key j has O = V_j (every such row in bf16)
   // gets dP - D = 0 exactly, as in the exact gradient, here and in the dkv
   // kernel (whose dP^T takes the same products). The warp's O rows are
-  // staged where K buffer 1 and V will be: kWarps x 16 rows.
+  // staged where K buffer 1 and V will be (S::kOAt): kWarps x 16 rows.
   float dsum[2];
   {
-    T* orows = kbuf + kTile + warp * 16 * S::kRowV;
-    load_rows<16, VD>(orows, op, a.so_.s, row0, a.sq, lane, 32);
+    T* orows = kbuf + S::kOAt + warp * 16 * S::kRowO;
+    load_rows<16, VD, T, S::kRowO>(orows, op, a.so_.s, row0, a.sq, lane,
+                                   32);
     cp_async_commit();
     cp_async_wait<0>();
     __syncwarp();
     float od[2][4];
-    product_nt<VD, 2>(orows, df, gq, tq, od);
+    product_nt<VD, 2, T, S::kRowO>(orows, df, gq, tq, od);
     // (g, g) is c0 or c1 of n-tile 0 at lane (g, g / 2); (g + 8, g + 8)
     // c2 or c3 of n-tile 1.
     const int src = gq * 4 + gq / 2;
     dsum[0] = __shfl_sync(kFull, gq % 2 ? od[0][1] : od[0][0], src);
     dsum[1] = __shfl_sync(kFull, gq % 2 ? od[1][3] : od[1][2], src);
-    __syncthreads();   // every warp's O is read before V arrives there
+    __syncthreads();   // every warp's O is read before K and V arrive
   }
 
   const T* kb = static_cast<const T*>(a.k) + b * a.sk_.b + kvh * a.sk_.h;
@@ -490,32 +513,36 @@ dq_kernel(Args a) {
                          k0 + kBk, a.sk, threadIdx.x, kThreads);
     cp_async_commit();
 
-    float sc[kN][4];
-    product_nt<QK, kN>(kt, qf, gq, tq, sc);           // S = Q.K^T
-    const bool moved = masked(k0)
-        ? softmax_tile<true, kBk>(sc, m, mc, l, corr, rq, k0, tq, a.sk,
-                                  a.causal, c)
-        : softmax_tile<false, kBk>(sc, m, mc, l, corr, rq, k0, tq, a.sk,
-                                   a.causal, c);
-    if (moved) {
+    // kSkipDead: every key of the tile above the warp's last row (causal),
+    // whose products would add zeros and leave m and l as they are.
+    const bool dead = S::Tl::kSkipDead && a.causal && k0 > row0 + 15;
+    float sc[kN][4], ds[kN][4];
+    if (!dead) {
+      product_nt<QK, kN>(kt, qf, gq, tq, sc);         // S = Q.K^T
+      const bool moved = masked(k0)
+          ? softmax_tile<true, kBk>(sc, m, mc, l, corr, rq, k0, tq, a.sk,
+                                    a.causal, c)
+          : softmax_tile<false, kBk>(sc, m, mc, l, corr, rq, k0, tq, a.sk,
+                                     a.causal, c);
+      if (moved) {
 #pragma unroll
-      for (int d = 0; d < kD; ++d)
+        for (int d = 0; d < kD; ++d)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dq[d][i] *= corr[i / 2];
+          for (int i = 0; i < 4; ++i) dq[d][i] *= corr[i / 2];
+      }
+      product_nt<VD, kN>(vbuf, df, gq, tq, ds);       // dP = dO.V^T
+#pragma unroll
+      for (int n = 0; n < kN; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ds[n][i] = sc[n][i] * (ds[n][i] - dsum[i / 2]);   // dS~
     }
-    float ds[kN][4];
-    product_nt<VD, kN>(vbuf, df, gq, tq, ds);         // dP = dO.V^T
-#pragma unroll
-    for (int n = 0; n < kN; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ds[n][i] = sc[n][i] * (ds[n][i] - dsum[i / 2]);   // dS~
     __syncthreads();       // every warp has read V
     if (it + 1 < n_tiles)
       load_rows<kBk, VD>(vbuf, vb, a.sv_.s, k0 + kBk, a.sk, threadIdx.x,
                          kThreads);
     cp_async_commit();
-    product_nn<QK, kN, kNG>(ds, kt, gq, tq, dq);      // dQ~ += dS~.K
+    if (!dead) product_nn<QK, kN, kNG>(ds, kt, gq, tq, dq);   // dQ~ += dS~.K
   }
   cp_async_wait<0>();
 

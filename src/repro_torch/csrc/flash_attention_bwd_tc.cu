@@ -46,6 +46,16 @@
 // once to bf16. chip_smoke.py (grads_close, bwd_rounding_terms) states the
 // allowance this needs against the float64 gradient.
 //
+// What bounds it at MLA's (192, 128), as measured (tools/mla_bwd_probe.py,
+// MLA T's shape): power. The card holds its 700 W limit through the call
+// and its SM clock drops from ~1.8-1.9 GHz (a short eager burst) to a
+// median of ~1.45 GHz under the sustained load of repeated calls (CUDA
+// graph replays), the two kernels then running back to back with gaps of
+// ~0.6 us. cuDNN's backward takes the five products (1,664 flops a live
+// pair, dQ summed by atomics); this kernel, deterministic and without
+// atomics, takes seven (2,304: S and dP again in the dq kernel) at about
+// the same energy a flop, so it stays ~1.2-1.3x SDPA's backward there.
+//
 // Design (the shape of FlashAttention-3's backward, without its atomics,
 // so two calls give the same bits), three launches of one entry point in
 // stream order, each of the first two with 384 threads: warpgroup 0 the
@@ -54,10 +64,11 @@
 // ring with full and empty mbarriers), warpgroups 1 and 2 consumers of 64
 // rows each at 240 registers, whose f32 work interleaves with each
 // other's products:
-// * dq_tc_kernel, a CTA per (b*h, 128-row query tile), the heaviest causal
-//   tiles first: Q, dO and O resident; D = rowsum(dO * O) as the diagonals
-//   of dO.O^T and O.dO^T on the tensor cores (summed as dP and dP^T are,
-//   so a row whose only live key is j gets dS = 0 exactly in both kernels,
+// * dq_tc_kernel, a CTA per (b*h, 128-row query tile) (walking at (192,
+//   128): below), the heaviest causal tiles first: Q, dO and O resident;
+//   D = rowsum(dO * O) as the diagonals of dO.O^T and O.dO^T on the
+//   tensor cores (summed as dP and dP^T are, so a row whose only live key
+//   is j gets dS = 0 exactly in both kernels,
 //   as in the exact gradient); one walk over the 64-key tiles, online as
 //   the forward: S = Q.K^T and dP = dO.V^T as `wgmma.m64n64k16` (A and B
 //   from shared memory, K-major), the rows' running max m and sum l,
@@ -67,9 +78,9 @@
 //   transpose bit), dQ~ rescaled as m grows; dQ = scale dQ~ / l. Writes dQ
 //   (bf16) and the rows' (lse = m + log2 l, D) as f32 statistics, rows
 //   past sq with lse = +inf so that they give p = 0 below;
-// * dkv_tc_kernel, a CTA per (b*h, 128-key tile), the heaviest first: K and
-//   V resident; the ring brings each 64-row query tile that sees the keys
-//   with its rows' (lse, D) (a bulk copy each, on the same barrier); S^T =
+// * dkv_tc_kernel, a CTA per (b*h, 128-key tile) (walking at (192, 128)),
+//   the heaviest first: K and V resident; the ring brings each 64-row
+//   query tile that sees the keys with its rows' (lse, D) (a bulk copy each, on the same barrier); S^T =
 //   K.Q^T and dP^T = V.dO^T (m64n64k16), P^T = exp2(S^T c - lse) and dS^T
 //   in registers, dV += P^T.dO (m64nVDk16) and dK += dS^T.Q (m64nQKk16;
 //   A from registers, B MN-major). The 64 x QK and 64 x VD f32
@@ -91,6 +102,18 @@
 //   agree bit for bit (chip_smoke.py's group_sum_path holds them to it);
 // * reduce_tc_kernel sums the G partials of each kv head in head order and
 //   rounds once to bf16.
+// At (192, 128) (MLA T: 4,096 items of each kernel at B=1, H=128, S=4096)
+// both kernels walk (Layout::kWalk): one CTA an SM takes a static list of
+// (b*h, tile) items, the heaviest first, dealt to the CTAs in rounds that
+// alternate direction (snake_item), as level as a greedy scheduler; the
+// ring runs on across items, and the producer loads an item's resident
+// tiles once both consumer warpgroups have taken the previous item's last
+// S and dP (a release barrier), under the previous item's last products
+// and stores. At hd 64 and 128 `if constexpr` leaves a CTA an item, with
+// each CTA's item decoded before the warpgroups split, as before the walk
+// (cuobjdump: dkv's instruction counts as before, dq's 8 and 48 fewer and
+// scheduled otherwise; their times within a second build of the old
+// source's).
 // The exponentials are ex2.approx.ftz alone (p below 2^-126 is 0; 2.7% of
 // the call at zamba2's shape, 4.8% at hd 128: exp2f's non-flushing form
 // adds a compare and two multiplies to each).
@@ -116,6 +139,20 @@
 // shape); a tile's next products issued before its f32 work, or kept in
 // flight across loop iterations (ptxas then serializes every wgmma:
 // warnings C7515, C7512); a 3-stage ring; two tiles' S in one commit group.
+// At (192, 128) (tools/mla_bwd_probe.py, MLA T's shape): a dkv kernel over
+// 64-key tiles whose two consumer warpgroups split the products by
+// accumulator (S^T, P^T and dV; dP^T, dS^T and dK; P^T handed over in
+// shared memory), 3.60-3.88 ms against 2.54-2.73 (Q and dO streamed once
+// per 64 keys, and the second warpgroup waiting on the first's P^T);
+// dq's dO held in registers for dP (RS wgmma), no gain; a 3-stage dkv
+// ring (its third region cut to the statistics), no gain; a warpgroup
+// skipping the tiles wholly masked for it, slower (it runs a tile ahead
+// of the other and takes the 2-stage ring's slack); dQ~ rescaled only
+// where a warp's vote finds a row's max moved, within 0.4% of the walk
+// either way over two probe calls of 10 turns (the probe's `tc_vote`
+// build); an item's first ring tile loaded before its resident tiles,
+// 0.6% in one call, not kept. The walk itself: 2.3-3.4% faster than a CTA
+// an item, in every turn.
 //
 // ptxas (-Xptxas -v, sm_90a): 168 registers a thread at launch for both
 // kernels at all three pairs of head dims (the consumers raise theirs to
@@ -154,7 +191,11 @@ struct Layout {
   // A 3-stage ring at hd 64, where a stage is 16 KB and a tile's work
   // short (tools/tc_hd64_probe.py: 2-3% of the call); 2 at 128 and 192.
   static constexpr int kStages = QK == 64 ? 3 : 2;
-  static constexpr int kNumBars = 1 + 2 * kStages;  // resident; full, empty
+  // At (192, 128) a CTA an SM walks its items (cta_item), the next item's
+  // resident tiles loaded once the consumers release the last ones.
+  static constexpr bool kWalk = QK == 192;
+  // resident (and their release, walking); full, empty
+  static constexpr int kNumBars = (kWalk ? 2 : 1) + 2 * kStages;
   static constexpr int kWideA = QK / kBox * kWideBox;       // 16, 32, 48 KB
   static constexpr int kWideB = VD / kBox * kWideBox;       // 16 or 32 KB
   static constexpr int kNarrowA = QK / kBox * kNarrowBox;   // 8, 16, 24 KB
@@ -246,11 +287,15 @@ __device__ __forceinline__ float unpacked(const uint32_t (&f)[4][4], int j) {
   return __uint_as_float(j % 2 ? w & 0xffff0000u : w << 16);
 }
 
+// The resident tiles' barrier (with `walk`, then their release by every
+// consumer thread); a full and an empty barrier a ring stage.
 __device__ __forceinline__ void init_bars(uint32_t bar_res,
                                           uint32_t bar_full,
-                                          uint32_t bar_empty, int stages) {
+                                          uint32_t bar_empty, int stages,
+                                          bool walk = false) {
   if (threadIdx.x == 0) {
     mbar_init(bar_res, 1);
+    if (walk) mbar_init(bar_res + 8, kThreads - 128);
     for (int s = 0; s < stages; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, kThreads - 128);  // every consumer thread
@@ -272,6 +317,45 @@ __device__ __forceinline__ void load_tile(uint32_t dst, uint32_t box_bytes,
     tma_load(dst + x * box_bytes, map, bar, x * kBox, row, head, b);
 }
 
+// The k-th item of CTA c of a grid of g in the walk's snake order: round
+// k takes items [k g, (k + 1) g), forward in even rounds and backward in
+// odd ones, so that the CTAs' sums over the heaviest-first items stay
+// level (tests/test_torch_attention.py models it). A grid of an item a
+// CTA takes item c alone.
+__device__ __forceinline__ int snake_item(int c, int k, int g) {
+  return k * g + ((k & 1) ? g - 1 - c : c);
+}
+
+// A (b*h, tile) item: bh = b * n_heads + h, its kv head, and the tile's
+// rank (its place, heaviest first).
+struct Item {
+  int bh, b, h, kvh, rank;
+};
+
+// `it` = the CTA's j-th item; false past its last. With kWalk the CTA
+// walks snake_item's items (item = rank * n_bh + bh), decoding each at
+// its loop's head; else it takes the one item of its place in a (n_bh,
+// tiles) grid, decoded before the warpgroups split (so that the hd 64 and
+// 128 kernels keep the code they had before the walk).
+template <bool kWalk>
+__device__ __forceinline__ bool cta_item(int j, int n_items, const Args& a,
+                                         Item& it) {
+  if constexpr (kWalk) {
+    const int item = snake_item(blockIdx.x, j, gridDim.x);
+    if (item >= n_items) return false;
+    it.bh = item % a.n_bh;
+    it.rank = item / a.n_bh;
+  } else {
+    if (j > 0) return false;
+    it.bh = blockIdx.x;
+    it.rank = blockIdx.y;
+  }
+  it.b = it.bh / a.n_heads;
+  it.h = it.bh % a.n_heads;
+  it.kvh = it.h / a.group;
+  return true;
+}
+
 template <int QK, int VD>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
@@ -282,41 +366,58 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
              const Args a) {
   using L = Layout<QK, VD>;
   constexpr int kAcc = L::kAccQk, kStages = L::kStages;
+  constexpr bool kWalk = L::kWalk;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1024 bytes: align the tiles to it.
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_res = base + L::kSmemBar;
-  const uint32_t bar_full = bar_res + 8;                 // [kStages]
+  const uint32_t bar_res_free = bar_res + 8;             // with kWalk
+  const uint32_t bar_full = bar_res + (kWalk ? 16 : 8);  // [kStages]
   const uint32_t bar_empty = bar_full + 8 * kStages;     // [kStages]
-  const int bh = blockIdx.x;
-  const int b = bh / a.n_heads, h = bh % a.n_heads, kvh = h / a.group;
-  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int q0 = qt * kWide;
-  // Keys past the tile's last query row are masked for every row.
-  const int k_end = a.causal ? min(a.sk, q0 + kWide) : a.sk;
-  const int n_tiles = (k_end + kNarrow - 1) / kNarrow;
-  init_bars(bar_res, bar_full, bar_empty, kStages);
+  const int n_qt = kWalk ? (a.sq + kWide - 1) / kWide : gridDim.y;
+  // The item's query tile (causal: the last, which sees every key, first)
+  // and its key tiles: keys past its last query row are masked for every
+  // row.
+  Item it;
+  int q0, n_tiles;
+  auto next = [&](int j) {
+    if (!cta_item<kWalk>(j, a.n_bh * n_qt, a, it)) return false;
+    q0 = (a.causal ? n_qt - 1 - it.rank : it.rank) * kWide;
+    const int k_end = a.causal ? min(a.sk, q0 + kWide) : a.sk;
+    n_tiles = (k_end + kNarrow - 1) / kNarrow;
+    return true;
+  };
+  if constexpr (!kWalk) next(0);
+  init_bars(bar_res, bar_full, bar_empty, kStages, kWalk);
 
   const int wg = threadIdx.x / 128;
+  int e = 0;   // walking: ring tiles so far (the ring runs on across items)
   if (wg == 0) {
     // ---- producer: one thread keeps the TMA loads in flight ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_res, L::kWideA + 2 * L::kWideB);
-      load_tile<QK>(base + L::kSmemA, kWideBox, &qmap, bar_res, q0, h, b);
-      load_tile<VD>(base + L::kSmemB, kWideBox, &domap, bar_res, q0, h, b);
-      load_tile<VD>(base + L::kSmemC, kWideBox, &omap, bar_res, q0, h, b);
-      // A key and a value tile a stage. The first round finds the ring
-      // empty (parity 1 passes at once).
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kStages;
-        const uint32_t dst = base + L::kSmemRing + s * L::kStageBytes;
-        mbar_wait(bar_empty + 8 * s, ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * s, L::kStageBytes);
-        load_tile<QK>(dst, kNarrowBox, &kmap, bar_full + 8 * s, i * kNarrow,
-                      kvh, b);
-        load_tile<VD>(dst + L::kNarrowA, kNarrowBox, &vmap,
-                      bar_full + 8 * s, i * kNarrow, kvh, b);
+      for (int j = 0; kWalk ? next(j) : j == 0; ++j) {
+        const int b = it.b, h = it.h, kvh = it.kvh;
+        // Walking: once both consumer warpgroups have taken the previous
+        // item's last S and dP, so that these loads run under its last dQ
+        // product and stores.
+        if constexpr (kWalk) mbar_wait(bar_res_free, (j & 1) ^ 1);
+        mbar_expect_tx(bar_res, L::kWideA + 2 * L::kWideB);
+        load_tile<QK>(base + L::kSmemA, kWideBox, &qmap, bar_res, q0, h, b);
+        load_tile<VD>(base + L::kSmemB, kWideBox, &domap, bar_res, q0, h, b);
+        load_tile<VD>(base + L::kSmemC, kWideBox, &omap, bar_res, q0, h, b);
+        // A key and a value tile a stage. The first round finds the ring
+        // empty (parity 1 passes at once); the ring runs on across items.
+        for (int i = 0; i < n_tiles; ++i) {
+          const int r = kWalk ? e++ : i, s = r % kStages;
+          const uint32_t dst = base + L::kSmemRing + s * L::kStageBytes;
+          mbar_wait(bar_empty + 8 * s, ((r / kStages) & 1) ^ 1);
+          mbar_expect_tx(bar_full + 8 * s, L::kStageBytes);
+          load_tile<QK>(dst, kNarrowBox, &kmap, bar_full + 8 * s,
+                        i * kNarrow, kvh, b);
+          load_tile<VD>(dst + L::kNarrowA, kNarrowBox, &vmap,
+                        bar_full + 8 * s, i * kNarrow, kvh, b);
+        }
       }
     }
   } else {
@@ -325,162 +426,170 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,    // 128-row boxes
     const int me = wg - 1;
     const int t = threadIdx.x - 128 * wg;
     const int warp = t / 32, lane = t % 32;
-    // Accumulator layout of wgmma m64nN (f32): register j of a thread holds
-    // row r_lo (+8 when (j/2) is odd), column (j/4)*8 + col0 + (j%2).
-    const int row0 = q0 + 64 * me;
-    const int r_lo = row0 + 16 * warp + lane / 4;
-    const int r_hi = r_lo + 8;
     const int col0 = 2 * (lane % 4);
     const uint32_t q_addr = base + L::kSmemA + me * 64 * 128;
     const uint32_t do_addr = base + L::kSmemB + me * 64 * 128;
-    auto masked = [&](int i) {   // the tile's masking is needed
-      return i * kNarrow + kNarrow > a.sk ||
-             (a.causal && i * kNarrow + kNarrow - 1 > row0);
-    };
-    auto live = [&](int kj, int qi) {
-      return kj < a.sk && (!a.causal || kj <= qi);
-    };
-
-    // D = rowsum(dO * O), O as the forward stored it, twice: the diagonal
-    // of dO.O^T, summed exactly as this kernel's dP = dO.V^T is, and of
-    // O.dO^T, summed as the dkv kernel's dP^T = V.dO^T is (written to the
-    // statistics). Where O_i is V_j (a row whose only live key is j), D_i
-    // then equals dP_ij bit for bit in each kernel and dS_ij is 0, as in
-    // the exact gradient. The diagonal (r, r) lies on one of row r's four
-    // threads: a quad sum of it and three zeros.
-    float s[32], dp[32];
-    float d_lo = 0.f, d_hi = 0.f, dkv_lo = 0.f, dkv_hi = 0.f;
     const uint32_t o_addr = base + L::kSmemC + me * 64 * 128;
-    mbar_wait(bar_res, 0);
-    wgmma_fence();
-    issue_nt<VD, kWideBox>(s, do_addr, o_addr);
-    issue_nt<VD, kWideBox>(dp, o_addr, do_addr);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const bool hi = (j / 2) % 2;
-      if ((j / 4) * 8 + col0 + (j % 2) == 16 * warp + lane / 4 + 8 * hi) {
-        (hi ? d_hi : d_lo) = s[j];
-        (hi ? dkv_hi : dkv_lo) = dp[j];
-      }
-    }
-#pragma unroll
-    for (int x = 1; x <= 2; x <<= 1) {
-      d_lo += __shfl_xor_sync(0xffffffffu, d_lo, x);
-      d_hi += __shfl_xor_sync(0xffffffffu, d_hi, x);
-      dkv_lo += __shfl_xor_sync(0xffffffffu, dkv_lo, x);
-      dkv_hi += __shfl_xor_sync(0xffffffffu, dkv_hi, x);
-    }
+    for (int j = 0; kWalk ? next(j) : j == 0; ++j) {
+      const int bh = it.bh, b = it.b, h = it.h;
+      // Accumulator layout of wgmma m64nN (f32): register x of a thread
+      // holds row r_lo (+8 when (x/2) is odd), column (x/4)*8 + col0 +
+      // (x%2).
+      const int row0 = q0 + 64 * me;
+      const int r_lo = row0 + 16 * warp + lane / 4;
+      const int r_hi = r_lo + 8;
+      auto masked = [&](int i) {   // the tile's masking is needed
+        return i * kNarrow + kNarrow > a.sk ||
+               (a.causal && i * kNarrow + kNarrow - 1 > row0);
+      };
+      auto live = [&](int kj, int qi) {
+        return kj < a.sk && (!a.causal || kj <= qi);
+      };
 
-    // One walk over the key tiles, online as the forward's softmax: S =
-    // Q.K^T and dP = dO.V^T, the rows' running max m (of the scores times
-    // scale * log2 e; a row lives on 4 threads: its max by two quad
-    // shuffles) and sum l (per thread until the end), P~ = exp2(S c - m),
-    // dS~ = P~ (dP - D), and dQ~ += dS~.K, dQ~ rescaled by exp2(m_old - m)
-    // as m grows; at the end dQ = scale dQ~ / l. dS~ is dS times l
-    // exp2(m_final - m): the operand rounded to bf16 is dS up to a factor,
-    // with dS's own relative rounding error.
-    float m_lo = kProbeFixedMax ? 0.f : kNeg, m_hi = m_lo;
-    float l_lo = 0.f, l_hi = 0.f;
-    float acc[kAcc];
-    uint32_t f[4][4];
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
-    for (int i = 0; i < n_tiles; ++i) {
-      const int st = i % kStages;
-      const uint32_t k_addr = base + L::kSmemRing + st * L::kStageBytes;
-      mbar_wait(bar_full + 8 * st, (i / kStages) & 1);
+      // D = rowsum(dO * O), O as the forward stored it, twice: the
+      // diagonal of dO.O^T, summed exactly as this kernel's dP = dO.V^T is,
+      // and of O.dO^T, summed as the dkv kernel's dP^T = V.dO^T is (written
+      // to the statistics). Where O_i is V_j (a row whose only live key is
+      // j), D_i then equals dP_ij bit for bit in each kernel and dS_ij is
+      // 0, as in the exact gradient. The diagonal (r, r) lies on one of row
+      // r's four threads: a quad sum of it and three zeros.
+      float s[32], dp[32];
+      float d_lo = 0.f, d_hi = 0.f, dkv_lo = 0.f, dkv_hi = 0.f;
+      mbar_wait(bar_res, j & 1);
       wgmma_fence();
-      issue_nt<QK>(s, q_addr, k_addr);
-      issue_nt<VD>(dp, do_addr, k_addr + L::kNarrowA);
+      issue_nt<VD, kWideBox>(s, do_addr, o_addr);
+      issue_nt<VD, kWideBox>(dp, o_addr, do_addr);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
-      if (masked(i)) {   // masked keys: s = -inf, so p = 0
+      if (kWalk && n_tiles == 0) mbar_arrive(bar_res_free);
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          const int kj = i * kNarrow + (j / 4) * 8 + col0 + (j % 2);
-          if (!live(kj, (j / 2) % 2 ? r_hi : r_lo)) s[j] = -INFINITY;
+      for (int x = 0; x < 32; ++x) {
+        const bool hi = (x / 2) % 2;
+        if ((x / 4) * 8 + col0 + (x % 2) == 16 * warp + lane / 4 + 8 * hi) {
+          (hi ? d_hi : d_lo) = s[x];
+          (hi ? dkv_hi : dkv_lo) = dp[x];
         }
       }
-      float corr_lo = 1.f, corr_hi = 1.f;
-      if (!kProbeFixedMax) {
-        float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          if ((j / 2) % 2) mx_hi = fmaxf(mx_hi, s[j]);
-          else mx_lo = fmaxf(mx_lo, s[j]);
-        }
-#pragma unroll
-        for (int x = 1; x <= 2; x <<= 1) {
-          mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, x));
-          mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, x));
-        }
-        const float mn_lo = fmaxf(m_lo, mx_lo * a.scale_log2);
-        const float mn_hi = fmaxf(m_hi, mx_hi * a.scale_log2);
-        corr_lo = ex2_ftz(m_lo - mn_lo);
-        corr_hi = ex2_ftz(m_hi - mn_hi);
-        m_lo = mn_lo;
-        m_hi = mn_hi;
+      for (int x = 1; x <= 2; x <<= 1) {
+        d_lo += __shfl_xor_sync(0xffffffffu, d_lo, x);
+        d_hi += __shfl_xor_sync(0xffffffffu, d_hi, x);
+        dkv_lo += __shfl_xor_sync(0xffffffffu, dkv_lo, x);
+        dkv_hi += __shfl_xor_sync(0xffffffffu, dkv_hi, x);
       }
-      float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const bool hi = (j / 2) % 2;
-        const float p = ex2_ftz(__fmaf_rn(s[j], a.scale_log2,
-                                        hi ? -m_hi : -m_lo));
-        if (hi) sum_hi += p;
-        else sum_lo += p;
-        dp[j] = p * (dp[j] - (hi ? d_hi : d_lo));
-      }
-      l_lo = __fmaf_rn(l_lo, corr_lo, sum_lo);
-      l_hi = __fmaf_rn(l_hi, corr_hi, sum_hi);
-      if (!kProbeFixedMax) {
-#pragma unroll
-        for (int j = 0; j < kAcc; ++j)
-          acc[j] *= (j / 2) % 2 ? corr_hi : corr_lo;
-      }
-      pack(dp, f);
-      wgmma_fence();
-      issue_nn<QK>(acc, f, k_addr);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      fence_regs(f);
-      mbar_arrive(bar_empty + 8 * st);
-    }
-#pragma unroll
-    for (int x = 1; x <= 2; x <<= 1) {
-      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, x);
-      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
-    }
-    const float lse_lo = m_lo + log2f(l_lo), lse_hi = m_hi + log2f(l_hi);
-    // A row with no key (sk = 0) has acc = 0 and l = 0: dQ = 0.
-    const float inv_lo = a.scale / fmaxf(l_lo, 1e-30f);
-    const float inv_hi = a.scale / fmaxf(l_hi, 1e-30f);
 
-    __nv_bfloat16* dqb = a.dq + b * a.dq_b + h * a.dq_h;
+      // One walk over the key tiles, online as the forward's softmax: S =
+      // Q.K^T and dP = dO.V^T, the rows' running max m (of the scores times
+      // scale * log2 e; a row lives on 4 threads: its max by two quad
+      // shuffles) and sum l (per thread until the end), P~ = exp2(S c - m),
+      // dS~ = P~ (dP - D), and dQ~ += dS~.K, dQ~ rescaled by exp2(m_old -
+      // m) as m grows; at the end dQ = scale dQ~ / l. dS~ is dS times l
+      // exp2(m_final - m): the operand rounded to bf16 is dS up to a
+      // factor, with dS's own relative rounding error.
+      float m_lo = kProbeFixedMax ? 0.f : kNeg, m_hi = m_lo;
+      float l_lo = 0.f, l_hi = 0.f;
+      float acc[kAcc];
+      uint32_t f[4][4];
 #pragma unroll
-    for (int j = 0; j < kAcc; j += 2) {
-      const bool hi = (j / 2) % 2;
-      const int qi = hi ? r_hi : r_lo;
-      if (qi >= a.sq) continue;
-      *reinterpret_cast<__nv_bfloat162*>(dqb + qi * a.dq_s + (j / 4) * 8 +
-                                         col0) =
-          __float22bfloat162_rn(make_float2(acc[j] * (hi ? inv_hi : inv_lo),
-                                            acc[j + 1] * (hi ? inv_hi : inv_lo)));
-    }
-    if (lane % 4 == 0) {
-      float* lse = a.stats + static_cast<long long>(bh) * a.rows;
-      float* dsum = lse + static_cast<long long>(a.n_bh) * a.rows;
-      lse[r_lo] = r_lo < a.sq ? lse_lo : INFINITY;
-      lse[r_hi] = r_hi < a.sq ? lse_hi : INFINITY;
-      dsum[r_lo] = dkv_lo;
-      dsum[r_hi] = dkv_hi;
+      for (int x = 0; x < kAcc; ++x) acc[x] = 0.f;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int r = kWalk ? e++ : i, st = r % kStages;
+        const uint32_t k_addr = base + L::kSmemRing + st * L::kStageBytes;
+        mbar_wait(bar_full + 8 * st, (r / kStages) & 1);
+        wgmma_fence();
+        issue_nt<QK>(s, q_addr, k_addr);
+        issue_nt<VD>(dp, do_addr, k_addr + L::kNarrowA);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        // The item's last read of Q and dO: the next item's may load.
+        if (kWalk && i == n_tiles - 1) mbar_arrive(bar_res_free);
+        if (masked(i)) {   // masked keys: s = -inf, so p = 0
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            const int kj = i * kNarrow + (x / 4) * 8 + col0 + (x % 2);
+            if (!live(kj, (x / 2) % 2 ? r_hi : r_lo)) s[x] = -INFINITY;
+          }
+        }
+        float corr_lo = 1.f, corr_hi = 1.f;
+        if (!kProbeFixedMax) {
+          float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            if ((x / 2) % 2) mx_hi = fmaxf(mx_hi, s[x]);
+            else mx_lo = fmaxf(mx_lo, s[x]);
+          }
+#pragma unroll
+          for (int x = 1; x <= 2; x <<= 1) {
+            mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, x));
+            mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, x));
+          }
+          const float mn_lo = fmaxf(m_lo, mx_lo * a.scale_log2);
+          const float mn_hi = fmaxf(m_hi, mx_hi * a.scale_log2);
+          corr_lo = ex2_ftz(m_lo - mn_lo);
+          corr_hi = ex2_ftz(m_hi - mn_hi);
+          m_lo = mn_lo;
+          m_hi = mn_hi;
+        }
+        float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+        for (int x = 0; x < 32; ++x) {
+          const bool hi = (x / 2) % 2;
+          const float p = ex2_ftz(__fmaf_rn(s[x], a.scale_log2,
+                                            hi ? -m_hi : -m_lo));
+          if (hi) sum_hi += p;
+          else sum_lo += p;
+          dp[x] = p * (dp[x] - (hi ? d_hi : d_lo));
+        }
+        l_lo = __fmaf_rn(l_lo, corr_lo, sum_lo);
+        l_hi = __fmaf_rn(l_hi, corr_hi, sum_hi);
+        if (!kProbeFixedMax) {
+#pragma unroll
+          for (int x = 0; x < kAcc; ++x)
+            acc[x] *= (x / 2) % 2 ? corr_hi : corr_lo;
+        }
+        pack(dp, f);
+        wgmma_fence();
+        issue_nn<QK>(acc, f, k_addr);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(f);
+        mbar_arrive(bar_empty + 8 * st);
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        l_lo += __shfl_xor_sync(0xffffffffu, l_lo, x);
+        l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
+      }
+      const float lse_lo = m_lo + log2f(l_lo), lse_hi = m_hi + log2f(l_hi);
+      // A row with no key (sk = 0) has acc = 0 and l = 0: dQ = 0.
+      const float inv_lo = a.scale / fmaxf(l_lo, 1e-30f);
+      const float inv_hi = a.scale / fmaxf(l_hi, 1e-30f);
+
+      __nv_bfloat16* dqb = a.dq + b * a.dq_b + h * a.dq_h;
+#pragma unroll
+      for (int x = 0; x < kAcc; x += 2) {
+        const bool hi = (x / 2) % 2;
+        const int qi = hi ? r_hi : r_lo;
+        if (qi >= a.sq) continue;
+        *reinterpret_cast<__nv_bfloat162*>(dqb + qi * a.dq_s + (x / 4) * 8 +
+                                           col0) =
+            __float22bfloat162_rn(make_float2(
+                acc[x] * (hi ? inv_hi : inv_lo),
+                acc[x + 1] * (hi ? inv_hi : inv_lo)));
+      }
+      if (lane % 4 == 0) {
+        float* lse = a.stats + static_cast<long long>(bh) * a.rows;
+        float* dsum = lse + static_cast<long long>(a.n_bh) * a.rows;
+        lse[r_lo] = r_lo < a.sq ? lse_lo : INFINITY;
+        lse[r_hi] = r_hi < a.sq ? lse_hi : INFINITY;
+        dsum[r_lo] = dkv_lo;
+        dsum[r_hi] = dkv_hi;
+      }
     }
   }
 }
@@ -494,41 +603,57 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
               const Args a) {
   using L = Layout<QK, VD>;
   constexpr int kAccQk = L::kAccQk, kAccV = L::kAccV, kStages = L::kStages;
+  constexpr bool kWalk = L::kWalk;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_res = base + L::kSmemBar;
-  const uint32_t bar_full = bar_res + 8;
+  const uint32_t bar_res_free = bar_res + 8;             // with kWalk
+  const uint32_t bar_full = bar_res + (kWalk ? 16 : 8);
   const uint32_t bar_empty = bar_full + 8 * kStages;
-  const int bh = blockIdx.x;
-  const int b = bh / a.n_heads, h = bh % a.n_heads, kvh = h / a.group;
-  const int k0 = blockIdx.y * kWide;
-  // Causal: query rows below k0 see none of these keys.
-  const int t0 = a.causal ? k0 / kNarrow : 0;
+  const int n_kt = kWalk ? (a.sk + kWide - 1) / kWide : gridDim.y;
   const int n_qt = (a.sq + kNarrow - 1) / kNarrow;
-  init_bars(bar_res, bar_full, bar_empty, kStages);
+  // The item's first key and, causal, its first query tile: query rows
+  // below k0 see none of its keys.
+  Item it;
+  int k0, t0;
+  auto next = [&](int j) {
+    if (!cta_item<kWalk>(j, a.n_bh * n_kt, a, it)) return false;
+    k0 = it.rank * kWide;
+    t0 = a.causal ? k0 / kNarrow : 0;
+    return true;
+  };
+  if constexpr (!kWalk) next(0);
+  init_bars(bar_res, bar_full, bar_empty, kStages, kWalk);
 
   const int wg = threadIdx.x / 128;
+  int e = 0;   // walking: ring tiles so far
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      const float* lse = a.stats + static_cast<long long>(bh) * a.rows;
-      const float* dsum = lse + static_cast<long long>(a.n_bh) * a.rows;
-      mbar_expect_tx(bar_res, L::kWideA + L::kWideB);
-      load_tile<QK>(base + L::kSmemA, kWideBox, &kmap, bar_res, k0, kvh, b);
-      load_tile<VD>(base + L::kSmemB, kWideBox, &vmap, bar_res, k0, kvh, b);
-      for (int qt = t0; qt < n_qt; ++qt) {
-        const int e = qt - t0, s = e % kStages;
-        const uint32_t dst = base + L::kSmemRing + s * L::kStageBytes;
-        const uint32_t sdst = base + L::kSmemC + s * kStatBytes;
-        const uint32_t full = bar_full + 8 * s;
-        mbar_wait(bar_empty + 8 * s, ((e / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, L::kStageBytes + kStatBytes);
-        load_tile<QK>(dst, kNarrowBox, &qmap, full, qt * kNarrow, h, b);
-        load_tile<VD>(dst + L::kNarrowA, kNarrowBox, &domap, full,
-                      qt * kNarrow, h, b);
-        bulk_load(sdst, lse + qt * kNarrow, kStatBytes / 2, full);
-        bulk_load(sdst + kStatBytes / 2, dsum + qt * kNarrow, kStatBytes / 2,
-                  full);
+      for (int j = 0; kWalk ? next(j) : j == 0; ++j) {
+        const int bh = it.bh, b = it.b, h = it.h, kvh = it.kvh;
+        const float* lse = a.stats + static_cast<long long>(bh) * a.rows;
+        const float* dsum = lse + static_cast<long long>(a.n_bh) * a.rows;
+        // Walking: once both consumer warpgroups have taken the previous
+        // item's last S^T and dP^T from K and V.
+        if constexpr (kWalk) mbar_wait(bar_res_free, (j & 1) ^ 1);
+        mbar_expect_tx(bar_res, L::kWideA + L::kWideB);
+        load_tile<QK>(base + L::kSmemA, kWideBox, &kmap, bar_res, k0, kvh, b);
+        load_tile<VD>(base + L::kSmemB, kWideBox, &vmap, bar_res, k0, kvh, b);
+        for (int qt = t0; qt < n_qt; ++qt) {
+          const int r = kWalk ? e++ : qt - t0, s = r % kStages;
+          const uint32_t dst = base + L::kSmemRing + s * L::kStageBytes;
+          const uint32_t sdst = base + L::kSmemC + s * kStatBytes;
+          const uint32_t full = bar_full + 8 * s;
+          mbar_wait(bar_empty + 8 * s, ((r / kStages) & 1) ^ 1);
+          mbar_expect_tx(full, L::kStageBytes + kStatBytes);
+          load_tile<QK>(dst, kNarrowBox, &qmap, full, qt * kNarrow, h, b);
+          load_tile<VD>(dst + L::kNarrowA, kNarrowBox, &domap, full,
+                        qt * kNarrow, h, b);
+          bulk_load(sdst, lse + qt * kNarrow, kStatBytes / 2, full);
+          bulk_load(sdst + kStatBytes / 2, dsum + qt * kNarrow,
+                    kStatBytes / 2, full);
+        }
       }
     }
   } else {
@@ -536,153 +661,162 @@ dkv_tc_kernel(const __grid_constant__ CUtensorMap kmap,   // 128-row boxes
     const int me = wg - 1;
     const int t = threadIdx.x - 128 * wg;
     const int warp = t / 32, lane = t % 32;
-    // Accumulator rows are keys, columns queries (S^T).
-    const int key0 = k0 + 64 * me;
-    const int kr_lo = key0 + 16 * warp + lane / 4;
-    const int kr_hi = kr_lo + 8;
     const int col0 = 2 * (lane % 4);
     const uint32_t k_addr = base + L::kSmemA + me * 64 * 128;
     const uint32_t v_addr = base + L::kSmemB + me * 64 * 128;
     const float* stats_smem = reinterpret_cast<const float*>(
         smem_raw + (base - smem_u32(smem_raw)) + L::kSmemC);
+    for (int j = 0; kWalk ? next(j) : j == 0; ++j) {
+      const int bh = it.bh, b = it.b, h = it.h, kvh = it.kvh;
+      // Accumulator rows are keys, columns queries (S^T).
+      const int key0 = k0 + 64 * me;
+      const int kr_lo = key0 + 16 * warp + lane / 4;
+      const int kr_hi = kr_lo + 8;
 
-    float s[32], dp[32], dk[kAccQk], dv[kAccV];
-    uint32_t pf[4][4], sf[4][4];
+      float s[32], dp[32], dk[kAccQk], dv[kAccV];
+      uint32_t pf[4][4], sf[4][4];
 #pragma unroll
-    for (int j = 0; j < kAccQk; ++j) dk[j] = 0.f;
+      for (int x = 0; x < kAccQk; ++x) dk[x] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kAccV; ++j) dv[j] = 0.f;
-    mbar_wait(bar_res, 0);
-    for (int qt = t0; qt < n_qt; ++qt) {
-      const int e = qt - t0, st = e % kStages;
-      const uint32_t q_addr = base + L::kSmemRing + st * L::kStageBytes;
-      const uint32_t do_addr = q_addr + L::kNarrowA;
-      const float* lse = stats_smem + st * (kStatBytes / 4);
-      const float* dsum = lse + kNarrow;
-      mbar_wait(bar_full + 8 * st, (e / kStages) & 1);
-      // Rows past sq have lse = +inf: p = 0 without a mask.
-      const bool mask = a.causal && key0 + 63 > qt * kNarrow;
-      // P^T = exp2(S^T c - lse) in place of S^T, masked keys 0.
-      auto softmax_t = [&]() {
+      for (int x = 0; x < kAccV; ++x) dv[x] = 0.f;
+      mbar_wait(bar_res, j & 1);
+      if (kWalk && t0 >= n_qt) mbar_arrive(bar_res_free);
+      for (int qt = t0; qt < n_qt; ++qt) {
+        const int r = kWalk ? e++ : qt - t0, st = r % kStages;
+        const uint32_t q_addr = base + L::kSmemRing + st * L::kStageBytes;
+        const uint32_t do_addr = q_addr + L::kNarrowA;
+        const float* lse = stats_smem + st * (kStatBytes / 4);
+        const float* dsum = lse + kNarrow;
+        mbar_wait(bar_full + 8 * st, (r / kStages) & 1);
+        // Rows past sq have lse = +inf: p = 0 without a mask.
+        const bool mask = a.causal && key0 + 63 > qt * kNarrow;
+        // The item's last read of K and V: the next item's may load.
+        const bool release = kWalk && qt == n_qt - 1;
+        // P^T = exp2(S^T c - lse) in place of S^T, masked keys 0.
+        auto softmax_t = [&]() {
 #pragma unroll
-        for (int g = 0; g < 8; ++g) {   // query columns 8g + col0 + (0, 1)
-          const float2 l2 =
-              *reinterpret_cast<const float2*>(lse + 8 * g + col0);
+          for (int g = 0; g < 8; ++g) {   // query columns 8g + col0 + (0, 1)
+            const float2 l2 =
+                *reinterpret_cast<const float2*>(lse + 8 * g + col0);
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int j = 4 * g + u;
-            float p = ex2_ftz(__fmaf_rn(s[j], a.scale_log2,
-                                        -(u % 2 ? l2.y : l2.x)));
-            if (mask && (u / 2 ? kr_hi : kr_lo) >
-                            qt * kNarrow + 8 * g + col0 + u % 2)
-              p = 0.f;
-            s[j] = p;
+            for (int u = 0; u < 4; ++u) {
+              const int x = 4 * g + u;
+              float p = ex2_ftz(__fmaf_rn(s[x], a.scale_log2,
+                                          -(u % 2 ? l2.y : l2.x)));
+              if (mask && (u / 2 ? kr_hi : kr_lo) >
+                              qt * kNarrow + 8 * g + col0 + u % 2)
+                p = 0.f;
+              s[x] = p;
+            }
           }
-        }
-      };
-      // dS^T = P^T (dP^T - D) in place of dP^T, P^T from `p(j)`.
-      auto ds_t = [&](auto p) {
+        };
+        // dS^T = P^T (dP^T - D) in place of dP^T, P^T from `p(x)`.
+        auto ds_t = [&](auto p) {
 #pragma unroll
-        for (int g = 0; g < 8; ++g) {
-          const float2 d2 =
-              *reinterpret_cast<const float2*>(dsum + 8 * g + col0);
+          for (int g = 0; g < 8; ++g) {
+            const float2 d2 =
+                *reinterpret_cast<const float2*>(dsum + 8 * g + col0);
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int j = 4 * g + u;
-            dp[j] = p(j) * (dp[j] - (u % 2 ? d2.y : d2.x));
+            for (int u = 0; u < 4; ++u) {
+              const int x = 4 * g + u;
+              dp[x] = p(x) * (dp[x] - (u % 2 ? d2.y : d2.x));
+            }
           }
+        };
+        if constexpr (!L::kPackedP) {
+          wgmma_fence();
+          issue_nt<QK>(s, k_addr, q_addr);      // S^T = K.Q^T
+          issue_nt<VD>(dp, v_addr, do_addr);    // dP^T = V.dO^T
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(s);
+          fence_regs(dp);
+          if (release) mbar_arrive(bar_res_free);
+          softmax_t();
+          ds_t([&](int x) { return s[x]; });
+          pack(s, pf);
+          pack(dp, sf);
+          wgmma_fence();
+          issue_nn<VD>(dv, pf, do_addr);
+          issue_nn<QK>(dk, sf, q_addr);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv);
+          fence_regs(dk);
+          fence_regs(pf);
+          fence_regs(sf);
+        } else {
+          // S^T; P^T as dV's bf16 A fragments (S^T's registers free
+          // again); dV += P^T.dO beside dP^T = V.dO^T; dS^T from the
+          // fragments; dK += dS^T.Q.
+          wgmma_fence();
+          issue_nt<QK>(s, k_addr, q_addr);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(s);
+          softmax_t();
+          pack(s, pf);
+          wgmma_fence();
+          issue_nn<VD>(dv, pf, do_addr);
+          issue_nt<VD>(dp, v_addr, do_addr);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv);
+          fence_regs(dp);
+          fence_regs(pf);
+          if (release) mbar_arrive(bar_res_free);
+          ds_t([&](int x) { return unpacked(pf, x); });
+          pack(dp, sf);
+          wgmma_fence();
+          issue_nn<QK>(dk, sf, q_addr);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dk);
+          fence_regs(sf);
         }
-      };
-      if constexpr (!L::kPackedP) {
-        wgmma_fence();
-        issue_nt<QK>(s, k_addr, q_addr);      // S^T = K.Q^T
-        issue_nt<VD>(dp, v_addr, do_addr);    // dP^T = V.dO^T
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s);
-        fence_regs(dp);
-        softmax_t();
-        ds_t([&](int j) { return s[j]; });
-        pack(s, pf);
-        pack(dp, sf);
-        wgmma_fence();
-        issue_nn<VD>(dv, pf, do_addr);
-        issue_nn<QK>(dk, sf, q_addr);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dv);
-        fence_regs(dk);
-        fence_regs(pf);
-        fence_regs(sf);
+        mbar_arrive(bar_empty + 8 * st);
+      }
+
+      if (a.group == 1) {
+        // One query head a kv head: dK and dV rounded once to bf16 here,
+        // no partials and no group sum. The sum starts from +0, so it turns
+        // a -0 partial into +0; adding +0 here does the same, so the two
+        // paths agree bit for bit.
+        __nv_bfloat16* dkb = a.dk + b * a.dk_b + kvh * a.dk_h;
+        __nv_bfloat16* dvb = a.dv + b * a.dv_b + kvh * a.dv_h;
+#pragma unroll
+        for (int x = 0; x < kAccQk; x += 2) {
+          const int kr = (x / 2) % 2 ? kr_hi : kr_lo;
+          if (kr >= a.sk) continue;
+          const int d = (x / 4) * 8 + col0;
+          *reinterpret_cast<__nv_bfloat162*>(dkb + kr * a.dk_s + d) =
+              __float22bfloat162_rn(make_float2(dk[x] * a.scale + 0.f,
+                                                dk[x + 1] * a.scale + 0.f));
+          if (x < kAccV)
+            *reinterpret_cast<__nv_bfloat162*>(dvb + kr * a.dv_s + d) =
+                __float22bfloat162_rn(make_float2(dv[x] + 0.f,
+                                                  dv[x + 1] + 0.f));
+        }
       } else {
-        // S^T; P^T as dV's bf16 A fragments (S^T's registers free again);
-        // dV += P^T.dO beside dP^T = V.dO^T; dS^T from the fragments;
-        // dK += dS^T.Q.
-        wgmma_fence();
-        issue_nt<QK>(s, k_addr, q_addr);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s);
-        softmax_t();
-        pack(s, pf);
-        wgmma_fence();
-        issue_nn<VD>(dv, pf, do_addr);
-        issue_nt<VD>(dp, v_addr, do_addr);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dv);
-        fence_regs(dp);
-        fence_regs(pf);
-        ds_t([&](int j) { return unpacked(pf, j); });
-        pack(dp, sf);
-        wgmma_fence();
-        issue_nn<QK>(dk, sf, q_addr);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dk);
-        fence_regs(sf);
-      }
-      mbar_arrive(bar_empty + 8 * st);
-    }
-
-    if (a.group == 1) {
-      // One query head a kv head: dK and dV rounded once to bf16 here, no
-      // partials and no group sum. The sum starts from +0, so it turns a
-      // -0 partial into +0; adding +0 here does the same, so the two paths
-      // agree bit for bit.
-      __nv_bfloat16* dkb = a.dk + b * a.dk_b + kvh * a.dk_h;
-      __nv_bfloat16* dvb = a.dv + b * a.dv_b + kvh * a.dv_h;
+        // Partials of this query head, keys < sk: dK (B*H, SK, QK), then
+        // dV (B*H, SK, VD), f32.
+        float* out_k = a.part + static_cast<long long>(bh) * a.sk * QK;
+        float* out_v = a.part + static_cast<long long>(a.n_bh) * a.sk * QK +
+                       static_cast<long long>(bh) * a.sk * VD;
 #pragma unroll
-      for (int j = 0; j < kAccQk; j += 2) {
-        const int kr = (j / 2) % 2 ? kr_hi : kr_lo;
-        if (kr >= a.sk) continue;
-        const int d = (j / 4) * 8 + col0;
-        *reinterpret_cast<__nv_bfloat162*>(dkb + kr * a.dk_s + d) =
-            __float22bfloat162_rn(make_float2(dk[j] * a.scale + 0.f,
-                                              dk[j + 1] * a.scale + 0.f));
-        if (j < kAccV)
-          *reinterpret_cast<__nv_bfloat162*>(dvb + kr * a.dv_s + d) =
-              __float22bfloat162_rn(make_float2(dv[j] + 0.f,
-                                                dv[j + 1] + 0.f));
+        for (int x = 0; x < kAccQk; x += 2) {
+          const int kr = (x / 2) % 2 ? kr_hi : kr_lo;
+          if (kr >= a.sk) continue;
+          const int d = (x / 4) * 8 + col0;
+          *reinterpret_cast<float2*>(out_k + static_cast<long long>(kr) * QK +
+                                     d) =
+              make_float2(dk[x] * a.scale, dk[x + 1] * a.scale);
+          if (x < kAccV)
+            *reinterpret_cast<float2*>(out_v +
+                                       static_cast<long long>(kr) * VD + d) =
+                make_float2(dv[x], dv[x + 1]);
+        }
       }
-      return;
-    }
-    // Partials of this query head, keys < sk: dK (B*H, SK, QK), then dV
-    // (B*H, SK, VD), f32.
-    float* out_k = a.part + static_cast<long long>(bh) * a.sk * QK;
-    float* out_v = a.part + static_cast<long long>(a.n_bh) * a.sk * QK +
-                   static_cast<long long>(bh) * a.sk * VD;
-#pragma unroll
-    for (int j = 0; j < kAccQk; j += 2) {
-      const int kr = (j / 2) % 2 ? kr_hi : kr_lo;
-      if (kr >= a.sk) continue;
-      const int d = (j / 4) * 8 + col0;
-      *reinterpret_cast<float2*>(out_k + static_cast<long long>(kr) * QK +
-                                 d) =
-          make_float2(dk[j] * a.scale, dk[j + 1] * a.scale);
-      if (j < kAccV)
-        *reinterpret_cast<float2*>(out_v + static_cast<long long>(kr) * VD +
-                                   d) = make_float2(dv[j], dv[j + 1]);
     }
   }
 }
@@ -786,7 +920,19 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     e = cudaFuncSetAttribute(dkv_tc_kernel<QK, VD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::kSmemBytes);
+  // Walking: a CTA an SM (at most one an item); else a CTA a (b*h, tile).
+  int sms = 0, dev = 0;
+  if (L::kWalk && e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (L::kWalk && e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_bh = batch * n_heads;
+  auto grid = [&](int tiles) {
+    const long long items = static_cast<long long>(n_bh) * tiles;
+    return L::kWalk
+        ? dim3(static_cast<unsigned>(items < sms ? items : sms))
+        : dim3(static_cast<unsigned>(n_bh), static_cast<unsigned>(tiles));
+  };
   const Args a{static_cast<__nv_bfloat16*>(dq),
                static_cast<__nv_bfloat16*>(dk),
                static_cast<__nv_bfloat16*>(dv), static_cast<float*>(stats),
@@ -797,16 +943,14 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   // No keys: dQ is 0 (no key tile); no queries: dK and dV are 0 (no query
   // tile reaches a key tile).
   if (sq) {
-    dq_tc_kernel<QK, VD><<<dim3(batch * n_heads, n_qt), kThreads,
-                           L::kSmemBytes, s>>>(q_wide, do_wide, o_wide,
-                                               k_narrow, v_narrow, a);
+    dq_tc_kernel<QK, VD><<<grid(n_qt), kThreads, L::kSmemBytes, s>>>(
+        q_wide, do_wide, o_wide, k_narrow, v_narrow, a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (!sk) return 0;
-  dkv_tc_kernel<QK, VD><<<dim3(batch * n_heads, n_kt), kThreads,
-                          L::kSmemBytes, s>>>(k_wide, v_wide, q_narrow,
-                                              do_narrow, a);
+  dkv_tc_kernel<QK, VD><<<grid(n_kt), kThreads, L::kSmemBytes, s>>>(
+      k_wide, v_wide, q_narrow, do_narrow, a);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_heads == n_kv_heads) return static_cast<int>(e);
   const long long groups = static_cast<long long>(batch) * n_kv_heads * sk *

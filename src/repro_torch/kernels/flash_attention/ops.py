@@ -232,7 +232,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     recomputes its rows' statistics, which the forward does not save):
     ``csrc/flash_attention_bwd_tc.cu`` for bf16 at (qk, value) head dims
     (64, 64), (128, 128) and (192, 128), ``csrc/flash_attention_bwd.cu``
-    for every other dtype and pair of head dims the forward takes. Both
+    for every other dtype and pair of head dims the forward takes. At
+    (192, 128) the tensor-core route's two kernels are persistent: a CTA
+    an SM walks its (b*h, tile) items, heaviest first; the f32 route's dq
+    kernel there runs 8 warps a block, each skipping the key tiles past
+    its last row. Both
     sum the G = H / KV query heads' f32 partials of dK and dV in a pass of
     their own; at G = 1 both write them directly, equal bit for bit (no
     partials are allocated). All five inputs are read

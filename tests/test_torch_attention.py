@@ -490,6 +490,79 @@ def test_persistent_blocks_take_every_query_tile_once(case):
         assert max(work) == 24
 
 
+# The tensor-core gradient's persistent schedules at (192, 128): (kernel,
+# B x heads, S, causal, CTAs). MLA T (B 1 x 128 heads, S 4096), MLA B's
+# shape (B 2 x 128 heads, S 256), chip_smoke's ragged case (3 x 48 heads,
+# S 333: 432 items of each kernel, no multiple of 132), full attention,
+# fewer items than CTAs (a CTA an item).
+BWD_TC_CASES = {
+    f"{kernel}_{name}": (kernel, *shape)
+    for kernel in ("dq", "dkv")
+    for name, shape in (("mla_t", (128, 4096, True, 132)),
+                        ("mla_b", (256, 256, True, 132)),
+                        ("ragged", (144, 333, True, 132)),
+                        ("full", (8, 300, False, 132)),
+                        ("few", (4, 200, True, 132)))}
+# snake_item in csrc/flash_attention_bwd_tc.cu, which _snake_runs models.
+SNAKE_ITEM = "return k * g + ((k & 1) ? g - 1 - c : c);"
+
+
+def _snake_runs(n_items, n_blocks):
+    """Each CTA's items in the order it walks them: rounds of
+    ``n_blocks`` items, dealt forward in even rounds and backward in odd
+    ones (``snake_item``)."""
+    runs = [[] for _ in range(n_blocks)]
+    for item in range(n_items):
+        k, c = divmod(item, n_blocks)
+        runs[n_blocks - 1 - c if k % 2 else c].append(item)
+    return runs
+
+
+def _item_tiles(item, n_bh, s, causal, kernel):
+    """The tiles an item walks (item // n_bh is its rank): dq a 128-row
+    query tile (the last first when causal) over the 64-key tiles up to
+    its last row, dkv a 128-key tile (the first first) over the 64-row
+    query tiles that see it."""
+    rank = item // n_bh
+    if kernel == "dq":
+        n_qt = -(-s // 128)
+        qt = n_qt - 1 - rank if causal else rank
+        return -(-(min(s, (qt + 1) * 128) if causal else s) // 64)
+    return max(-(-s // 64) - (2 * rank if causal else 0), 0)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_TC_CASES))
+def test_bwd_tc_schedule_takes_every_item_once_balanced(case):
+    """The walk of the tensor-core gradient's kernels at (192, 128)
+    (``snake_item`` in ``csrc/flash_attention_bwd_tc.cu``, modelled here):
+    every (b*h, tile) item once, each CTA walking its items in the global
+    order, which is heaviest first (the tiles never rise along it), and
+    no CTA's tiles exceed an equal share by more than one item's. On the
+    card chip_smoke.py's ragged (192, 128) case checks every output."""
+    kernel, n_bh, s, causal, n_blocks = BWD_TC_CASES[case]
+    source = (pathlib.Path(__file__).resolve().parents[1] / "src"
+              / "repro_torch" / "csrc" / "flash_attention_bwd_tc.cu"
+              ).read_text()
+    assert source.count(SNAKE_ITEM) == 1
+    n_items = n_bh * -(-s // 128)
+    runs = _snake_runs(n_items, n_blocks)
+    assert len(runs) == n_blocks
+    assert sorted(i for run in runs for i in run) == list(range(n_items))
+    assert all(run == sorted(run) for run in runs)
+    tiles = [_item_tiles(i, n_bh, s, causal, kernel) for i in range(n_items)]
+    assert tiles == sorted(tiles, reverse=True)
+    if causal:
+        assert tiles[0] > tiles[-1]
+    work = [sum(tiles[i] for i in run) for run in runs]
+    assert max(work) <= sum(tiles) / n_blocks + max(tiles)
+    if n_items <= n_blocks:   # a CTA an item, in item order
+        assert runs[:n_items] == [[i] for i in range(n_items)]
+    if case == "dq_mla_t":
+        # The snake deals MLA T's 4,096 dq items as evenly as a greedy
+        # scheduler would: 1,024 key tiles a CTA, the equal share.
+        assert max(work) == 1024
+
+
 @pytest.mark.parametrize("dtype,hd,path", [
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 32, "tf32x3"), (torch.float32, 64, "tf32x3")])
