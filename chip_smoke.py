@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) serves
 Moby (one stream and a fleet), serves and trains the dense LMs and the
-moe family (moonshot-v1-16b-a3b; deepseek-v2-236b with MLA), and serves
-and trains the PointPillars detector on an NVIDIA H100.
+moe family (moonshot-v1-16b-a3b; deepseek-v2-236b with MLA), serves the
+vlm family (qwen2-vl-2b, M-RoPE) and the audio family (whisper-small's
+encoder, cross attention and decode), and serves and trains the
+PointPillars detector on an NVIDIA H100.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels flash_attention,pillar_scatter
@@ -57,7 +59,12 @@ fatal on failure:
    attention checked; decode attention timed at LM C's decode
    shape and at MoE C's, G = 1 too; both also at G = 1 on small ragged
    cases, and at the ported configs' G = 3, 6, 16 and 48 (minitron-4b,
-   qwen2-vl, glm4-9b, granite-20b); flash attention at MLA's head dims, qk 192 / value 128: the
+   qwen2-vl, glm4-9b, granite-20b); both timed at VLM C's shapes (G = 6)
+   and at Audio C's (flash: whisper's encoder, 16 x 1,500 frames, its
+   decoder's self attention, 227 causal, and cross attention, 227 over
+   1,500; decode, the bf16 hd-64 instance: the 448 self cache, ragged
+   with an empty request, and the 1,500 cross caches, every position
+   live); flash attention at MLA's head dims, qk 192 / value 128: the
    tensor-core route at MLA C's prefill shape (128 heads, S 8192, timed,
    its plain version 8 heads at a time), a ragged tile and full
    attention, the 3xTF32 route in f32 at MLA B's shape (its persistent
@@ -208,17 +215,19 @@ fatal on failure:
    steps within 1e-5 of the golden's logits;
 9. LM B, the card against the port's CPU run at full width: qwen2.5-3B with
    2 of its 36 layers in f32 (attention weights rescaled so the scores are
-   of order 1, see ``check_lm``), prefill at B=2, S=256 and four decode
-   steps (max_len 512), logits within 1e-4; the launches of A and B
+   of order 1, see ``rescale_attention``), prefill at B=2, S=256 and four
+   decode steps (max_len 512), logits within 1e-4; the launches of A and B
    checked (the 3xTF32 flash route and decode attention, one a layer);
 10. LM C, serving qwen2.5-3B at full width (36 layers, bf16, seeded random
-   weights): prefill at B=1, S=8192 (median of 3 after a warm-up) and 32
-   greedy decode steps at B=16 over a 32,768-position cache filled from a
-   seeded generator with ragged positions, every kernel's launch count
-   checked (the bf16 tensor-core flash route 36 per prefill and the
-   3xTF32 route none, decode 36 per step); ms per prefill and
-   per step, decode tokens/s, peak device memory, and a torch.profiler
-   window over 4 decode steps;
+   weights drawn a layer at a time): prefill at B=1, S=8192 (median of 3
+   after a warm-up) and 32 greedy decode steps at B=16 over a
+   32,768-position cache filled from a seeded generator with ragged
+   positions, every kernel's launch count checked (the bf16 tensor-core
+   flash route 36 per prefill and the 3xTF32 route none, decode 36 per
+   step), one step under sync debug mode "error"; ms per prefill and per
+   step, decode tokens/s, peak device memory, and a torch.profiler window
+   over 4 decode steps (LM A-C run through ``check_family`` and
+   ``serve_family``, as VLM and Audio A-C below);
 10b. MoE A, the card against JAX: moonshot-v1-16b-a3b SMOKE in f32 with
    the weights of ``tests/goldens/lm_moonshot_v1_16b_a3b_smoke.npz``,
    prefill and four decode steps within 1e-5 of the golden's logits;
@@ -262,6 +271,29 @@ fatal on failure:
    sync debug mode "error", ms per prefill and per step, tokens/s, peak
    memory, and torch.profiler windows over a prefill and 4 steps (the
    MLA decode kernel's share of a step's device time);
+10h-10m. VLM A-C and Audio A-C (``check_family``, ``serve_family``):
+   qwen2-vl-2b (the vlm family: prefill from embeddings at M-RoPE
+   positions (3, B, S) of text, an image and text, ``mrope_positions``)
+   and whisper-small (the audio family: the encoder over the frames'
+   embeddings, the decoder's self and cross attention; decode over the
+   self cache and cross caches that the run seeds, since no code fills
+   them, as in JAX). A: SMOKE in f32 with the weights and inputs of
+   ``tests/goldens/lm_qwen2_vl_2b_smoke.npz`` /
+   ``lm_whisper_small_smoke.npz``, prefill and four decode steps within
+   1e-5 of the golden's logits; B: full width with 2 layers (whisper: 2
+   encoder + 2 decoder layers) in f32, attention rescaled (the cross
+   attention too), prefill at B=2, S=256 (qwen2-vl: 64 text, an 8x16
+   image, 64 text; whisper: all 1,500 frames) and four decode steps
+   against the port's CPU run within 1e-4; launches of A and B checked
+   (the 3xTF32 flash route, decode attention); C: every layer in bf16
+   (seeded weights): qwen2-vl-2b with LM C's traffic (prefill B=1,
+   S=8192: 2,048 text, a 64x64 image, 2,048 text; 32 decode steps at
+   B=16 over a 32k cache), whisper-small with its own (16 requests of
+   1,500 frames and a 227-token decoder prefill, whisper's longest
+   initial sequence; 32 steps at B=16 over a 448 self cache, ragged,
+   and seeded cross caches), launches checked (K5 `tc` 28 / 36 a prefill, K6 28 / 24 a step), one step under sync debug
+   mode "error", ms a prefill and a step, tokens/s, peak memory, a
+   profile of 4 steps;
 11. LM T, training qwen2.5-3B on the card: gradients reach q, k, v and
    the caches through the backward kernels (bf16 flash on the tensor-core
    route, f32 on the 3xTF32 one, decode; each counter up by one, the same
@@ -437,6 +469,31 @@ MOE_T_CHECK_LAYERS, MOE_T_LAYERS = 2, 6
 MLA_T_CHECK_LAYERS, MLA_T_LAYERS = 1, 2
 TM_STEPS = 3
 
+# The vlm and audio families, serving. VLM: qwen2-vl-2b (hd 128, 12 heads
+# over 2 kv heads: K5 `tc` and K6 at G = 6), its prefill from embeddings at
+# M-RoPE positions (3, B, S) of text, an image of (rows, cols) patches and
+# text (``mrope_positions``): VLM B 64 + 8 x 16 + 64 = 256 positions, VLM C
+# 2,048 + 64 x 64 + 2,048 = 8,192 (LM C's prefill) and LM C's decode.
+# Audio: whisper-small (hd 64, 12 heads a kv head each; 12 encoder and 12
+# decoder layers), the encoder over all 1,500 frames and cross attention
+# over them (K5 `tc` at (64, 64), not causal), decode over its self cache
+# and seeded cross caches (K6 bf16 at hd 64). Audio C takes whisper's own
+# traffic: 16 requests of 1,500 frames, each prefilling the longest
+# initial sequence whisper's decoding builds, 227 tokens (openai/whisper,
+# whisper/decoding.py, DecodingTask._get_initial_tokens: sot_prev, the
+# previous text's last n_text_ctx // 2 - 1 = 223 tokens, then the
+# 3-token sot sequence), and a self cache of n_text_ctx = 448 positions
+# (its learned decoder table's length; the repo's 32k RoPE shape is not
+# whisper's). A holds SMOKE to its JAX golden, B full width x
+# LM_B_LAYERS layers (audio: 2 + 2) in f32 to the CPU, C serves every
+# layer in bf16 (``check_family``, ``serve_family``, as LM A-C).
+VLM_ARCH, AUDIO_ARCH = "qwen2_vl_2b", "whisper_small"
+VLM_GOLDEN = ROOT / "tests" / "goldens" / "lm_qwen2_vl_2b_smoke.npz"
+AUDIO_GOLDEN = ROOT / "tests" / "goldens" / "lm_whisper_small_smoke.npz"
+VLM_B_LAYOUT = (64, (8, 16), 64)
+VLM_C_LAYOUT = (2048, (64, 64), 2048)
+AUDIO_C_B, AUDIO_C_S, AUDIO_C_CACHE, AUDIO_POS_LO = 16, 227, 448, 64
+
 # The PointPillars detector (models/detector3d.py). Det A holds the card to
 # the JAX golden at a small config; Det B runs the default config (128x128
 # pillars, feat 32, backbone (32, 64, 128)) on kitti-urban frames.
@@ -525,6 +582,21 @@ INSTANCES = {
                                   "MLA B"),
     ("mla_decode_attention", 4): ("simt_smoke", "SIMT, f32, (16, 8)",
                                   "MLA A"),
+    # The vlm and audio families: qwen2-vl-2b's G = 6, whisper-small's hd
+    # 64 (the flash_attention_tc and decode_attention entries hold the
+    # timings of whisper's other shapes, whisper_self and whisper_cross;
+    # Audio C's launches are those of all its shapes).
+    ("flash_attention_tc", 20): ("qwen2_vl", "hd 128, G = 6, bf16",
+                                 "VLM C serving"),
+    ("flash_attention_tc", 21): ("whisper", "hd 64, G = 1, bf16, the "
+                                 "encoder (1,500 frames, full); launches: "
+                                 "the encoder's, the decoder's self and "
+                                 "cross attention", "Audio C serving"),
+    ("decode_attention", 11): ("qwen2_vl", "hd 128, G = 6, bf16",
+                               "VLM C serving"),
+    ("decode_attention", 12): ("whisper", "hd 64, G = 1, bf16, the self "
+                               "cache (448); launches: self and cross "
+                               "attention", "Audio C serving"),
 }
 
 
@@ -1792,11 +1864,19 @@ def measure(torch, rec, kern, plain) -> None:
     rec["library_kernels"] = device_kernels(torch, library, calls=3)
 
 
-def lm_run(torch, lm, decode, cfg, p, tokens, dec_tokens, max_len, dev):
+def lm_run(torch, lm, decode, cfg, p, tokens, dec_tokens, max_len, dev,
+           cross=None, **inputs):
     """Prefill logits and the logits of one decode step per row of
-    ``dec_tokens``, from empty caches of ``max_len`` positions."""
-    logits = lm.forward(p, cfg, tokens.to(dev))
-    state = decode.init_decode(cfg, tokens.shape[0], max_len, dev)
+    ``dec_tokens``, from empty caches of ``max_len`` positions. ``inputs``:
+    ``lm.forward``'s other inputs (``embeds``, ``positions``,
+    ``enc_embeds``; ``tokens`` may then be None); ``cross``: the
+    encoder-decoder's cross caches (cross_k, cross_v), copied into the
+    decode state (no code fills them, as in JAX)."""
+    logits = lm.forward(p, cfg, None if tokens is None else tokens.to(dev),
+                        **{k: v.to(dev) for k, v in inputs.items()})
+    state = decode.init_decode(cfg, dec_tokens.shape[1], max_len, dev)
+    for k, v in zip(("cross_k", "cross_v"), cross or ()):
+        state.caches[k].copy_(v)
     steps = []
     for t in dec_tokens:
         lg, state = decode.decode_step(p, cfg, state, t.to(dev))
@@ -1822,20 +1902,25 @@ def lm_compare(torch, got, want, tol: float, what: str) -> float:
 def golden_lm(torch, np, dev, cfg, golden, convert, lm, decode, params
               ) -> float:
     """The f32 SMOKE config on the card with a JAX golden's weights
-    (``tests/goldens/lm_*_smoke.npz``): prefill and four decode steps
-    within 1e-5 of its logits; returns the largest difference."""
+    (``tests/goldens/lm_*_smoke.npz``): prefill (from its tokens, or its
+    embeddings and M-RoPE positions; with its encoder embeddings) and four
+    decode steps (over its cross caches, where it has them) within 1e-5 of
+    its logits; returns the largest difference."""
     with np.load(golden) as f:
-        gold = {k: f[k] for k in f.files}
-    tree = params.from_leaves((tuple(k.split("/")[1:]), v)
+        gold = {k: torch.from_numpy(f[k]) for k in f.files}
+    tree = params.from_leaves((tuple(k.split("/")[1:]), v.numpy())
                               for k, v in gold.items()
                               if k.startswith("params/"))
+    cross = (gold["cross_k"], gold["cross_v"]) if "cross_k" in gold \
+        else None
     logits, steps = lm_run(torch, lm, decode, cfg,
                            convert.params_from_jax(tree, cfg, dev),
-                           torch.from_numpy(gold["tokens"]),
-                           torch.from_numpy(gold["decode_tokens"]), 32, dev)
+                           gold.get("tokens"), gold["decode_tokens"], 32,
+                           dev, cross, **{k: gold[k] for k in (
+                               "embeds", "positions", "enc_embeds")
+                               if k in gold})
     return lm_compare(torch, (logits, steps),
-                      (torch.from_numpy(gold["logits"]),
-                       torch.from_numpy(gold["decode_logits"])), 1e-5,
+                      (gold["logits"], gold["decode_logits"]), 1e-5,
                       f"{cfg.name} on the card vs {golden.name}")
 
 
@@ -1848,146 +1933,13 @@ def rescale_attention(stack, cfg) -> None:
     attention scores then have a std of ~360 and the softmax is nearly
     one-hot, so a 1-ulp change of the weights moves the logits by ~1e-2
     and no two summation orders agree to 1e-4. Rescaled, the scores have
-    a std of ~1 and a 1-ulp change moves the logits by ~1e-5."""
-    attn = stack["attn"]
-    for name in ("wq", "wk", "wv"):
-        attn[name].mul_((attn[name].shape[-2] / cfg.d_model) ** 0.5)
-    attn["wo"].mul_((attn["wo"].shape[-2] / cfg.d_head_total) ** 0.5)
-
-
-def check_lm(torch, np, dev, kernels, lm_configs, convert, lm, decode,
-             params):
-    """LM phases A (qwen2.5-3B SMOKE in f32 with the JAX golden's weights,
-    against its logits) and B (full width with 2 layers in f32, the card
-    against the CPU). Both are the f32 serving path: their attention goes
-    to the 3xTF32 flash route and to decode attention, one launch a layer a
-    prefill or step; returns those launch counts, checked."""
-    f32 = torch.float32
-    kernels.reset_launch_counts()
-    # -- 8. LM A: qwen2.5-3B SMOKE on the card vs the JAX golden -------------
-    cfg = dataclasses.replace(lm_configs.get_smoke(LM_ARCH), dtype=f32)
-    smoke_layers = cfg.n_layers
-    err = golden_lm(torch, np, dev, cfg, LM_GOLDEN, convert, lm, decode,
-                    params)
-    print(f"LM A: {cfg.name} f32 prefill + 4 decode steps on the card match "
-          f"{LM_GOLDEN.name} (max abs err {err:.3g}, tolerance 1e-5)",
-          flush=True)
-
-    # -- 9. LM B: full width, 2 layers, f32: the card vs the CPU ------------
-    cfg = dataclasses.replace(lm_configs.get(LM_ARCH), n_layers=LM_B_LAYERS,
-                              dtype=f32)
-    p_card = params.init_params(lm.model_defs(cfg),
-                                torch.Generator(device=dev).manual_seed(1),
-                                dev)
-    rescale_attention(p_card["blocks"], cfg)
-    p_cpu = params.tree_map(lambda t: t.cpu(), p_card)
-    gen = torch.Generator().manual_seed(2)
-    tokens = torch.randint(0, cfg.vocab, (LM_B_BATCH, LM_B_S), generator=gen,
-                           dtype=torch.int32)
-    dec_tokens = torch.randint(0, cfg.vocab, (4, LM_B_BATCH), generator=gen,
-                               dtype=torch.int32)
-    t0 = time.perf_counter()
-    card = lm_run(torch, lm, decode, cfg, p_card, tokens, dec_tokens, 512,
-                  dev)
-    cpu = lm_run(torch, lm, decode, cfg, p_cpu, tokens, dec_tokens, 512,
-                 torch.device("cpu"))
-    err = lm_compare(torch, card, cpu, 1e-4,
-                     f"{cfg.name} x2 layers on the card vs the CPU")
-    print(f"LM B: {cfg.name} at full width ({LM_B_LAYERS} layers, f32) "
-          f"B={LM_B_BATCH} S={LM_B_S} prefill "
-          f"+ 4 decode steps: the card matches the CPU (max abs err "
-          f"{err:.3g}, tolerance 1e-4; {time.perf_counter() - t0:.1f} s)",
-          flush=True)
-    launches = kernels.launch_counts()
-    expect = dict.fromkeys(launches, 0)
-    expect.update(flash_attention=smoke_layers + LM_B_LAYERS,
-                  decode_attention=4 * (smoke_layers + LM_B_LAYERS))
-    if launches != expect:
-        fail(f"LM A and B launch counts {launches} != {expect}")
-    print(f"LM A and B: launches {launches}", flush=True)
-    return {"flash_attention": launches["flash_attention"]}
-
-
-def serve_lm(torch, dev, kernels, lm_configs, lm, decode, params):
-    """LM phase C: qwen2.5-3B at full width in bf16 on the card. Returns
-    the attention kernels' launch counts over the counted run (3 prefills
-    and DECODE_STEPS greedy decode steps, after one warm-up of each)."""
-    cfg = lm_configs.get(LM_ARCH)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    t0 = time.perf_counter()
-    p32 = params.init_params(lm.model_defs(cfg), gen, dev)
-    p = lm.cast_params(p32, cfg)      # matrices bf16 once; norms stay f32
-    del p32
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
-                           device=dev, dtype=torch.int32)
-    state = decode.init_decode(cfg, DECODE_B, DECODE_MAX, dev)
-    for cache in state.caches.values():
-        cache.normal_(generator=gen)
-    # Ragged positions; the top leaves room for every step of this phase
-    # (warm-up, counted run, profile) to write a slot of its own.
-    state = state._replace(cache_pos=torch.randint(
-        DECODE_POS_LO, DECODE_MAX - DECODE_STEPS - 8, (DECODE_B,),
-        generator=gen, device=dev, dtype=torch.int32))
-    live = int(state.cache_pos.sum())
-    step_tokens = torch.randint(0, cfg.vocab, (DECODE_B,), generator=gen,
-                                device=dev, dtype=torch.int32)
-    torch.cuda.synchronize()
-    print(f"LM C: {cfg.name} ({cfg.n_layers} layers, bf16) weights and a "
-          f"{DECODE_B}x{DECODE_MAX} KV cache on the card in "
-          f"{time.perf_counter() - t0:.1f} s; cache positions "
-          f"{int(state.cache_pos.min())}..{int(state.cache_pos.max())} "
-          f"(mean {live / DECODE_B:.0f})", flush=True)
-
-    def step():
-        nonlocal state, step_tokens
-        logits, state = decode.decode_step(p, cfg, state, step_tokens)
-        step_tokens = logits.argmax(-1).to(torch.int32)
-        return logits
-
-    lm.forward(p, cfg, tokens)          # warm-ups, outside the counted run
-    step()
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    prefill_ms, step_ms = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        logits = lm.forward(p, cfg, tokens)
-        torch.cuda.synchronize()
-        prefill_ms.append((time.perf_counter() - t0) * 1e3)
-    for _ in range(DECODE_STEPS):
-        t0 = time.perf_counter()
-        step_logits = step()
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = kernels.launch_counts()
-    expect = dict.fromkeys(launches, 0)
-    expect.update(flash_attention_tc=3 * cfg.n_layers,
-                  decode_attention=DECODE_STEPS * cfg.n_layers)
-    if launches != expect:
-        fail(f"LM C launch counts {launches} != {expect}")
-    for name, x, shape in (("prefill", logits,
-                            (PREFILL_B, PREFILL_S, cfg.vocab)),
-                           ("decode", step_logits, (DECODE_B, cfg.vocab))):
-        if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
-            fail(f"LM C {name} logits {tuple(x.shape)} (want {shape}) or "
-                 f"not finite")
-    total_s = sum(step_ms) / 1e3
-    print(f"LM C: prefill B={PREFILL_B} S={PREFILL_S}: median "
-          f"{statistics.median(prefill_ms):.2f} ms (runs "
-          f"{', '.join(f'{t:.2f}' for t in prefill_ms)}); decode "
-          f"B={DECODE_B} max_len {DECODE_MAX}: median "
-          f"{statistics.median(step_ms):.3f} ms/step (min {min(step_ms):.3f},"
-          f" max {max(step_ms):.3f}), {DECODE_B * DECODE_STEPS / total_s:.1f} "
-          f"tokens/s over {DECODE_STEPS} steps; launches {launches}; peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
-    print(profile_window(torch, f"{cfg.name} decode B={DECODE_B}",
-                         lambda: [step() for _ in range(4)], 4, "step"),
-          flush=True)
-    return {k: launches[k] for k in ("flash_attention_tc",
-                                     "decode_attention")}
+    a std of ~1 and a 1-ulp change moves the logits by ~1e-5. An
+    encoder-decoder's decoder stack has its cross attention rescaled
+    too."""
+    for attn in (stack[k] for k in ("attn", "cross") if k in stack):
+        for name in ("wq", "wk", "wv"):
+            attn[name].mul_((attn[name].shape[-2] / cfg.d_model) ** 0.5)
+        attn["wo"].mul_((attn["wo"].shape[-2] / cfg.d_head_total) ** 0.5)
 
 
 def recorded_routes(layers, run):
@@ -2327,6 +2279,294 @@ def serve_moe(torch, dev, kernels, lm_configs, lm, decode, params, layers,
                          lambda: [step() for _ in range(4)], 4, "step",
                          names=decode_names), flush=True)
     return {k: launches[k] for k in ("flash_attention_tc", counter)}
+
+
+def mrope_positions(np, before: int, grid, after: int):
+    """(3, S) M-RoPE ids of ``before`` text tokens, an image of grid =
+    (rows, cols) patches and ``after`` text tokens, by Qwen2-VL's rule: a
+    text token's id is the same on the three streams; the patch at (row,
+    col) has (t0, t0 + row, t0 + col), t0 the id after the text before it;
+    the text after resumes at the image's largest id + 1."""
+    rows, cols = grid
+    r, c = np.divmod(np.arange(rows * cols), cols)
+    text = np.arange(before)
+    tail = before + max(rows, cols) + np.arange(after)
+    return np.stack([np.concatenate([text, np.full(rows * cols, before),
+                                     tail]),
+                     np.concatenate([text, before + r, tail]),
+                     np.concatenate([text, before + c, tail])]
+                    ).astype(np.int32)
+
+
+def family_inputs(torch, np, layers, cfg, p, batch: int, seq: int, gen,
+                  layout=None):
+    """A prefill's inputs on ``p``'s device: (tokens or None,
+    ``lm.forward``'s other inputs). dense: tokens; vlm: embeddings (the
+    text rows from ``p``'s token table, the image's patches seeded at the
+    table's std, 0.02) at the ``layout``'s M-RoPE positions (the same for
+    every row); audio: tokens and ``cfg.enc_seq`` frames of seeded encoder
+    embeddings."""
+    dev = p["embed"]["table"].device
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    if cfg.family == "vlm":
+        before, (rows, cols), after = layout
+        embeds = layers.embed_apply(p["embed"], tokens, cfg)
+        embeds[:, before:before + rows * cols] = torch.randn(
+            (batch, rows * cols, cfg.d_model), generator=gen,
+            device=dev) * 0.02
+        pos = torch.from_numpy(mrope_positions(np, before, (rows, cols),
+                                               after)).to(dev)
+        return None, {"embeds": embeds,
+                      "positions": pos[:, None].expand(3, batch, seq)}
+    if cfg.family == "dense":
+        return tokens, {}
+    return tokens, {"enc_embeds": torch.randn(
+        (batch, cfg.enc_seq, cfg.d_model), generator=gen, device=dev)}
+
+
+def family_launches(cfg, prefills: int, steps: int) -> dict:
+    """K5's and K6's launches over ``prefills`` prefills and ``steps``
+    decode steps: an attention a layer (the encoder-decoder: the
+    encoder's, the decoder's self and cross attention in a prefill, self
+    and cross in a step)."""
+    enc = cfg.family in ("encdec", "audio")
+    return {"prefill": prefills * (cfg.n_layers * (2 if enc else 1)
+                                   + (cfg.n_enc_layers if enc else 0)),
+            "decode": steps * cfg.n_layers * (2 if enc else 1)}
+
+
+def check_family(torch, np, dev, kernels, lm_configs, convert, lm, decode,
+                 params, layers, label: str, arch: str, golden: Path,
+                 seed: int):
+    """Phases A (the SMOKE config in f32 with the JAX golden's weights:
+    prefill and four decode steps within 1e-5 of its logits) and B (full
+    width, LM_B_LAYERS layers (audio: as many encoder layers too) in f32,
+    attention rescaled (``rescale_attention``: the scores of order 1; the
+    cross attention too), prefill at B=LM_B_BATCH, S=LM_B_S (vlm:
+    VLM_B_LAYOUT's M-RoPE positions; audio: all enc_seq frames) and four
+    decode steps (max_len 512; audio: over seeded cross caches): the card
+    against the CPU within 1e-4) of the dense (LM: qwen2.5-3B), vlm (VLM)
+    or audio (Audio) family. Both are the f32 serving path: prefill
+    through the 3xTF32 flash route, decode through K6; returns the launch
+    counts by phase, {counter: {"<label> A": n, ...}}, checked."""
+    f32 = torch.float32
+    counts = {}
+    kernels.reset_launch_counts()
+    cfg = dataclasses.replace(lm_configs.get_smoke(arch), dtype=f32)
+    err = golden_lm(torch, np, dev, cfg, golden, convert, lm, decode, params)
+    print(f"{label} A: {cfg.name} f32 prefill + 4 decode steps on the card "
+          f"match {golden.name} (max abs err {err:.3g}, tolerance 1e-5)",
+          flush=True)
+    counts[f"{label} A"] = (kernels.launch_counts(), cfg)
+
+    kernels.reset_launch_counts()
+    cfg = dataclasses.replace(lm_configs.get(arch), dtype=f32,
+                              n_layers=LM_B_LAYERS)
+    if cfg.n_enc_layers:
+        cfg = dataclasses.replace(cfg, n_enc_layers=LM_B_LAYERS)
+    p_card = params.init_params(lm.model_defs(cfg),
+                                torch.Generator(device=dev).manual_seed(seed),
+                                dev)
+    rescale_stacks(cfg, p_card, lm)
+    p_cpu = params.tree_map(lambda t: t.cpu(), p_card)
+    gen = torch.Generator().manual_seed(seed + 1)
+    tokens, inputs = family_inputs(torch, np, layers, cfg, p_cpu,
+                                   LM_B_BATCH, LM_B_S, gen, VLM_B_LAYOUT)
+    # The audio family's cross caches, seeded (JAX's are zeros, never
+    # filled).
+    cross = tuple(torch.randn(
+        (cfg.n_layers, LM_B_BATCH, cfg.enc_seq, cfg.n_kv_heads,
+         cfg.head_dim), generator=gen) for _ in range(2)) \
+        if cfg.family in ("encdec", "audio") else None
+    dec_tokens = torch.randint(0, cfg.vocab, (4, LM_B_BATCH), generator=gen,
+                               dtype=torch.int32)
+    t0 = time.perf_counter()
+    card = lm_run(torch, lm, decode, cfg, p_card, tokens, dec_tokens, 512,
+                  dev, cross, **inputs)
+    t_card = time.perf_counter() - t0
+    cpu = lm_run(torch, lm, decode, cfg, p_cpu, tokens, dec_tokens, 512,
+                 torch.device("cpu"), cross, **inputs)
+    counts[f"{label} B"] = (kernels.launch_counts(), cfg)
+    err = lm_compare(torch, card, cpu, 1e-4,
+                     f"{cfg.name} x{LM_B_LAYERS} layers on the card vs the "
+                     f"CPU")
+    what = f"prefill B={LM_B_BATCH} S={LM_B_S}"
+    if cfg.family == "vlm":
+        what += (f" from embeddings at M-RoPE positions (text "
+                 f"{VLM_B_LAYOUT[0]}, an image {VLM_B_LAYOUT[1][0]}x"
+                 f"{VLM_B_LAYOUT[1][1]}, text {VLM_B_LAYOUT[2]})")
+    elif cross is not None:
+        what += (f" after {LM_B_LAYERS} encoder layers over {cfg.enc_seq} "
+                 f"frames, seeded cross caches")
+    print(f"{label} B: {cfg.name} at full width ({LM_B_LAYERS} layers, "
+          f"f32), {what}, + 4 decode steps: the card matches the CPU (max "
+          f"abs err {err:.3g}, tolerance 1e-4; card {t_card:.1f} s, CPU "
+          f"{time.perf_counter() - t0 - t_card:.1f} s)", flush=True)
+    del p_card, p_cpu, card, cpu
+    out = {"flash_attention": {}, "decode_attention": {}}
+    for phase, (launches, c) in counts.items():
+        n = family_launches(c, 1, 4)
+        expect = dict.fromkeys(launches, 0)
+        expect.update(flash_attention=n["prefill"],
+                      decode_attention=n["decode"])
+        if launches != expect:
+            fail(f"{phase} launch counts {launches} != {expect}")
+        print(f"{phase}: launches {launches}", flush=True)
+        for k in out:
+            out[k][phase] = launches[k]
+    return out
+
+
+def serve_family(torch, np, dev, kernels, lm_configs, lm, decode, params,
+                 layers, label: str, arch: str, seed: int):
+    """Phase C of the dense (LM: qwen2.5-3B), vlm (VLM) or audio (Audio)
+    family: every layer in bf16 on the card (seeded weights drawn a layer
+    at a time by ``lm.init_cast_params``). dense: prefill at B=PREFILL_B,
+    S=PREFILL_S from tokens, DECODE_STEPS greedy steps at B=DECODE_B over
+    a DECODE_MAX cache (LM C's traffic); vlm: the same from embeddings at
+    VLM_C_LAYOUT's M-RoPE positions; audio:
+    prefill of AUDIO_C_B requests of enc_seq frames and AUDIO_C_S decoder
+    tokens, DECODE_STEPS steps at B=AUDIO_C_B over an AUDIO_C_CACHE self
+    cache
+    and seeded cross caches. Caches seeded, positions ragged; a prefill
+    the median of 3 after a warm-up. Launches checked (K5 `tc` and K6 as
+    ``family_launches`` counts, nothing else), one step under sync debug
+    mode "error", a profile of 4 steps. Returns the two counts."""
+    cfg = lm_configs.get(arch)
+    vlm, enc = cfg.family == "vlm", cfg.family in ("encdec", "audio")
+    batch, seq, dec_b, max_len, lo = (
+        (AUDIO_C_B, AUDIO_C_S, AUDIO_C_B, AUDIO_C_CACHE, AUDIO_POS_LO) if enc
+        else (PREFILL_B, PREFILL_S, DECODE_B, DECODE_MAX, DECODE_POS_LO))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p = lm.init_cast_params(cfg, gen)   # matrices bf16; norms stay f32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_params = params.param_count(lm.model_defs(cfg))
+    tokens, inputs = family_inputs(torch, np, layers, cfg, p, batch, seq,
+                                   gen, VLM_C_LAYOUT)
+    state = decode.init_decode(cfg, dec_b, max_len, dev)
+    caches = [c for _, c in params.leaves(state.caches)]
+    for cache in caches:
+        cache.normal_(generator=gen)
+    # Ragged positions; the top leaves room for every step of this phase
+    # (warm-up, counted run, sync check, profile) to write a slot of its
+    # own.
+    state = state._replace(cache_pos=torch.randint(
+        lo, max_len - DECODE_STEPS - 8, (dec_b,), generator=gen,
+        device=dev, dtype=torch.int32))
+    live = int(state.cache_pos.sum())
+    cache_gb = sum(c.numel() * c.element_size() for c in caches) / 1e9
+    step_tokens = torch.randint(0, cfg.vocab, (dec_b,), generator=gen,
+                                device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    what = (f"prefill B={batch}: {cfg.enc_seq} encoder frames and {seq} "
+            f"decoder tokens each" if enc else f"prefill B={batch} S={seq}")
+    if vlm:
+        what += (f" from embeddings (text {VLM_C_LAYOUT[0]}, a "
+                 f"{VLM_C_LAYOUT[1][0]}x{VLM_C_LAYOUT[1][1]} image, text "
+                 f"{VLM_C_LAYOUT[2]}) at M-RoPE positions")
+    print(f"{label} C: {cfg.name} ({cfg.n_layers} layers"
+          + (f" + {cfg.n_enc_layers} encoder layers" if enc else "")
+          + f", bf16, {n_params / 1e9:.3f}B parameters) weights and a "
+          f"{dec_b}x{max_len} cache ({cache_gb:.2f} GB"
+          + (", cross caches included" if enc else "")
+          + f") on the card in {time.perf_counter() - t0:.1f} s; {what}; "
+          f"cache positions {int(state.cache_pos.min())}.."
+          f"{int(state.cache_pos.max())} (mean {live / dec_b:.0f})",
+          flush=True)
+
+    def prefill():
+        return lm.forward(p, cfg, tokens if not vlm else None, **inputs)
+
+    def step():
+        nonlocal state, step_tokens
+        logits, state = decode.decode_step(p, cfg, state, step_tokens)
+        step_tokens = logits.argmax(-1).to(torch.int32)
+        return logits
+
+    prefill()                           # warm-ups, outside the counted run
+    step()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    prefill_ms, step_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logits = prefill()
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    if tuple(logits.shape) != (batch, seq, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{label} C prefill logits {tuple(logits.shape)} or not finite")
+    del logits
+    for _ in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        step_logits = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = kernels.launch_counts()
+    n = family_launches(cfg, 3, DECODE_STEPS)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attention_tc=n["prefill"],
+                  decode_attention=n["decode"])
+    if launches != expect:
+        fail(f"{label} C launch counts {launches} != {expect}")
+    if tuple(step_logits.shape) != (dec_b, cfg.vocab) or \
+            not bool(torch.isfinite(step_logits).all()):
+        fail(f"{label} C decode logits {tuple(step_logits.shape)} or not "
+             f"finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # One step with every synchronising CUDA call an error.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    total_s = sum(step_ms) / 1e3
+    prefill_tokens = batch * seq + (batch * cfg.enc_seq if enc else 0)
+    print(f"{label} C: prefill: median {statistics.median(prefill_ms):.2f} "
+          f"ms (runs {', '.join(f'{t:.2f}' for t in prefill_ms)}), "
+          f"{prefill_tokens / statistics.median(prefill_ms) * 1e3:.1f} "
+          f"tokens/s{' (encoder frames included)' if enc else ''}; decode "
+          f"B={dec_b} max_len "
+          f"{max_len}: median {statistics.median(step_ms):.3f} ms/step (min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}), "
+          f"{dec_b * DECODE_STEPS / total_s:.1f} tokens/s over "
+          f"{DECODE_STEPS} steps; launches {launches}; a step under sync "
+          f"debug mode \"error\" made no synchronising call; peak device "
+          f"memory {peak:.2f} GiB", flush=True)
+    print(profile_window(torch, f"{cfg.name} decode B={dec_b}",
+                         lambda: [step() for _ in range(4)], 4, "step",
+                         names=("decode_partial_kernel",
+                                "decode_combine_kernel")), flush=True)
+    return {"flash_attention_tc": launches["flash_attention_tc"],
+            "decode_attention": launches["decode_attention"]}
+
+
+def serve_families(torch, np, dev, kernels, lm_configs, convert, lm, decode,
+                   params, layers, runs, main_launches, lm_paths) -> None:
+    """``check_family`` and ``serve_family`` for each (label, arch, golden,
+    B's seed, C's seed) of ``runs``, their launches added to
+    ``main_launches`` (by counter) and ``lm_paths`` (by counter and
+    phase)."""
+    for label, arch, golden, b_seed, c_seed in runs:
+        torch.cuda.empty_cache()
+        for k, paths in check_family(torch, np, dev, kernels, lm_configs,
+                                     convert, lm, decode, params, layers,
+                                     label, arch, golden, b_seed).items():
+            for path, n in paths.items():
+                main_launches[k] = main_launches.get(k, 0) + n
+                lm_paths.setdefault(k, {})[path] = n
+        torch.cuda.empty_cache()
+        for k, n in serve_family(torch, np, dev, kernels, lm_configs, lm,
+                                 decode, params, layers, label, arch,
+                                 c_seed).items():
+            main_launches[k] = main_launches.get(k, 0) + n
+            lm_paths.setdefault(k, {})[f"{label} C serving"] = n
 
 
 # F4: the bf16 GEMM's gradient (layers.matmul_f32_out_grads) is held to
@@ -2707,8 +2947,9 @@ def train_lm(torch, dev, kernels, lm_configs, lm, params, optimizer,
 
 def rescale_stacks(cfg, p, lm) -> None:
     """Every attention stack of ``p`` rescaled in place (``rescale_mla``
-    for MLA, ``rescale_attention`` otherwise): scores of order 1, a
-    well-conditioned f32 gradient (see ``rescale_attention``)."""
+    for MLA, ``rescale_attention`` otherwise, an encoder-decoder's cross
+    attention too): scores of order 1, a well-conditioned f32 gradient
+    (see ``rescale_attention``)."""
     for key, _ in lm.stacks(cfg):
         if cfg.attn_kind == "mla":
             rescale_mla(p[key])
@@ -3698,7 +3939,8 @@ def kernel_entry(name: str, r, launches) -> dict:
              "replaces": replaces, "launches": launches, **timing(r)}
     for key in ("kitti", "f32_prefill", "bf16_hd64", "zamba2", "moonshot",
                 "deepseek", "deepseek_f32_s2048", "tf32x3_seeded", "sorted",
-                "fleet_kitti", "fleet_16", "fleet_64"):
+                "whisper_self", "whisper_cross", "fleet_kitti", "fleet_16",
+                "fleet_64"):
         if key in r:
             entry[key] = timing(r[key])
     return entry
@@ -3982,7 +4224,17 @@ def main() -> None:
             flash(1, 6, 2, 300, 300, 128, bf16, True),
             flash(2, 12, 2, 77, 77, 128, bf16, True),
             flash(1, 32, 2, 300, 300, 128, bf16, True),
-            flash(1, 48, 1, 200, 200, 128, bf16, True)],
+            flash(1, 48, 1, 200, 200, 128, bf16, True),
+            # VLM C's prefill (qwen2-vl-2b: 12 heads over 2 kv heads, G =
+            # 6), then Audio C's three (whisper-small, 16 requests, 12
+            # heads a kv head each): the encoder over 1,500 frames (full),
+            # the decoder's self attention over its 227-token prefill
+            # (causal) and its cross attention (227 over 1,500); all four
+            # timed.
+            flash(PREFILL_B, 12, 2, PREFILL_S, PREFILL_S, 128, bf16, True),
+            flash(AUDIO_C_B, 12, 12, 1500, 1500, 64, bf16, False),
+            flash(AUDIO_C_B, 12, 12, AUDIO_C_S, AUDIO_C_S, 64, bf16, True),
+            flash(AUDIO_C_B, 12, 12, AUDIO_C_S, 1500, 64, bf16, False)],
         # The decode shape of LM phase C first (ragged positions), then
         # f32 GQA, MQA with positions 1 and S, SMOKE's head dim with an
         # empty request, and bf16 at hd 16 (2-byte rows of V a lane).
@@ -4003,7 +4255,17 @@ def main() -> None:
             dec(3, 6, 2, 700, 128, bf16, [0, 77, 700]),
             dec(2, 12, 2, 1000, 128, f32, [1, 1000]),
             dec(2, 32, 2, 600, 128, bf16, [600, 333]),
-            dec(2, 48, 1, 500, 128, bf16, [0, 500])],
+            dec(2, 48, 1, 500, 128, bf16, [0, 500]),
+            # VLM C's decode shape (qwen2-vl-2b, G = 6), then the bf16 hd-64
+            # instance at Audio C's (whisper-small, G = 1): its self cache
+            # of 448 with ragged positions and an empty request, its cross
+            # caches at 1,500 everywhere; all three timed.
+            dec(DECODE_B, 12, 2, DECODE_MAX, 128, bf16,
+                (DECODE_POS_LO, DECODE_MAX)),
+            dec(AUDIO_C_B, 12, 12, AUDIO_C_CACHE, 64, bf16,
+                [0, AUDIO_C_CACHE, 1, 77, 200, 300, AUDIO_C_CACHE - 1, 64,
+                 128, 256, 333, 400, 5, 17, 100, 250]),
+            dec(AUDIO_C_B, 12, 12, 1500, 64, bf16, [1500] * AUDIO_C_B)],
         # MLA's absorbed decode over the compressed cache: MLA C's decode
         # shape first (B 16, 128 heads, (R, P) = (512, 64), ragged lengths
         # over a 32k cache), then lengths 1 and S_max and lengths off the
@@ -4212,6 +4474,9 @@ def main() -> None:
                   ("flash_attention_bwd_tc", 7): "bf16_hd64",
                   ("flash_attention_bwd_tc", 8): "zamba2",
                   ("decode_attention", 5): "moonshot",
+                  ("flash_attention_tc", 22): "whisper_self",
+                  ("flash_attention_tc", 23): "whisper_cross",
+                  ("decode_attention", 13): "whisper_cross",
                   **{case: key for case, (key, _, _) in INSTANCES.items()},
                   ("auction", 1): "fleet_kitti",
                   ("pillar_scatter", PILLAR_CASES.index("sorted")): "sorted"}
@@ -4351,18 +4616,12 @@ def main() -> None:
                  "smoke on the card vs tests/goldens/smoke.csv")
     print("smoke x16 on the card matches tests/goldens/smoke.csv", flush=True)
 
-    # -- 8-9. LM A and B: the card against JAX's golden and the CPU ------
-    main_launches.update(check_lm(torch, np, dev, kernels, lm_configs,
-                                  convert, lm, decode, params))
-    torch.cuda.empty_cache()
-
-    # -- 10. LM C: serving qwen2.5-3B at full width on the card -------------
-    serving = serve_lm(torch, dev, kernels, lm_configs, lm, decode, params)
-    lm_paths = {"flash_attention": {"LM A and B": main_launches[
-        "flash_attention"]}}
-    for k, n in serving.items():
-        main_launches[k] = n
-        lm_paths[k] = {"LM C serving": n}
+    # -- 8-10. LM A-C: qwen2.5-3B against JAX's golden and the CPU, then
+    # serving at full width on the card --------------------------------------
+    lm_paths = {}
+    serve_families(torch, np, dev, kernels, lm_configs, convert, lm, decode,
+                   params, layers, (("LM", LM_ARCH, LM_GOLDEN, 1, 3),),
+                   main_launches, lm_paths)
 
     # -- 10b-10g. MoE A-C (moonshot-v1-16b-a3b), MLA A-C (deepseek-v2) -----
     for label, arch, golden, b_layers, b_seed, c_layers, c_seed in (
@@ -4381,6 +4640,13 @@ def main() -> None:
                               c_seed).items():
             main_launches[k] = main_launches.get(k, 0) + n
             lm_paths.setdefault(k, {})[f"{label} C serving"] = n
+
+    # -- 10h-10m. VLM A-C (qwen2-vl-2b), Audio A-C (whisper-small) ---------
+    serve_families(torch, np, dev, kernels, lm_configs, convert, lm, decode,
+                   params, layers,
+                   (("VLM", VLM_ARCH, VLM_GOLDEN, 51, 53),
+                    ("Audio", AUDIO_ARCH, AUDIO_GOLDEN, 61, 63)),
+                   main_launches, lm_paths)
 
     # -- 11. LM T: training qwen2.5-3B on the card -------------------------
     torch.cuda.empty_cache()

@@ -1,9 +1,10 @@
 """Architecture registry (``repro/configs/__init__.py``).
 
 ``get(name)`` returns the full ArchConfig, ``get_smoke(name)`` the reduced
-same-family config of the CPU tests. The port has the dense family and
-the moe family (full attention and MLA) so far: the other architectures of
-``ARCH_IDS`` raise ``NotImplementedError`` until their families are ported
+same-family config of the CPU tests. The port has the dense, vlm and
+encoder-decoder (audio) families and the moe family (full attention and
+MLA) so far: the other architectures of ``ARCH_IDS`` (the ssm and hybrid
+families) raise ``NotImplementedError`` until their families are ported
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -26,9 +27,10 @@ ARCH_IDS = [
 ]
 
 # The architectures whose family the port runs (dense; moe with full
-# attention or MLA).
+# attention or MLA; vlm; audio, the encoder-decoder family).
 PORTED = ("glm4_9b", "qwen2_5_3b", "minitron_4b", "granite_20b",
-          "moonshot_v1_16b_a3b", "deepseek_v2_236b")
+          "moonshot_v1_16b_a3b", "deepseek_v2_236b", "qwen2_vl_2b",
+          "whisper_small")
 
 
 def _module(name: str):

@@ -120,18 +120,18 @@ def detector2d_params_from_jax(tree: Any, cfg: Any,
 def decode_state_from_jax(state: Any,
                           device: Union[str, torch.device] = "cpu"):
     """A JAX ``DecodeState`` (caches as numpy arrays) -> the port's
-    ``DecodeState``: caches in their dtype, ``cache_pos`` int32. The moe
-    family's nested caches keep their layout, ``"dense": None`` included
-    where the model has no leading dense layers, and MLA's compressed
-    caches (``{"ckv", "krope"}`` a stack) theirs."""
-    caches = params_mod.tree_map(
-        lambda a: None if a is None else _float_tensor(a, device),
-        dict(state.caches))
+    ``DecodeState``: caches and ``enc_out`` in their dtype, ``cache_pos``
+    int32. The moe family's nested caches keep their layout, ``"dense":
+    None`` included where the model has no leading dense layers, MLA's
+    compressed caches (``{"ckv", "krope"}`` a stack) theirs and the
+    encoder-decoder's (``{"self": {"k", "v"}, "cross_k", "cross_v"}``)
+    theirs."""
+    def leaf(a):
+        return None if a is None else _float_tensor(a, device)
+    caches = params_mod.tree_map(leaf, dict(state.caches))
     pos = torch.tensor(np.asarray(state.cache_pos, np.int32), device=device)
-    if state.enc_out is not None:
-        raise NotImplementedError("encoder-decoder decode state is not "
-                                  "ported yet")
-    return decode.DecodeState(caches=caches, cache_pos=pos)
+    return decode.DecodeState(caches=caches, cache_pos=pos,
+                              enc_out=leaf(state.enc_out))
 
 
 def _is_array(x: Any) -> bool:

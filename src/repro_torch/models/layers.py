@@ -1,6 +1,6 @@
-"""Shared layer library for the dense and moe families: norms, RoPE,
-attention (GQA/MQA), MLPs, the mixture of experts and the embedding
-(``repro/models/layers.py``).
+"""Shared layer library of the LM families: norms, RoPE and M-RoPE,
+attention (GQA/MQA; self and cross), MLPs, the mixture of experts and the
+embedding (``repro/models/layers.py``).
 
 Conventions, as in the JAX package:
 
@@ -19,15 +19,18 @@ Conventions, as in the JAX package:
   flash and decode attention kernels, the CPU their plain versions. So the
   JAX package's dense and chunked reference paths have no counterpart
   here. A value head dim unequal to the qk head dim (MLA's prefill,
-  ``models/mla.py``) goes to the same flash attention op. Causal attention
-  with Sq != Sk raises (no caller of the JAX package reaches it), and
-  M-RoPE (the vlm family) is a later slice and raises.
+  ``models/mla.py``) goes to the same flash attention op, and so does
+  cross attention (queries over an encoder's keys, not causal, Sq != Sk).
+  Causal attention with Sq != Sk raises (no caller of the JAX package
+  reaches it).
 * The mixture of experts (:func:`moe_apply`) has no Pallas kernel in the
   JAX package: its router, dispatch and expert products are XLA ops
   there, and here PyTorch ops (the products cuBLAS GEMMs), with the same
   fixed shapes and no synchronising call.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -204,18 +207,26 @@ def norm_apply(p, x: torch.Tensor, kind: str, eps: float = 1e-6
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # ---------------------------------------------------------------------------
 
 
-def _rope_angles(positions: torch.Tensor, rot_dim: int, theta: float):
-    """positions (...,) -> cos/sin (..., rot_dim/2), f32, in JAX's order:
-    freqs = 1/theta**(i/half), then positions * freqs."""
-    half = rot_dim // 2
-    i = torch.arange(half, dtype=torch.float32, device=positions.device)
-    freqs = 1.0 / (theta ** (i / half))
-    ang = positions[..., None].float() * freqs
-    return torch.cos(ang), torch.sin(ang)
+def _rope_freqs(half: int, theta: float, device) -> torch.Tensor:
+    """1/theta**(i/half), i < half, f32 (JAX's order of operations)."""
+    i = torch.arange(half, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (i / half))
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, 2 r) rotated by the f32 angles ang (B, S, r), half-split
+    convention, in f32 and rounded once to x's dtype."""
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    xf1, xf2 = x1.float(), x2.float()
+    r1 = xf1 * cos - xf2 * sin
+    r2 = xf2 * cos + xf1 * sin
+    return torch.cat([r1.to(x.dtype), r2.to(x.dtype)], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -225,26 +236,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     hd = x.shape[-1]
     rot = int(hd * fraction)
     rot -= rot % 2
-    cos, sin = _rope_angles(positions, rot, theta)   # (B, S, rot/2)
-    cos = cos[:, :, None, :]
-    sin = sin[:, :, None, :]
-    x1, x2 = x[..., :rot].chunk(2, dim=-1)
-    xf1, xf2 = x1.float(), x2.float()
-    r1 = xf1 * cos - xf2 * sin
-    r2 = xf2 * cos + xf1 * sin
-    out = torch.cat([r1.to(x.dtype), r2.to(x.dtype)], dim=-1)
+    freqs = _rope_freqs(rot // 2, theta, positions.device)
+    out = _rotate(x[..., :rot], positions[..., None].float() * freqs)
     return torch.cat([out, x[..., rot:]], dim=-1) if rot < hd else out
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (B, S, H, hd); positions3: (3, B, S)
+    (t, h, w) ids. The hd/2 rotary frequencies are split into the static
+    ``sections`` (summing to hd/2), in order; each band takes the angle of
+    its own positional stream. The angles are f32 products, as JAX's."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half or len(sections) != positions3.shape[0]:
+        raise ValueError(f"M-RoPE sections {sections} for {half} "
+                         f"frequencies and {positions3.shape[0]} streams")
+    freqs = _rope_freqs(half, theta, positions3.device)
+    bands, lo = [], 0
+    for stream, n in enumerate(sections):
+        bands.append(positions3[stream][..., None].float()
+                     * freqs[lo:lo + n])
+        lo += n
+    return _rotate(x, torch.cat(bands, dim=-1))
 
 
 def position_encode(q: torch.Tensor, k: torch.Tensor, cfg: ArchConfig,
                     positions: torch.Tensor):
-    """Dispatch on cfg.pos_embedding for self-attention q/k."""
+    """Dispatch on cfg.pos_embedding for self-attention q/k: positions
+    (B, S) for RoPE, (3, B, S) for M-RoPE."""
     if cfg.pos_embedding == "rope":
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     elif cfg.pos_embedding == "mrope":
-        raise NotImplementedError("M-RoPE (the vlm family) is not ported "
-                                  "yet; see ROADMAP.md")
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k
 
 
@@ -289,10 +314,12 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
-def _qkv(p, x: torch.Tensor, cfg: ArchConfig):
+def _qkv(p, x: torch.Tensor, cfg: ArchConfig, src: torch.Tensor):
+    """Queries from x, keys and values from src (x itself, or an
+    encoder's output for cross attention)."""
     q = _matmul(x, cast(p["wq"], cfg), 1)
-    k = _matmul(x, cast(p["wk"], cfg), 1)
-    v = _matmul(x, cast(p["wv"], cfg), 1)
+    k = _matmul(src, cast(p["wk"], cfg), 1)
+    v = _matmul(src, cast(p["wv"], cfg), 1)
     if cfg.qkv_bias:
         q = q + cast(p["bq"], cfg)
         k = k + cast(p["bk"], cfg)
@@ -301,11 +328,14 @@ def _qkv(p, x: torch.Tensor, cfg: ArchConfig):
 
 
 def attn_apply(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
-               causal: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention (prefill). Cross attention (JAX's
-    ``kv_x``) comes with the encoder-decoder family."""
-    q, k, v = _qkv(p, x, cfg)
-    q, k = position_encode(q, k, cfg, positions)
+               causal: bool = True, kv_x: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """Full-sequence attention (train / prefill / encoder / cross). With
+    ``kv_x`` (B, Sk, D) the keys and values come from it (cross
+    attention) and no position encoding is applied, as in JAX."""
+    q, k, v = _qkv(p, x, cfg, x if kv_x is None else kv_x)
+    if kv_x is None:
+        q, k = position_encode(q, k, cfg, positions)
     out = multihead_attention(q, k, v, causal)
     return _matmul(out, cast(p["wo"], cfg), 2).to(cfg.dtype)
 
@@ -326,7 +356,7 @@ def attn_decode_apply(p, x: torch.Tensor, cfg: ArchConfig,
     (B, KV, S, hd) views of the caches.
     """
     b = x.shape[0]
-    q, k, v = _qkv(p, x, cfg)
+    q, k, v = _qkv(p, x, cfg, x)
     if cfg.pos_embedding in ("rope", "mrope"):
         q, k = position_encode(q, k, cfg, positions)
     rows = torch.arange(b, device=x.device)

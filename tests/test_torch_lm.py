@@ -41,10 +41,13 @@ from repro_torch.models import decode, layers, lm, params  # noqa: E402
 jax.config.update("jax_platform_name", "cpu")
 
 DENSE = ["qwen2_5_3b", "glm4_9b", "minitron_4b", "granite_20b"]
-# Every architecture the port runs: the dense ones and the moe family's
-# moonshot and deepseek-v2 (their own tests are tests/test_torch_moe.py and
-# tests/test_torch_mla.py).
-PORTED = DENSE + ["moonshot_v1_16b_a3b", "deepseek_v2_236b"]
+# Every architecture the port runs: the dense ones, the moe family's
+# moonshot and deepseek-v2, the vlm family's qwen2-vl and the audio
+# family's whisper (their own tests are tests/test_torch_moe.py,
+# tests/test_torch_mla.py, tests/test_torch_vlm.py and
+# tests/test_torch_audio.py).
+PORTED = DENSE + ["moonshot_v1_16b_a3b", "deepseek_v2_236b", "qwen2_vl_2b",
+                  "whisper_small"]
 GOLDEN = (pathlib.Path(__file__).parent / "goldens"
           / "lm_qwen2_5_3b_smoke.npz")
 B, S, MAX_LEN, STEPS = 2, 16, 32, 4

@@ -387,13 +387,15 @@ def test_loss_fn_raises_for_moe():
 
 
 def test_mla_raises():
-    """MLA runs now (tests/test_torch_mla.py); the next unported
-    architecture, qwen2-vl-2b (the vlm family, M-RoPE), raises, and so do
-    MLA outside the moe family and M-RoPE positions."""
-    with pytest.raises(NotImplementedError, match="qwen2_vl_2b"):
-        configs.get("qwen2_vl_2b")
-    with pytest.raises(NotImplementedError, match="qwen2_vl_2b"):
-        configs.get_smoke("qwen2_vl_2b")
+    """MLA runs now (tests/test_torch_mla.py), and so does M-RoPE
+    (tests/test_torch_vlm.py); the next unported architecture, xlstm-350m
+    (the ssm family), raises, and so does MLA outside the moe family. At
+    the default positions (M-RoPE's three streams equal) M-RoPE gives the
+    RoPE logits exactly."""
+    with pytest.raises(NotImplementedError, match="xlstm_350m"):
+        configs.get("xlstm_350m")
+    with pytest.raises(NotImplementedError, match="xlstm_350m"):
+        configs.get_smoke("xlstm_350m")
     assert configs.get("deepseek_v2_236b").attn_kind == "mla"
     dense_mla = dataclasses.replace(configs.get_smoke("qwen2_5_3b"),
                                     attn_kind="mla")
@@ -401,11 +403,15 @@ def test_mla_raises():
         lm.model_defs(dense_mla)
     with pytest.raises(NotImplementedError, match="'mla'"):
         decode.init_decode(dense_mla, 2, 8, "cpu")
-    mrope = dataclasses.replace(configs.get_smoke(ARCH),
-                                pos_embedding="mrope")
-    _, p = _weights(configs.get_smoke(ARCH))
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        lm.forward(p, mrope, torch.zeros((1, 4), dtype=torch.int32))
+    cfg = configs.get_smoke(ARCH)
+    quarter = cfg.head_dim // 4
+    mrope = dataclasses.replace(cfg, pos_embedding="mrope",
+                                mrope_sections=(quarter, quarter // 2,
+                                                quarter // 2))
+    _, p = _weights(cfg)
+    tokens = torch.arange(8, dtype=torch.int32)[None]
+    torch.testing.assert_close(lm.forward(p, mrope, tokens),
+                               lm.forward(p, cfg, tokens), rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
