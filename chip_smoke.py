@@ -594,9 +594,14 @@ INSTANCES = {
                                  "cross attention", "Audio C serving"),
     ("decode_attention", 11): ("qwen2_vl", "hd 128, G = 6, bf16",
                                "VLM C serving"),
-    ("decode_attention", 12): ("whisper", "hd 64, G = 1, bf16, the self "
-                               "cache (448); launches: self and cross "
-                               "attention", "Audio C serving"),
+    ("decode_attention", 12): ("whisper", "hd 64, G = 1, bf16, the G = 1 "
+                               "layout (a block of 4 warps a unit of the "
+                               "grid's split of S, each warp its own "
+                               "cp.async ring and online softmax), the self "
+                               "cache (448; the cross caches: the "
+                               "decode_attention entry's whisper_cross); "
+                               "launches: self and cross attention",
+                               "Audio C serving"),
 }
 
 
@@ -1259,9 +1264,17 @@ def check_decode(torch, dev, dec_ops, dec_ref, b, h, kv, s, hd, dtype,
                             dtype=torch.int32)
     else:
         pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kind = dec_ops.layout(dtype, hd, h // kv)
+    before = dec_ops.layout_launches[kind]
     got = dec_ops.decode_attention(q, ck, cv, pos)
+    if dec_ops.layout_launches[kind] != before + 1:
+        fail(f"decode_attention: the {kind} layout did not launch")
+    if kind == "g1":
+        span, units = dec_ops.g1_plan(s, b * h, hd,
+                                      dec_ops._sm_count(dev.index))
+        kind = f"g1: {span} positions a unit, {units} a row"
     shape = (f"B={b} H={h} KV={kv} S={s} hd={hd} {str(dtype)[6:]} "
-             f"pos {int(pos.min())}..{int(pos.max())}")
+             f"pos {int(pos.min())}..{int(pos.max())}, layout {kind}")
     err, tol, exact, worst = attention_close(
         torch, got, dec_ref.decode_attention_ref,
         (q.float(), ck.float(), cv.float(), pos), (q, ck, cv, pos),
@@ -1986,8 +1999,23 @@ def decode_kernel(cfg):
     if cfg.attn_kind == "mla":
         return "mla_decode_attention", ("mla_decode_tc_kernel",
                                         "mla_decode_merge_kernel")
-    return "decode_attention", ("decode_partial_kernel",
+    return "decode_attention", ("decode_partial_kernel", "decode_g1_kernel",
                                 "decode_combine_kernel")
+
+
+def check_decode_layout(torch, label: str, cfg, n_decode: int) -> None:
+    """A bf16 serving phase's K6 launches all went through the layout its
+    shapes pick (``decode_attention.ops.layout``: G = 1 its own)."""
+    if cfg.attn_kind == "mla":
+        return
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    kind = dec_ops.layout(torch.bfloat16, cfg.head_dim,
+                          cfg.n_heads // cfg.n_kv_heads)
+    want = {k: n_decode if k == kind else 0 for k in dec_ops.layout_launches}
+    if dec_ops.layout_launches != want:
+        fail(f"{label} C decode layouts {dec_ops.layout_launches} != {want}")
+    print(f"{label} C: K6 launches by layout {dec_ops.layout_launches}",
+          flush=True)
 
 
 def check_moe(torch, np, dev, kernels, lm_configs, convert, lm, decode,
@@ -2246,6 +2274,7 @@ def serve_moe(torch, dev, kernels, lm_configs, lm, decode, params, layers,
                    counter: DECODE_STEPS * cfg.n_layers})
     if launches != expect:
         fail(f"{label} C launch counts {launches} != {expect}")
+    check_decode_layout(torch, label, cfg, launches[counter])
     if tuple(step_logits.shape) != (DECODE_B, cfg.vocab) or \
             not bool(torch.isfinite(step_logits).all()):
         fail(f"{label} C decode logits {tuple(step_logits.shape)} or not "
@@ -2513,6 +2542,7 @@ def serve_family(torch, np, dev, kernels, lm_configs, lm, decode, params,
                   decode_attention=n["decode"])
     if launches != expect:
         fail(f"{label} C launch counts {launches} != {expect}")
+    check_decode_layout(torch, label, cfg, n["decode"])
     if tuple(step_logits.shape) != (dec_b, cfg.vocab) or \
             not bool(torch.isfinite(step_logits).all()):
         fail(f"{label} C decode logits {tuple(step_logits.shape)} or not "
@@ -2541,8 +2571,7 @@ def serve_family(torch, np, dev, kernels, lm_configs, lm, decode, params,
           f"memory {peak:.2f} GiB", flush=True)
     print(profile_window(torch, f"{cfg.name} decode B={dec_b}",
                          lambda: [step() for _ in range(4)], 4, "step",
-                         names=("decode_partial_kernel",
-                                "decode_combine_kernel")), flush=True)
+                         names=decode_kernel(cfg)[1]), flush=True)
     return {"flash_attention_tc": launches["flash_attention_tc"],
             "decode_attention": launches["decode_attention"]}
 
@@ -4025,6 +4054,19 @@ def main() -> None:
     def dec(*shape):
         return lambda s: check_decode(torch, dev, dec_ops, dec_ref, *shape, s)
 
+    def g1_edges(h, s, hd, b=16):
+        """bf16 G = 1 at (b, h, s, hd) with lengths on and around the
+        first, second and last boundaries of ``ops.g1_plan``'s units, 0, 1,
+        S - 1 and S, the rest 31, 32, 33 and drawn ones."""
+        span, units = dec_ops.g1_plan(s, b * h, hd,
+                                      dec_ops._sm_count(dev.index))
+        edges = {0, 1, s - 1, s} | {min(max(u * span + d, 0), s)
+                                    for u in (1, 2, units - 1)
+                                    for d in (-1, 0, 1)}
+        edges = sorted(edges) + [31, 32, 33] + [(977 * i) % (s + 1)
+                                                for i in range(b)]
+        return b, h, h, s, hd, bf16, edges[:b]
+
     def flash_mla(b, h, s, hd, vd, dtype, causal):
         return lambda sd: check_flash(torch, dev, fa_ops, fa_ref, b, h, h, s,
                                       s, hd, dtype, causal, sd, vd=vd)
@@ -4265,7 +4307,23 @@ def main() -> None:
             dec(AUDIO_C_B, 12, 12, AUDIO_C_CACHE, 64, bf16,
                 [0, AUDIO_C_CACHE, 1, 77, 200, 300, AUDIO_C_CACHE - 1, 64,
                  128, 256, 333, 400, 5, 17, 100, 250]),
-            dec(AUDIO_C_B, 12, 12, 1500, 64, bf16, [1500] * AUDIO_C_B)],
+            dec(AUDIO_C_B, 12, 12, 1500, 64, bf16, [1500] * AUDIO_C_B),
+            # The G = 1 layout's edges (bf16, ``ops.g1_plan``): lengths 1,
+            # 31, 32, 33; lengths on and around its units' boundaries,
+            # S and an empty request, several units a row (the combine) at
+            # hd 64, 32 and 128; S off the tile (1,499); hd 16 with B*H at
+            # the grid's limit of rows (65,535); more rows than the card
+            # holds blocks and units capped at G1_MAX_SPAN, ragged.
+            dec(4, 4, 4, 700, 64, bf16, [1, 31, 32, 33]),
+            dec(*g1_edges(1, 2000, 64)),
+            dec(*g1_edges(2, 1000, 32)),
+            dec(*g1_edges(1, 9000, 128)),
+            dec(2, 4, 4, 1499, 64, bf16, [1499, 1498]),
+            dec(3, 4, 4, 300, 16, bf16, [0, 77, 300]),
+            dec(21845, 3, 3, 33, 16, bf16, (0, 34)),
+            dec(64, 8, 8, 8192, 64, bf16,
+                [0, 1, 4095, 4096, 4097, 8191, 8192]
+                + [(127 * i) % 8193 for i in range(57)])],
         # MLA's absorbed decode over the compressed cache: MLA C's decode
         # shape first (B 16, 128 heads, (R, P) = (512, 64), ragged lengths
         # over a 32k cache), then lengths 1 and S_max and lengths off the

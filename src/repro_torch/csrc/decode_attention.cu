@@ -52,9 +52,38 @@
 // f32 or bf16 are widened to f32; the output is cast back to the input
 // type.
 //
+// G = 1 in bf16 (whisper-small's self and cross caches at hd 64,
+// moonshot's at hd 128; hd 16 and 32 too) takes a layout of its own,
+// chosen by the wrapper from the shapes before the launch (`ops.layout`);
+// every other instance (f32, G > 1) the one above.
+// At G = 1 the one above fills one of a block's 8 head slots and still
+// does the SIMT work of 8 heads, through three block barriers a tile.
+// decode_g1_kernel instead:
+// * no empty head slot: a block of 4 warps takes a work unit (positions
+//   of one (b, head) row), its 32-position tiles dealt to the warps in
+//   turn. For the scores lane j takes position j, the query row in
+//   registers and its K row by 16-byte reads (rows padded by 16 bytes);
+//   for P.V kLv = hd / 8 lanes span a V row, 8 head dims each, and take
+//   p by shuffle, so each K and V value is widened and used once;
+// * no block barrier in the tile loop: each warp streams its own tiles
+//   through its own 3-stage cp.async ring (2 tiles in flight) and keeps
+//   its own online softmax (max by shuffles, each lane its share of the
+//   sum); the warps merge (m, l, acc) once, in shared memory, at the end;
+// * S split by the grid, not by 512: the wrapper's plan (`ops.g1_plan`,
+//   from S and B*H alone) gives a row as many units as fill the card's
+//   blocks once (at hd 64 two 102 KB blocks an SM, 128 KB of loads in
+//   flight), at most 4,096 positions a unit; a row of one unit (whisper:
+//   192 rows, 264 blocks) is written by the kernel itself, otherwise the
+//   combine below merges the units.
+//
+// On an NVIDIA H100 80GB HBM3 at 700.00 W the G = 1 layout is within 2-4%
+// of its copies alone at whisper's cross caches and moonshot's
+// (tools/decode_g1_probe.py).
+//
 // ptxas (-Xptxas -v, sm_90a): the bf16 partial kernel 71-80 registers a
 // thread (at most 80 for 3 blocks an SM), the f32 one 75-131, the combine
-// 32; no spills. chip_smoke.py prints the build log.
+// 32, decode_g1_kernel 64 / 96 / 127 / 168 at hd 16 / 32 / 64 / 128; no
+// spills. chip_smoke.py prints the build log.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -149,6 +178,7 @@ struct Args {
   long long v_b, v_h, v_s;       // cache_v (B, KV, S, hd)
   int n_heads, n_kv_heads, s_len, n_chunks;
   float scale;
+  int chunk;                     // positions a partial covers
 };
 
 // Heads a block serves: one kv head's query heads, at most kHeads of them
@@ -408,7 +438,7 @@ decode_combine_kernel(const int* __restrict__ pos, Args a,
   const int row = blockIdx.x;
   const long long rows = gridDim.x;
   const int limit = min(pos[row / a.n_heads], a.s_len);
-  const int live = limit > 0 ? (limit + kChunk - 1) / kChunk : 0;
+  const int live = limit > 0 ? (limit + a.chunk - 1) / a.chunk : 0;
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
     float m = kNeg;
@@ -433,6 +463,229 @@ decode_combine_kernel(const int* __restrict__ pos, Args a,
       acc += part_acc[(c * rows + row) * HD + d] * w_s[c];
     narrow(out + row * static_cast<long long>(HD) + d, acc / denom);
   }
+}
+
+// ---------------------------------------------------------------------------
+// G = 1 in bf16: one query head a kv head (whisper-small, moonshot).
+//
+// A block of kG1Warps warps takes a work unit, `span` positions of one
+// (b, head) row (the wrapper's plan: as many units a row as fill the
+// card once, from S and B*H alone). Its 32-position tiles go to the warps
+// in turn (warp w: tiles w, w + kG1Warps, ...). Each warp streams its own
+// tiles through its own cp.async ring and runs its own online softmax:
+// no block barrier in the tile loop. The warps merge their (m, l, acc)
+// once, in shared memory, at the end; a unit that is its row's only one
+// writes the output itself, else its partial goes to the combine.
+constexpr int kG1Warps = 4;
+constexpr int kG1Threads = 32 * kG1Warps;
+constexpr int kG1Stages = 3;   // a warp's ring: kG1Stages - 1 tiles in flight
+
+template <int HD>
+struct G1 {
+  static constexpr int kRow = 2 * HD;            // bytes of a bf16 row
+  static constexpr int kKRow = kRow + 16;        // K rows padded: 8 lanes
+                                                 // reading 16 bytes of 8
+                                                 // rows hit 8 bank groups
+  static constexpr int kPieces = kRow / 16;      // 16-byte pieces a row
+  static constexpr int kCopies = kTile * kPieces / 32;   // a lane's a tile
+  static constexpr int kStage = kTile * (kKRow + kRow);  // K then V
+  static constexpr int kWarpBytes = kG1Stages * kStage;
+  static constexpr int kSmem = kG1Warps * kWarpBytes;
+  // P.V: kLv lanes over a V row, 8 head dims (16 bytes) each; kPv
+  // positions a step.
+  static constexpr int kLv = HD / 8;
+  static constexpr int kPv = 32 / kLv;
+  static_assert(HD % 16 == 0 && HD <= kG1Threads, "head dims");
+  static_assert((HD + 2) * 4 <= kWarpBytes, "a warp's merge state fits");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kG1Threads)
+decode_g1_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const int* __restrict__ pos, Args a,
+                 float* __restrict__ part_m, float* __restrict__ part_l,
+                 float* __restrict__ part_acc,
+                 __nv_bfloat16* __restrict__ out) {
+  using L = G1<HD>;
+  const int row = blockIdx.y;                  // b * H + head
+  const int b = row / a.n_heads, h = row % a.n_heads;
+  const int limit = min(pos[b], a.s_len);
+  const bool direct = gridDim.x == 1;          // the row's only unit
+  const int start = blockIdx.x * a.chunk;
+  if (start >= limit && !direct) return;   // the combine reads only live units
+  const int end = max(min(start + a.chunk, limit), start);
+  const int n_tiles = (end - start + kTile - 1) / kTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  extern __shared__ float4 smem4[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem4);
+  uint8_t* ring = smem + warp * L::kWarpBytes;
+
+  // The query row in registers, in f32, the same in every lane.
+  float qf[HD];
+  const __nv_bfloat16* qr = q + b * a.q_b + h * a.q_h;
+#pragma unroll
+  for (int d = 0; d < HD; ++d) qf[d] = __bfloat162float(qr[d]);
+
+  // Tile t of the unit into stage `stage` of the warp's ring, in 16-byte
+  // pieces (lane + 32 r: 8 lanes cover 128 contiguous bytes); rows past
+  // the unit's end are zero-filled by the copy.
+  const __nv_bfloat16* kb = k + b * a.k_b + h * a.k_h;
+  const __nv_bfloat16* vb = v + b * a.v_b + h * a.v_h;
+  const int ks = static_cast<int>(a.k_s), vs = static_cast<int>(a.v_s);
+  auto issue = [&](int t, int stage) {
+    uint8_t* st = ring + stage * L::kStage;
+    const int t0 = start + t * kTile;
+#pragma unroll
+    for (int r = 0; r < L::kCopies; ++r) {
+      const int i = lane + 32 * r;
+      const int j = i / L::kPieces, pc = i % L::kPieces;
+      const bool ok = t0 + j < end;
+      const int sj = ok ? t0 + j : start;   // a valid address when !ok
+      cp_async16(st + j * L::kKRow + pc * 16, kb + sj * ks + pc * 8, ok);
+      cp_async16(st + kTile * L::kKRow + j * L::kRow + pc * 16,
+                 vb + sj * vs + pc * 8, ok);
+    }
+  };
+
+  // The warp's tiles: warp, warp + kG1Warps, ...
+  const int my_n = n_tiles > warp ? (n_tiles - 1 - warp) / kG1Warps + 1 : 0;
+#pragma unroll
+  for (int i = 0; i < kG1Stages - 1; ++i) {
+    if (i < my_n) issue(warp + i * kG1Warps, i);
+    cp_async_commit();
+  }
+  float m = kNeg;   // the running max, the same in every lane
+  float l = 0.0f;   // the lane's share of the running sum
+  float acc[8];     // head dims (lane % kLv) * 8 .. + 8, the lane's positions
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
+  for (int i = 0; i < my_n; ++i) {
+    cp_async_wait<kG1Stages - 2>();   // this lane's copies of tile i landed
+    __syncwarp();   // every lane's; the stage of tile i - 1 is free
+    if (i + kG1Stages - 1 < my_n)
+      issue(warp + (i + kG1Stages - 1) * kG1Warps,
+            (i + kG1Stages - 1) % kG1Stages);
+    cp_async_commit();
+    const uint8_t* st = ring + (i % kG1Stages) * L::kStage;
+    const int t0 = start + (warp + i * kG1Warps) * kTile;
+
+    // Scores: lane j takes position t0 + j, its K row by 16-byte reads,
+    // over four chains of products.
+    float dot4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const uint8_t* kr = st + lane * L::kKRow;
+#pragma unroll
+    for (int c = 0; c < L::kPieces; ++c) {
+      float kx[8];
+      load_widen<__nv_bfloat16>(kr + c * 16, kx);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dot4[e % 4] = __fmaf_rn(qf[c * 8 + e], kx[e], dot4[e % 4]);
+    }
+    const float dot = (dot4[0] + dot4[1]) + (dot4[2] + dot4[3]);
+    const bool live = t0 + lane < end;
+    const float s = live ? dot * a.scale : kNeg;
+
+    // The warp's online softmax: max by shuffles; each lane keeps its
+    // own share of the sum (the factor is the same in every lane).
+    const float m_new = fmaxf(m, warp_max(s));
+    const float corr = expf(m - m_new);
+    const float p = live ? expf(s - m_new) : 0.0f;
+    l = l * corr + p;
+    m = m_new;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] *= corr;
+
+    // P.V: kLv lanes a row, kPv positions a step, p by shuffle.
+    const uint8_t* vt = st + kTile * L::kKRow + (lane % L::kLv) * 16;
+#pragma unroll
+    for (int step = 0; step < L::kLv; ++step) {
+      const int j = step * L::kPv + lane / L::kLv;
+      const float pj = __shfl_sync(0xffffffffu, p, j);
+      float vx[8];
+      load_widen<__nv_bfloat16>(vt + j * L::kRow, vx);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] = __fmaf_rn(pj, vx[e], acc[e]);
+    }
+  }
+  cp_async_wait<0>();
+  // The lanes of a head-dim slice sum their positions; the lanes' sums.
+#pragma unroll
+  for (int o = L::kLv; o < 32; o <<= 1)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], o);
+  l = warp_sum(l);
+  __syncwarp();   // the warp's ring is read: its state goes there
+  float* mine = reinterpret_cast<float*>(ring);   // acc [HD], m, l
+  if (lane < L::kLv) {
+    *reinterpret_cast<float4*>(mine + lane * 8) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(mine + lane * 8 + 4) =
+        make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+  if (lane == 0) {
+    mine[HD] = m;
+    mine[HD + 1] = l;
+  }
+  __syncthreads();
+
+  // The warps' merge: thread d takes head dim d.
+  if (threadIdx.x < HD) {
+    const int d = threadIdx.x;
+    float mw[kG1Warps];
+    float mx = kNeg;
+#pragma unroll
+    for (int w = 0; w < kG1Warps; ++w) {
+      mw[w] = reinterpret_cast<const float*>(smem + w * L::kWarpBytes)[HD];
+      mx = fmaxf(mx, mw[w]);
+    }
+    float sum = 0.0f, lsum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kG1Warps; ++w) {
+      const float* st = reinterpret_cast<const float*>(smem +
+                                                       w * L::kWarpBytes);
+      const float wt = expf(mw[w] - mx);
+      sum += st[d] * wt;
+      lsum += st[HD + 1] * wt;
+    }
+    if (direct) {
+      narrow(out + row * static_cast<long long>(HD) + d,
+             sum / fmaxf(lsum, 1e-30f));
+    } else {
+      const long long at = static_cast<long long>(blockIdx.x) * gridDim.y +
+                           row;
+      part_acc[at * HD + d] = sum;
+      if (d == 0) {
+        part_m[at] = mx;
+        part_l[at] = lsum;
+      }
+    }
+  }
+}
+
+template <int HD>
+int launch_g1(const void* q, const void* k, const void* v, const void* pos,
+              void* out, float* part_m, float* part_l, float* part_acc,
+              int batch, const Args& a, cudaStream_t stream) {
+  auto kernel = decode_g1_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G1<HD>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.n_chunks, batch * a.n_heads);
+  kernel<<<grid, kG1Threads, G1<HD>::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(pos), a,
+      part_m, part_l, part_acc, static_cast<__nv_bfloat16*>(out));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_chunks == 1) return static_cast<int>(err);
+  decode_combine_kernel<HD, __nv_bfloat16>
+      <<<batch * a.n_heads, kCombineThreads, a.n_chunks * sizeof(float),
+         stream>>>(static_cast<const int*>(pos), a, part_m, part_l, part_acc,
+                   static_cast<__nv_bfloat16*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD, typename T>
@@ -498,7 +751,7 @@ MOBY_API int moby_decode_attention(const void* q, const void* k,
   if (batch * n_heads == 0) return 0;
   const Args a{st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
                n_heads, n_kv_heads, s_len, (s_len + kChunk - 1) / kChunk,
-               scale};
+               scale, kChunk};
   const auto s = static_cast<cudaStream_t>(stream);
   auto* pm = static_cast<float*>(part_m);
   auto* pl = static_cast<float*>(part_l);
@@ -507,4 +760,34 @@ MOBY_API int moby_decode_attention(const void* q, const void* k,
                                            pl, pa, batch, a, s)
                  : dispatch<float>(head_dim, q, k, v, pos, out, pm, pl, pa,
                                    batch, a, s);
+}
+
+// G = 1 in bf16 (decode_g1_kernel): q (B,H,hd) through st[0..1], the
+// caches (B,H,S,hd) through st[2..4] and st[5..7], as above. The wrapper's
+// plan gives `span` positions a work unit and n_units = ceil(S / span)
+// units a row (at least 1). With one unit the kernel writes out itself;
+// else part_m, part_l (n_units, B*H) and part_acc (n_units, B*H, hd) f32
+// take the units' partials and the combine writes out.
+MOBY_API int moby_decode_attention_g1(const void* q, const void* k,
+                                      const void* v, const void* pos,
+                                      void* out, void* part_m, void* part_l,
+                                      void* part_acc, const long long* st,
+                                      int batch, int n_heads, int s_len,
+                                      int head_dim, int span, int n_units,
+                                      float scale, void* stream) {
+  if (batch * n_heads == 0) return 0;
+  const Args a{st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+               n_heads, n_heads, s_len, n_units, scale, span};
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* pm = static_cast<float*>(part_m);
+  auto* pl = static_cast<float*>(part_l);
+  auto* pa = static_cast<float*>(part_acc);
+  switch (head_dim) {
+    case 16: return launch_g1<16>(q, k, v, pos, out, pm, pl, pa, batch, a, s);
+    case 32: return launch_g1<32>(q, k, v, pos, out, pm, pl, pa, batch, a, s);
+    case 64: return launch_g1<64>(q, k, v, pos, out, pm, pl, pa, batch, a, s);
+    case 128: return launch_g1<128>(q, k, v, pos, out, pm, pl, pa, batch, a,
+                                    s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

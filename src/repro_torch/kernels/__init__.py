@@ -44,7 +44,9 @@ and for the gradient alike. So has the auction
 (``auction.ops.plan`` picks by n). ``mla_decode_attention`` has three
 instances, a bf16 tensor-core one, an f32 3xTF32 one and a SIMT one at
 SMOKE's dims, under one counter (``mla_decode_attention.ops.route``
-picks; ``ops.route_launches`` counts by instance).
+picks; ``ops.route_launches`` counts by instance). ``decode_attention``
+has two layouts under one counter (``decode_attention.ops.layout`` picks:
+bf16 at G = 1 takes its own; ``ops.layout_launches`` counts by layout).
 """
 from __future__ import annotations
 
@@ -91,3 +93,5 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
     for route in _mla_decode_attention.route_launches:
         _mla_decode_attention.route_launches[route] = 0
+    for kind in _decode_attention.layout_launches:
+        _decode_attention.layout_launches[kind] = 0

@@ -72,6 +72,9 @@ SIGNATURES = {
     "moby_decode_attention_chunk": ((), _I),
     "moby_decode_attention": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, ctypes.c_float, _P), _I),
+    "moby_decode_attention_g1": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _I, _I, _I, ctypes.c_float, _P),
+                                 _I),
     "moby_decode_attention_bwd_chunk": ((), _I),
     "moby_decode_attention_bwd_smem": ((_I, _I, _I), _I),
     "moby_decode_attention_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

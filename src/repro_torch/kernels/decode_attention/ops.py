@@ -1,8 +1,14 @@
 """Wrapper of the decode attention kernel (``csrc/decode_attention.cu``).
 
 A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
-launches the kernel (a split-S pass and its combine, one launch of the C
-entry point), or the call raises. ``launches`` counts those launches.
+launches the kernel (a split-S pass and, where a row has more than one
+work unit, its combine: one launch of a C entry point), or the call
+raises. ``launches`` counts those launches, ``layout_launches`` the same
+by layout. ``layout`` picks the layout from the dtype, head dim and head
+group before the launch: ``g1`` (bf16 at G = 1, ``G1_HEAD_DIMS``: a
+block of 4 warps a work unit of ``g1_plan``'s span, each warp streaming
+its own tiles) or ``grouped`` (every other instance: a block a 512-position
+chunk and up to 8 query heads of a kv head).
 
 The kernel reads q and the caches through their strides (only the head dim
 must be contiguous), so callers pass (B, KV, S, hd) ``transpose`` views of
@@ -25,6 +31,7 @@ op (the int positions get no gradient).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,12 +40,58 @@ from repro_torch.kernels.decode_attention import ref as _ref
 
 launches = 0
 bwd_launches = 0
+layout_launches = {"g1": 0, "grouped": 0}
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # Query heads a block serves (kHeads in csrc/decode_attention.cu): a kv
 # head's G query heads take ceil(G / 8) blocks per cache chunk.
 HEADS_PER_BLOCK = 8
+
+# The G = 1 layout (decode_g1_kernel), bf16 at these head dims.
+G1_HEAD_DIMS = (16, 32, 64, 128)
+# kG1Warps, kG1Stages and kTile of csrc/decode_attention.cu.
+G1_WARPS, G1_STAGES, TILE = 4, 3, 32
+# A unit's positions at most: long caches take more units than the card
+# holds blocks, dealt as blocks free up (ragged lengths balance).
+G1_MAX_SPAN = 4096
+# Shared memory of an SM (228 KB on an H100) and what the card reserves a
+# block (1 KB).
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
+
+
+def layout(dtype: torch.dtype, hd: int, group: int) -> str:
+    """The kernel's layout for an instance, from its shapes alone:
+    ``g1`` for bf16 at G = 1 and a head dim of ``G1_HEAD_DIMS``, else
+    ``grouped``."""
+    if dtype == torch.bfloat16 and group == 1 and hd in G1_HEAD_DIMS:
+        return "g1"
+    return "grouped"
+
+
+def g1_smem(hd: int) -> int:
+    """Shared memory of a G = 1 block: each warp a ring of G1_STAGES
+    tiles of K rows (padded by 16 bytes) and V rows, bf16."""
+    return G1_WARPS * G1_STAGES * TILE * (4 * hd + 16)
+
+
+def g1_plan(s: int, rows: int, hd: int, sms: int):
+    """(span, n_units): the positions a work unit of the G = 1 layout
+    takes and the units a (b, head) row has, from S and the rows (B*H)
+    alone. As many units a row as the card's blocks fill once (``sms``
+    SMs, the blocks an SM by shared memory), at least one and at most one
+    a warp's tile; a unit at most ``G1_MAX_SPAN`` positions. Unit u of a
+    row takes positions [u * span, (u + 1) * span)."""
+    per_sm = SM_SMEM // (g1_smem(hd) + BLOCK_RESERVED)
+    per_row = max(1, min(sms * per_sm // max(rows, 1),
+                         -(-s // (G1_WARPS * TILE))))
+    span = min(max(1, -(-s // per_row)), G1_MAX_SPAN)
+    return span, max(1, -(-s // span))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_heads(kernel: str, dtype: torch.dtype, hd: int, h: int,
@@ -95,23 +148,35 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
         raise ValueError(f"decode_attention: {blocks} (request, kv head, "
                          f"head group) blocks exceed the kernel's grid")
     lib = _build.load()
-    n_chunks = -(-s // lib.moby_decode_attention_chunk())
+    kind = layout(q.dtype, hd, h // kv)
+    if kind == "g1":
+        span, n_chunks = g1_plan(s, b * h, hd, _sm_count(dev.index))
+        # One unit a row: the kernel writes the output itself.
+        n_parts = n_chunks if n_chunks > 1 else 0
+    else:
+        n_chunks = n_parts = -(-s // lib.moby_decode_attention_chunk())
     out = torch.empty((b, h, hd), dtype=q.dtype, device=dev)
-    part_m = torch.empty((n_chunks, b * h), dtype=torch.float32, device=dev)
+    part_m = torch.empty((n_parts, b * h), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((n_chunks, b * h, hd), dtype=torch.float32,
+    part_acc = torch.empty((n_parts, b * h, hd), dtype=torch.float32,
                            device=dev)
     strides = (ctypes.c_longlong * 8)(*q.stride()[:2], *cache_k.stride()[:3],
                                       *cache_v.stride()[:3])
-    with torch.cuda.device(dev):
-        code = lib.moby_decode_attention(
-            q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+    ptrs = (q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
             cache_pos.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-            part_l.data_ptr(), part_acc.data_ptr(), strides, b, h, kv, s, hd,
-            int(q.dtype == torch.bfloat16), hd ** -0.5,
-            _launch.stream_handle(dev))
+            part_l.data_ptr(), part_acc.data_ptr(), strides)
+    with torch.cuda.device(dev):
+        if kind == "g1":
+            code = lib.moby_decode_attention_g1(
+                *ptrs, b, h, s, hd, span, n_chunks, hd ** -0.5,
+                _launch.stream_handle(dev))
+        else:
+            code = lib.moby_decode_attention(
+                *ptrs, b, h, kv, s, hd, int(q.dtype == torch.bfloat16),
+                hd ** -0.5, _launch.stream_handle(dev))
     _build.check(code, "decode_attention")
     launches += 1
+    layout_launches[kind] += 1
     return out
 
 

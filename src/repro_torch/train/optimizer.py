@@ -93,7 +93,7 @@ def update(cfg: AdamWConfig, grads, state: OptState, params,
         # delta would, with at most two leaf-sized temporaries alive.
         g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+        v.mul_(cfg.b2).add_(torch.square(g).mul_(1 - cfg.b2))
         del g
         delta = m / b1c
         delta.div_((v / b2c).sqrt_().add_(cfg.eps))

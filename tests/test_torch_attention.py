@@ -115,7 +115,8 @@ def test_flash_attention_reads_strided_views():
 DECODE_SHAPES = [(2, 4, 4, 512, 64),
                  (4, 8, 2, 1024, 128),
                  (1, 8, 1, 700, 64),
-                 (2, 4, 2, 32, 16)]
+                 (2, 4, 2, 32, 16),
+                 (2, 12, 12, 448, 64)]   # whisper-small's self cache, G = 1
 
 
 def _decode_inputs(b, h, kv, s, hd, dtype):
@@ -561,6 +562,153 @@ def test_bwd_tc_schedule_takes_every_item_once_balanced(case):
         # The snake deals MLA T's 4,096 dq items as evenly as a greedy
         # scheduler would: 1,024 key tiles a CTA, the equal share.
         assert max(work) == 1024
+
+
+# The G = 1 layout's plans on a 132-SM card: (B, H, S, hd, positions).
+# whisper-small's self cache (S 448, ragged, one empty request) and cross
+# caches (S 1,500, every position live), a cache shorter than one unit, B*H
+# at the grid's limit of rows, and a short cache over few rows (several
+# units a row, the combine's scratch).
+G1_SELF_POS = [0, 448, 1, 77, 200, 300, 447, 64, 128, 256, 333, 400, 5, 17,
+               100, 250]
+G1_PLAN_CASES = {
+    "whisper_self": (16, 12, 448, 64, G1_SELF_POS),
+    "whisper_cross": (16, 12, 1500, 64, [1500] * 16),
+    "short": (2, 3, 20, 64, [0, 20]),
+    "grid_rows": (21845, 3, 33, 16, [0, 1, 31, 32, 33, 34]),
+    "few_rows": (3, 4, 1000, 32, [0, 1, 511, 1000]),
+    "moe_c": (16, 16, 32768, 128, [9716, 31406, 4096, 4097, 32768, 1]),
+}
+# The kernel's lines that the model below follows (its constants those of
+# ops.py).
+G1_SOURCE_LINES = (
+    f"constexpr int kTile = {dec_ops.TILE};",
+    f"constexpr int kG1Warps = {dec_ops.G1_WARPS};",
+    f"constexpr int kG1Stages = {dec_ops.G1_STAGES};",
+    "  const int start = blockIdx.x * a.chunk;",
+    "  if (start >= limit && !direct) return;",
+    "  const int end = max(min(start + a.chunk, limit), start);",
+    "  const int n_tiles = (end - start + kTile - 1) / kTile;",
+    "  const int my_n = n_tiles > warp ? (n_tiles - 1 - warp) / kG1Warps + 1 "
+    ": 0;",
+    "    const int t0 = start + (warp + i * kG1Warps) * kTile;",
+    "  const int live = limit > 0 ? (limit + a.chunk - 1) / a.chunk : 0;",
+    "  static constexpr int kStage = kTile * (kKRow + kRow);  // K then V",
+    "  static constexpr int kKRow = kRow + 16;",
+)
+
+
+def _g1_positions(limit, span, n_units):
+    """The positions each (unit, warp) of a row takes in
+    ``decode_g1_kernel``: unit u starts at u * span (a dead unit, past the
+    row's length, returns unless it is the row's only one), its tiles of
+    32 go to the warps in turn."""
+    taken = {}
+    for u in range(n_units):
+        start = u * span
+        if start >= limit and n_units > 1:
+            continue
+        end = max(min(start + span, limit), start)
+        n_tiles = -(-(end - start) // dec_ops.TILE)
+        for w in range(dec_ops.G1_WARPS):
+            my_n = (n_tiles - 1 - w) // dec_ops.G1_WARPS + 1 \
+                if n_tiles > w else 0
+            taken[u, w] = [t0 + j for i in range(my_n)
+                           for t0 in [start + (w + i * dec_ops.G1_WARPS)
+                                      * dec_ops.TILE]
+                           for j in range(dec_ops.TILE) if t0 + j < end]
+    return taken
+
+
+@pytest.mark.parametrize("case", sorted(G1_PLAN_CASES))
+def test_g1_plan_takes_every_live_position_once(case, monkeypatch):
+    """``ops.g1_plan`` and the G = 1 kernel's walk of it (modelled from
+    the lines of ``csrc/decode_attention.cu`` that the test asserts): each
+    live position of every (b, head) row goes to exactly one (unit, warp),
+    the units that do work are the ones the combine reads (ceil(length /
+    span)), a row of one unit is written by the kernel itself; the
+    wrapper allocates scratch for the plan's units, none for one, and
+    passes the plan to the C entry point. At whisper's shapes one unit a
+    row (192 rows fill the card's 264 blocks once)."""
+    import contextlib
+    from repro_torch.kernels import _build, _launch
+    source = (ROOT / "src" / "repro_torch" / "csrc" / "decode_attention.cu"
+              ).read_text()
+    for line in G1_SOURCE_LINES:
+        assert line in source, line
+    b, h, s, hd, pos = G1_PLAN_CASES[case]
+    rows = b * h
+    span, n_units = dec_ops.g1_plan(s, rows, hd, 132)
+    assert n_units == max(1, -(-s // span)) and span >= 1
+    assert span <= dec_ops.G1_MAX_SPAN
+    for limit in sorted({min(p, s) for p in pos}):
+        taken = _g1_positions(limit, span, n_units)
+        flat = sorted(p for ps in taken.values() for p in ps)
+        assert flat == list(range(limit))
+        working = {u for (u, _), ps in taken.items() if ps}
+        live = -(-limit // span) if limit > 0 else 0
+        assert working == set(range(live))
+        # Each warp of a working unit takes its share of the tiles: at
+        # most one tile more than another warp's.
+        for u in working:
+            n = [len(taken[u, w]) for w in range(dec_ops.G1_WARPS)]
+            assert max(n) - min(n) <= dec_ops.TILE
+    if case.startswith("whisper"):
+        assert (span, n_units) == (s, 1)
+    per_sm = dec_ops.SM_SMEM // (dec_ops.g1_smem(hd) + dec_ops.BLOCK_RESERVED)
+    assert n_units == 1 or rows * n_units <= 132 * per_sm \
+        or span == dec_ops.G1_MAX_SPAN
+    if dec_ops.layout(torch.bfloat16, hd, 1) != "g1":
+        return   # hd 128 stays grouped unless G1_HEAD_DIMS takes it
+    # The wrapper: scratch of the plan's units (none for one unit), the
+    # plan passed on, the G = 1 layout counted; a stand-in library.
+    called, shapes = [], []
+
+    class Lib:
+        def moby_decode_attention_g1(self, *args):
+            called.append(args)
+            return 0
+
+    empty = torch.empty
+
+    def recording_empty(*size, **kw):
+        shapes.append(tuple(size[0]) if len(size) == 1 else size)
+        return empty(*size, **kw)
+    monkeypatch.setattr(_launch, "dispatch_device", lambda kernel, t: "cuda")
+    monkeypatch.setattr(_launch, "check_cuda", lambda *a, **kw: None)
+    monkeypatch.setattr(_launch, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(dec_ops, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    q = empty((b, h, hd), dtype=torch.bfloat16)
+    cache = empty((b, h, 1, hd), dtype=torch.bfloat16).expand(b, h, s, hd)
+    cache_pos = torch.tensor([min(pos[i % len(pos)], s) for i in range(b)],
+                             dtype=torch.int32)
+    kernels.reset_launch_counts()
+    dec_ops.decode_attention(q, cache, cache, cache_pos)
+    monkeypatch.setattr(torch, "empty", empty)
+    assert dec_ops.layout_launches == {"g1": 1, "grouped": 0}
+    assert kernels.launch_counts()["decode_attention"] == 1
+    (args,) = called
+    assert args[9:15] == (b, h, s, hd, span, n_units)
+    parts = n_units if n_units > 1 else 0
+    assert shapes == [(b, h, hd), (parts, rows), (parts, rows, hd)]
+
+
+@pytest.mark.parametrize("dtype,hd,h,kv,kind", [
+    (torch.bfloat16, 64, 12, 12, "g1"), (torch.bfloat16, 16, 4, 4, "g1"),
+    (torch.bfloat16, 32, 4, 4, "g1"), (torch.bfloat16, 64, 16, 2, "grouped"),
+    (torch.float32, 64, 12, 12, "grouped"),
+    (torch.bfloat16, 128, 16, 2, "grouped"),
+    (torch.bfloat16, 128, 16, 16,
+     "g1" if 128 in dec_ops.G1_HEAD_DIMS else "grouped")])
+def test_decode_layout_by_shape(dtype, hd, h, kv, kind):
+    """The decode kernel's layout is chosen from the dtype, head dim and
+    head group before the launch: bf16 at G = 1 takes the G = 1 layout
+    (at ``G1_HEAD_DIMS``), every other instance the grouped one."""
+    assert dec_ops.layout(dtype, hd, h // kv) == kind
 
 
 @pytest.mark.parametrize("dtype,hd,path", [
